@@ -1,8 +1,9 @@
 """Weights from the JAX package into the port, leaf for leaf.
 
 The reference's params are nested dicts of arrays with one stacked leading
-layer axis per block kind (``repro/models/transformer.py::init_params``);
-the port keeps that tree.  Torch cannot reproduce ``jax.random``, so a
+layer axis per block kind (``repro/models/transformer.py::init_params``:
+``attn``, ``mamba2``, ``mlstm``, ``slstm``) and, for the hybrid, the
+unstacked ``shared_attn``; the port keeps that tree.  Torch cannot reproduce ``jax.random``, so a
 parity test initialises in JAX, converts the leaves to numpy, and hands
 them over here.  bfloat16 leaves (numpy dtype ``bfloat16``) cross as their
 raw 16-bit words.

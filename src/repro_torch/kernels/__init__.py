@@ -4,11 +4,14 @@
                    the plain version and the launch counter
 csrc/<name>.cu   — the CUDA C++ source (sm_90a, plain C interface)
 build.py         — nvcc -> shared library -> ctypes, at first use
+common.py        — the launch counter and the refusal of inputs that need
+                   a gradient, shared by the wrappers
 ops.py           — the entry points the model calls
 ref.py           — dense torch oracles
 
-Kernels: flash_attention (the prefill of every attention layer).
+Kernels: flash_attention (the prefill of every attention layer) and
+ssd_scan (the prefill of every Mamba-2 and mLSTM layer).
 """
-from . import flash_attention, ops, ref
+from . import flash_attention, ops, ref, ssd_scan
 
-__all__ = ["flash_attention", "ops", "ref"]
+__all__ = ["flash_attention", "ops", "ref", "ssd_scan"]

@@ -1,0 +1,43 @@
+"""What every kernel wrapper shares: its launch counter and its refusal of
+inputs that need a gradient."""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+
+class LaunchCounter:
+    """Kernel launches, counted under a lock: the serving engine launches
+    from several worker threads at once."""
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through a CUDA kernel.
+
+    The kernels have no backward yet (nor have the TPU kernels they
+    replace: no custom VJP), so their output would carry no ``grad_fn`` and
+    the gradient would be lost without a word.  Run them under
+    ``torch.no_grad()`` or ``torch.inference_mode()``; on the CPU the plain
+    version is differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            f"grad under grad mode, so its gradient would be lost. Call it "
+            f"under torch.no_grad() or torch.inference_mode().")

@@ -9,45 +9,26 @@ softmax; output in q's dtype.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for a CUDA
 tensor (float32 or bfloat16, D in 32/64/128, any S and T) or raises; it
-takes :func:`flash_attention_plain` only for a tensor on the CPU.  The plain
-version walks the kernel's tile schedule in torch: the same 64x64 tiles,
-the same skip of KV tiles past the causal diagonal, the same online-softmax
-rescale.  It is the CPU path and the kernel's yardstick of correctness on
-the card, not of speed.
+takes :func:`flash_attention_plain` only for a tensor on the CPU.  The
+kernel has no backward: on the card it refuses inputs that require grad
+under grad mode rather than return a result cut off from autograd.  The
+plain version walks the kernel's tile schedule in torch: the same 64x64
+tiles, the same skip of KV tiles past the causal diagonal, the same
+online-softmax rescale.  It is the CPU path and the kernel's yardstick of
+correctness on the card, not of speed.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
+
+from .common import LaunchCounter, refuse_grad
 
 BQ = 64     # query rows per tile (BQ in csrc/flash_attention.cu)
 BK = 64     # keys per tile (BK in csrc/flash_attention.cu)
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class LaunchCounter:
-    """Kernel launches, counted under a lock: the serving engine launches
-    from several worker threads at once."""
-
-    def __init__(self) -> None:
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def count(self) -> int:
-        return self._n
-
 
 launches = LaunchCounter()
 
@@ -77,6 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal, q.shape[3] ** -0.5 if scale is None
                    else scale)
 

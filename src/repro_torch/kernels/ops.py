@@ -1,10 +1,12 @@
-"""Public attention ops that the model calls (port of the attention half of
-``repro/kernels/ops.py``).
+"""Public ops that the model calls (port of ``repro/kernels/ops.py``).
 
-``flash_attention`` goes to the CUDA kernel for every CUDA tensor, whatever
-its length: the kernel masks a ragged S or T itself, so there is no shape
-gate and no quiet fallback.  ``decode_attention`` is plain torch, as the
-reference keeps it plain XLA (a single-token GEMV chain).
+``flash_attention`` and ``ssd_scan`` go to their CUDA kernels for every
+CUDA tensor, whatever its length: each kernel masks a ragged sequence
+itself, so there is no shape gate and no quiet fallback (the reference's
+``ssd_scan`` gave S % 128 != 0 to ``ssd_ref``; here that is the kernel's
+work too).  A CPU tensor takes the kernel's plain version.
+``decode_attention`` is plain torch, as the reference keeps it plain XLA (a
+single-token GEMV chain).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from .flash_attention import flash_attention
 from .ref import decode_attention_ref
+from .ssd_scan import ssd_scan
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -20,4 +23,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
 
 
-__all__ = ["decode_attention", "flash_attention"]
+__all__ = ["decode_attention", "flash_attention", "ssd_scan"]

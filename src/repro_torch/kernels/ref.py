@@ -1,4 +1,5 @@
-"""Plain torch oracles for the attention ops (port of the attention half of
+"""Plain torch oracles for the attention ops and the SSD scan (port of
+``attention_ref``, ``decode_attention_ref`` and ``ssd_ref`` of
 ``repro/kernels/ref.py``).  The JAX originals pin shardings with
 ``constrain``; a single card has nothing to pin, so those lines are gone."""
 from __future__ import annotations
@@ -48,3 +49,23 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", w, v_cache.float())
     return out.reshape(bsz, hq, d).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD (scalar-A state space) oracle by a plain sequential scan.
+
+    x: [B, S, H, D]; a: [B, S, H] log-decay (a <= 0); b, c: [B, S, N]
+    shared across heads.  Returns y: [B, S, H, D] in x's dtype with
+      h_t = exp(a_t) * h_{t-1} + x_t (x) b_t    (h: [B, H, D, N], float32)
+      y_t = h_t @ c_t
+    """
+    bs, s, h, d = x.shape
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    state = torch.zeros((bs, h, d, b.shape[-1]), device=x.device)
+    ys = []
+    for t in range(s):
+        state = (torch.exp(af[:, t])[..., None, None] * state
+                 + xf[:, t, :, :, None] * bf[:, t, None, None, :])
+        ys.append(torch.einsum("bhdn,bn->bhd", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)

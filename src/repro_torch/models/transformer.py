@@ -1,23 +1,34 @@
-"""Decoder LM for the dense ``attn`` layer plan (port of the dense part of
+"""Decoder LM over the ``attn``, ``hybrid`` and ``ssm`` layer plans (port of
 ``repro/models/transformer.py``).
 
-Params mirror the reference's tree: ``embed``, ``final_norm``, ``lm_head``
-and one stacked tree per block kind under ``stacks`` (leading layer axis).
-The reference scans over that axis with ``jax.lax.scan``; here a Python
-loop indexes it.  Logits come back in float32.
+Families:
+  dense / vlm / audio — pre-norm GQA attention + FFN (the frontends of vlm
+      and audio are not ported yet);
+  hybrid (zamba2) — Mamba-2 backbone; ONE weight-shared attention+FFN block
+      applied every ``shared_attn_every`` layers, each application with its
+      own KV cache;
+  ssm (xlstm) — mLSTM blocks with an sLSTM every ``slstm_every``.
 
-In place, unlike the reference: ``prefill`` writes each layer's K/V into a
-preallocated ``max_len`` cache, and ``decode_step`` writes the new K/V row
-and advances ``length`` inside the ``state`` it is given (the reference
-returns a fresh state through ``dynamic_update_slice_in_dim``).  The state
-it returns is that same object.
+Params mirror the reference's tree: ``embed``, ``final_norm``, ``lm_head``,
+one stacked tree per block kind under ``stacks`` (leading layer axis, in
+plan order) and, for the hybrid, the unstacked ``shared_attn``.  The
+reference scans over each stack with ``jax.lax.scan``; here a Python loop
+walks the plan and indexes the stacks.  Logits come back in float32.
 
-Block kinds other than ``attn`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The decode state mirrors the reference's too: one stacked tree per state
+kind (``kv``, ``shared_kv``, ``mamba``, ``mlstm``, ``slstm``).  In place,
+unlike the reference: ``prefill`` writes each block's state into a state
+preallocated for ``max_len``, and ``decode_step`` writes each block's new
+state (the K/V row and ``length`` of a cache, the recurrent state of an
+SSM block) into the ``state`` it is given and returns that same object.
+
+The ``attn_moe`` block kind raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
-from typing import Any
+from collections import Counter
+from typing import Any, Iterator
 
 import torch
 
@@ -25,17 +36,19 @@ from ..configs.base import ModelConfig
 from .attention import (attention_block, attention_decode, init_attention,
                         init_kv_cache)
 from .layers import ffn, init_ffn, init_linear, rms_norm
+from .mamba2 import (init_mamba2, init_mamba2_state, mamba2_block,
+                     mamba2_decode)
+from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
+                    init_slstm_state, mlstm_block, mlstm_decode, slstm_block,
+                    slstm_decode)
 
 Params = dict
 PyTree = Any
 
-_NOT_PORTED = {
-    "attn_moe": "ROADMAP Queue 1 item 5 (MoE)",
-    "mamba2": "ROADMAP Queue 1 item 4 (SSM families)",
-    "shared_attn": "ROADMAP Queue 1 item 4 (SSM families)",
-    "mlstm": "ROADMAP Queue 1 item 4 (SSM families)",
-    "slstm": "ROADMAP Queue 1 item 4 (SSM families)",
-}
+_NOT_PORTED = {"attn_moe": "ROADMAP Queue 1 item 5 (MoE)"}
+_ATTN = ("attn", "shared_attn")
+_STATE_KEY = {"attn": "kv", "shared_attn": "shared_kv", "mamba2": "mamba",
+              "mlstm": "mlstm", "slstm": "slstm"}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -62,18 +75,34 @@ def layer_plan(cfg: ModelConfig) -> list[str]:
     raise ValueError(f"unknown family {cfg.family}")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    for kind in layer_plan(cfg):
-        if kind != "attn":
+def _ported_plan(cfg: ModelConfig) -> list[str]:
+    plan = layer_plan(cfg)
+    for kind in plan:
+        if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet; see "
                 f"{_NOT_PORTED[kind]}")
+    return plan
 
 
 def _layer(tree: PyTree, i: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _walk(params: Params, cfg: ModelConfig) -> Iterator[tuple[str, Params,
+                                                               int]]:
+    """(kind, block params, index into the kind's state stack) for each
+    block of the plan, in order.  A stacked kind's i-th block is layer i of
+    its stack; the shared block's i-th application has the i-th cache."""
+    seen: Counter = Counter()
+    for kind in _ported_plan(cfg):
+        i = seen[kind]
+        seen[kind] += 1
+        p = (params["shared_attn"] if kind == "shared_attn"
+             else _layer(params["stacks"][kind], i))
+        yield kind, p, i
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -84,32 +113,56 @@ def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
 # init
 # ---------------------------------------------------------------------------
 
+def _init_block(cfg: ModelConfig, kind: str, stack: tuple[int, ...],
+                **kw) -> Params:
+    d, dt, device = cfg.d_model, kw["dtype"], kw["device"]
+    ln = lambda: torch.ones(stack + (d,), dtype=dt, device=device)
+    if kind in _ATTN:
+        return {
+            "ln1": ln(),
+            "attn": init_attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, cfg.qkv_bias,
+                                   stack=stack, **kw),
+            "ln2": ln(),
+            "ffn": init_ffn(d, cfg.d_ff, cfg.act, stack=stack, **kw),
+        }
+    if kind == "mamba2":
+        return {"ln1": ln(),
+                "mamba": init_mamba2(d, cfg.n_heads, cfg.mamba_head_dim,
+                                     cfg.ssm_state, stack=stack, **kw)}
+    if kind == "mlstm":
+        return {"ln1": ln(),
+                "mlstm": init_mlstm(d, cfg.n_heads, cfg.mlstm_proj_factor,
+                                    stack=stack, **kw)}
+    if kind == "slstm":
+        return {"ln1": ln(),
+                "slstm": init_slstm(d, cfg.n_heads, stack=stack, **kw)}
+    raise ValueError(kind)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
     """Random weights with the reference's init scales, drawn on ``device``
     from a seeded ``torch.Generator`` (none on the meta device, where the
     tree has shapes only)."""
-    _require_dense(cfg)
+    plan = _ported_plan(cfg)
     device = torch.device(device)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-    dt = _dtype(cfg)
-    d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-    kw = dict(gen=gen, device=device, dtype=dt)
+    kw = dict(gen=gen, device=device, dtype=_dtype(cfg))
     params: Params = {
-        "embed": init_linear((cfg.vocab, d), scale=0.02, **kw),
-        "final_norm": torch.ones((d,), dtype=dt, device=device),
+        "embed": init_linear((cfg.vocab, cfg.d_model), scale=0.02, **kw),
+        "final_norm": torch.ones((cfg.d_model,), dtype=kw["dtype"],
+                                 device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear((d, cfg.vocab), **kw)
-    params["stacks"] = {"attn": {
-        "ln1": torch.ones((n, d), dtype=dt, device=device),
-        "attn": init_attention(d, cfg.n_heads, cfg.n_kv_heads, hd,
-                               cfg.qkv_bias, stack=(n,), **kw),
-        "ln2": torch.ones((n, d), dtype=dt, device=device),
-        "ffn": init_ffn(d, cfg.d_ff, cfg.act, stack=(n,), **kw),
-    }}
+        params["lm_head"] = init_linear((cfg.d_model, cfg.vocab), **kw)
+    counts = Counter(kind for kind in plan if kind != "shared_attn")
+    params["stacks"] = {kind: _init_block(cfg, kind, (n,), **kw)
+                        for kind, n in counts.items()}
+    if "shared_attn" in plan:
+        params["shared_attn"] = _init_block(cfg, "shared_attn", (), **kw)
     return params
 
 
@@ -117,27 +170,42 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 # forward / prefill
 # ---------------------------------------------------------------------------
 
-def _block_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor):
+def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+           positions: torch.Tensor, with_state: bool):
+    """One block over the whole sequence: (x_out, its decode state — (k, v)
+    for attention — or None without ``with_state``)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
-    y, kv = attention_block(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        positions=positions, return_kv=True)
-    x = x + y
-    h = rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + ffn(p["ffn"], h, cfg.act), kv
+    if kind in _ATTN:
+        y, kv = attention_block(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            positions=positions, return_kv=True)
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.rms_eps)
+        return x + ffn(p["ffn"], h, cfg.act), kv
+    if kind == "mamba2":
+        out = mamba2_block(p["mamba"], h, n_heads=cfg.n_heads,
+                           head_dim=cfg.mamba_head_dim,
+                           ssm_state=cfg.ssm_state, return_state=with_state)
+    elif kind == "mlstm":
+        out = mlstm_block(p["mlstm"], h, n_heads=cfg.n_heads,
+                          return_state=with_state)
+    elif kind == "slstm":
+        out = slstm_block(p["slstm"], h, n_heads=cfg.n_heads,
+                          return_state=with_state)
+    else:
+        raise ValueError(kind)
+    y, st = out if with_state else (out, None)
+    return x + y, st
 
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V] float32, aux_loss 0)."""
-    _require_dense(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    stack = params["stacks"]["attn"]
-    for i in range(cfg.n_layers):
-        x, _ = _block_prefill(cfg, _layer(stack, i), x, positions)
+    for kind, p, _ in _walk(params, cfg):
+        x, _ = _block(cfg, kind, p, x, positions, with_state=False)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x @ _head(params, cfg)).float()
     return logits, torch.zeros((), device=x.device)
@@ -147,20 +215,23 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int) -> tuple[torch.Tensor, PyTree]:
     """Process the full prompt; return (last-token logits [B,V] float32,
     decode state sized for ``max_len``) — the serving engine's prefill."""
-    _require_dense(cfg)
     x = params["embed"][tokens]
     bsz, s = x.shape[0], x.shape[1]
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt {s}")
     positions = torch.arange(s, device=x.device)[None, :]
     state = init_decode_state(cfg, bsz, max_len, device=x.device)
-    kv = state["kv"]
-    stack = params["stacks"]["attn"]
-    for i in range(cfg.n_layers):
-        x, (k, v) = _block_prefill(cfg, _layer(stack, i), x, positions)
-        kv["k"][i, :, :s] = k
-        kv["v"][i, :, :s] = v
-    kv["length"].fill_(s)
+    for kind, p, i in _walk(params, cfg):
+        x, st = _block(cfg, kind, p, x, positions, with_state=True)
+        slot = state[_STATE_KEY[kind]]
+        if kind in _ATTN:
+            slot["k"][i, :, :s], slot["v"][i, :, :s] = st
+        else:
+            for name, t in st.items():
+                slot[name][i] = t
+    for key in ("kv", "shared_kv"):
+        if key in state:
+            state[key]["length"].fill_(s)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _head(params, cfg)).float()
     return logits, state
@@ -172,33 +243,70 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> PyTree:
-    """Stacked KV caches for every attention layer: {"kv": {"k", "v":
-    [L,B,T,Hkv,D], "length": [L,B]}}."""
-    _require_dense(cfg)
-    return {"kv": init_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, _dtype(cfg), device,
-                                stack=(cfg.n_layers,))}
+    """Stacked per-kind decode state mirroring the layer plan: KV caches
+    {"k", "v": [L,B,T,Hkv,D], "length": [L,B]} for ``kv`` (attention
+    layers) and ``shared_kv`` (applications of the shared block), and the
+    recurrent states ``mamba``, ``mlstm`` and ``slstm``."""
+    n = Counter(_ported_plan(cfg))
+    dt, hd = _dtype(cfg), cfg.resolved_head_dim
+    state: dict[str, PyTree] = {}
+    for kind in _ATTN:
+        if n[kind]:
+            state[_STATE_KEY[kind]] = init_kv_cache(
+                batch, max_len, cfg.n_kv_heads, hd, dt, device,
+                stack=(n[kind],))
+    if n["mamba2"]:
+        state["mamba"] = init_mamba2_state(
+            batch, cfg.n_heads, cfg.mamba_head_dim, cfg.ssm_state, dt, device,
+            stack=(n["mamba2"],))
+    if n["mlstm"]:
+        d_inner = int(cfg.d_model * cfg.mlstm_proj_factor)
+        state["mlstm"] = init_mlstm_state(
+            batch, cfg.n_heads, d_inner // cfg.n_heads, dt, device,
+            stack=(n["mlstm"],))
+    if n["slstm"]:
+        state["slstm"] = init_slstm_state(batch, cfg.d_model, dt, device,
+                                          stack=(n["slstm"],))
+    return state
+
+
+def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                  st: PyTree):
+    """One block for one token: (x_out, the block's new recurrent state, or
+    None for attention, whose cache ``st`` is updated in place)."""
+    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    if kind in _ATTN:
+        y, _ = attention_decode(
+            p["attn"], h, st, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta)
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.rms_eps)
+        return x + ffn(p["ffn"], h, cfg.act), None
+    if kind == "mamba2":
+        y, new = mamba2_decode(p["mamba"], h, st, n_heads=cfg.n_heads,
+                               head_dim=cfg.mamba_head_dim,
+                               ssm_state=cfg.ssm_state)
+    elif kind == "mlstm":
+        y, new = mlstm_decode(p["mlstm"], h, st, n_heads=cfg.n_heads)
+    elif kind == "slstm":
+        y, new = slstm_decode(p["slstm"], h, st, n_heads=cfg.n_heads)
+    else:
+        raise ValueError(kind)
+    return x + y, new
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: PyTree,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, PyTree]:
     """One decode step.  tokens: [B] -> (logits [B, V] float32, state),
     with ``state`` updated in place."""
-    _require_dense(cfg)
     x = params["embed"][tokens][:, None, :]          # [B, 1, d]
-    kv = state["kv"]
-    stack = params["stacks"]["attn"]
-    for i in range(cfg.n_layers):
-        p = _layer(stack, i)
-        cache = {"k": kv["k"][i], "v": kv["v"][i], "length": kv["length"][i]}
-        h = rms_norm(x, p["ln1"], cfg.rms_eps)
-        y, _ = attention_decode(
-            p["attn"], h, cache, n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-            rope_theta=cfg.rope_theta)
-        x = x + y
-        h = rms_norm(x, p["ln2"], cfg.rms_eps)
-        x = x + ffn(p["ffn"], h, cfg.act)
+    for kind, p, i in _walk(params, cfg):
+        slot = state[_STATE_KEY[kind]]
+        x, new = _block_decode(cfg, kind, p, x, _layer(slot, i))
+        if new is not None:
+            for name, t in new.items():
+                slot[name][i] = t
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, 0] @ _head(params, cfg)).float()
     return logits, state

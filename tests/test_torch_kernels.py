@@ -1,4 +1,5 @@
-"""The port's attention ops against the JAX package's, on the CPU.
+"""The port's attention ops and SSD scan against the JAX package's, on the
+CPU.
 
 The flash attention wrapper takes its plain version for CPU tensors (the
 CUDA kernel itself is held against that plain version on the card by
@@ -6,8 +7,12 @@ CUDA kernel itself is held against that plain version on the card by
 the kernel's tile schedule, so these sweeps check the kernel's algorithm:
 the 64x64 tiles, the causal tile skip, the ragged-edge masking and the
 online-softmax rescale, against ``flash_attention_pallas(interpret=True)``
-and ``attention_ref``.  Tolerances are the reference's own
-(``tests/test_kernels.py``): 2e-4 in float32, 2e-2 in bfloat16.
+and ``attention_ref``.  Likewise ``ssd_scan_plain`` walks the SSD
+kernel's chunk schedule (chunk length, chunk-relative cumulative sum, the
+causal select before the exponential, the carried state, the zero-padded
+ragged chunk), held against ``ssd_scan_pallas(interpret=True)`` and
+``ssd_ref``.  Tolerances are the reference's own (``tests/test_kernels.py``):
+2e-4 in float32 and 2e-2 in bfloat16 for attention, 3e-3 for the SSD scan.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +21,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro_torch.kernels import ops, ref
+from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  launches)
@@ -118,3 +124,100 @@ def test_flash_attention_rejects_bad_shapes(shapes, causal):
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(qs), torch.zeros(ks), torch.zeros(ks),
                         causal=causal)
+
+
+# -- SSD scan ----------------------------------------------------------------
+
+def _ssd_inputs(b, s, h, d, n, decay, seed=0):
+    """x, a, b, c as numpy float32.  ``decay``: "mild" (a = -|z| / 10) or
+    "strong" (a uniform down to log 1e-6 a token, mLSTM's floor)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, d), dtype=np.float32) * 0.5
+    if decay == "mild":
+        a = -np.abs(rng.standard_normal((b, s, h), dtype=np.float32)) * 0.1
+    else:
+        a = np.log(1e-6) * rng.random((b, s, h), dtype=np.float32)
+    bm = rng.standard_normal((b, s, n), dtype=np.float32) * n ** -0.25
+    cm = rng.standard_normal((b, s, n), dtype=np.float32) * n ** -0.25
+    return x, a.astype(np.float32), bm, cm
+
+
+@pytest.mark.parametrize("b,s,h,d,n,decay", [
+    (2, 128, 4, 32, 16, "mild"),      # two chunks, B > 1
+    (2, 40, 2, 16, 16, "mild"),       # S shorter than one chunk
+    (1, 64, 1, 384, 384, "strong"),   # mLSTM's head (D = N = 384)
+    (3, 192, 1, 1, 8, "strong"),      # the mLSTM normalizer's D = 1
+])
+def test_ssd_scan_matches_pallas_and_ref(b, s, h, d, n, decay):
+    arrays = _ssd_inputs(b, s, h, d, n, decay)
+    got = ops.ssd_scan(*_t(*arrays)).numpy()
+    jx = [jnp.asarray(v) for v in arrays]
+    pallas = ssd_scan_pallas(*jx, chunk=min(ssd_scan.CHUNK, s),
+                             interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=3e-3, atol=3e-3)
+    np.testing.assert_allclose(got, np.asarray(jref.ssd_ref(*jx)), rtol=3e-3,
+                               atol=3e-3)
+
+
+@pytest.mark.parametrize("b,s,h,d,n,decay", [
+    (1, 100, 2, 16, 8, "mild"),       # a ragged last chunk
+    (2, 130, 1, 1, 384, "strong"),    # ragged, D = 1, N = 384
+    (1, 65, 3, 32, 16, "strong"),     # one token past a chunk
+])
+def test_ssd_scan_ragged_lengths(b, s, h, d, n, decay):
+    """Lengths that are not multiples of the chunk (the Pallas kernel
+    refuses them): the plain version pads the last chunk as the kernel
+    does, and matches the JAX package's sequential oracle."""
+    arrays = _ssd_inputs(b, s, h, d, n, decay, seed=1)
+    got = ssd_scan.ssd_scan_plain(*_t(*arrays)).numpy()
+    want = jref.ssd_ref(*[jnp.asarray(v) for v in arrays])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=3e-3, atol=3e-3)
+
+
+def test_torch_ssd_ref_matches_jax_ref():
+    arrays = _ssd_inputs(2, 70, 3, 16, 8, "mild", seed=2)
+    got = ref.ssd_ref(*_t(*arrays)).numpy()
+    want = jref.ssd_ref(*[jnp.asarray(v) for v in arrays])
+    np.testing.assert_allclose(got, np.asarray(want), rtol=3e-3, atol=3e-3)
+
+
+def test_ssd_scan_bf16_keeps_dtype():
+    arrays = _ssd_inputs(1, 96, 2, 32, 16, "mild", seed=3)
+    bf = [jnp.asarray(v, jnp.bfloat16) for v in arrays]
+    want = np.asarray(jref.ssd_ref(*bf), np.float32)
+    got = ops.ssd_scan(*(torch.from_numpy(np.array(v.astype(jnp.float32)))
+                         .to(torch.bfloat16) for v in bf))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_ssd_cpu_path_takes_plain_version_and_counts_no_launch():
+    x, a, bm, cm = _t(*_ssd_inputs(1, 70, 2, 16, 8, "mild", seed=4))
+    before = ssd_scan.launches.count
+    out = ops.ssd_scan(x, a, bm, cm)
+    assert ssd_scan.launches.count == before
+    assert torch.equal(out, ssd_scan.ssd_scan_plain(x, a, bm, cm))
+
+
+def test_ssd_plain_version_is_differentiable_on_the_cpu():
+    """The CPU path keeps autograd (the CUDA kernel refuses instead): the
+    causal select comes before the exponential, so no inf * 0 reaches the
+    gradient even at mLSTM's strongest decay."""
+    x, a, bm, cm = (t.requires_grad_() for t in
+                    _t(*_ssd_inputs(1, 80, 1, 8, 8, "strong", seed=5)))
+    ops.ssd_scan(x, a, bm, cm).square().sum().backward()
+    for t in (x, a, bm, cm):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+@pytest.mark.parametrize("shapes", [
+    ((1, 64, 2, 16), (1, 64, 2), (1, 64, 8), (1, 64, 4)),   # b, c differ
+    ((1, 64, 2, 16), (1, 64, 3), (1, 64, 8), (1, 64, 8)),   # a misfits x
+    ((1, 64, 2, 16), (1, 64, 2), (1, 32, 8), (1, 32, 8)),   # b misfits x
+    ((1, 64, 16), (1, 64, 2), (1, 64, 8), (1, 64, 8)),      # x not 4-D
+])
+def test_ssd_scan_rejects_bad_shapes(shapes):
+    with pytest.raises(ValueError):
+        ops.ssd_scan(*(torch.zeros(sh) for sh in shapes))

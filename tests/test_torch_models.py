@@ -1,4 +1,5 @@
-"""The port's dense model against the JAX package's, on the CPU.
+"""The port's dense model against the JAX package's, on the CPU (the SSM
+families are in ``tests/test_torch_ssm_models.py``).
 
 Weights are initialised by the JAX package and bridged leaf for leaf
 (``repro_torch.bridge``); token inputs come from a numpy seed.  Logits
@@ -17,23 +18,20 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import decode_step as jdecode_step
-from repro.models import forward as jforward
 from repro.models import init_params as jinit_params
 from repro.models import layers as jlayers
 from repro.models.transformer import prefill as jprefill
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import to_torch
-from repro_torch.models import (decode_step, forward, init_params, layers,
-                                prefill)
+from repro_torch.models import decode_step, init_params, layers, prefill
+from _torch_model_checks import (check_forward, check_full_width_tree,
+                                 check_init_scales,
+                                 check_prefill_then_decode_equals_forward)
+from _torch_model_checks import rel as _rel
 
 torch.set_num_threads(1)
 
 ARCH = "granite-8b"
-
-
-def _rel(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 @pytest.fixture(scope="module")
@@ -80,12 +78,7 @@ def test_ffn_matches_reference(act):
 
 
 def test_forward_matches_reference(granite):
-    cfg_j, cfg_t, params_j, params_t = granite
-    tokens = np.random.default_rng(2).integers(0, cfg_j.vocab, (2, 20))
-    got, _ = forward(params_t, cfg_t, torch.from_numpy(tokens))
-    want, _ = jforward(params_j, cfg_j, jnp.asarray(tokens))
-    assert got.dtype == torch.float32
-    assert _rel(got.numpy(), want) < 5e-3
+    check_forward(granite, 20)
 
 
 def test_prefill_and_teacher_forced_decode_match_reference(granite):
@@ -112,55 +105,20 @@ def test_prefill_and_teacher_forced_decode_match_reference(granite):
 
 
 def test_prefill_then_decode_equals_forward_on_the_port(granite):
-    _, cfg, _, params = granite
-    tokens = torch.from_numpy(
-        np.random.default_rng(4).integers(0, cfg.vocab, (2, 16)))
-    full, _ = forward(params, cfg, tokens)
-    _, state = prefill(params, cfg, tokens[:, :-3], max_len=24)
-    for i in range(3, 0, -1):
-        step, state = decode_step(params, cfg, state, tokens[:, -i])
-        assert _rel(step.numpy(), full[:, -i].numpy()) < 5e-3
+    check_prefill_then_decode_equals_forward(granite)
 
 
 def test_init_scales_match_reference(granite):
-    """Torch cannot draw jax.random's numbers, but it draws with the same
-    scales: each leaf's standard deviation within 10% of the reference's."""
-    cfg_j, cfg_t, params_j, _ = granite
-    mine = init_params(cfg_t, seed=0, device="cpu")
-    ref_leaves = jax.tree_util.tree_leaves_with_path(params_j)
-    my_leaves = jax.tree_util.tree_leaves_with_path(
-        jax.tree.map(lambda t: t.numpy(), mine))
-    assert [p for p, _ in my_leaves] == [p for p, _ in ref_leaves]
-    for (path, a), (_, b) in zip(my_leaves, ref_leaves):
-        b = np.asarray(b)
-        assert a.shape == b.shape and a.dtype == b.dtype, path
-        if b.std() == 0:
-            np.testing.assert_array_equal(a, b)
-        else:
-            assert abs(a.std() / b.std() - 1) < 0.1, path
+    check_init_scales(granite)
 
 
 def test_full_width_param_tree_on_meta_device():
-    """Full-width granite-8b (8.3 B parameters) built without memory: the
-    port's tree on the meta device against ``jax.eval_shape`` of the
-    reference's ``init_params``, leaf by leaf."""
-    cfg_j, cfg_t = jconfigs.ARCHS[ARCH], tconfigs.ARCHS[ARCH]
-    want = jax.eval_shape(lambda k: jinit_params(cfg_j, k),
-                          jax.random.PRNGKey(0))
-    got = init_params(cfg_t, device="meta")
-    want_leaves = jax.tree_util.tree_leaves_with_path(want)
-    got_leaves = jax.tree_util.tree_leaves_with_path(got)
-    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
-    for (path, t), (_, s) in zip(got_leaves, want_leaves):
-        assert t.device.type == "meta", path
-        assert tuple(t.shape) == s.shape, path
-        assert str(t.dtype).removeprefix("torch.") == s.dtype.name, path
-    n = sum(t.numel() for _, t in got_leaves)
-    assert abs(n / cfg_t.n_params - 1) < 0.01
+    """Full-width granite-8b (8.3 B parameters)."""
+    check_full_width_tree(ARCH)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b",
-                                  "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "moonshot-v1-16b-a3b"])
 def test_unported_block_kinds_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(tconfigs.ARCHS[arch].reduced(), device="meta")

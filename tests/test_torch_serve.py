@@ -31,9 +31,9 @@ from repro_torch.serve.batching import BatchSlot as TSlot
 torch.set_num_threads(1)
 
 
-def test_engine_greedy_tokens_match_reference():
-    cfg_j = jconfigs.ARCHS["granite-8b"].reduced()
-    cfg_t = tconfigs.ARCHS["granite-8b"].reduced()
+def _greedy_tokens_match(arch: str) -> None:
+    cfg_j = jconfigs.ARCHS[arch].reduced()
+    cfg_t = tconfigs.ARCHS[arch].reduced()
     ref = JEngine(cfg_j, jtopo(2, 2), scheduler="DAM-C", max_len=32)
     port = TEngine(cfg_t, ttopo(2, 2), scheduler="DAM-C", max_len=32,
                    device="cpu")
@@ -47,6 +47,17 @@ def test_engine_greedy_tokens_match_reference():
     assert port.latency_stats()["completed"] == 4
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
     assert all(len(r.out_tokens) == 4 for r in got)
+
+
+def test_engine_greedy_tokens_match_reference():
+    _greedy_tokens_match("granite-8b")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_engine_greedy_tokens_match_reference_ssm(arch):
+    """The SSM families through both engines: the port's prefill runs the
+    SSD scan's plain version, its decode the recurrent states."""
+    _greedy_tokens_match(arch)
 
 
 def _slots(slot_cls, rng_seed):
@@ -95,6 +106,14 @@ def test_overload_controller_matches_reference():
 def test_launcher_serves_reduced_model_on_cpu():
     out = tlaunch.main(["--reduced", "--device", "cpu", "--requests", "2",
                         "--prompt-len", "12", "--new-tokens", "2"])
+    assert out["stats"]["completed"] == 2
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_launcher_serves_reduced_ssm_model_on_cpu(arch):
+    out = tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--requests", "2", "--prompt-len", "12",
+                        "--new-tokens", "2"])
     assert out["stats"]["completed"] == 2
 
 
