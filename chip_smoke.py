@@ -11,22 +11,32 @@ which fails the run (non-zero exit, no result line) if it fails:
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, all started together) and time the build;
 3. hold each kernel against its plain torch version on the card, at the
-   main path's shapes and at ragged, short, batched and strongly decayed
-   cases, in float32 (flash attention 2e-4, SSD scan 3e-3) and bfloat16
-   (2e-2);
-4. time each kernel at the prefill shapes beside its plain version, the
-   PyTorch library call for the same function (SDPA for attention; none
-   computes the SSD scan) and its bound;
-5. serve, one after the other, full-width granite-8b, zamba2-1.2b and
+   main paths' shapes and at ragged, short, batched and empty cases, in
+   float32 and bfloat16 (flash attention 2e-4, SSD scan 3e-3, matmul
+   2e-4 x (1 + |c|), stencil 1e-5; bfloat16 2e-2), the copy bit for bit
+   (also int32) into a fresh buffer;
+4. time each kernel beside its plain version, the PyTorch library call
+   for the same function (SDPA for attention, ``torch.matmul``,
+   ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
+   the SSD scan) and its bound, at the paths' shapes (the stencil's bound
+   row at [8, 4096, 4096], past the L2);
+5. run the node path: the paper's node kernels as the payloads of a
+   96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
+   sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
+   ``tpu_pod_slices(2, 2)`` under DAM-C with place 0 slowed 4x; every task
+   commits, each kernel's launch count equals its tasks (the stencil's 4
+   a task), the outputs of a type are equal and agree with the plain
+   version;
+6. serve, one after the other, full-width granite-8b, zamba2-1.2b and
    xlstm-125m (random weights from a seed) through the port's
    PTT-scheduled ``ServingEngine``: 8 requests of 256-1024 prompt tokens
-   (one ragged) and 16 new tokens each, on ``tpu_pod_slices(2, 2)`` under
-   DAM-C with place 0 slowed 4x; the launch counts are set to 0 just before
+   (one ragged) and 16 new tokens each, on the same places and scheduler;
+   the launch counts are set to 0 just before
    each model's run and read just after, and must equal the counts that
    the model's ``layer_plan`` gives per prefill (flash attention once per
    attention block or shared-block application, the SSD scan once per
    Mamba-2 layer and twice per mLSTM layer) times the prefills;
-6. check what came out, for each model: every request finished with its
+7. check what came out, for each model: every request finished with its
    tokens; the engine's first token equals a direct prefill's; prefill +
    decode agrees with a full forward at full width; the reduced model on
    the card agrees with the CPU path (rel 5e-3, the model tolerance of the
@@ -305,6 +315,397 @@ def time_ssd(report: dict) -> list[dict]:
     return rows
 
 
+def _randn(shape, dtype, seed):
+    import torch
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+
+
+def _close(got, want, tol) -> tuple[bool, float]:
+    """``|got - want| <= tol * (1 + |want|)`` everywhere, finite; and the
+    largest absolute error."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    ok = (bool((err <= tol * (1.0 + want.float().abs())).all())
+          and bool(torch.isfinite(got).all()) and got.dtype == want.dtype
+          and got.shape == want.shape)
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+# (m, k, n): the node path's 4096^3 first, the JAX sweep's aligned shapes,
+# then ragged M, N and K, a 1 x 1 x 1 and an empty K
+MATMUL_CASES = [(4096, 4096, 4096), (128, 128, 128), (256, 384, 128),
+                (512, 256, 256), (128, 512, 384), (130, 200, 70),
+                (37, 513, 129), (300, 1000, 77), (1, 1, 1), (64, 0, 32)]
+
+
+def check_matmul(report: dict) -> float:
+    """Kernel against its plain version on the card, at 2e-4 (float32) and
+    2e-2 (bfloat16) x (1 + |c|), on inputs N(0, 1) x K^-1/4.  The scale
+    keeps the partial sums of order one, as the reference's 2e-4 assumed
+    (its sweep has K <= 512): with N(0, 1) inputs at K = 4096 they reach
+    ~64, and the kernel's float32 sum in k order then differs from the
+    plain version's blocked sums by up to ~1e-3 where c is near 0 (an
+    error of ~1.6e-5 of the partial sums' size).  Returns the largest
+    float32 error at the node path's shape."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import matmul_plain
+    worst, rows = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for i, (m, k, n) in enumerate(MATMUL_CASES):
+            scale = max(k, 1) ** -0.25
+            a = _randn((m, k), torch.float32, 2 * i).mul_(scale).to(dtype)
+            b = _randn((k, n), torch.float32, 2 * i + 1).mul_(scale).to(dtype)
+            got = ops.matmul(a, b)
+            torch.cuda.synchronize()
+            ok, err = _close(got, matmul_plain(a, b), TOL[name])
+            row = {"dtype": name, "mkn": [m, k, n], "max_abs_err": err,
+                   "tol": TOL[name], "ok": ok}
+            rows.append(row)
+            print(f"[check] matmul {row}", flush=True)
+            _require(ok, f"matmul kernel against its plain version: {row}")
+            if name == "float32" and (m, k, n) == MATMUL_CASES[0]:
+                worst = err
+    report["matmul_checks"] = rows
+    return worst
+
+
+COPY_CASES = [(8192, 8192), (512, 1024), (1000, 77), (12345,), (3, 5, 7),
+              ()]
+
+
+def check_copy(report: dict) -> float:
+    """Kernel against its plain version on the card, bit for bit, in
+    float32, bfloat16 and int32, at the node path's [8192, 8192], aligned,
+    ragged (a byte count that is not a multiple of 16) and 0-d shapes, and
+    from a view that does not start on a 16-byte boundary.  The output is
+    a fresh buffer: another address, and writing to it leaves x as it
+    was.  Returns 0.0, the error of a run in which every case is exact."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.copy import copy_plain
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        name = str(dtype).removeprefix("torch.")
+        for i, shape in enumerate(COPY_CASES + ["offset"]):
+            if shape == "offset":            # contiguous, 1 element in
+                base = _randn((1 + 4099,), torch.float32, 50) * 1000
+                x = base.to(dtype)[1:]
+            else:
+                x = (_randn(shape, torch.float32, 40 + i) * 1000).to(dtype)
+            got = ops.copy(x)
+            torch.cuda.synchronize()
+            want = copy_plain(x)
+            ok = (torch.equal(got, want) and torch.equal(got, x)
+                  and got.dtype == dtype and got.data_ptr() != x.data_ptr())
+            if ok:
+                got.zero_()                   # the input must not move
+                ok = torch.equal(x, want)
+            row = {"dtype": name, "shape": (list(x.shape) if shape != "offset"
+                                            else "offset 1, [4099]"),
+                   "x_mod_16": x.data_ptr() % 16, "exact": ok}
+            rows.append(row)
+            print(f"[check] copy {row}", flush=True)
+            _require(ok, f"copy kernel against its plain version: {row}")
+    report["copy_checks"] = rows
+    return 0.0
+
+
+STENCIL_CASES = [(1, 2048, 2048), (8, 4096, 4096), (2, 512, 256),
+                 (1, 128, 128), (2, 100, 70), (1, 33, 65), (4, 31, 129),
+                 (3, 1, 1)]
+STENCIL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def check_stencil(report: dict) -> float:
+    """Kernel against its plain version and the dense oracle on the card,
+    at 1e-5 (float32, the reference's tolerance) and 2e-2 (bfloat16: the
+    oracle sums in bfloat16, the kernel in float32) x (1 + |out|), at the
+    node path's [1, 2048, 2048], the timing shape past L2, aligned and
+    ragged shapes.  Returns the largest float32 error against the plain
+    version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.stencil import stencil_plain
+    worst, rows = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for i, shape in enumerate(STENCIL_CASES):
+            if dtype == torch.bfloat16 and shape == (8, 4096, 4096):
+                continue
+            u = _randn(shape, dtype, 60 + i)
+            got = ops.stencil(u)
+            torch.cuda.synchronize()
+            ok, err = _close(got, stencil_plain(u), STENCIL_TOL[name])
+            ok_ref, err_ref = _close(got, ref.stencil_ref(u), STENCIL_TOL[name])
+            row = {"dtype": name, "shape": list(shape), "max_abs_err": err,
+                   "max_abs_err_ref": err_ref, "tol": STENCIL_TOL[name],
+                   "ok": ok and ok_ref}
+            rows.append(row)
+            print(f"[check] stencil {row}", flush=True)
+            _require(ok and ok_ref,
+                     f"stencil kernel against its plain version: {row}")
+            if name == "float32":
+                worst = max(worst, err)
+    # the Dirichlet edge: ones give 0.5 in a corner, 0.75 on an edge, 1 inside
+    ones = ops.stencil(torch.ones((1, 128, 128), device=DEVICE))
+    _require([float(ones[0, 0, 0]), float(ones[0, 0, 64]),
+              float(ones[0, 64, 64])] == [0.5, 0.75, 1.0],
+             "stencil Dirichlet boundary")
+    report["stencil_checks"] = rows
+    return worst
+
+
+def _timing_row(kernel, plain, library, flops, nbytes, dtype_name, *,
+                iters, plain_iters=1, **extra) -> dict:
+    ms = _time_ms(kernel, iters=iters)
+    plain_ms = _time_ms(plain, iters=plain_iters, warmup=1)
+    lib_ms = _time_ms(library, iters=iters)
+    bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
+    return {"dtype": dtype_name, **extra, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_over_bound": ms / bound_ms}
+
+
+def time_matmul(report: dict) -> list[dict]:
+    """Kernel, plain version, ``torch.matmul`` (cuBLAS, no TF32) and the
+    bound at the node path's 4096^3, float32 and bfloat16."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import matmul_plain
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        m = k = n = NODE_TILES["matmul"]
+        a, b = _randn((m, k), dtype, 90), _randn((k, n), dtype, 91)
+        row = _timing_row(lambda: ops.matmul(a, b), lambda: matmul_plain(a, b),
+                          lambda: torch.matmul(a, b), 2 * m * n * k,
+                          (m * k + k * n + m * n) * dtype.itemsize, name,
+                          iters=10, shape=[m, k, n])
+        row["tflops"] = 2 * m * n * k / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        print(f"[time] matmul {row}", flush=True)
+    report["matmul_timing"] = rows
+    return rows
+
+
+def time_copy(report: dict) -> list[dict]:
+    """Kernel, plain version, ``Tensor.clone`` and the bound (bytes: read
+    once, written once) at the node path's [8192, 8192] float32, 10x the
+    L2."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.copy import copy_plain
+    t = NODE_TILES["copy"]
+    x = _randn((t, t), torch.float32, 92)
+    row = _timing_row(lambda: ops.copy(x), lambda: copy_plain(x), x.clone,
+                      0, 2 * x.numel() * 4, "float32", iters=20,
+                      plain_iters=3, shape=[t, t])
+    row["tb_per_s"] = 2 * x.numel() * 4 / (row["ms"] * 1e-3) / 1e12
+    print(f"[time] copy {row}", flush=True)
+    report["copy_timing"] = [row]
+    return [row]
+
+
+def time_stencil(report: dict) -> list[dict]:
+    """Kernel, plain version, ``F.conv2d`` with the 3 x 3 cross (cuDNN, no
+    TF32) and the bound (4 operations a point; bytes read once, written
+    once), float32: at [8, 4096, 4096] (1.07 GB moved, past the 50 MB L2:
+    the row the bound speaks for) and at the node path's [1, 2048, 2048],
+    which stays in L2 when swept again and again, so its bound is no
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.stencil import stencil_plain
+    cross = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                          [0.0, 0.25, 0.0]], device=DEVICE)[None, None]
+    rows = []
+    for shape, resident in (((8, 4096, 4096), False),
+                            ((1, NODE_TILES["stencil"],
+                              NODE_TILES["stencil"]), True)):
+        u = _randn(shape, torch.float32, 93)
+        row = _timing_row(lambda: ops.stencil(u), lambda: stencil_plain(u),
+                          lambda: F.conv2d(u[:, None], cross, padding=1),
+                          4 * u.numel(), 2 * u.numel() * 4, "float32",
+                          iters=20, shape=list(shape), l2_resident=resident)
+        row["tb_per_s"] = 2 * u.numel() * 4 / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        print(f"[time] stencil {row}", flush=True)
+    report["stencil_timing"] = rows
+    return rows
+
+
+# -- the node path: the paper's node kernels as task payloads -----------------
+# Sizes follow what each node is for (a type's ``tile`` is its payload's
+# size, as core/task.py defines it): a 4096^3 float32 GEMM, far above the
+# ridge; a [8192, 8192] float32 copy, 10x the L2; a [1, 2048, 2048] float32
+# grid, resident in L2.
+NODE_TILES = {"matmul": 4096, "copy": 8192, "stencil": 2048}
+NODE_TASKS, NODE_PARALLELISM = 96, 4
+STENCIL_SWEEPS = 4     # stencil_type's cost: 4 sweeps a task
+
+
+def node_inputs(tiles: dict, seed: int = 0) -> dict:
+    """Each node type's inputs as numpy float32 arrays, made once from
+    ``seed``: N(0, 1), the matmul's scaled by K^-1/4 (see
+    :func:`check_matmul`)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t_mm, t_cp, t_st = tiles["matmul"], tiles["copy"], tiles["stencil"]
+    normal = lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+    scale = np.float32(t_mm ** -0.25)
+    return {"matmul": (normal(t_mm, t_mm) * scale, normal(t_mm, t_mm) * scale),
+            "copy": (normal(t_cp, t_cp),),
+            "stencil": (normal(1, t_st, t_st),)}
+
+
+def node_work(kind: str, inputs):
+    """One task's work through the port's ops: a matmul or a copy is one
+    launch; a stencil task is ``STENCIL_SWEEPS`` Jacobi sweeps, each
+    reading the buffer the last one wrote (two buffers alive at a time)."""
+    from repro_torch.kernels import ops
+    if kind == "matmul":
+        return ops.matmul(*inputs)
+    if kind == "copy":
+        return ops.copy(*inputs)
+    u = inputs[0]
+    for _ in range(STENCIL_SWEEPS):
+        u = ops.stencil(u)
+    return u
+
+
+def run_node_dag(tiles: dict, device, *, slowdown=SLOW_PLACE, seed=0,
+                 timeout: float = 300.0):
+    """``mixed_dag`` of the matmul, copy and stencil types (96 tasks, 4 a
+    layer, the first of each layer HIGH) on the port's threaded runtime:
+    ``tpu_pod_slices(2, 2)`` under DAM-C, with ``slowdown`` injected.
+    Every task's payload runs its kernel on the type's inputs and, on the
+    card, returns when the card has finished (so the PTT learns card
+    time).  Returns (metrics, scheduler, {kind: [output of each task]},
+    {kind: inputs on ``device``}, {type name: kind})."""
+    import torch
+    from repro_torch.core import (copy_type, make_scheduler, matmul_type,
+                                  mixed_dag, run_threaded, stencil_type,
+                                  tpu_pod_slices)
+    device = torch.device(device)
+    inputs = {kind: tuple(torch.from_numpy(a).to(device) for a in arrays)
+              for kind, arrays in node_inputs(tiles, seed).items()}
+    types = {"matmul": matmul_type(tiles["matmul"]),
+             "copy": copy_type(tiles["copy"]),
+             "stencil": stencil_type(tiles["stencil"])}
+    kind_of = {t.name: kind for kind, t in types.items()}
+    outputs = {kind: [] for kind in types}
+
+    def payload(width, kind):
+        out = node_work(kind, inputs[kind])
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        outputs[kind].append(out)
+
+    sched = make_scheduler("DAM-C", tpu_pod_slices(2, 2), seed=seed)
+    dag = mixed_dag(list(types.values()), parallelism=NODE_PARALLELISM,
+                    total_tasks=NODE_TASKS)
+    for task in dag.all_tasks():
+        task.payload, task.args = payload, (kind_of[task.type.name],)
+    metrics = run_threaded(dag, sched, slowdown=slowdown, timeout=timeout)
+    return metrics, sched, outputs, inputs, kind_of
+
+
+def node_dag(report: dict) -> dict:
+    """The node path on the card: a warm-up run of the DAG (it fills the
+    allocator's cache with the outputs' blocks), then the counted run with
+    the launch counts set to 0 just before it and read just after."""
+    import statistics
+    import torch
+    from repro_torch.kernels import copy, matmul, stencil
+    from repro_torch.kernels.copy import copy_plain
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.stencil import stencil_plain
+    counters = {"matmul": matmul.launches, "copy": copy.launches,
+                "stencil": stencil.launches}
+    warm, *_ = run_node_dag(NODE_TILES, DEVICE)
+    _require(warm.n_tasks == NODE_TASKS and not warm.errors,
+             f"warm-up node DAG: {warm.n_tasks} tasks, {warm.errors}")
+    del warm, _
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    metrics, sched, outputs, inputs, kind_of = run_node_dag(NODE_TILES, DEVICE)
+    wall = time.perf_counter() - t0
+    n_launch = {name: c.count for name, c in counters.items()}
+
+    _require(not metrics.errors, f"node DAG payload errors: {metrics.errors}")
+    _require(metrics.n_tasks == NODE_TASKS,
+             f"node DAG committed {metrics.n_tasks} of {NODE_TASKS} tasks")
+    n_tasks = {kind: len(outs) for kind, outs in outputs.items()}
+    want = {"matmul": n_tasks["matmul"], "copy": n_tasks["copy"],
+            "stencil": STENCIL_SWEEPS * n_tasks["stencil"]}
+    _require(n_launch == want and sum(n_tasks.values()) == NODE_TASKS,
+             f"node DAG launches {n_launch}, want {want} for tasks "
+             f"{n_tasks}")
+
+    # same inputs and a deterministic kernel: every output of a type equal;
+    # the first against the plain version
+    for kind, outs in outputs.items():
+        _require(all(torch.equal(o, outs[0]) for o in outs[1:]),
+                 f"node DAG: the {kind} outputs differ between tasks")
+    x = inputs["stencil"][0]
+    for _ in range(STENCIL_SWEEPS):
+        x = stencil_plain(x)
+    agree = {"matmul": _close(outputs["matmul"][0],
+                              matmul_plain(*inputs["matmul"]), TOL["float32"]),
+             "copy": (torch.equal(outputs["copy"][0],
+                                  copy_plain(*inputs["copy"])), 0.0),
+             "stencil": _close(outputs["stencil"][0], x,
+                               STENCIL_TOL["float32"])}
+    for kind, (ok, err) in agree.items():
+        _require(ok, f"node DAG {kind} output against the plain version: "
+                     f"max abs err {err}")
+
+    def unslowed(r):
+        return not any(c in SLOW_PLACE for c in range(r.leader,
+                                                      r.leader + r.width))
+    median_ms = {}
+    for name, kind in kind_of.items():
+        ds = [r.duration for r in metrics.records
+              if r.type_name == name and unslowed(r)]
+        median_ms[kind] = 1e3 * statistics.median(ds) if ds else None
+    high = [r for r in metrics.records if r.priority == 1]
+    ptt = {kind: {repr(p): sched.ptt.for_type(name).get(p) * 1e3
+                  for p in sched.topology.places()}
+           for name, kind in kind_of.items()}
+    out = {
+        "tiles": NODE_TILES, "tasks": NODE_TASKS,
+        "parallelism": NODE_PARALLELISM, "scheduler": "DAM-C",
+        "slowdown": {str(k): v for k, v in SLOW_PLACE.items()},
+        "committed": metrics.n_tasks, "tasks_by_type": n_tasks,
+        "makespan_s": metrics.makespan, "wall_with_inputs_s": wall,
+        "tasks_per_s": metrics.throughput,
+        "median_task_ms_unslowed": median_ms,
+        "high_share_on_slowed_place": (sum(not unslowed(r) for r in high)
+                                       / len(high)),
+        "high_placement": metrics.priority_placement(),
+        "placement_counts": metrics.placement_counts(),
+        "ptt_ms": ptt, "launches": n_launch,
+        "plain_agreement_max_abs_err": {k: v[1] for k, v in agree.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"[node_dag] {out}", flush=True)
+    del outputs, inputs
+    torch.cuda.empty_cache()
+    report["node_dag"] = out
+    return out
+
+
 def _launches_per_prefill(cfg) -> dict:
     """Kernel launches one prefill makes, from the model's layer plan."""
     from repro_torch.models import layer_plan
@@ -538,12 +939,18 @@ def main() -> int:
 
     flash_err = check_flash(report)
     ssd_err = check_ssd(report)
+    matmul_err = check_matmul(report)
+    copy_err = check_copy(report)
+    stencil_err = check_stencil(report)
     flash_timing = time_flash(report)
     ssd_timing = time_ssd(report)
+    matmul_timing = time_matmul(report)
+    copy_timing = time_copy(report)
+    stencil_timing = time_stencil(report)
+    node = node_dag(report)
     served = [serve(report, get_config(arch)) for arch in ARCHS]
 
-    def kernel_row(name, row, max_err, replaces):
-        by_path = {o["arch"]: o["launches"][name] for o in served}
+    def kernel_row(name, row, max_err, replaces, by_path):
         return {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -555,15 +962,33 @@ def main() -> int:
             "launches_by_path": by_path,
         }
 
+    def served_by(name):
+        return {o["arch"]: o["launches"][name] for o in served}
+
+    def node_by(name):
+        return {"node_dag": node["launches"][name]}
+
     kernels = [
         kernel_row("flash_attention",
                    next(r for r in flash_timing if r["dtype"] == "float32"
                         and r["shape"][3] == 1024),
-                   flash_err, "src/repro/kernels/flash_attention.py:79"),
+                   flash_err, "src/repro/kernels/flash_attention.py:79",
+                   served_by("flash_attention")),
         kernel_row("ssd_scan",
                    next(r for r in ssd_timing if r["case"] == "zamba2"
                         and r["shape"][1] == 1024),
-                   ssd_err, "src/repro/kernels/ssd_scan.py:68"),
+                   ssd_err, "src/repro/kernels/ssd_scan.py:68",
+                   served_by("ssd_scan")),
+        kernel_row("matmul",
+                   next(r for r in matmul_timing if r["dtype"] == "float32"),
+                   matmul_err, "src/repro/kernels/matmul.py:39",
+                   node_by("matmul")),
+        kernel_row("stencil",
+                   next(r for r in stencil_timing if not r["l2_resident"]),
+                   stencil_err, "src/repro/kernels/stencil.py:45",
+                   node_by("stencil")),
+        kernel_row("copy", copy_timing[0], copy_err,
+                   "src/repro/kernels/copy.py:22", node_by("copy")),
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -9,9 +9,11 @@ common.py        — the launch counter and the refusal of inputs that need
 ops.py           — the entry points the model calls
 ref.py           — dense torch oracles
 
-Kernels: flash_attention (the prefill of every attention layer) and
-ssd_scan (the prefill of every Mamba-2 and mLSTM layer).
+Kernels: flash_attention (the prefill of every attention layer), ssd_scan
+(the prefill of every Mamba-2 and mLSTM layer), and the paper's node
+kernels matmul, copy and stencil (the payloads of the task runtime).
 """
-from . import flash_attention, ops, ref, ssd_scan
+from . import copy, flash_attention, matmul, ops, ref, ssd_scan, stencil
 
-__all__ = ["flash_attention", "ops", "ref", "ssd_scan"]
+__all__ = ["copy", "flash_attention", "matmul", "ops", "ref", "ssd_scan",
+           "stencil"]

@@ -1,10 +1,15 @@
-"""Public ops that the model calls (port of ``repro/kernels/ops.py``).
+"""Public ops that the model and the task runtime's payloads call (port of
+``repro/kernels/ops.py``).
 
-``flash_attention`` and ``ssd_scan`` go to their CUDA kernels for every
-CUDA tensor, whatever its length: each kernel masks a ragged sequence
-itself, so there is no shape gate and no quiet fallback (the reference's
-``ssd_scan`` gave S % 128 != 0 to ``ssd_ref``; here that is the kernel's
-work too).  A CPU tensor takes the kernel's plain version.
+``matmul``, ``copy``, ``stencil``, ``flash_attention`` and ``ssd_scan`` go
+to their CUDA kernels for every CUDA tensor, whatever its shape: each
+kernel masks a ragged edge itself, so there is no shape gate and no quiet
+fallback (the reference gave shapes off its (8, 128) tiling to its jnp
+oracles; here those are the kernels' work too).  Each raises on a dtype or
+rank its kernel does not take.  A CPU tensor takes the kernel's plain
+version.  One exception: ``matmul`` of operands that are not both
+matrices is ``matmul_ref``'s ``jnp.dot`` product on either device, as in
+the reference, which never gives those to its kernel.
 ``decode_attention`` is plain torch, as the reference keeps it plain XLA (a
 single-token GEMV chain).
 """
@@ -12,9 +17,18 @@ from __future__ import annotations
 
 import torch
 
+from . import matmul as _matmul
+from .copy import copy
 from .flash_attention import flash_attention
-from .ref import decode_attention_ref
+from .ref import decode_attention_ref, matmul_ref
 from .ssd_scan import ssd_scan
+from .stencil import stencil
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.ndim != 2 or b.ndim != 2:
+        return matmul_ref(a, b)
+    return _matmul.matmul(a, b)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -23,4 +37,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
 
 
-__all__ = ["decode_attention", "flash_attention", "ssd_scan"]
+__all__ = ["copy", "decode_attention", "flash_attention", "matmul",
+           "ssd_scan", "stencil"]

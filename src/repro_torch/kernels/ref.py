@@ -1,10 +1,38 @@
-"""Plain torch oracles for the attention ops and the SSD scan (port of
-``attention_ref``, ``decode_attention_ref`` and ``ssd_ref`` of
-``repro/kernels/ref.py``).  The JAX originals pin shardings with
-``constrain``; a single card has nothing to pin, so those lines are gone."""
+"""Plain torch oracles for every kernel (port of ``matmul_ref``,
+``copy_ref``, ``stencil_ref``, ``attention_ref``, ``decode_attention_ref``
+and ``ssd_ref`` of ``repro/kernels/ref.py``).  The JAX originals pin
+shardings with ``constrain``; a single card has nothing to pin, so those
+lines are gone."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with float32 accumulation, in a's dtype, with ``jnp.dot``'s
+    semantics at any rank: a 0-d operand multiplies, otherwise a's last
+    axis contracts with b's second-to-last (its only one for a vector)."""
+    af, bf = a.float(), b.float()
+    if a.ndim == 0 or b.ndim == 0:
+        return (af * bf).to(a.dtype)
+    return torch.tensordot(af, bf, dims=([a.ndim - 1],
+                                         [max(b.ndim - 2, 0)])).to(a.dtype)
+
+
+def copy_ref(x: torch.Tensor) -> torch.Tensor:
+    """Streaming identity (the paper's memory-intensive node): a fresh
+    buffer, never an alias of x."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def stencil_ref(u: torch.Tensor) -> torch.Tensor:
+    """One Jacobi step of the 5-point 2D heat stencil with zero (Dirichlet)
+    boundary: u'[i,j] = 0.25*(u[i-1,j]+u[i+1,j]+u[i,j-1]+u[i,j+1]).  As the
+    reference: the neighbour sum is taken in u's dtype, then scaled."""
+    up = F.pad(u, (1, 1, 1, 1))
+    return 0.25 * (up[:, :-2, 1:-1] + up[:, 2:, 1:-1]
+                   + up[:, 1:-1, :-2] + up[:, 1:-1, 2:]).to(u.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

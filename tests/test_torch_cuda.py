@@ -7,7 +7,7 @@ This file imports no jax: the machine with the card need not have it.
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ssd_scan
+from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  launches)
@@ -120,3 +120,96 @@ def test_kernels_refuse_inputs_that_need_a_gradient(card):
     with torch.no_grad():                 # no gradient asked: the kernel runs
         assert flash_attention(q, k, v).grad_fn is None
         assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+
+
+def _randn(card, shape, dtype, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=card).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [(1024, 1024, 1024), (256, 384, 128),
+                                   (130, 200, 70), (37, 513, 129), (1, 1, 1),
+                                   (64, 0, 32)])
+def test_matmul_kernel_matches_plain(card, dtype, tol, m, k, n):
+    # inputs N(0, 1) x K^-1/4 keep the partial sums of order one, as the
+    # reference's 2e-4 assumes (chip_smoke.check_matmul says why)
+    scale = max(k, 1) ** -0.25
+    a = (_randn(card, (m, k), torch.float32, 1) * scale).to(dtype)
+    b = (_randn(card, (k, n), torch.float32, 2) * scale).to(dtype)
+    before = matmul.launches.count
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.launches.count == before + 1
+    want = matmul.matmul_plain(a, b)
+    assert got.dtype == dtype and got.shape == (m, n)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * (1 + want.float().abs())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("shape", [(8192, 1024), (1000, 77), (12345,), ()])
+def test_copy_kernel_is_exact_and_fresh(card, dtype, shape):
+    x = (_randn(card, shape, torch.float32, 3) * 100).to(dtype)
+    before = copy.launches.count
+    got = ops.copy(x)
+    torch.cuda.synchronize()
+    assert copy.launches.count == before + 1
+    assert got.dtype == dtype and torch.equal(got, copy.copy_plain(x))
+    assert got.data_ptr() != x.data_ptr()
+    keep = x.clone()
+    got.zero_()
+    assert torch.equal(x, keep)
+
+
+def test_copy_kernel_from_an_unaligned_view(card):
+    base = _randn(card, (4097,), torch.float32, 4)
+    x = base[1:]                      # contiguous, 4 bytes off 16
+    assert x.data_ptr() % 16
+    assert torch.equal(ops.copy(x), x)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 2048, 2048), (2, 512, 256),
+                                   (2, 100, 70), (1, 33, 65), (3, 1, 1)])
+def test_stencil_kernel_matches_plain(card, dtype, tol, shape):
+    u = _randn(card, shape, dtype, 5)
+    before = stencil.launches.count
+    got = ops.stencil(u)
+    torch.cuda.synchronize()
+    assert stencil.launches.count == before + 1
+    assert got.dtype == dtype
+    for want in (stencil.stencil_plain(u), ref.stencil_ref(u)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_node_kernels_refuse_what_they_do_not_take(card):
+    a = torch.zeros((4, 4), device=card)
+    with pytest.raises(ValueError):
+        ops.matmul(a.half(), a.half())
+    with pytest.raises(ValueError):
+        ops.matmul(a, a.cpu())
+    with pytest.raises(ValueError):
+        ops.stencil(a.half()[None])
+    with pytest.raises(ValueError):
+        ops.copy(a.T)
+
+
+def test_node_kernels_refuse_inputs_that_need_a_gradient(card):
+    a = torch.ones((8, 8), device=card, requires_grad=True)
+    u = torch.ones((1, 8, 8), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="backward"):
+        ops.matmul(a, a.detach())
+    with pytest.raises(RuntimeError, match="backward"):
+        ops.copy(a)
+    with pytest.raises(RuntimeError, match="backward"):
+        ops.stencil(u)
+    with torch.no_grad():                 # no gradient asked: the kernel runs
+        assert ops.matmul(a, a).grad_fn is None
+        assert ops.copy(a).grad_fn is None
+        assert ops.stencil(u).grad_fn is None
