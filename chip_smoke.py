@@ -14,19 +14,23 @@ which fails the run (non-zero exit, no result line) if it fails:
    main paths' shapes and at ragged, short, batched and empty cases, in
    float32 and bfloat16 (flash attention 2e-4, SSD scan 3e-3, matmul
    2e-4 x (1 + |c|), stencil 1e-5; bfloat16 2e-2), the copy bit for bit
-   (also int32) into a fresh buffer;
+   (also int32) into a fresh buffer; each matmul and flash case names the
+   kernel path it took and checks that path's launch counter, and every
+   path is taken (matmul: ``wgmma``, ``fma_pipelined``, ``general``;
+   flash attention: ``wgmma``, ``fma``);
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
    the SSD scan) and its bound, at the paths' shapes (the stencil's bound
-   row at [8, 4096, 4096], past the L2);
+   row at [8, 4096, 4096], past the L2), the matmul and flash attention
+   in both dtypes, each row naming its path;
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
    ``tpu_pod_slices(2, 2)`` under DAM-C with place 0 slowed 4x; every task
    commits, each kernel's launch count equals its tasks (the stencil's 4
-   a task), the outputs of a type are equal and agree with the plain
-   version;
+   a task), every matmul takes the pipelined float32 kernel, the outputs
+   of a type are equal and agree with the plain version;
 6. serve, one after the other, full-width granite-8b, zamba2-1.2b and
    xlstm-125m (random weights from a seed) through the port's
    PTT-scheduled ``ServingEngine``: 8 requests of 256-1024 prompt tokens
@@ -43,7 +47,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    tests).  For xlstm-125m it also times one 1024-token prefill and the
    sLSTM loop inside it.
 
-Prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then, last,
+Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
+carry their bfloat16 numbers under ``"bfloat16"``), then the
+``nvidia-smi`` line, then, last,
 ``{"ok": true, "device": {...}}``.  The details (every case's error, every
 timing shape, the compiler's register report) go to
 ``chiprun_out/chip_smoke.json``.
@@ -86,13 +92,24 @@ def _require(cond, what) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def _time_ms(fn, iters: int, warmup: int = 2) -> float:
+RUN_AHEAD_CYCLES = 50_000_000   # ~25 ms of a spin kernel at ~2 GHz
+
+
+def _time_ms(fn, iters: int, warmup: int = 2, run_ahead: bool = True) -> float:
+    """Card time per call of ``fn``, from CUDA events around ``iters``
+    calls.  With ``run_ahead`` a spin kernel first holds the stream, so the
+    host queues the calls (and the start event) while it runs and the
+    events time the card's work alone, not the host's time to launch it;
+    without, the time per call is the larger of the two.  The plain
+    versions, whose host time exceeds the spin, are timed without."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if run_ahead:
+        torch.cuda._sleep(RUN_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -128,13 +145,16 @@ def _qkv(b, hq, hkv, s, t, d, dtype, seed):
             for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d))]
 
 
-def check_flash(report: dict) -> float:
-    """Kernel against its plain version on the card.  Returns the largest
-    float32 error at the main path's head layouts: granite-8b's (Hq 32,
-    Hkv 8, D 128) and zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64)."""
+def check_flash(report: dict) -> dict:
+    """Kernels against their plain version on the card, each case naming
+    the path it took (float32: the FMA kernel; bfloat16: the wgmma one)
+    and checking that path's counter.  Returns the largest error in each
+    dtype at the main path's head layouts: granite-8b's (Hq 32, Hkv 8,
+    D 128) and zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_path, path_launches)
     cases = [  # (b, hq, hkv, s, t, d, causal)
         (1, 32, 8, 128, 128, 128, True),
         (1, 32, 8, 512, 512, 128, True),
@@ -148,55 +168,71 @@ def check_flash(report: dict) -> float:
         (1, 32, 32, 300, 300, 64, True),        # the same, ragged
     ]
     main_layouts = {(32, 8, 128), (32, 32, 64)}
-    worst_main = 0.0
+    worst_main = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for i, (b, hq, hkv, s, t, d, causal) in enumerate(cases):
             q, k, v = _qkv(b, hq, hkv, s, t, d, dtype, seed=i)
+            path = flash_path(q, k, v)
+            before = path_launches[path].count
             got = flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             want = flash_attention_plain(q, k, v, causal=causal)
             err = (got.float() - want.float()).abs()
             limit = TOL[name] * (1.0 + want.float().abs())
-            ok = bool((err <= limit).all()) and bool(torch.isfinite(got).all())
-            row = {"dtype": name, "shape": [b, hq, hkv, s, t, d],
+            ok = (bool((err <= limit).all()) and bool(torch.isfinite(got).all())
+                  and path_launches[path].count == before + 1)
+            row = {"dtype": name, "path": path, "shape": [b, hq, hkv, s, t, d],
                    "causal": causal, "max_abs_err": float(err.max()),
                    "tol": TOL[name], "ok": ok}
             rows.append(row)
             print(f"[check] flash_attention {row}", flush=True)
             _require(ok, f"flash attention kernel against its plain "
                          f"version: {row}")
-            if name == "float32" and (hq, hkv, d) in main_layouts:
-                worst_main = max(worst_main, row["max_abs_err"])
+            if (hq, hkv, d) in main_layouts:
+                worst_main[name] = max(worst_main[name], row["max_abs_err"])
+    _require({r["path"] for r in rows} == {"wgmma", "fma"},
+             "flash attention checks took both paths")
     report["flash_attention_checks"] = rows
     return worst_main
 
 
 def time_flash(report: dict) -> list[dict]:
-    """Kernel, plain version, SDPA and the bound at the prefill shapes."""
+    """Kernel, plain version, SDPA and the bound at the prefill shapes:
+    granite-8b's heads (Hq 32, Hkv 8, D 128) at S = 256, 512 and 1024 and
+    zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64) at S = 1024, in
+    both dtypes; each row names the kernel's path."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_path)
     rows = []
-    for dtype, s in ((torch.float32, 256), (torch.float32, 512),
-                     (torch.float32, 1024), (torch.bfloat16, 1024)):
+    for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        q, k, v = _qkv(1, 32, 8, s, s, 128, dtype, seed=99)
-        ms = _time_ms(lambda: flash_attention(q, k, v), iters=20)
-        plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v), iters=3,
-                            warmup=1)
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters=20)
-        flops, nbytes = _attention_work(1, 32, 8, s, s, 128, dtype)
-        bound_ms, bound_by = _bound(flops, nbytes, name)
-        row = {"dtype": name, "shape": [1, 32, 8, s, s, 128], "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": flops / (ms * 1e-3) / 1e12}
-        rows.append(row)
-        print(f"[time] flash_attention {row}", flush=True)
+        for hq, hkv, s, d in ((32, 8, 256, 128), (32, 8, 512, 128),
+                              (32, 8, 1024, 128), (32, 32, 1024, 64)):
+            q, k, v = _qkv(1, hq, hkv, s, s, d, dtype, seed=99)
+            ms = _time_ms(lambda: flash_attention(q, k, v), iters=20)
+            plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v),
+                                iters=3, warmup=1, run_ahead=False)
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), iters=20)
+            flops, nbytes = _attention_work(1, hq, hkv, s, s, d, dtype)
+            bound_ms, bound_by = _bound(flops, nbytes, name)
+            # the wrapper's time per call, host included: at these sizes
+            # its Python and launch cost can exceed the kernel's
+            call_ms = _time_ms(lambda: flash_attention(q, k, v), iters=20,
+                               run_ahead=False)
+            row = {"dtype": name, "path": flash_path(q, k, v),
+                   "shape": [1, hq, hkv, s, s, d], "ms": ms,
+                   "call_ms": call_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "tflops": flops / (ms * 1e-3) / 1e12}
+            rows.append(row)
+            print(f"[time] flash_attention {row}", flush=True)
     report["flash_attention_timing"] = rows
     return rows
 
@@ -301,7 +337,7 @@ def time_ssd(report: dict) -> list[dict]:
                                        seed=99)
             ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20)
             plain_ms = _time_ms(lambda: ssd_scan_plain(x, a, bm, cm),
-                                iters=3, warmup=1)
+                                iters=3, warmup=1, run_ahead=False)
             flops, nbytes = _ssd_work(b, s, h, d, n, torch.float32)
             bound_ms, bound_by = _bound(flops, nbytes, "float32")
             row = {"case": label, "dtype": "float32", "shape": [b, s, h, d, n],
@@ -334,10 +370,13 @@ def _close(got, want, tol) -> tuple[bool, float]:
 
 
 # (m, k, n): the node path's 4096^3 first, the JAX sweep's aligned shapes,
-# then ragged M, N and K, a 1 x 1 x 1 and an empty K
+# then ragged M, N and K, a 1 x 1 x 1 and an empty K (these five take the
+# general kernel), then two whose M, N and K edges the fast paths' TMA or
+# cp.async loads fill with zeros
 MATMUL_CASES = [(4096, 4096, 4096), (128, 128, 128), (256, 384, 128),
                 (512, 256, 256), (128, 512, 384), (130, 200, 70),
-                (37, 513, 129), (300, 1000, 77), (1, 1, 1), (64, 0, 32)]
+                (37, 513, 129), (300, 1000, 77), (1, 1, 1), (64, 0, 32),
+                (300, 512, 200), (37, 4096, 264)]
 
 
 def check_matmul(report: dict) -> float:
@@ -347,28 +386,36 @@ def check_matmul(report: dict) -> float:
     (its sweep has K <= 512): with N(0, 1) inputs at K = 4096 they reach
     ~64, and the kernel's float32 sum in k order then differs from the
     plain version's blocked sums by up to ~1e-3 where c is near 0 (an
-    error of ~1.6e-5 of the partial sums' size).  Returns the largest
-    float32 error at the node path's shape."""
+    error of ~1.6e-5 of the partial sums' size).  Each case names the
+    kernel it took and checks that path's counter; every path must be
+    taken.  Returns the largest error in each dtype at the node path's
+    shape."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.matmul import matmul_plain
-    worst, rows = 0.0, []
+    from repro_torch.kernels.matmul import (matmul_path, matmul_plain,
+                                            path_launches)
+    worst, rows = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for i, (m, k, n) in enumerate(MATMUL_CASES):
             scale = max(k, 1) ** -0.25
             a = _randn((m, k), torch.float32, 2 * i).mul_(scale).to(dtype)
             b = _randn((k, n), torch.float32, 2 * i + 1).mul_(scale).to(dtype)
+            path = matmul_path(a, b)
+            before = path_launches[path].count
             got = ops.matmul(a, b)
             torch.cuda.synchronize()
             ok, err = _close(got, matmul_plain(a, b), TOL[name])
-            row = {"dtype": name, "mkn": [m, k, n], "max_abs_err": err,
-                   "tol": TOL[name], "ok": ok}
+            ok = ok and path_launches[path].count == before + 1
+            row = {"dtype": name, "path": path, "mkn": [m, k, n],
+                   "max_abs_err": err, "tol": TOL[name], "ok": ok}
             rows.append(row)
             print(f"[check] matmul {row}", flush=True)
             _require(ok, f"matmul kernel against its plain version: {row}")
-            if name == "float32" and (m, k, n) == MATMUL_CASES[0]:
-                worst = err
+            if (m, k, n) == MATMUL_CASES[0]:
+                worst[name] = err
+    _require({r["path"] for r in rows} == set(path_launches),
+             "matmul checks took every path")
     report["matmul_checks"] = rows
     return worst
 
@@ -462,7 +509,7 @@ def check_stencil(report: dict) -> float:
 def _timing_row(kernel, plain, library, flops, nbytes, dtype_name, *,
                 iters, plain_iters=1, **extra) -> dict:
     ms = _time_ms(kernel, iters=iters)
-    plain_ms = _time_ms(plain, iters=plain_iters, warmup=1)
+    plain_ms = _time_ms(plain, iters=plain_iters, warmup=1, run_ahead=False)
     lib_ms = _time_ms(library, iters=iters)
     bound_ms, bound_by = _bound(flops, nbytes, dtype_name)
     return {"dtype": dtype_name, **extra, "ms": ms, "plain_ms": plain_ms,
@@ -472,10 +519,11 @@ def _timing_row(kernel, plain, library, flops, nbytes, dtype_name, *,
 
 def time_matmul(report: dict) -> list[dict]:
     """Kernel, plain version, ``torch.matmul`` (cuBLAS, no TF32) and the
-    bound at the node path's 4096^3, float32 and bfloat16."""
+    bound at the node path's 4096^3, float32 (the pipelined FMA path) and
+    bfloat16 (the wgmma path)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.matmul import matmul_path, matmul_plain
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
@@ -484,7 +532,8 @@ def time_matmul(report: dict) -> list[dict]:
         row = _timing_row(lambda: ops.matmul(a, b), lambda: matmul_plain(a, b),
                           lambda: torch.matmul(a, b), 2 * m * n * k,
                           (m * k + k * n + m * n) * dtype.itemsize, name,
-                          iters=10, shape=[m, k, n])
+                          iters=10, shape=[m, k, n],
+                          path=matmul_path(a, b))
         row["tflops"] = 2 * m * n * k / (row["ms"] * 1e-3) / 1e12
         rows.append(row)
         print(f"[time] matmul {row}", flush=True)
@@ -629,6 +678,7 @@ def node_dag(report: dict) -> dict:
     from repro_torch.kernels.stencil import stencil_plain
     counters = {"matmul": matmul.launches, "copy": copy.launches,
                 "stencil": stencil.launches}
+    mm_paths = matmul.path_launches
     warm, *_ = run_node_dag(NODE_TILES, DEVICE)
     _require(warm.n_tasks == NODE_TASKS and not warm.errors,
              f"warm-up node DAG: {warm.n_tasks} tasks, {warm.errors}")
@@ -636,12 +686,13 @@ def node_dag(report: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for c in counters.values():
+    for c in (*counters.values(), *mm_paths.values()):
         c.reset()
     t0 = time.perf_counter()
     metrics, sched, outputs, inputs, kind_of = run_node_dag(NODE_TILES, DEVICE)
     wall = time.perf_counter() - t0
     n_launch = {name: c.count for name, c in counters.items()}
+    n_mm_path = {path: c.count for path, c in mm_paths.items()}
 
     _require(not metrics.errors, f"node DAG payload errors: {metrics.errors}")
     _require(metrics.n_tasks == NODE_TASKS,
@@ -652,6 +703,9 @@ def node_dag(report: dict) -> dict:
     _require(n_launch == want and sum(n_tasks.values()) == NODE_TASKS,
              f"node DAG launches {n_launch}, want {want} for tasks "
              f"{n_tasks}")
+    _require(n_mm_path["fma_pipelined"] == n_launch["matmul"],
+             f"node DAG matmul paths {n_mm_path}: every float32 4096^3 "
+             f"product should take the pipelined FMA kernel")
 
     # same inputs and a deterministic kernel: every output of a type equal;
     # the first against the plain version
@@ -696,6 +750,7 @@ def node_dag(report: dict) -> dict:
         "high_placement": metrics.priority_placement(),
         "placement_counts": metrics.placement_counts(),
         "ptt_ms": ptt, "launches": n_launch,
+        "matmul_launches_by_path": n_mm_path,
         "plain_agreement_max_abs_err": {k: v[1] for k, v in agree.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -934,7 +989,7 @@ def main() -> int:
     report["build"] = built
     for name, res in built.items():
         regs = [ln.strip() for ln in res["log"].splitlines()
-                if "registers" in ln or "smem" in ln]
+                if "registers" in ln or "spill" in ln or "C75" in ln]
         print(f"[build] {name}: {res['seconds']:.1f} s {regs}", flush=True)
 
     flash_err = check_flash(report)
@@ -950,8 +1005,9 @@ def main() -> int:
     node = node_dag(report)
     served = [serve(report, get_config(arch)) for arch in ARCHS]
 
-    def kernel_row(name, row, max_err, replaces, by_path):
-        return {
+    def kernel_row(name, row, max_err, replaces, by_path, bf16=None,
+                   bf16_err=None):
+        out = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -961,6 +1017,16 @@ def main() -> int:
             "shape": row["shape"], "dtype": row["dtype"],
             "launches_by_path": by_path,
         }
+        if "path" in row:
+            out["path"] = row["path"]
+        if bf16 is not None:        # the redesigned kernels' bfloat16 path
+            out["bfloat16"] = {
+                "path": bf16["path"], "shape": bf16["shape"],
+                "max_abs_err": bf16_err, "ms": bf16["ms"],
+                "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+                "bound_by": bf16["bound_by"],
+                "library_ms": bf16["library_ms"]}
+        return out
 
     def served_by(name):
         return {o["arch"]: o["launches"][name] for o in served}
@@ -968,12 +1034,16 @@ def main() -> int:
     def node_by(name):
         return {"node_dag": node["launches"][name]}
 
+    def flash_at(dtype):           # granite-8b's heads at S = 1024
+        return next(r for r in flash_timing if r["dtype"] == dtype
+                    and r["shape"][1:4] == [32, 8, 1024])
+
     kernels = [
-        kernel_row("flash_attention",
-                   next(r for r in flash_timing if r["dtype"] == "float32"
-                        and r["shape"][3] == 1024),
-                   flash_err, "src/repro/kernels/flash_attention.py:79",
-                   served_by("flash_attention")),
+        kernel_row("flash_attention", flash_at("float32"),
+                   flash_err["float32"],
+                   "src/repro/kernels/flash_attention.py:79",
+                   served_by("flash_attention"), flash_at("bfloat16"),
+                   flash_err["bfloat16"]),
         kernel_row("ssd_scan",
                    next(r for r in ssd_timing if r["case"] == "zamba2"
                         and r["shape"][1] == 1024),
@@ -981,8 +1051,10 @@ def main() -> int:
                    served_by("ssd_scan")),
         kernel_row("matmul",
                    next(r for r in matmul_timing if r["dtype"] == "float32"),
-                   matmul_err, "src/repro/kernels/matmul.py:39",
-                   node_by("matmul")),
+                   matmul_err["float32"], "src/repro/kernels/matmul.py:39",
+                   node_by("matmul"),
+                   next(r for r in matmul_timing if r["dtype"] == "bfloat16"),
+                   matmul_err["bfloat16"]),
         kernel_row("stencil",
                    next(r for r in stencil_timing if not r["l2_resident"]),
                    stencil_err, "src/repro/kernels/stencil.py:45",

@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
 ``nvcc`` builds it in seconds into ``_build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt).  Nothing
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source is rebuilt).  The TMA kernels find the driver's
+``cuTensorMapEncodeTiled`` at run time (``csrc/hopper.cuh``), so no
+``-lcuda`` is needed.  Nothing
 builds when this module is imported: the first launch of a kernel, or an
 explicit :func:`build` (``chip_smoke.py`` times it), compiles.  Hopper only:
 the target is ``sm_90a``.
@@ -37,7 +40,8 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

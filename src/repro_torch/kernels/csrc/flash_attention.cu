@@ -1,4 +1,6 @@
-// Causal GQA flash attention (forward) for Hopper, sm_90a.
+// Causal GQA flash attention (forward) for Hopper, sm_90a: two kernels,
+// chosen by the wrapper (repro_torch/kernels/flash_attention.py::
+// flash_path).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (launched by flash_attention_pallas).  Same function:
@@ -8,32 +10,59 @@
 //   row i when j <= i + (T - S);
 //   online softmax with float32 running max m, normalizer l and accumulator;
 //   output in q's dtype, acc / l with l == 0 mapped to 1 as the reference does.
+// Both kernels: one block per (64-row q tile, q head, batch) walks the KV
+// axis in 64-key tiles itself (the loop takes the place of the TPU's
+// sequential grid axis; on Hopper nothing carries over between blocks), and
+// KV tiles wholly past the causal diagonal are never loaded.
 //
-// Design.  One block of 256 threads per (64-row q tile, q head, batch).  The
-// block stages its q tile once, then walks the KV axis in 64-key tiles staged
-// in shared memory (the loop takes the place of the TPU's sequential grid
-// axis; on Hopper nothing carries over between blocks).  KV tiles wholly past
-// the causal diagonal are never loaded.  A ragged S or T is masked here, so
-// every length takes the kernel.  Thread (ty, tx) = (tid / 16, tid % 16) owns
-// score rows ty + 16*i and score columns tx + 16*j (i, j < 4), and output
-// columns tx + 16*c (c < D / 16); the 16 threads of a row group sit in one
-// half-warp, so the row max and row sum are shuffle reductions.  Shared tiles
-// have padded rows (D + 4 floats) so that the float4 reads of the QK^T loop
-// are free of bank conflicts.
+// Bound.  4 D operations per live (query, key) pair: causal prefill at
+// granite-8b's heads (Hq 32, Hkv 8, D 128) and S = T = 1024 is ~8.6 GFLOP
+// against ~21 MB of q, k, v and o in bfloat16 (~42 MB in float32), far
+// above either ridge: bound by operations, 0.0087 ms at the 989 TFLOP/s
+// bfloat16 tensor-core peak, 0.128 ms at the 67 TFLOP/s float32 peak.
 //
-// Bound.  Causal prefill at granite-8b's heads (Hq 32, Hkv 8, D 128) does
-// 4*D flops per live (query, key) pair: at S = T = 1024 in float32 that is
-// ~8.6 GFLOP against ~42 MB of q, k, v and o, some 200 flops a byte, far
-// above the card's float32 ridge (~20), so the kernel is bound by operations.  This simple design runs
-// them as float32 FMAs on the CUDA cores (exact float32, as the reference
-// asks; the tensor cores would give TF32).  Left for a later change: wgmma
-// for bf16 inputs, TMA loads into a multi-stage ring with a producer warp,
-// and more than one block per SM at D = 128 (the tiles take 116 KiB).
+// bfloat16 (flash_wgmma_bf16; q, k, v 16-byte aligned): the tensor cores.
+// A block is one consumer warpgroup (the 64 query rows) and one producer
+// warp.  The producer loads the q tile once and keeps a 2-stage ring of
+// [64 x D] K and V tiles full, all by TMA (128-byte swizzle, 64-byte at
+// D = 32; D = 128 as two 64-column boxes) from 3-D maps [B Hq, S, D] and
+// [B Hkv, T, D], so a box past S or T is zero-filled, never read from the
+// next head; mbarriers guard each stage (TMA bytes in, one arrival per
+// consumer warp out).  S = Q K^T is wgmma m64n64k16 with both operands
+// K-major in shared memory; the softmax runs on the float32 accumulator
+// fragments in registers (a thread holds 2 rows x 16 scores; row max by
+// two shuffles in its quad, the row sum kept per thread and reduced once
+// at the end), in base 2 with the scale folded into one FMA.  P is
+// rounded to bfloat16 in registers, where the accumulator layout is
+// already wgmma's register-A layout, and O += P V is wgmma m64nDk16 with V
+// read N-major through the transpose bit.  Only tiles that cross the
+// diagonal or the end of T are masked.  Heavy q tiles (the causal rows
+// that see most keys) are scheduled first.  The reference computes P V in
+// float32 from float32 P; rounding P to bfloat16 adds at most 2^-9 |v| a
+// key (relative), inside the 2e-2 (1 + |o|) of the bfloat16 tolerance; l
+// sums the float32 p.
+//
+// float32, and bfloat16 off a 16-byte boundary (flash_fwd): float32 FMAs on
+// the CUDA cores (exact float32, as the reference's 2e-4 asks; the tensor
+// cores would give TF32).  256 threads; thread (ty, tx) = (tid / 16,
+// tid % 16) owns score rows ty + 16 i and columns tx + 16 j (i, j < 4) and
+// output columns tx + 16 c; the 16 threads of a row group sit in one
+// half-warp, so the row max and sum are shuffle reductions.  Tiles are
+// float32 in shared memory with padded rows (D + 4) so the float4 reads of
+// the QK^T loop are free of bank conflicts; K/V tiles load synchronously
+// between two barriers.  At D = 128 the tiles take 116 KiB: one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "hopper.cuh"
+
+
 namespace {
+
+using namespace hopper;
+
+// -- float32, and bfloat16 off a 16-byte boundary: FMA on the CUDA cores ---
 
 constexpr int BQ = 64;    // query rows per block
 constexpr int BK = 64;    // keys per KV tile
@@ -248,8 +277,275 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// -- bfloat16: TMA + wgmma ----------------------------------------------------
+
+namespace fa {
+
+constexpr int BQ = 64, BKV = 64;
+constexpr int NTH = 160;               // a consumer warpgroup + a producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span, bytes
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;       // descriptor swizzle
+  static constexpr int BOX = SW / 2;                     // D columns a box
+  static constexpr int BOX_BYTES = 64 * SW;              // a box of 64 rows
+  static constexpr int BYTES = 64 * D * 2;               // a [64 x D] tile
+  static constexpr int SMEM = 1024 + 5 * BYTES + 5 * 8;  // q, 2 x (k, v)
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 32)
+    wgmma_m64n32k16_rs_tb(d, a, db);
+  else if constexpr (D == 64)
+    wgmma_m64n64k16_rs_tb(d, a, db);
+  else
+    wgmma_m64n128k16_rs_tb(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH)
+    flash_wgmma_bf16(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     __nv_bfloat16* __restrict__ o, int hq, int hkv,
+                     int s_len, int t_len, int causal, float scale) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1k(smem_raw);
+  uint8_t* kv = qs + T::BYTES;         // stage s: K at kv + 2 s BYTES, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + 4 * T::BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = q_full + 3;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int offset = t_len - s_len;
+  int n_kv = (t_len + BKV - 1) / BKV;
+  if (causal) {
+    // the last live query row of this tile sees keys up to this position
+    const int last = min(q0 + BQ, s_len) - 1 + offset;
+    n_kv = min(n_kv, last / BKV + 1);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);         // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {            // the producer warp
+    if (threadIdx.x == 128) {
+      const int q_row = b * hq + h, kv_row = b * hkv + h / (hq / hkv);
+      mbar_expect_tx(q_full, T::BYTES);
+#pragma unroll
+      for (int j = 0; j < D / T::BOX; ++j)
+        tma_load_3d(qs + j * T::BOX_BYTES, &map_q, q_full, j * T::BOX, q0,
+                    q_row);
+      for (int jt = 0; jt < n_kv; ++jt) {
+        const int s = jt & 1;
+        if (jt >= 2) mbar_wait(&empty[s], ((jt >> 1) - 1) & 1);
+        uint8_t* ks = kv + 2 * s * T::BYTES;
+        mbar_expect_tx(&full[s], 2 * T::BYTES);
+#pragma unroll
+        for (int j = 0; j < D / T::BOX; ++j) {
+          tma_load_3d(ks + j * T::BOX_BYTES, &map_k, &full[s], j * T::BOX,
+                      jt * BKV, kv_row);
+          tma_load_3d(ks + T::BYTES + j * T::BOX_BYTES, &map_v, &full[s],
+                      j * T::BOX, jt * BKV, kv_row);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t holds rows r_lo and r_lo + 8 of the
+  // tile (the accumulator layout in hopper.cuh)
+  const int t = threadIdx.x, l4 = (t % 32) % 4;
+  const int r_lo = 16 * (t / 32) + (t % 32) / 4;
+  const float sl2 = scale * LOG2E;
+  float acc[D / 2], sc[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+  const uint32_t q_addr = smem_u32(qs);
+  mbar_wait(q_full, 0);
+
+  for (int jt = 0; jt < n_kv; ++jt) {
+    const int s = jt & 1;
+    mbar_wait(&full[s], (jt >> 1) & 1);
+    const uint32_t k_addr = smem_u32(kv + 2 * s * T::BYTES);
+    const uint32_t v_addr = k_addr + T::BYTES;
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off =
+          (16 * kk / T::BOX) * T::BOX_BYTES + (16 * kk % T::BOX) * 2;
+      wgmma_m64n64k16_ss(sc, smem_desc(q_addr + off, 16, 8 * T::SW, T::LAYOUT),
+                         smem_desc(k_addr + off, 16, 8 * T::SW, T::LAYOUT),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+
+    const int k0 = jt * BKV;
+    if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + 8 * (i / 4) + 2 * l4 + i % 2;
+        const int qp = q0 + r_lo + 8 * ((i / 2) % 2) + offset;
+        if (kp >= t_len || (causal && kp > qp)) sc[i] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i / 2) % 2)
+        mx1 = fmaxf(mx1, sc[i]);
+      else
+        mx0 = fmaxf(mx0, sc[i]);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+    // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;    // rows r_lo + 8 (j % 2)
+        const float mu = j % 2 ? mu1 : mu0;
+        const float p0 = exp2f(fmaf(sc[i], sl2, -mu));
+        const float p1 = exp2f(fmaf(sc[i + 1], sl2, -mu));
+        if (j % 2)
+          ps1 += p0 + p1;
+        else
+          ps0 += p0 + p1;
+        __nv_bfloat162 pr = __floats2bfloat162_rn(p0, p1);
+        pa[kk][j] = *reinterpret_cast<uint32_t*>(&pr);
+      }
+    l0 = al0 * l0 + ps0;
+    l1 = al1 * l1 + ps1;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(acc, pa[kk],
+                  smem_desc(v_addr + kk * 16 * T::SW, T::BOX_BYTES,
+                            8 * T::SW, T::LAYOUT));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    // the wgmma read P from these registers until now: keep them live
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
+    __syncwarp();
+    if (t % 32 == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  __nv_bfloat16* ob = o + (size_t)(b * hq + h) * s_len * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int hi = (i / 2) % 2;
+    const int row = q0 + r_lo + 8 * hi;
+    const int col = 8 * (i / 4) + 2 * l4;
+    const float inv = hi ? inv1 : inv0;
+    if (row < s_len)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + col) =
+          __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int hq, int hkv, int s_len, int t_len, int causal, float scale,
+           cudaStream_t stream) {
+  using T = Tile<D>;
+  const CUtensorMapSwizzle swz =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint32_t box[3] = {T::BOX, 64, 1};
+  const cuuint64_t q_dims[3] = {D, (cuuint64_t)s_len, (cuuint64_t)b * hq};
+  const cuuint64_t q_strides[2] = {D * 2, (cuuint64_t)s_len * D * 2};
+  const cuuint64_t kv_dims[3] = {D, (cuuint64_t)t_len, (cuuint64_t)b * hkv};
+  const cuuint64_t kv_strides[2] = {D * 2, (cuuint64_t)t_len * D * 2};
+  CUtensorMap map_q, map_k, map_v;
+  int err = bf16_map(&map_q, 3, q, q_dims, q_strides, box, swz);
+  if (!err) err = bf16_map(&map_k, 3, k, kv_dims, kv_strides, box, swz);
+  if (!err) err = bf16_map(&map_v, 3, v, kv_dims, kv_strides, box, swz);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((s_len + BQ - 1) / BQ, hq, b);
+  flash_wgmma_bf16<D><<<grid, NTH, T::SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), hq, hkv, s_len,
+      t_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fa
+
 }  // namespace
 
+// bfloat16 on the tensor cores; q, k, v and o 16-byte aligned (the wrapper
+// checks).  Returns 0 or a CUDA error code; a head size other than 32, 64
+// or 128 gives cudaErrorInvalidValue without a launch.
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
+                                           const void* v, void* o, int b,
+                                           int hq, int hkv, int s_len,
+                                           int t_len, int d, int causal,
+                                           float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return fa::launch<32>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                            scale, st);
+    case 64:
+      return fa::launch<64>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                            scale, st);
+    case 128:
+      return fa::launch<128>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                             scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The FMA kernel, float32 or bfloat16.
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
 // launch (0 on success); an unsupported dtype or head size gives
 // cudaErrorInvalidValue without a launch.

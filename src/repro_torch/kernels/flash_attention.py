@@ -7,15 +7,28 @@ reads KV head ``h // (Hq // Hkv)``; the causal mask aligns the ends of the
 windows (key j is live for row i when ``j <= i + T - S``); float32 online
 softmax; output in q's dtype.
 
-:func:`flash_attention` launches ``csrc/flash_attention.cu`` for a CUDA
-tensor (float32 or bfloat16, D in 32/64/128, any S and T) or raises; it
-takes :func:`flash_attention_plain` only for a tensor on the CPU.  The
-kernel has no backward: on the card it refuses inputs that require grad
-under grad mode rather than return a result cut off from autograd.  The
-plain version walks the kernel's tile schedule in torch: the same 64x64
-tiles, the same skip of KV tiles past the causal diagonal, the same
-online-softmax rescale.  It is the CPU path and the kernel's yardstick of
-correctness on the card, not of speed.
+:func:`flash_attention` launches a kernel of ``csrc/flash_attention.cu``
+for a CUDA tensor (float32 or bfloat16, D in 32/64/128, any S and T) or
+raises; it takes :func:`flash_attention_plain` only for a tensor on the
+CPU.  Which kernel is :func:`flash_path`, a plain function of the dtype and
+the alignment of the contiguous inputs:
+
+- ``"wgmma"``: bfloat16 with q, k and v on 16-byte boundaries.  Tensor
+  cores: TMA loads of q and a 2-stage K/V ring by a producer warp, S = QK^T
+  and O += PV by wgmma, the softmax on the accumulator in registers, P
+  rounded to bfloat16 for the PV product (the reference keeps P in
+  float32: at most 2^-9 of |v| a key, inside the bfloat16 tolerance).
+- ``"fma"``: float32, and bfloat16 off a 16-byte boundary: float32 FMAs on
+  the CUDA cores (the float32 tolerance of 2e-4 rules out TF32).
+
+``launches`` counts every launch; ``path_launches[path]`` those of one
+path.  The kernels have no backward: on the card the wrapper refuses
+inputs that require grad under grad mode rather than return a result cut
+off from autograd.  The plain version walks both kernels' tile schedule
+in torch: the same 64-row q tiles and 64-key KV tiles, the same skip of KV
+tiles past the causal diagonal, the same online-softmax rescale.  It is
+the CPU path and the kernels' yardstick of correctness on the card, not
+of speed.
 """
 from __future__ import annotations
 
@@ -25,12 +38,23 @@ import torch
 
 from .common import LaunchCounter, refuse_grad
 
-BQ = 64     # query rows per tile (BQ in csrc/flash_attention.cu)
-BK = 64     # keys per tile (BK in csrc/flash_attention.cu)
+BQ = 64     # query rows per tile (BQ, fa::BQ in csrc/flash_attention.cu)
+BK = 64     # keys per tile (BK, fa::BKV in csrc/flash_attention.cu)
 HEAD_DIMS = (32, 64, 128)
+PATHS = ("wgmma", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
+path_launches = {path: LaunchCounter() for path in PATHS}
+
+
+def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these contiguous inputs: one of
+    :data:`PATHS` (the module doc says which inputs go where)."""
+    if q.dtype == torch.bfloat16 and not any(t.data_ptr() % 16
+                                             for t in (q, k, v)):
+        return "wgmma"
+    return "fma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +95,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fast = lib.repro_flash_attention_wgmma
+        fast.restype = ctypes.c_int
+        fast.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     return lib
 
 
@@ -88,17 +115,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError("flash attention kernel needs non-empty inputs")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
+    path = flash_path(q, k, v)
     lib = _lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, hq, hkv, s, t, d, int(causal),
-            float(scale), stream)
+        if path == "wgmma":
+            err = lib.repro_flash_attention_wgmma(
+                *ptrs, b, hq, hkv, s, t, d, int(causal), float(scale), stream)
+        else:
+            err = lib.repro_flash_attention(
+                *ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, t, d,
+                int(causal), float(scale), stream)
     if err:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash attention kernel ({path}) launch failed: "
+                           f"CUDA error {err}")
     launches.add()
+    path_launches[path].add()
     return o
 
 

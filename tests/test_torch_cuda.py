@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
-                                                 launches)
+                                                 launches, path_launches)
 
 torch.set_num_threads(1)
 
@@ -50,6 +50,52 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
     want = flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
+    (1, 32, 8, 1024, 1024, 128, True),  # granite-8b's heads, GQA group 4
+    (1, 8, 8, 256, 256, 32, True),      # D = 32, group 1
+    (1, 8, 2, 256, 256, 64, True),      # D = 64, group 4
+    (2, 4, 4, 100, 100, 128, True),     # ragged S = T
+    (1, 8, 2, 37, 301, 64, True),       # T > S, both ragged
+    (1, 8, 8, 200, 520, 32, True),      # T > S
+    (1, 8, 2, 130, 70, 128, False),     # non-causal, T < S
+    (1, 4, 1, 64, 64, 32, False),       # one tile
+])
+def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
+    q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.bfloat16)
+    before = (launches.count, path_launches["wgmma"].count)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (launches.count, path_launches["wgmma"].count) == (before[0] + 1,
+                                                              before[1] + 1)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= 2e-2 * (1 + want.float().abs())).all())
+
+
+def test_flash_bf16_off_a_16_byte_boundary_takes_the_fma_path(card):
+    q, k, v = _qkv(card, 1, 4, 2, 128, 128, 64, torch.bfloat16)
+    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:]
+    q_off.copy_(q.reshape(-1))
+    q_off = q_off.view(q.shape)
+    assert q_off.data_ptr() % 16 and q_off.is_contiguous()
+    before = path_launches["fma"].count
+    got = flash_attention(q_off, k, v)
+    torch.cuda.synchronize()
+    assert path_launches["fma"].count == before + 1
+    torch.testing.assert_close(got.float(), flash_attention(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_float32_takes_the_fma_path(card):
+    q, k, v = _qkv(card, 1, 4, 2, 128, 128, 64, torch.float32)
+    before = path_launches["fma"].count
+    flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert path_launches["fma"].count == before + 1
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float32, 48)])
@@ -147,6 +193,60 @@ def test_matmul_kernel_matches_plain(card, dtype, tol, m, k, n):
     assert got.dtype == dtype and got.shape == (m, n)
     err = (got.float() - want.float()).abs()
     assert bool((err <= tol * (1 + want.float().abs())).all())
+
+
+def _matmul_case(card, m, k, n, dtype, seed=1):
+    scale = max(k, 1) ** -0.25
+    a = (_randn(card, (m, k), torch.float32, seed) * scale).to(dtype)
+    b = (_randn(card, (k, n), torch.float32, seed + 1) * scale).to(dtype)
+    return a, b
+
+
+def _matmul_on_path(a, b, path, tol):
+    before = (matmul.launches.count, matmul.path_launches[path].count)
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert (matmul.launches.count,
+            matmul.path_launches[path].count) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = matmul.matmul_plain(a, b)
+    assert got.dtype == a.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol * (1 + want.float().abs())).all())
+
+
+@pytest.mark.parametrize("dtype,tol,path", [
+    (torch.float32, 2e-4, "fma_pipelined"), (torch.bfloat16, 2e-2, "wgmma")])
+@pytest.mark.parametrize("m,k,n", [
+    (4096, 4096, 4096),                 # the node path's product
+    (256, 512, 512), (128, 64, 256),    # whole tiles of both fast paths
+    (300, 512, 200), (37, 4096, 264),   # TMA fills the edges with zeros
+    (129, 72, 264), (1, 8, 8),          # one ragged K step; a single row
+])
+def test_matmul_fast_paths(card, dtype, tol, path, m, k, n):
+    a, b = _matmul_case(card, m, k, n, dtype)
+    assert matmul.matmul_path(a, b) == path
+    _matmul_on_path(a, b, path, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n,offset", [
+    (130, 200, 70, False),              # N is no multiple of 16 bytes
+    (64, 34, 128, False),               # K is no multiple of 16 bytes
+    (37, 513, 129, False),
+    (256, 256, 256, True),              # a starts off a 16-byte boundary
+])
+def test_matmul_general_path(card, dtype, tol, m, k, n, offset):
+    a, b = _matmul_case(card, m, k, n, dtype)
+    if offset:
+        flat = torch.empty(a.numel() + 1, dtype=dtype, device=card)[1:]
+        flat.copy_(a.reshape(-1))
+        a = flat.view(m, k)
+        assert a.data_ptr() % 16 and a.is_contiguous()
+    assert matmul.matmul_path(a, b) == "general"
+    _matmul_on_path(a, b, "general", tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

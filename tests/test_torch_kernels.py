@@ -25,7 +25,7 @@ from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
-                                                 launches)
+                                                 flash_path, launches)
 
 torch.set_num_threads(1)
 
@@ -78,6 +78,41 @@ def test_flash_attention_bf16():
     qt, kt, vt = (torch.from_numpy(np.array(x.astype(jnp.float32)))
                   .to(torch.bfloat16) for x in (qb, kb, vb))
     got = flash_attention(qt, kt, vt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,offset,path", [
+    (torch.bfloat16, False, "wgmma"), (torch.bfloat16, True, "fma"),
+    (torch.float32, False, "fma"), (torch.float32, True, "fma")])
+def test_flash_path_choice(dtype, offset, path):
+    """bfloat16 on 16-byte boundaries goes to the tensor-core kernel,
+    everything else to the FMA kernel."""
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 4, 2, 64, 64, 32)))
+    if offset:
+        flat = torch.empty(k.numel() + 1, dtype=dtype)[1:]
+        flat.copy_(k.reshape(-1))
+        k = flat.view(v.shape)
+        assert k.data_ptr() % 16
+    assert flash_path(q, k, v) == path
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s,t,causal", [(64, 64, True), (128, 192, True),
+                                        (128, 128, False)])
+def test_flash_attention_bf16_tiles_match_pallas(d, s, t, causal):
+    """The plain version in bfloat16 at the head sizes of the tensor-core
+    path and across its 64-row and 64-key tile edges (one tile, T > S,
+    two tiles), against the Pallas kernel in interpret mode."""
+    q, k, v = _qkv(1, 4, 2, s, t, d, seed=d)
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(flash_attention_pallas(qb, kb, vb, causal=causal,
+                                             bq=64, bk=64, interpret=True),
+                      np.float32)
+    qt, kt, vt = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .to(torch.bfloat16) for x in (qb, kb, vb))
+    got = flash_attention_plain(qt, kt, vt, causal=causal)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                atol=2e-2)

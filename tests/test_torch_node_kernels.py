@@ -62,6 +62,61 @@ def test_matmul_matches_pallas_and_ref(m, k, n, dtype, tol):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+def _offset_view(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous tensor one element past an aligned
+    start, so its pointer is off a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
+@pytest.mark.parametrize("dtype,m,k,n,offset,path", [
+    (torch.bfloat16, 4096, 4096, 4096, False, "wgmma"),
+    (torch.bfloat16, 300, 512, 200, False, "wgmma"),      # TMA-filled edges
+    (torch.bfloat16, 37, 4096, 264, False, "wgmma"),
+    (torch.bfloat16, 1, 8, 8, False, "wgmma"),
+    (torch.bfloat16, 64, 36, 128, False, "general"),      # K % 8
+    (torch.bfloat16, 64, 64, 132, False, "general"),      # N % 8
+    (torch.bfloat16, 256, 256, 256, True, "general"),     # a off 16 bytes
+    (torch.float32, 4096, 4096, 4096, False, "fma_pipelined"),
+    (torch.float32, 300, 512, 200, False, "fma_pipelined"),
+    (torch.float32, 64, 36, 132, False, "fma_pipelined"),  # 16-byte rows
+    (torch.float32, 130, 200, 70, False, "general"),      # N % 4
+    (torch.float32, 37, 513, 129, False, "general"),      # K % 4
+    (torch.float32, 256, 256, 256, True, "general"),
+    (torch.float32, 64, 0, 32, False, "general"),         # K = 0
+    (torch.bfloat16, 64, 0, 32, False, "general"),
+])
+def test_matmul_path_choice(dtype, m, k, n, offset, path):
+    """Which kernel takes a product is a plain function of dtype, shape
+    and alignment; on the CPU the same function picks the tiles that the
+    plain version walks."""
+    a, b = torch.zeros((m, k), dtype=dtype), torch.zeros((k, n), dtype=dtype)
+    if offset:
+        a = _offset_view(a)
+        assert a.data_ptr() % 16
+    assert matmul.matmul_path(a, b) == path
+    assert matmul.matmul_path(a, b) in matmul.PATHS
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 256), (128, 128, 384),
+                                   (256, 256, 512), (384, 128, 768)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
+                                       ("bfloat16", 2e-2)])
+def test_matmul_plain_at_the_fast_paths_tiles_matches_pallas(m, k, n, dtype,
+                                                             tol):
+    """N across the 128 x 256 output tiles of both fast paths (one tile, a
+    tile and a ragged half, two and three tiles), against the Pallas
+    kernel in interpret mode."""
+    ja, ta = _pair(_normal((m, k), 11), dtype)
+    jb, tb = _pair(_normal((k, n), 12), dtype)
+    assert matmul.TILES[matmul.matmul_path(ta, tb)] == (128, 256)
+    got = matmul.matmul_plain(ta, tb)
+    np.testing.assert_allclose(
+        _f32(got), _f32(matmul_pallas(ja, jb, interpret=True)), rtol=tol,
+        atol=tol)
+
+
 @pytest.mark.parametrize("m,k,n", [(130, 70, 200), (1, 300, 7), (37, 1, 129)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
                                        ("bfloat16", 2e-2)])
