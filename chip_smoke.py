@@ -12,9 +12,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    per source, all started together) and time the build;
 3. hold each kernel against its plain torch version on the card, at the
    main paths' shapes and at ragged, short, batched and empty cases, in
-   float32 and bfloat16 (flash attention 2e-4, SSD scan 3e-3, matmul
-   2e-4 x (1 + |c|), stencil 1e-5; bfloat16 2e-2), the copy bit for bit
-   (also int32) into a fresh buffer; each matmul and flash case names the
+   float32 and bfloat16 (flash attention 2e-4, SSD scan 3e-3 x (1 + |y|),
+   its largest relative error kept per case, matmul 2e-4 x (1 + |c|),
+   stencil 1e-5; bfloat16 2e-2), the copy bit for bit (also int32, and
+   uint8 at the edges of its bulk ring's stages) into a fresh buffer;
+   each matmul and flash case names the
    kernel path it took and checks that path's launch counter, and every
    path is taken (matmul: ``wgmma``, ``fma_pipelined``, ``general``;
    flash attention: ``wgmma``, ``fma``);
@@ -23,7 +25,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
    the SSD scan) and its bound, at the paths' shapes (the stencil's bound
    row at [8, 4096, 4096], past the L2), the matmul and flash attention
-   in both dtypes, each row naming its path;
+   in both dtypes, each row naming its path, the SSD rows with the
+   wrapper's time per call (host included) and the passes' scratch;
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
@@ -277,7 +280,9 @@ def _ssd_inputs(b, s, h, d, n, dtype, decay, seed):
 
 # (b, s, h, d, n, decay): zamba2's heads (H 32, D 128, N 64), the mLSTM
 # values (B * 4 heads folded, D = N = 384) and normalizer (D 1), a ragged S,
-# S shorter than one chunk, B > 1 with D and N that the tiles do not divide
+# S shorter than one chunk, B > 1 with D and N that the tiles do not divide;
+# 64 chunks of state passing; B > 1 and H > 1 with states that underflow;
+# the normalizer at the served length
 SSD_CASES = [
     (1, 256, 32, 128, 64, "mild"),
     (1, 1024, 32, 128, 64, "mild"),
@@ -287,6 +292,9 @@ SSD_CASES = [
     (4, 300, 1, 384, 384, "strong"),
     (2, 37, 4, 32, 16, "mild"),
     (3, 200, 2, 48, 100, "mlstm"),
+    (1, 4096, 32, 128, 64, "mild"),
+    (2, 1024, 32, 128, 64, "strong"),
+    (4, 1024, 1, 1, 384, "mlstm"),
 ]
 
 
@@ -311,6 +319,8 @@ def check_ssd(report: dict) -> float:
                   and got.dtype == dtype and got.shape == x.shape)
             row = {"dtype": name, "shape": [b, s, h, d, n], "decay": decay,
                    "max_abs_err": float(err.max()),
+                   "max_rel_err": float((err / (1.0 + want.float().abs()))
+                                        .max()),
                    "max_abs_out": float(want.float().abs().max()),
                    "tol": SSD_TOL[name], "ok": ok}
             rows.append(row)
@@ -324,9 +334,13 @@ def check_ssd(report: dict) -> float:
 
 def time_ssd(report: dict) -> list[dict]:
     """Kernel, plain version and the bound at the served shapes, float32
-    (no single PyTorch call computes the scan: library_ms is null)."""
+    (no single PyTorch call computes the scan: library_ms is null), with
+    the wrapper's time per call, host included (``call_ms``), and the
+    passes' scratch (``scratch_mb``, the design's cost, not in the
+    bound)."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (scratch_floats, ssd_scan,
+                                              ssd_scan_plain)
     rows = []
     for s in (256, 1024):
         for label, (b, h, d, n, decay) in (
@@ -338,10 +352,14 @@ def time_ssd(report: dict) -> list[dict]:
             ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20)
             plain_ms = _time_ms(lambda: ssd_scan_plain(x, a, bm, cm),
                                 iters=3, warmup=1, run_ahead=False)
+            call_ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20,
+                               run_ahead=False)
             flops, nbytes = _ssd_work(b, s, h, d, n, torch.float32)
             bound_ms, bound_by = _bound(flops, nbytes, "float32")
             row = {"case": label, "dtype": "float32", "shape": [b, s, h, d, n],
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "ms": ms, "call_ms": call_ms,
+                   "scratch_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
+                   "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                    "tflops": flops / (ms * 1e-3) / 1e12}
@@ -424,39 +442,55 @@ COPY_CASES = [(8192, 8192), (512, 1024), (1000, 77), (12345,), (3, 5, 7),
               ()]
 
 
+def _copy_edge_bytes() -> list[int]:
+    """uint8 sizes at the bulk copy ring's edges: one byte under one stage,
+    exactly one stage, one stage and one 16-byte word, and a size that is
+    not a multiple of 16 bytes."""
+    from repro_torch.kernels.copy import STAGE_BYTES
+    return [STAGE_BYTES - 1, STAGE_BYTES, STAGE_BYTES + 16,
+            3 * STAGE_BYTES + 5]
+
+
 def check_copy(report: dict) -> float:
     """Kernel against its plain version on the card, bit for bit, in
     float32, bfloat16 and int32, at the node path's [8192, 8192], aligned,
     ragged (a byte count that is not a multiple of 16) and 0-d shapes, and
     from a view that does not start on a 16-byte boundary.  The output is
     a fresh buffer: another address, and writing to it leaves x as it
-    was.  Returns 0.0, the error of a run in which every case is exact."""
+    was.  Then uint8 at the bulk copy ring's edges (``_copy_edge_bytes``).
+    Returns 0.0, the error of a run in which every case is exact."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.copy import copy_plain
     rows = []
+
+    def check(x, shape_label):
+        got = ops.copy(x)
+        torch.cuda.synchronize()
+        want = copy_plain(x)
+        ok = (torch.equal(got, want) and torch.equal(got, x)
+              and got.dtype == x.dtype and got.data_ptr() != x.data_ptr())
+        if ok:
+            got.zero_()                       # the input must not move
+            ok = torch.equal(x, want)
+        row = {"dtype": str(x.dtype).removeprefix("torch."),
+               "shape": shape_label, "x_mod_16": x.data_ptr() % 16,
+               "exact": ok}
+        rows.append(row)
+        print(f"[check] copy {row}", flush=True)
+        _require(ok, f"copy kernel against its plain version: {row}")
+
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        name = str(dtype).removeprefix("torch.")
-        for i, shape in enumerate(COPY_CASES + ["offset"]):
-            if shape == "offset":            # contiguous, 1 element in
-                base = _randn((1 + 4099,), torch.float32, 50) * 1000
-                x = base.to(dtype)[1:]
-            else:
-                x = (_randn(shape, torch.float32, 40 + i) * 1000).to(dtype)
-            got = ops.copy(x)
-            torch.cuda.synchronize()
-            want = copy_plain(x)
-            ok = (torch.equal(got, want) and torch.equal(got, x)
-                  and got.dtype == dtype and got.data_ptr() != x.data_ptr())
-            if ok:
-                got.zero_()                   # the input must not move
-                ok = torch.equal(x, want)
-            row = {"dtype": name, "shape": (list(x.shape) if shape != "offset"
-                                            else "offset 1, [4099]"),
-                   "x_mod_16": x.data_ptr() % 16, "exact": ok}
-            rows.append(row)
-            print(f"[check] copy {row}", flush=True)
-            _require(ok, f"copy kernel against its plain version: {row}")
+        for i, shape in enumerate(COPY_CASES):
+            check((_randn(shape, torch.float32, 40 + i) * 1000).to(dtype),
+                  list(shape))
+        base = _randn((1 + 4099,), torch.float32, 50) * 1000
+        check(base.to(dtype)[1:], "offset 1, [4099]")  # contiguous, 1 in
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(41)
+    for n in _copy_edge_bytes():
+        check(torch.randint(0, 256, (n,), generator=g, device=DEVICE,
+                            dtype=torch.uint8), [n])
     report["copy_checks"] = rows
     return 0.0
 

@@ -23,6 +23,7 @@ import torch
 from .common import LaunchCounter, refuse_grad
 
 BM, BN = 512, 1024     # the plain version's tiles (copy_pallas's defaults)
+STAGE_BYTES = 32 * 1024   # a stage of the kernel's bulk copy ring (kStageBytes)
 
 launches = LaunchCounter()
 

@@ -8,38 +8,49 @@ function: x ``[B, S, H, D]``, log-decay a ``[B, S, H]`` (a <= 0), b and c
     h_t = exp(a_t) h_{t-1} + x_t (x) b_t,   y_t = h_t c_t
 
 and the state h ``[D, N]`` of each (batch, head) in float32, zero at the
-start.  Per chunk of ``CHUNK`` tokens, with Acum the cumulative sum of a
-from the chunk's start:
+start.  Per chunk c of ``CHUNK`` tokens, with Acum the cumulative sum of a
+from the chunk's start and h_c the state at the chunk's start:
 
-    y  = tril(exp(Acum_t - Acum_u) * (C_t . B_u)) @ x + exp(Acum_t) * (C_t . h)
-    h <- exp(A_tot) h + (x * exp(A_tot - Acum))^T @ B
+    y  = tril(exp(Acum_t - Acum_u) * (C_t . B_u)) @ x + exp(Acum_t) * (C_t . h_c)
+    h_{c+1} = exp(A_tot) h_c + s_c,   s_c = (x * exp(A_tot - Acum))^T @ B
+
+The chunks are computed in parallel, as the Mamba-2 paper splits its
+chunked algorithm (Dao & Gu, arXiv:2405.21060, section 6), in four passes:
+(1) C . B^T of every chunk, once for all heads, and Acum; (2) every
+chunk's local end state s_c; (3) the states passed from chunk to chunk,
+the only sequential step, elementwise over the state; (4) every chunk's
+output.
 
 :func:`ssd_scan` launches ``csrc/ssd_scan.cu`` for a CUDA tensor (all four
-inputs float32 or all bfloat16, any S and D, and N up to what a block's
-shared memory holds) or raises;
-it takes :func:`ssd_scan_plain` only for a tensor on the CPU.  The kernel
-reads the ``[B, S, H, D]`` layout with its own offsets: the wrapper makes the
-inputs contiguous and transposes nothing (the TPU wrapper moved H before S).
-It has no backward, and refuses inputs that require grad under grad mode.
+inputs float32 or all bfloat16, any S, D and N: every pass tiles N) or
+raises; it takes :func:`ssd_scan_plain` only for a
+tensor on the CPU.  The four passes are one C call and count as one launch.
+The wrapper makes the inputs contiguous, transposes nothing (the TPU
+wrapper moved H before S), and allocates the passes' float32 scratch with
+``torch.empty``: C . B^T ``[B, nc, L, L]``, Acum ``[B, nc, H, L]`` and the
+states ``[B, nc, H, N, D]`` (nc chunks of L = ``CHUNK``).  The kernel has
+no backward, and refuses inputs that require grad under grad mode.
 
-The plain version walks the kernel's schedule in torch: the same chunk
-length, the same chunk-relative cumulative sum, the same select of the
-causal triangle before the exponential (above the diagonal
-exp(Acum_t - Acum_u) overflows), the same carried float32 state; a ragged
-last chunk is the kernel's zero-padded one.  It is the CPU path and the
-kernel's yardstick of correctness on the card, not of speed.
+The plain version walks the same schedule in torch: all chunks' C . B^T
+and local states at once as batched einsums, the states passed in a loop
+over the chunks, then all outputs at once; the same chunk length, the same
+chunk-relative cumulative sum, the same select of the causal triangle
+before the exponential (above the diagonal exp(Acum_t - Acum_u) overflows),
+float32 throughout; a ragged last chunk is zero-padded, as in the kernel.
+It is the CPU path and the kernel's yardstick of correctness on the card,
+not of speed.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .common import LaunchCounter, refuse_grad
 
 CHUNK = 64     # tokens per chunk (L in csrc/ssd_scan.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_STATE_TOO_WIDE = -1   # kStateTooWide in csrc/ssd_scan.cu
 
 launches = LaunchCounter()
 
@@ -78,8 +89,16 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i,
+                       i, p]
     return lib
+
+
+def scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
+    """Floats of scratch the kernel's passes use: C . B^T, Acum and the
+    chunk states, one after the other."""
+    nc = -(-s // CHUNK)
+    return bsz * nc * (CHUNK * CHUNK + h * CHUNK + h * n * d)
 
 
 def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -92,20 +111,21 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if min(bsz, s, h, d, n) == 0:
         raise ValueError(f"SSD scan kernel needs non-empty inputs; got x "
                          f"{tuple(x.shape)}, N={n}")
-    if bsz > 65535 or h > 65535:
-        raise ValueError(f"SSD scan kernel takes B and H <= 65535; got "
-                         f"{bsz}, {h}")
+    if h > 65535 or bsz * -(-s // CHUNK) > 65535:
+        raise ValueError(f"SSD scan kernel takes H <= 65535 and "
+                         f"B * ceil(S / {CHUNK}) <= 65535; got x "
+                         f"{tuple(x.shape)}")
     x, a, b, c = (t.contiguous() for t in (x, a, b, c))
     y = torch.empty_like(x)
+    n_scratch = scratch_floats(bsz, s, h, d, n)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), _DTYPE_CODE[x.dtype], bsz, s, h, d, n, stream)
-    if err == _STATE_TOO_WIDE:
-        raise ValueError(f"SSD scan kernel: a block's rows of the [D, N] "
-                         f"state do not fit in shared memory at N = {n}")
+            y.data_ptr(), scratch.data_ptr(), n_scratch,
+            _DTYPE_CODE[x.dtype], bsz, s, h, d, n, stream)
     if err:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {err}")
     launches.add()
@@ -114,27 +134,43 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in torch, chunk by chunk, in float32."""
+    """The kernel's four passes in torch, in float32."""
     _check(x, a, b, c)
     bsz, s, h, d = x.shape
-    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
-    state = torch.zeros((bsz, h, d, b.shape[2]), device=x.device)
-    ys = []
-    for t0 in range(0, s, CHUNK):
-        t1 = min(t0 + CHUNK, s)
-        xc, bc, cc = xf[:, t0:t1], bf[:, t0:t1], cf[:, t0:t1]
-        acum = torch.cumsum(af[:, t0:t1], dim=1)                # [B,L,H]
-        a_tot = acum[:, -1]                                     # [B,H]
-        live = torch.ones(t1 - t0, t1 - t0, dtype=torch.bool,
-                          device=x.device).tril()[None, :, :, None]
-        diff = acum[:, :, None, :] - acum[:, None, :, :]        # [B,t,u,H]
-        decay = torch.exp(torch.where(live, diff, float("-inf")))
-        g = torch.einsum("btn,bun->btu", cc, bc)[..., None] * decay
-        y = torch.einsum("btuh,buhd->bthd", g, xc)
-        y = y + torch.exp(acum)[..., None] * torch.einsum(
-            "btn,bhdn->bthd", cc, state)
-        ys.append(y)
-        w = torch.exp(a_tot[:, None] - acum)                    # [B,L,H]
-        state = torch.exp(a_tot)[..., None, None] * state + torch.einsum(
-            "buhd,buh,bun->bhdn", xc, w, bc)
-    return torch.cat(ys, dim=1).to(x.dtype)
+    n = b.shape[2]
+    nc = -(-s // CHUNK)
+    pad = nc * CHUNK - s
+
+    def chunks(t, *tail):          # zero-pad S, then [B, nc, L, ...]
+        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(bsz, nc, CHUNK, *tail)
+
+    xc, ac = chunks(x, h, d), chunks(a, h)
+    bc, cc = chunks(b, n), chunks(c, n)
+
+    # pass 1: C . B^T once per (batch, chunk) for all heads; Acum
+    cb = torch.einsum("bctn,bcun->bctu", cc, bc)             # [B,nc,L,L]
+    acum = torch.cumsum(ac, dim=2)                           # [B,nc,L,H]
+    a_tot = acum[:, :, -1]                                   # [B,nc,H]
+
+    # pass 2: each chunk's local end state, [N, D] per (batch, chunk, head)
+    w = torch.exp(a_tot[:, :, None] - acum)                  # [B,nc,L,H]
+    local = torch.einsum("bcun,bcuh,bcuhd->bchnd", bc, w, xc)
+
+    # pass 3: the states passed along the chunks; h_c at chunk c's start
+    run = torch.zeros((bsz, h, n, d), device=x.device)
+    starts = []
+    for ci in range(nc):
+        starts.append(run)
+        run = torch.exp(a_tot[:, ci])[..., None, None] * run + local[:, ci]
+    hs = torch.stack(starts, dim=1)                          # [B,nc,H,N,D]
+
+    # pass 4: every chunk's output (select the triangle, then decay)
+    live = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
+                      device=x.device).tril()[:, :, None]
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]   # [B,nc,t,u,H]
+    decay = torch.exp(torch.where(live, diff, float("-inf")))
+    y = torch.einsum("bctu,bctuh,bcuhd->bcthd", cb, decay, xc)
+    y = y + torch.exp(acum)[..., None] * torch.einsum(
+        "bctn,bchnd->bcthd", cc, hs)
+    return y.reshape(bsz, nc * CHUNK, h, d)[:, :s].to(x.dtype)

@@ -127,6 +127,12 @@ def _ssd_inputs(card, b, s, h, d, n, dtype, strong=False):
     (4, 130, 1, 1, 384, True),        # mLSTM normalizer (D = 1)
     (2, 37, 4, 32, 16, False),        # S shorter than one chunk
     (3, 150, 2, 48, 100, False),      # D and N the tiles do not divide
+    (1, 4096, 32, 128, 64, False),    # 64 chunks of state passing
+    (2, 1024, 32, 128, 64, True),     # B > 1 and H > 1, states underflow
+    (4, 1024, 1, 1, 384, True),       # the normalizer at the served length
+    (2, 300, 3, 18, 98, False),       # D, N off 16 bytes: plain loads
+    (1, 40, 2, 1, 100, True),         # S < 64 with D = 1
+    (1, 130, 2, 16, 4096, False),     # N wider than shared memory's tiles
 ])
 def test_ssd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n, strong):
     x, a, bm, cm = _ssd_inputs(card, b, s, h, d, n, dtype, strong)
@@ -149,9 +155,32 @@ def test_ssd_kernel_refuses_what_it_does_not_take(card):
         ops.ssd_scan(x, a, bm, cm[:, :, :4])
     with pytest.raises(ValueError):                      # a does not fit x
         ops.ssd_scan(x, a[:, :, :1], bm, cm)
-    big = torch.zeros((1, 64, 4096), device=card)        # state too wide
+    # B * ceil(S / 64) chunks past a grid dimension (65535)
+    many = [torch.zeros(shape, device=card) for shape in
+            ((65536, 64, 1, 4), (65536, 64, 1), (65536, 64, 4),
+             (65536, 64, 4))]
     with pytest.raises(ValueError):
-        ops.ssd_scan(x, a, big, big)
+        ops.ssd_scan(*many)
+
+
+def test_ssd_kernel_reads_no_stale_scratch(card):
+    """The passes' scratch is ``torch.empty``: every pass writes all that a
+    later one reads.  A block of NaNs freed just before the call (the
+    caching allocator hands it out again), then a second call on other
+    inputs, each against the plain version; each call counts one launch
+    for its four passes."""
+    shapes = (1, 300, 4, 64, 64)
+    poison = torch.full((ssd_scan.scratch_floats(*shapes),), float("nan"),
+                        device=card)
+    del poison
+    for strong in (False, True):
+        x, a, bm, cm = _ssd_inputs(card, *shapes, torch.float32, strong)
+        before = ssd_scan.launches.count
+        got = ops.ssd_scan(x, a, bm, cm)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches.count == before + 1
+        want = ssd_scan.ssd_scan_plain(x, a, bm, cm)
+        torch.testing.assert_close(got, want, rtol=3e-3, atol=3e-3)
 
 
 def test_kernels_refuse_inputs_that_need_a_gradient(card):
@@ -270,6 +299,34 @@ def test_copy_kernel_from_an_unaligned_view(card):
     x = base[1:]                      # contiguous, 4 bytes off 16
     assert x.data_ptr() % 16
     assert torch.equal(ops.copy(x), x)
+
+
+@pytest.mark.parametrize("n_bytes,offset", [
+    (copy.STAGE_BYTES - 1, 0),        # one byte under one stage
+    (copy.STAGE_BYTES, 0),            # exactly one stage
+    (copy.STAGE_BYTES + 16, 0),       # one stage and one word
+    (5 * copy.STAGE_BYTES + 7, 0),    # not a multiple of 16 bytes
+    (1000 * copy.STAGE_BYTES + 48, 0),  # ranges that split stages
+    (1, 0),
+    (copy.STAGE_BYTES + 16, 3),       # an unaligned view: bytes
+])
+def test_copy_kernel_at_the_ring_edges(card, n_bytes, offset):
+    """Byte counts at the edges of the bulk copy ring's stages, exact and
+    into a fresh buffer, one launch counted a call."""
+    g = torch.Generator(device=card)
+    g.manual_seed(n_bytes)
+    base = torch.randint(0, 256, (n_bytes + offset,), generator=g,
+                         device=card, dtype=torch.uint8)
+    x = base[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = copy.launches.count
+    got = ops.copy(x)
+    torch.cuda.synchronize()
+    assert copy.launches.count == before + 1
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+    keep = x.clone()
+    got.fill_(7)
+    assert torch.equal(x, keep)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

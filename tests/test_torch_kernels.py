@@ -8,11 +8,13 @@ the kernel's tile schedule, so these sweeps check the kernel's algorithm:
 the 64x64 tiles, the causal tile skip, the ragged-edge masking and the
 online-softmax rescale, against ``flash_attention_pallas(interpret=True)``
 and ``attention_ref``.  Likewise ``ssd_scan_plain`` walks the SSD
-kernel's chunk schedule (chunk length, chunk-relative cumulative sum, the
-causal select before the exponential, the carried state, the zero-padded
-ragged chunk), held against ``ssd_scan_pallas(interpret=True)`` and
-``ssd_ref``.  Tolerances are the reference's own (``tests/test_kernels.py``):
-2e-4 in float32 and 2e-2 in bfloat16 for attention, 3e-3 for the SSD scan.
+kernel's schedule (chunk length, chunk-relative cumulative sum, the causal
+select before the exponential, the states passed along the chunks, the
+zero-padded ragged chunk), held against ``ssd_scan_pallas(interpret=True)``
+and ``ssd_ref``; its four passes (the chunks in parallel, as the kernel
+runs them) are held against the chunk-by-chunk walk at 1e-5.  Tolerances
+are the reference's own (``tests/test_kernels.py``): 2e-4 in float32 and
+2e-2 in bfloat16 for attention, 3e-3 for the SSD scan.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -245,6 +247,66 @@ def test_ssd_plain_version_is_differentiable_on_the_cpu():
     ops.ssd_scan(x, a, bm, cm).square().sum().backward()
     for t in (x, a, bm, cm):
         assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+def _chunk_walk(x, a, b, c):
+    """The chunk-by-chunk walk that the SSD kernel made before its chunks
+    ran in parallel: one chunk after the other, the float32 state carried
+    from each to the next."""
+    bsz, s, h, d = x.shape
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    state = torch.zeros((bsz, h, d, b.shape[2]))
+    ys = []
+    for t0 in range(0, s, ssd_scan.CHUNK):
+        t1 = min(t0 + ssd_scan.CHUNK, s)
+        xc, bc, cc = xf[:, t0:t1], bf[:, t0:t1], cf[:, t0:t1]
+        acum = torch.cumsum(af[:, t0:t1], dim=1)                # [B,L,H]
+        a_tot = acum[:, -1]                                     # [B,H]
+        live = torch.ones(t1 - t0, t1 - t0, dtype=torch.bool).tril()
+        diff = acum[:, :, None, :] - acum[:, None, :, :]        # [B,t,u,H]
+        decay = torch.exp(torch.where(live[None, :, :, None], diff,
+                                      float("-inf")))
+        g = torch.einsum("btn,bun->btu", cc, bc)[..., None] * decay
+        y = torch.einsum("btuh,buhd->bthd", g, xc)
+        y = y + torch.exp(acum)[..., None] * torch.einsum(
+            "btn,bhdn->bthd", cc, state)
+        ys.append(y)
+        w = torch.exp(a_tot[:, None] - acum)                    # [B,L,H]
+        state = torch.exp(a_tot)[..., None, None] * state + torch.einsum(
+            "buhd,buh,bun->bhdn", xc, w, bc)
+    return torch.cat(ys, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("b,s,h,d,n,decay", [
+    (2, 64, 3, 16, 8, "mild"),        # one chunk
+    (1, 128, 2, 32, 16, "mild"),      # exactly two chunks
+    (1, 1024, 2, 8, 8, "strong"),     # 16 chunks of state passing
+    (2, 192, 1, 1, 384, "strong"),    # the mLSTM normalizer's D = 1, N 384
+    (2, 150, 2, 16, 8, "mild"),       # a ragged last chunk
+])
+def test_ssd_parallel_chunks_match_the_chunk_walk(b, s, h, d, n, decay):
+    """The plain version's four passes (all chunks' C . B^T and local
+    states at once, then the states passed along, then all outputs at once)
+    against the sequential walk over the chunks, in float32."""
+    x, a, bm, cm = _t(*_ssd_inputs(b, s, h, d, n, decay, seed=6))
+    got = ssd_scan.ssd_scan_plain(x, a, bm, cm)
+    want = _chunk_walk(x, a, bm, cm)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ssd_scratch_size_counts_every_pass():
+    """C . B^T [B, nc, L, L], Acum [B, nc, H, L] and the states
+    [B, nc, H, N, D], nc = ceil(S / L): 16.8 MB of states at zamba2's
+    heads and S = 1024."""
+    bsz, s, h, d, n = 1, 1024, 32, 128, 64
+    nc = 16
+    states = bsz * nc * h * n * d
+    assert ssd_scan.scratch_floats(bsz, s, h, d, n) == (
+        bsz * nc * 64 * 64 + bsz * nc * h * 64 + states)
+    assert states * 4 == 16_777_216
+    assert ssd_scan.scratch_floats(1, 65, 1, 1, 8) == 2 * (4096 + 64 + 8)
 
 
 @pytest.mark.parametrize("shapes", [

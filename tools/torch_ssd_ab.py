@@ -1,0 +1,97 @@
+"""Card time of the SSD scan kernel at the served shapes, for comparing two
+trees of the port in one chip call.
+
+    python tools/torch_ssd_ab.py [--src DIR] [--label NAME] [--iters 20]
+
+Imports ``repro_torch`` from ``DIR`` (default: this tree's ``src``), so
+the kernel of another checkout (for example the parent commit unpacked
+into an ignored directory) is timed by the same code: run parent, change,
+change, parent, one process each.  The shapes and inputs are
+``chip_smoke.py``'s: zamba2's heads, the mLSTM values and the mLSTM
+normalizer at S = 256, 1024 and 4096, float32, card time from CUDA events
+around ``--iters`` calls after a spin kernel holds the stream; with
+``--profile``, also each pass's card time from ``torch.profiler``.  Prints
+one JSON object (label, source, the card's name and power limit, ms by
+shape) and appends it to ``chiprun_out/ssd_ab.jsonl``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+CASES = {"zamba2": (1, 32, 128, 64, "mild"),
+         "mlstm_values": (4, 1, 384, 384, "mlstm"),
+         "mlstm_normalizer": (4, 1, 1, 384, "mlstm")}
+
+
+def _passes_us(cs, ssd_scan, s, b, h, d, n, decay, calls=10) -> dict:
+    """Card time of each kernel that one call launches, in microseconds
+    (the mean over ``calls`` calls, from ``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, torch.float32, decay,
+                                  seed=99)
+    ssd_scan.ssd_scan(x, a, bm, cm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ssd_scan.ssd_scan(x, a, bm, cm)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        name = re.search(r"ssd_\w+(<[^>]*>)?", evt.key)
+        if us and name:
+            out[name.group(0)] = out.get(name.group(0), 0.0) + us / calls
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--profile", action="store_true",
+                    help="also the card time of each pass (torch.profiler) "
+                         "at S = 1024")
+    args = ap.parse_args()
+    import chip_smoke as cs           # puts this tree's src on the path
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+    from repro_torch.kernels import ssd_scan
+    if not torch.cuda.is_available():
+        print("torch_ssd_ab: no CUDA card", file=sys.stderr)
+        return 1
+    rows = []
+    for s in (256, 1024, 4096):
+        for label, (b, h, d, n, decay) in CASES.items():
+            x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, torch.float32,
+                                          decay, seed=99)
+            ms = cs._time_ms(lambda: ssd_scan.ssd_scan(x, a, bm, cm),
+                             iters=args.iters)
+            rows.append({"case": label, "shape": [b, s, h, d, n], "ms": ms})
+    out = {"label": args.label, "source": ssd_scan.__file__,
+           "nvidia_smi": cs._smi(), "rows": rows}
+    if args.profile:
+        out["passes_us"] = {
+            label: _passes_us(cs, ssd_scan, 1024, *spec)
+            for label, spec in CASES.items()}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with open(out_dir / "ssd_ab.jsonl", "a") as f:
+        f.write(json.dumps(out) + "\n")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
