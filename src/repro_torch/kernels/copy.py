@@ -23,7 +23,6 @@ import torch
 from .common import LaunchCounter, refuse_grad
 
 BM, BN = 512, 1024     # the plain version's tiles (copy_pallas's defaults)
-STAGE_BYTES = 32 * 1024   # a stage of the kernel's bulk copy ring (kStageBytes)
 
 launches = LaunchCounter()
 
@@ -53,6 +52,12 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, ctypes.c_longlong, p]
     return lib
+
+
+def stage_bytes() -> int:
+    """Bytes a stage of the kernel's bulk copy ring (``kStageBytes`` in
+    ``csrc/copy.cu``); builds the kernel on first use."""
+    return _lib().repro_copy_stage_bytes()
 
 
 def _launch(x: torch.Tensor) -> torch.Tensor:

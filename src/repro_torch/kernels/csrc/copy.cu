@@ -39,10 +39,10 @@
 namespace {
 
 constexpr int NTH = 256;                  // threads of a copy_bytes block
-constexpr int kMaxStages = 8;
 constexpr int kStages = 3;                // ring stages a block
 constexpr int kStageBytes = 32 * 1024;    // bytes a stage
 constexpr int kBlocksPerSm = 2;           // persistent blocks an SM
+static_assert(kStageBytes % 16 == 0, "bulk copies move whole 16-byte words");
 
 // L2 evict-first, for data that is not read again
 __device__ __forceinline__ uint64_t evict_first_policy() {
@@ -88,46 +88,46 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // y[0 : n_bytes) = x[0 : n_bytes), n_bytes a multiple of 16, x and y on
-// 16-byte boundaries, in pieces of stage_bytes: block i moves pieces i,
+// 16-byte boundaries, in pieces of kStageBytes: block i moves pieces i,
 // i + grid, i + 2 grid, ...  One warp a block; lane 0 works.
 __global__ void __launch_bounds__(32)
     copy_ring(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-              long long n_bytes, int stages, int stage_bytes) {
+              long long n_bytes) {
   extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ uint64_t full[kMaxStages];
+  __shared__ uint64_t full[kStages];
   if (threadIdx.x != 0) return;
-  const long long all = (n_bytes + stage_bytes - 1) / stage_bytes;
+  const long long all = (n_bytes + kStageBytes - 1) / kStageBytes;
   if (blockIdx.x >= all) return;
   const long long n_pieces = (all - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const long long step = (long long)gridDim.x * stage_bytes;
-  const long long first = (long long)blockIdx.x * stage_bytes;
+  const long long step = (long long)gridDim.x * kStageBytes;
+  const long long first = (long long)blockIdx.x * kStageBytes;
   const uint64_t policy = evict_first_policy();
-  for (int s = 0; s < stages; ++s) hopper::mbar_init(&full[s], 1);
+  for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], 1);
   hopper::fence_barrier_init();
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 
   auto piece_bytes = [&](long long p) {
-    return (uint32_t)min((long long)stage_bytes, n_bytes - first - p * step);
+    return (uint32_t)min((long long)kStageBytes, n_bytes - first - p * step);
   };
   auto load = [&](long long p) {
-    const int s = (int)(p % stages);
+    const int s = (int)(p % kStages);
     const uint32_t bytes = piece_bytes(p);
     hopper::mbar_expect_tx(&full[s], bytes);
-    bulk_load(ring + (size_t)s * stage_bytes, x + first + p * step, bytes,
+    bulk_load(ring + (size_t)s * kStageBytes, x + first + p * step, bytes,
               &full[s], policy);
   };
 
-  for (long long p = 0; p < stages && p < n_pieces; ++p) load(p);
+  for (long long p = 0; p < kStages && p < n_pieces; ++p) load(p);
   for (long long i = 0; i < n_pieces; ++i) {
-    const int s = (int)(i % stages);
-    hopper::mbar_wait(&full[s], (uint32_t)((i / stages) & 1));
-    bulk_store(y + first + i * step, ring + (size_t)s * stage_bytes,
+    const int s = (int)(i % kStages);
+    hopper::mbar_wait(&full[s], (uint32_t)((i / kStages) & 1));
+    bulk_store(y + first + i * step, ring + (size_t)s * kStageBytes,
                piece_bytes(i), policy);
     bulk_commit();
     // the store of piece i - 1 has read its stage: load it again
-    if (i >= 1 && i - 1 + stages < n_pieces) {
+    if (i >= 1 && i - 1 + kStages < n_pieces) {
       bulk_wait_read<1>();
-      load(i - 1 + stages);
+      load(i - 1 + kStages);
     }
   }
   bulk_wait<0>();
@@ -156,21 +156,18 @@ int grid_for_bytes(long long n_bytes) {
   return (int)(want < 1 ? 1 : (want < most ? want : most));
 }
 
-// The bulk ring over n_bytes (a multiple of 16) with `stages` stages of
-// `stage_bytes` (a multiple of 16) and at most blocks_per_sm blocks an SM.
-int launch_ring(const uint8_t* x, uint8_t* y, long long n_bytes, int stages,
-                int stage_bytes, int blocks_per_sm, cudaStream_t stream) {
-  if (stages < 2 || stages > kMaxStages || stage_bytes % 16 || n_bytes % 16)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)stages * stage_bytes;
+// The bulk ring over n_bytes (a multiple of 16), at most kBlocksPerSm
+// blocks an SM.
+int launch_ring(const uint8_t* x, uint8_t* y, long long n_bytes,
+                cudaStream_t stream) {
+  constexpr int smem = kStages * kStageBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      copy_ring, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      copy_ring, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long pieces = (n_bytes + stage_bytes - 1) / stage_bytes;
-  const long long most = (long long)sm_count() * blocks_per_sm;
+  const long long pieces = (n_bytes + kStageBytes - 1) / kStageBytes;
+  const long long most = (long long)sm_count() * kBlocksPerSm;
   const long long grid = pieces < most ? pieces : most;
-  copy_ring<<<(unsigned)grid, 32, smem, stream>>>(x, y, n_bytes, stages,
-                                                   stage_bytes);
+  copy_ring<<<(unsigned)grid, 32, smem, stream>>>(x, y, n_bytes);
   return (int)cudaGetLastError();
 }
 
@@ -191,11 +188,14 @@ extern "C" int repro_copy(const void* x, void* y, long long n_bytes,
   const long long body = n_bytes / 16 * 16;
   const long long tail = n_bytes - body;
   if (body > 0) {
-    const int err = launch_ring(xb, yb, body, kStages, kStageBytes,
-                                kBlocksPerSm, stream);
+    const int err = launch_ring(xb, yb, body, stream);
     if (err) return err;
   }
   if (tail > 0)
     copy_bytes<<<1, NTH, 0, stream>>>(xb + body, yb + body, tail);
   return (int)cudaGetLastError();
 }
+
+// Bytes a stage of the ring: the tests and chip_smoke.py place their
+// sizes at its edges.
+extern "C" int repro_copy_stage_bytes() { return kStageBytes; }

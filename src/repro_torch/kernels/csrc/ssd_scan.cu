@@ -14,10 +14,13 @@
 //   h_{c+1} = exp(A_tot) h_c + s_c,  s_c = (x * exp(A_tot - Acum))^T @ B
 //
 // Bound.  At zamba2's heads (H 32, D 128, N 64) and S = 1024 the function
-// is ~1.35 GFLOP against ~34 MB of x, a, b, c and y: ~40 flops a byte,
-// above the card's float32 ridge (~20), so bound by operations; at mLSTM's
-// D = N = 384 more so.  The D = 1 normalizer is bound by neither: its work
-// is C . B^T and a few microseconds of launches.  The design below moves
+// is ~1.35 GFLOP against ~34 MB of x, a, b, c and y: ~40 flops a byte.
+// All but C . B^T and the decays (under 0.5% of the flops) run below on
+// the tensor cores in 3xTF32, at a third of TF32's dense 495 TFLOP/s, so
+// the ridge is ~49 flops a byte and zamba2 is bound by bytes (~10 us);
+// mLSTM's values (D = N = 384, ~2.6 GFLOP against ~25 MB) are bound by
+// the tensor cores' operations (~15 us).  The D = 1 normalizer runs on
+// FMAs and is bound by reading b and c (~4 us).  The design below moves
 // more: the chunk states go through device memory (16.8 MB at zamba2,
 // S = 1024), written by pass 2, read and written by pass 3, read by pass
 // 4, and that traffic, not the arithmetic, sets the kernel's time.
@@ -807,3 +810,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* a, const void* b,
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// D below this takes the narrow passes 2 and 4 (float32 FMAs); wider D runs
+// their products on the tensor cores in 3xTF32.
+extern "C" int repro_ssd_narrow_d() { return NARROW_D; }

@@ -94,6 +94,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def narrow_d() -> int:
+    """D below which the kernel runs passes 2 and 4 as float32 FMAs
+    (``NARROW_D`` in ``csrc/ssd_scan.cu``); wider D runs their products
+    on the tensor cores in 3xTF32.  Builds the kernel on first use."""
+    return _lib().repro_ssd_narrow_d()
+
+
 def scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
     """Floats of scratch the kernel's passes use: C . B^T, Acum and the
     chunk states, one after the other."""

@@ -16,6 +16,9 @@ runs them) are held against the chunk-by-chunk walk at 1e-5.  Tolerances
 are the reference's own (``tests/test_kernels.py``): 2e-4 in float32 and
 2e-2 in bfloat16 for attention, 3e-3 for the SSD scan.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -307,6 +310,38 @@ def test_ssd_scratch_size_counts_every_pass():
         bsz * nc * 64 * 64 + bsz * nc * h * 64 + states)
     assert states * 4 == 16_777_216
     assert ssd_scan.scratch_floats(1, 65, 1, 1, 8) == 2 * (4096 + 64 + 8)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_ssd", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("b,s,h,d,n,by", [
+    (1, 1024, 32, 128, 64, "bytes"),        # zamba2's heads
+    (4, 1024, 1, 384, 384, "operations"),   # the mLSTM values
+    (4, 1024, 1, 1, 384, "bytes"),          # the mLSTM normalizer
+])
+def test_ssd_bound_prices_each_product_at_its_unit(b, s, h, d, n, by):
+    """``chip_smoke.py``'s SSD bound: the products that the kernel runs in
+    3xTF32 (D at or above its narrow threshold, 16) at a third of TF32's
+    peak, the rest at the float32 FMA peak; the kinds add up to the same
+    flops whichever path, and the bound is the longest of bytes and each
+    kind's operations."""
+    cs = _chip_smoke()
+    wide, nbytes = cs._ssd_work(b, s, h, d, n, torch.float32, 16)
+    fma, nbytes_fma = cs._ssd_work(b, s, h, d, n, torch.float32, d + 1)
+    assert set(fma) == {"float32"} and nbytes == nbytes_fma
+    assert sum(wide.values()) == fma["float32"]
+    assert set(wide) == ({"float32", "3xtf32"} if d >= 16 else {"float32"})
+    ms, bound_by = cs._bound(wide, nbytes)
+    times = [nbytes / 3.35e12] + [f / cs.H100_PEAK_FLOPS[k]
+                                  for k, f in wide.items()]
+    assert bound_by == by and ms == pytest.approx(max(times) * 1e3)
+    assert cs.H100_PEAK_FLOPS["3xtf32"] == pytest.approx(495e12 / 3)
 
 
 @pytest.mark.parametrize("shapes", [
