@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the hand-written sm_90a kernels: TMA
-// tensor maps and loads, mbarriers, cp.async, and the wgmma instructions
-// with their shared-memory descriptors, all as raw PTX (no CUTLASS or CuTe:
-// a source that includes this builds in seconds).
+// tensor maps and loads, mbarriers, cp.async, the TF32 mma.sync product and
+// its 3xTF32 split, and the wgmma instructions with their shared-memory
+// descriptors, all as raw PTX (no CUTLASS or CuTe: a source that includes
+// this builds in seconds).
 //
 // Tensor maps are encoded on the host for every call by the driver's
 // cuTensorMapEncodeTiled, found with dlsym in the libcuda.so.1 that the
@@ -144,6 +145,30 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// -- device: TF32 tensor-core products (mma.sync) -----------------------------
+
+// v as a TF32 pair: hi = v rounded to TF32, lo = the rest rounded to TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// d += a b for one 16 x 8 x 8 TF32 tile (row-major A, column-major B).
+// Fragment layouts (lane = 4 g + q): A rows g, g + 8 and columns q, q + 4
+// (a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)); B rows q,
+// q + 4 and column g; C row g (c0, c1) and g + 8 (c2, c3), columns 2 q and
+// 2 q + 1.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // -- device: warpgroups and wgmma ---------------------------------------------

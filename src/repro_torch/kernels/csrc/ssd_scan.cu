@@ -156,23 +156,8 @@ struct Wide {
 };
 constexpr int LDK = TILE + 8;  // row stride of a K-major [k][row] A tile
 
-// v as a TF32 pair: hi = v rounded to TF32, lo = the rest rounded to TF32
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
-}
-
-// d += a b for one 16 x 8 x 8 TF32 tile (row-major A, column-major B)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using hopper::mma_tf32;
+using hopper::split_tf32;
 
 // acc += A B over one K tile of 64 for this warp's 32 x 32 block, in
 // 3xTF32: each operand split into a TF32 high and low part, and

@@ -18,13 +18,19 @@ the alignment of the contiguous inputs:
   and O += PV by wgmma, the softmax on the accumulator in registers, P
   rounded to bfloat16 for the PV product (the reference keeps P in
   float32: at most 2^-9 of |v| a key, inside the bfloat16 tolerance).
-- ``"fma"``: float32, and bfloat16 off a 16-byte boundary: float32 FMAs on
-  the CUDA cores (the float32 tolerance of 2e-4 rules out TF32).
+- ``"tf32x3"``: float32 with q, k and v on 16-byte boundaries.  Tensor
+  cores in 3xTF32 (``mma.sync``; each operand split into a TF32 high and
+  low part, three products summed in float32, which keeps float32's
+  accuracy): K and V by 16-byte ``cp.async``, the next tile's loading
+  while this one is computed, the softmax and P in registers, the
+  heaviest causal q tiles first.
+- ``"fma"``: float32 or bfloat16 off a 16-byte boundary: float32 FMAs on
+  the CUDA cores.
 
 ``launches`` counts every launch; ``path_launches[path]`` those of one
 path.  The kernels have no backward: on the card the wrapper refuses
 inputs that require grad under grad mode rather than return a result cut
-off from autograd.  The plain version walks both kernels' tile schedule
+off from autograd.  The plain version walks the kernels' tile schedule
 in torch: the same 64-row q tiles and 64-key KV tiles, the same skip of KV
 tiles past the causal diagonal, the same online-softmax rescale.  It is
 the CPU path and the kernels' yardstick of correctness on the card, not
@@ -38,10 +44,10 @@ import torch
 
 from .common import LaunchCounter, refuse_grad
 
-BQ = 64     # query rows per tile (BQ, fa::BQ in csrc/flash_attention.cu)
-BK = 64     # keys per tile (BK, fa::BKV in csrc/flash_attention.cu)
+BQ = 64     # query rows per tile (BQ, x3::BQ, fa::BQ in the .cu)
+BK = 64     # keys per tile (BK, x3::BKV, fa::BKV)
 HEAD_DIMS = (32, 64, 128)
-PATHS = ("wgmma", "fma")
+PATHS = ("wgmma", "tf32x3", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
@@ -51,10 +57,9 @@ path_launches = {path: LaunchCounter() for path in PATHS}
 def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these contiguous inputs: one of
     :data:`PATHS` (the module doc says which inputs go where)."""
-    if q.dtype == torch.bfloat16 and not any(t.data_ptr() % 16
-                                             for t in (q, k, v)):
-        return "wgmma"
-    return "fma"
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        return "fma"
+    return "wgmma" if q.dtype == torch.bfloat16 else "tf32x3"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,18 +92,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    else scale)
 
 
-def _lib() -> ctypes.CDLL:
-    from .build import load
-    lib = load("flash_attention")
-    fn = lib.repro_flash_attention
-    if fn.argtypes is None:
+_ENTRY = {"wgmma": "repro_flash_attention_wgmma",
+          "tf32x3": "repro_flash_attention_tf32x3",
+          "fma": "repro_flash_attention"}
+_fns: dict = {}
+
+
+def _fn(path: str):
+    """The C entry point of ``path``, typed on first use and then cached
+    (the wrapper's host time counts beside a kernel of a few microseconds)."""
+    fn = _fns.get(path)
+    if fn is None:
+        from .build import load
+        fn = getattr(load("flash_attention"), _ENTRY[path])
         p, i = ctypes.c_void_p, ctypes.c_int
+        dtype = [i] if path == "fma" else []
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, p]
-        fast = lib.repro_flash_attention_wgmma
-        fast.restype = ctypes.c_int
-        fast.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
-    return lib
+        fn.argtypes = [p, p, p, p, *dtype, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        _fns[path] = fn
+    return fn
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -116,17 +129,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     path = flash_path(q, k, v)
-    lib = _lib()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if path == "wgmma":
-            err = lib.repro_flash_attention_wgmma(
-                *ptrs, b, hq, hkv, s, t, d, int(causal), float(scale), stream)
-        else:
-            err = lib.repro_flash_attention(
-                *ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, t, d,
-                int(causal), float(scale), stream)
+    fn = _fn(path)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *([_DTYPE_CODE[q.dtype]] if path == "fma" else []), b, hq, hkv,
+            s, t, d, int(causal), float(scale))
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash attention kernel ({path}) launch failed: "
                            f"CUDA error {err}")

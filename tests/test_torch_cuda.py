@@ -90,12 +90,69 @@ def test_flash_bf16_off_a_16_byte_boundary_takes_the_fma_path(card):
                                rtol=2e-2, atol=2e-2)
 
 
-def test_flash_float32_takes_the_fma_path(card):
+def _off16(x):
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
+@pytest.mark.parametrize("offset,path", [(False, "tf32x3"), (True, "fma")])
+def test_flash_float32_takes_the_fma_path(card, offset, path):
+    """float32 on 16-byte boundaries takes the 3xTF32 kernel; with q off
+    one, the FMA kernel."""
     q, k, v = _qkv(card, 1, 4, 2, 128, 128, 64, torch.float32)
-    before = path_launches["fma"].count
-    flash_attention(q, k, v)
+    if offset:
+        q = _off16(q)
+        assert q.data_ptr() % 16 and q.is_contiguous()
+    before = {p: c.count for p, c in path_launches.items()}
+    got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert path_launches["fma"].count == before + 1
+    assert {p: c.count - before[p] for p, c in path_launches.items()} == {
+        p: int(p == path) for p in path_launches}
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               rtol=2e-4, atol=2e-4)
+
+
+FLASH_F32_KEEP = 2e-5   # the float32 error under which 3xTF32 is kept
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
+    (1, 32, 8, 1024, 1024, 128, True),  # granite-8b's heads, GQA group 4
+    (1, 32, 32, 1024, 1024, 64, True),  # zamba2-1.2b's shared attention
+    (1, 8, 8, 256, 256, 32, True),      # D = 32, group 1
+    (1, 8, 2, 256, 256, 64, True),      # D = 64, group 4
+    (2, 4, 4, 100, 100, 128, True),     # ragged S = T
+    (1, 8, 2, 37, 301, 64, True),       # T > S, both ragged
+    (1, 8, 8, 200, 520, 32, True),      # T > S
+    (1, 8, 2, 130, 70, 128, False),     # non-causal, T < S
+    (1, 4, 1, 300, 300, 128, False),    # non-causal, ragged, group 4
+    (1, 4, 1, 40, 40, 32, True),        # S < 64: one ragged tile
+    (2, 8, 2, 1, 65, 64, True),         # one query row
+])
+def test_flash_float32_takes_the_tf32x3_path(card, b, hq, hkv, s, t, d,
+                                             causal):
+    q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.float32)
+    before = (launches.count, path_launches["tf32x3"].count)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (launches.count, path_launches["tf32x3"].count) == (before[0] + 1,
+                                                               before[1] + 1)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = (got - want).abs()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= FLASH_F32_KEEP * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("scale", [0.3, -0.3])
+def test_flash_float32_explicit_scale(card, scale):
+    """The 3xTF32 kernel folds the scale into q: a given scale, of either
+    sign, gives the plain version's result."""
+    q, k, v = _qkv(card, 1, 4, 2, 130, 130, 64, torch.float32)
+    got = flash_attention(q, k, v, scale=scale)
+    want = flash_attention_plain(q, k, v, scale=scale)
+    assert bool(((got - want).abs() <= FLASH_F32_KEEP * (1 + want.abs()))
+                .all())
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float32, 48)])

@@ -89,18 +89,22 @@ def test_flash_attention_bf16():
 
 
 @pytest.mark.parametrize("dtype,offset,path", [
-    (torch.bfloat16, False, "wgmma"), (torch.bfloat16, True, "fma"),
-    (torch.float32, False, "fma"), (torch.float32, True, "fma")])
+    (torch.bfloat16, None, "wgmma"), (torch.bfloat16, "k", "fma"),
+    (torch.float32, None, "tf32x3"), (torch.float32, "k", "fma"),
+    (torch.float32, "q", "fma"), (torch.float32, "v", "fma")])
 def test_flash_path_choice(dtype, offset, path):
-    """bfloat16 on 16-byte boundaries goes to the tensor-core kernel,
-    everything else to the FMA kernel."""
-    q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 4, 2, 64, 64, 32)))
+    """q, k and v on 16-byte boundaries go to a tensor-core kernel
+    (bfloat16: wgmma, float32: 3xTF32), any of them off one to the FMA
+    kernel."""
+    qkv = {name: t.to(dtype)
+           for name, t in zip("qkv", _t(*_qkv(1, 4, 2, 64, 64, 32)))}
     if offset:
-        flat = torch.empty(k.numel() + 1, dtype=dtype)[1:]
-        flat.copy_(k.reshape(-1))
-        k = flat.view(v.shape)
-        assert k.data_ptr() % 16
-    assert flash_path(q, k, v) == path
+        x = qkv[offset]
+        flat = torch.empty(x.numel() + 1, dtype=dtype)[1:]
+        flat.copy_(x.reshape(-1))
+        qkv[offset] = flat.view(x.shape)
+        assert qkv[offset].data_ptr() % 16
+    assert flash_path(qkv["q"], qkv["k"], qkv["v"]) == path
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -121,6 +125,23 @@ def test_flash_attention_bf16_tiles_match_pallas(d, s, t, causal):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s,t,causal", [(64, 64, True), (128, 192, True),
+                                        (128, 128, False)])
+def test_flash_attention_float32_tiles_match_pallas(d, s, t, causal):
+    """The plain version in float32 at the head sizes of the 3xTF32 path
+    and across its 64-row and 64-key tile edges (one tile, T > S, two
+    tiles), against the Pallas kernel in interpret mode, at the
+    reference's 2e-4."""
+    q, k, v = _qkv(1, 4, 2, s, t, d, seed=d + 1)
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=64, bk=64, interpret=True))
+    got = flash_attention_plain(*_t(q, k, v), causal=causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
 def test_torch_attention_ref_matches_jax_ref():
@@ -342,6 +363,28 @@ def test_ssd_bound_prices_each_product_at_its_unit(b, s, h, d, n, by):
                                   for k, f in wide.items()]
     assert bound_by == by and ms == pytest.approx(max(times) * 1e3)
     assert cs.H100_PEAK_FLOPS["3xtf32"] == pytest.approx(495e12 / 3)
+
+
+@pytest.mark.parametrize("path,unit,peak", [
+    ("tf32x3", "3xtf32", 495e12 / 3),   # float32 on the tensor cores
+    ("fma", "float32", 67e12),          # float32 FMAs
+    ("wgmma", "bfloat16", 989e12),      # bfloat16 on the tensor cores
+])
+def test_flash_bound_prices_each_path_at_its_unit(path, unit, peak):
+    """``chip_smoke.py``'s flash bound at granite-8b's heads and S = 1024:
+    a ``tf32x3`` row's products at a third of TF32's peak (0.052 ms), an
+    ``fma`` row's at the float32 FMA peak (0.128 ms), a ``wgmma`` row's at
+    the bfloat16 tensor-core peak; bound by operations in each."""
+    cs = _chip_smoke()
+    dtype = torch.bfloat16 if path == "wgmma" else torch.float32
+    flops, nbytes = cs._attention_work(1, 32, 8, 1024, 1024, 128, dtype)
+    assert flops == 4 * 32 * 128 * (1024 * 1025 // 2)
+    assert cs.FLASH_UNIT[path] == unit
+    ms, bound_by = cs._bound({cs.FLASH_UNIT[path]: flops}, nbytes)
+    assert bound_by == "operations"
+    assert ms == pytest.approx(flops / peak * 1e3)
+    assert ms == pytest.approx({"tf32x3": 0.0521, "fma": 0.1283,
+                                "wgmma": 0.00869}[path], rel=2e-3)
 
 
 @pytest.mark.parametrize("shapes", [
