@@ -45,30 +45,37 @@
 // sums the float32 p.
 //
 // float32 (flash_tf32x3; q, k, v 16-byte aligned): the tensor cores in
-// 3xTF32, mma.sync m16n8k8.  Each float32 operand is split into a TF32
-// high and low part and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32
-// (the low parts' product is below float32's rounding), which keeps
-// float32's accuracy (one TF32 product keeps ~3 digits; the reference asks
-// 2e-4).  A block is 4 warps, each owning 16 query rows across the whole
-// KV tile; lane 4 g + c holds rows g and g + 8.  Q is read once into
-// registers, scaled by scale log2(e) (scores in base 2, for any sign of
-// the scale), and split again for each KV tile (held split it would not
-// fit the registers at D = 128).  K and V come through shared memory by
-// 16-byte cp.async, zero-filled past T, one buffer each: V of a tile loads
-// while S = Q K^T is computed and the next K while O += P V is, so a
-// block's loads overlap its arithmetic, and 2 (D = 128) to 4 (D = 32)
-// blocks share an SM.  The contraction orders are free, and are chosen so
-// that every shared read is a float4 free of bank conflicts: QK^T gives
-// lane c the columns 16 t + 4 c .. + 3 for k-steps 2t and 2t + 1 (K rows
-// padded to 16 floats mod 32), and P V takes key 2 c, 2 c + 1 as k = c,
-// c + 4, so P's A fragment is the score fragment in registers (no
-// shuffles, no shared staging) and V's B fragment is rows 2 c and 2 c + 1,
-// with O's columns permuted within blocks of 32 so that a lane reads
-// 4 n-tiles' columns in one float4 (V rows padded to 4 floats mod 32) and
-// stores 8 contiguous columns of a row.  The softmax runs on the fragments
-// in registers as in the wgmma kernel (row max by two quad shuffles, the
-// sums per lane, only tiles across the diagonal or the end of T masked).
-// The q tile is the grid's slowest axis, heaviest first.
+// 3xTF32, mma.sync m16n8k8.  Each float32 operand is a TF32 pair: the high
+// part is the value itself (the tensor cores read a TF32 operand's top 19
+// bits, i.e. truncate it), the low part the value minus that truncation
+// (exact; truncated in turn), and a_lo b_hi + a_hi b_lo + a_hi b_hi are
+// summed in float32 (the low parts' product is below float32's rounding),
+// which keeps float32's accuracy (one TF32 product keeps ~3 digits; the
+// reference asks 2e-4).  A block is 4 warps, each owning 16 query rows
+// across the whole 64-key tile; lane 4 g + c holds rows g and g + 8.  K
+// and V come through shared memory by 16-byte cp.async, zero-filled past
+// T, one buffer each: V of a tile loads while S = Q K^T is computed and
+// the next K while O += P V is, so a block's loads overlap its arithmetic;
+// 2 (D = 128) or 3 blocks share an SM.  Every operand fragment comes from
+// shared memory as a float4 or two float2s that land in the registers the
+// mma wants (the contraction orders and O's columns are free, and chosen
+// so), with no register moves and no bank conflicts:
+//   Q, scaled by scale log2(e) (scores in base 2, for either sign of the
+//   scale), is stored once in fragment order, a quad a (k-step, lane);
+//   QK^T's k-steps 2t and 2t + 1 give lane c the columns 16 t + 4 c .. + 3,
+//   so K's B fragments are the halves of one float4 a row (rows padded to
+//   16 floats mod 32);
+//   O is accumulated transposed, O^T += V^T P^T, with key 2 c, 2 c + 1 as
+//   k = c, c + 4: P^T's B fragments are then the score fragments as they
+//   stand (no shuffles, no shared staging), and V^T's A fragment is V's
+//   rows 2 c and 2 c + 1 at columns 2 g, 2 g + 1 of a 16-column block
+//   (rows padded to 4 floats mod 16; O's column order inside the block
+//   follows).
+// The softmax runs on the score fragments in registers as in the wgmma
+// kernel (row max by two quad shuffles, the sums per lane, only tiles
+// across the diagonal or the end of T masked); O^T's rescale takes each q
+// row's factor from the lanes that hold the row.  The q tile is the grid's
+// slowest axis, heaviest first.
 //
 // bfloat16 off a 16-byte boundary, and float32 off one (flash_fwd):
 // float32 FMAs on the CUDA cores.  256 threads; thread (ty, tx) = (tid / 16,
@@ -309,33 +316,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 namespace x3 {
 
-// The design's A/B variants (tools/torch_flash_ab.py builds them); the
-// defaults are the kernel the wrapper launches.  WARPS: warps a block;
-// SPLIT: 0 rounds both TF32 parts, 1 masks (see split); SM_WARPS_<D>: the
-// warps an SM is to hold at head size D, which caps the registers.
-#ifndef REPRO_FLASH_X3_WARPS
-#define REPRO_FLASH_X3_WARPS 4
-#endif
-#ifndef REPRO_FLASH_X3_SPLIT
-#define REPRO_FLASH_X3_SPLIT 0
-#endif
-#ifndef REPRO_FLASH_X3_SM_WARPS_128
-#define REPRO_FLASH_X3_SM_WARPS_128 8
-#endif
-#ifndef REPRO_FLASH_X3_SM_WARPS_64
-#define REPRO_FLASH_X3_SM_WARPS_64 12
-#endif
-#ifndef REPRO_FLASH_X3_SM_WARPS_32
-#define REPRO_FLASH_X3_SM_WARPS_32 12
-#endif
-#ifndef REPRO_FLASH_X3_ORDER
-#define REPRO_FLASH_X3_ORDER 0
-#endif
-#ifndef REPRO_FLASH_X3_SKIP
-#define REPRO_FLASH_X3_SKIP 0
-#endif
-
-constexpr int NW = REPRO_FLASH_X3_WARPS;  // warps a block, 16 q rows each
+constexpr int NW = 4;            // warps a block, 16 q rows each
 constexpr int BQ = 16 * NW;
 constexpr int BKV = 64;
 constexpr int NTH = 32 * NW;
@@ -343,69 +324,51 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int LDK = D + 16;  // = 16 (mod 32) floats: Q and K reads
-  static constexpr int LDV = D + 4;   // = 4 (mod 32): V reads
-  static constexpr int SMEM =
-      (int)sizeof(float) * (BQ * LDK + BKV * (LDK + LDV));
-  // blocks an SM is to hold (registers: O grows with D)
-  static constexpr int MIN_BLOCKS =
-      (D == 128 ? REPRO_FLASH_X3_SM_WARPS_128
-       : D == 64 ? REPRO_FLASH_X3_SM_WARPS_64
-                 : REPRO_FLASH_X3_SM_WARPS_32) / NW;
+  static constexpr int LDK = D + 16;  // = 16 (mod 32) floats: K's float4s
+  static constexpr int LDV = D + 4;   // = 4 (mod 16): V's float2s
+  static constexpr int QF = BQ * D;   // Q in fragment order
+  static constexpr int SMEM = (int)sizeof(float) * (QF + BKV * (LDK + LDV));
+  static constexpr int MIN_BLOCKS = D == 128 ? 2 : 3;  // registers allow
 };
 
-// v as a TF32 pair hi + lo (see split_tf32); variant 1 truncates hi by a
-// mask and hands lo over unrounded (the tensor cores read its top 19 bits)
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-#if REPRO_FLASH_X3_SPLIT == 1
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-#else
-  split_tf32(v, hi, lo);
-#endif
+// The TF32 pair of v: the high part is v itself (the tensor cores read
+// only a TF32 operand's top 19 bits, so they take v truncated), the low
+// part v minus that truncation, exact in float32 (and truncated in turn)
+__device__ __forceinline__ uint32_t hi_tf32(float v) {
+  return __float_as_uint(v);
 }
-
-// mma_tf32 where `live` (warp-uniform) holds, as one predicated
-// instruction (no branch)
-__device__ __forceinline__ void mma_if(bool live, float (&d)[4],
-                                       const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-#if REPRO_FLASH_X3_SKIP
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "@p mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "r"((int)live));
-#else
-  mma_tf32(d, a, b);
-#endif
+__device__ __forceinline__ uint32_t lo_tf32(float v) {
+  return __float_as_uint(v -
+                         __uint_as_float(__float_as_uint(v) & 0xffffe000u));
 }
 
 // d += a b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first
-__device__ __forceinline__ void mma3(bool live, float (&d)[4],
-                                     const uint32_t (&ahi)[4],
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
                                      const uint32_t (&alo)[4],
                                      const uint32_t (&bhi)[2],
                                      const uint32_t (&blo)[2]) {
-  mma_if(live, d, alo, bhi);
-  mma_if(live, d, ahi, blo);
-  mma_if(live, d, ahi, bhi);
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
 }
 
-// [ROWS x D] rows r0 .. of src (row stride D) into dst (row stride ld) by
-// 16-byte cp.async, rows at or past n_rows zero-filled; one commit group
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int r0, int n_rows) {
+__device__ __forceinline__ float exp2_approx(float x) {  // 2^x, 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// [BKV x D] rows k0 .. of src (row stride D) into dst (row stride ld) by
+// 16-byte cp.async, rows at or past t_len zero-filled; one commit group
+template <int D>
+__device__ __forceinline__ void load_kv(float* dst, int ld,
+                                        const float* __restrict__ src, int k0,
+                                        int t_len) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * (D / 4); i += NTH) {
+  for (int i = threadIdx.x; i < BKV * (D / 4); i += NTH) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool in = r0 + r < n_rows;
-    cp_async16(dst + r * ld + c, in ? src + (size_t)(r0 + r) * D + c : src,
+    const bool in = k0 + r < t_len;
+    cp_async16(dst + r * ld + c, in ? src + (size_t)(k0 + r) * D + c : src,
                in ? 16 : 0);
   }
   cp_async_commit();
@@ -418,9 +381,9 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
                  int hkv, int s_len, int t_len, int causal, float scale) {
   using T = Tile<D>;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [BQ][LDK]
-  float* ks = qs + BQ * T::LDK;     // [BKV][LDK]
-  float* vs = ks + BKV * T::LDK;    // [BKV][LDV]
+  float4* qf = reinterpret_cast<float4*>(smem);  // [NW][D / 8][32] quads
+  float* ks = smem + T::QF;                       // [BKV][LDK]
+  float* vs = ks + BKV * T::LDK;                  // [BKV][LDV]
 
   // the q tile is the slowest grid axis, heaviest first: every head's
   // longest causal rows start in the first wave, the short ones form the tail
@@ -435,58 +398,59 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
     const int last = min(q0 + BQ, s_len) - 1 + offset;
     n_kv = min(n_kv, last / BKV + 1);
   }
-  load_rows<D, BQ>(qs, T::LDK, q + (size_t)(b * hq + h) * s_len * D, q0,
-                   s_len);
-  load_rows<D, BKV>(ks, T::LDK, kb, 0, t_len);
-  load_rows<D, BKV>(vs, T::LDV, vb, 0, t_len);
-  // Q scaled by scale log2(e) once, so the scores come out in base-2 units
-  // (for either sign of the scale): each thread its own copies, which it
-  // sees once they land; the loop's first barrier shows them to the rest
-  cp_async_wait<2>();
-  const float sl2 = scale * LOG2E;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < BQ * (D / 4); i += NTH) {
-    float4* x = reinterpret_cast<float4*>(qs + (i / (D / 4)) * T::LDK +
-                                          i % (D / 4) * 4);
-    *x = make_float4(x->x * sl2, x->y * sl2, x->z * sl2, x->w * sl2);
-  }
+  load_kv<D>(ks, T::LDK, kb, 0, t_len);
+  load_kv<D>(vs, T::LDV, vb, 0, t_len);
 
-  // lane 4 g + c of warp w holds rows r_lo = q0 + 16 w + g and r_lo + 8.
+  // Lane 4 g + c of warp w holds q rows r_lo = q0 + 16 w + g and r_lo + 8.
   // QK^T contracts over d in any order: k-steps 2t and 2t + 1 give lane c
   // the columns 16 t + 4 c .. + 3 (k = c, c + 4 of step 2t, then of step
-  // 2t + 1), one float4 of Q and of K a row.
-  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
-  const int r_lo = q0 + 16 * (threadIdx.x / 32) + g;
-  const float* qw = qs + (16 * (threadIdx.x / 32) + g) * T::LDK + 4 * c;
+  // 2t + 1), so K's B fragments are halves of one float4 a row.  Q, scaled
+  // by scale log2(e) (scores in base 2, for either sign of the scale), is
+  // stored once in fragment order, (row g, row g + 8) x (k = c, c + 4) a
+  // quad, each lane its own: one float4 read is a k-step's A fragment.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r_lo = q0 + 16 * warp + g;
+  float4* qw = qf + warp * (D / 8) * 32 + lane;
+  {
+    const float sl2 = scale * LOG2E;
+    const float* qr = q + ((size_t)(b * hq + h) * s_len + r_lo) * D + 4 * c;
+    const bool in0 = r_lo < s_len, in1 = r_lo + 8 < s_len;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int t = 0; t < D / 16; ++t) {
+      const float4 x = in0 ? *reinterpret_cast<const float4*>(qr + 16 * t)
+                           : zero;
+      const float4 y =
+          in1 ? *reinterpret_cast<const float4*>(qr + 8 * D + 16 * t) : zero;
+      qw[(2 * t) * 32] =
+          make_float4(x.x * sl2, y.x * sl2, x.y * sl2, y.y * sl2);
+      qw[(2 * t + 1) * 32] =
+          make_float4(x.z * sl2, y.z * sl2, x.w * sl2, y.w * sl2);
+    }
+  }
 
-  // O's columns are permuted within each block of 32 so that a lane's V
-  // reads are float4s: n-tile j of block cb, column g, is column
-  // 32 cb + 4 g + j; so lane (g, c) accumulates columns 32 cb + 8 c + j
-  // (fragment 0 / 2) and 32 cb + 8 c + 4 + j (fragment 1 / 3), j < 4
-  float acc[D / 32][4][4];
+  // O is accumulated transposed, O^T += V^T P^T, so that P's score
+  // fragments are B fragments as they stand.  m-tile mt covers 16 columns
+  // of O, its row r being column 16 mt + 2 (r % 8) + r / 8 (V's A
+  // fragment is then two float2s); n-tile nt covers q rows r_lo - g + 8 nt
+  // ...  Lane (g, c) holds columns 16 mt + 2 g (fragments 0, 1) and
+  // + 1 (2, 3) of q rows 8 nt + 2 c (0, 2) and + 1 (1, 3) of the warp's 16.
+  float acc[D / 16][2][4];
 #pragma unroll
-  for (int cb = 0; cb < D / 32; ++cb)
+  for (int mt = 0; mt < D / 16; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[cb][j][i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
-  float l0 = 0.f, l1 = 0.f;              // this lane's share of the sums
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
+  float l0 = 0.f, l1 = 0.f;              // this lane's share of their sums
 
   for (int jt = 0; jt < n_kv; ++jt) {
     const int k0 = jt * BKV;
     cp_async_wait<1>();  // K of this tile is in (its V may still load)
     __syncthreads();
 
-    // key groups of 8 at or past n_live are masked for all of this warp's
-    // rows: their products are skipped
-    int n_live = 8;
-    if (REPRO_FLASH_X3_SKIP) {
-      const int end =
-          causal ? min(t_len, q0 + 16 * (threadIdx.x / 32) + 16 + offset)
-                 : t_len;
-      n_live = min(8, max(0, (end - k0 + 7) / 8));
-    }
     // S = Q K^T: score fragment n holds keys k0 + 8 n + 2 c (+1), rows g
     // (s[n][0..1]) and g + 8 (s[n][2..3])
     float s[8][4];
@@ -496,64 +460,32 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll 1
     for (int t = 0; t < D / 16; ++t) {
-      const float4 qa = *reinterpret_cast<const float4*>(qw + 16 * t);
-      const float4 qb =
-          *reinterpret_cast<const float4*>(qw + 8 * T::LDK + 16 * t);
       uint32_t ahi[2][4], alo[2][4];
-      split(qa.x, ahi[0][0], alo[0][0]);
-      split(qb.x, ahi[0][1], alo[0][1]);
-      split(qa.y, ahi[0][2], alo[0][2]);
-      split(qb.y, ahi[0][3], alo[0][3]);
-      split(qa.z, ahi[1][0], alo[1][0]);
-      split(qb.z, ahi[1][1], alo[1][1]);
-      split(qa.w, ahi[1][2], alo[1][2]);
-      split(qb.w, ahi[1][3], alo[1][3]);
-#if REPRO_FLASH_X3_ORDER
-      // 4 n-tiles at a time, term by term: a product's accumulator was
-      // last written 4 products before
 #pragma unroll
-      for (int n0 = 0; n0 < 8; n0 += 4) {
-        uint32_t bhi[4][2][2], blo[4][2][2];
+      for (int st = 0; st < 2; ++st) {
+        const float4 x = qw[(2 * t + st) * 32];
+        const float e[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              &ks[(8 * (n0 + i) + g) * T::LDK + 16 * t + 4 * c]);
-          split(kv.x, bhi[i][0][0], blo[i][0][0]);
-          split(kv.y, bhi[i][0][1], blo[i][0][1]);
-          split(kv.z, bhi[i][1][0], blo[i][1][0]);
-          split(kv.w, bhi[i][1][1], blo[i][1][1]);
-        }
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            mma_if(n0 + i < n_live, s[n0 + i], alo[st], bhi[i][st]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            mma_if(n0 + i < n_live, s[n0 + i], ahi[st], blo[i][st]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            mma_if(n0 + i < n_live, s[n0 + i], ahi[st], bhi[i][st]);
+          ahi[st][i] = hi_tf32(e[i]);
+          alo[st][i] = lo_tf32(e[i]);
         }
       }
-#else
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const float4 kv = *reinterpret_cast<const float4*>(
+        const float4 x = *reinterpret_cast<const float4*>(
             &ks[(8 * n + g) * T::LDK + 16 * t + 4 * c]);
-        uint32_t bhi[2][2], blo[2][2];
-        split(kv.x, bhi[0][0], blo[0][0]);
-        split(kv.y, bhi[0][1], blo[0][1]);
-        split(kv.z, bhi[1][0], blo[1][0]);
-        split(kv.w, bhi[1][1], blo[1][1]);
-        mma3(n < n_live, s[n], ahi[0], alo[0], bhi[0], blo[0]);
-        mma3(n < n_live, s[n], ahi[1], alo[1], bhi[1], blo[1]);
+        const uint32_t bhi[2][2] = {{hi_tf32(x.x), hi_tf32(x.y)},
+                                    {hi_tf32(x.z), hi_tf32(x.w)}};
+        const uint32_t blo[2][2] = {{lo_tf32(x.x), lo_tf32(x.y)},
+                                    {lo_tf32(x.z), lo_tf32(x.w)}};
+        mma3(s[n], ahi[0], alo[0], bhi[0], blo[0]);
+        mma3(s[n], ahi[1], alo[1], bhi[1], blo[1]);
       }
-#endif
     }
     __syncthreads();  // every warp has read K: load the next tile's
     if (jt + 1 < n_kv)
-      load_rows<D, BKV>(ks, T::LDK, kb, k0 + BKV, t_len);
+      load_kv<D>(ks, T::LDK, kb, k0 + BKV, t_len);
     else
       cp_async_commit();
 
@@ -582,82 +514,71 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
     // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
     const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
     const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+    const float al0 = exp2_approx(m0 - mu0), al1 = exp2_approx(m1 - mu1);
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mu0);
-      s[n][1] = exp2f(s[n][1] - mu0);
-      s[n][2] = exp2f(s[n][2] - mu1);
-      s[n][3] = exp2f(s[n][3] - mu1);
+      s[n][0] = exp2_approx(s[n][0] - mu0);
+      s[n][1] = exp2_approx(s[n][1] - mu0);
+      s[n][2] = exp2_approx(s[n][2] - mu1);
+      s[n][3] = exp2_approx(s[n][3] - mu1);
       ps0 += s[n][0] + s[n][1];
       ps1 += s[n][2] + s[n][3];
     }
     l0 = al0 * l0 + ps0;
     l1 = al1 * l1 + ps1;
+    // O^T's columns are q rows 2 c, 2 c + 1 (+ 8): their rescales come
+    // from the lanes that hold those rows (g = 2 c, 2 c + 1)
+    const float ae0 = __shfl_sync(0xffffffffu, al0, 8 * c);
+    const float ao0 = __shfl_sync(0xffffffffu, al0, 8 * c + 4);
+    const float ae1 = __shfl_sync(0xffffffffu, al1, 8 * c);
+    const float ao1 = __shfl_sync(0xffffffffu, al1, 8 * c + 4);
 #pragma unroll
-    for (int cb = 0; cb < D / 32; ++cb)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[cb][j][0] *= al0;
-        acc[cb][j][1] *= al0;
-        acc[cb][j][2] *= al1;
-        acc[cb][j][3] *= al1;
-      }
+    for (int mt = 0; mt < D / 16; ++mt) {
+      acc[mt][0][0] *= ae0;
+      acc[mt][0][2] *= ae0;
+      acc[mt][0][1] *= ao0;
+      acc[mt][0][3] *= ao0;
+      acc[mt][1][0] *= ae1;
+      acc[mt][1][2] *= ae1;
+      acc[mt][1][1] *= ao1;
+      acc[mt][1][3] *= ao1;
+    }
 
     cp_async_wait<1>();  // V of this tile is in (the next K may still load)
     __syncthreads();
-    // O += P V.  k-step n contracts keys k0 + 8 n ..; taking k = c, c + 4
-    // as keys 2 c, 2 c + 1 makes P's A fragment the score fragment itself
-    // (a0 a1 a2 a3 = s0 s2 s1 s3), and V's B fragment rows 2 c, 2 c + 1
+    // O^T += V^T P^T.  k-step n contracts keys k0 + 8 n ..; taking k = c,
+    // c + 4 as keys 2 c, 2 c + 1 makes P^T's B fragment of n-tile nt the
+    // score pair s[n][2 nt ..] and V^T's A fragment the float2s of V's
+    // rows 2 c and 2 c + 1 at column 16 mt + 2 g
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      uint32_t ahi[4], alo[4];
-      split(s[n][0], ahi[0], alo[0]);
-      split(s[n][2], ahi[1], alo[1]);
-      split(s[n][1], ahi[2], alo[2]);
-      split(s[n][3], ahi[3], alo[3]);
-      const float* vr = vs + (8 * n + 2 * c) * T::LDV + 4 * g;
+      const uint32_t bhi[2][2] = {{hi_tf32(s[n][0]), hi_tf32(s[n][1])},
+                                  {hi_tf32(s[n][2]), hi_tf32(s[n][3])}};
+      const uint32_t blo[2][2] = {{lo_tf32(s[n][0]), lo_tf32(s[n][1])},
+                                  {lo_tf32(s[n][2]), lo_tf32(s[n][3])}};
+      const float* vr = vs + (8 * n + 2 * c) * T::LDV + 2 * g;
 #pragma unroll
-      for (int cb = 0; cb < D / 32; ++cb) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vr + 32 * cb);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(vr + T::LDV + 32 * cb);
-        const float e0[4] = {v0.x, v0.y, v0.z, v0.w};
-        const float e1[4] = {v1.x, v1.y, v1.z, v1.w};
-#if REPRO_FLASH_X3_ORDER
-        uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          split(e0[j], bhi[j][0], blo[j][0]);
-          split(e1[j], bhi[j][1], blo[j][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_if(n < n_live, acc[cb][j], alo, bhi[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_if(n < n_live, acc[cb][j], ahi, blo[j]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_if(n < n_live, acc[cb][j], ahi, bhi[j]);
-#else
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bhi[2], blo[2];
-          split(e0[j], bhi[0], blo[0]);
-          split(e1[j], bhi[1], blo[1]);
-          mma3(n < n_live, acc[cb][j], ahi, alo, bhi, blo);
-        }
-#endif
+      for (int mt = 0; mt < D / 16; ++mt) {
+        const float2 x = *reinterpret_cast<const float2*>(vr + 16 * mt);
+        const float2 y =
+            *reinterpret_cast<const float2*>(vr + T::LDV + 16 * mt);
+        const uint32_t ahi[4] = {hi_tf32(x.x), hi_tf32(x.y), hi_tf32(y.x),
+                                 hi_tf32(y.y)};
+        const uint32_t alo[4] = {lo_tf32(x.x), lo_tf32(x.y), lo_tf32(y.x),
+                                 lo_tf32(y.y)};
+        mma3(acc[mt][0], ahi, alo, bhi[0], blo[0]);
+        mma3(acc[mt][1], ahi, alo, bhi[1], blo[1]);
       }
     }
     __syncthreads();  // every warp has read V: load the next tile's
     if (jt + 1 < n_kv)
-      load_rows<D, BKV>(vs, T::LDV, vb, k0 + BKV, t_len);
+      load_kv<D>(vs, T::LDV, vb, k0 + BKV, t_len);
     else
       cp_async_commit();
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
@@ -666,22 +587,24 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  const float inv[2][2] = {
+      {__shfl_sync(0xffffffffu, inv0, 8 * c),
+       __shfl_sync(0xffffffffu, inv0, 8 * c + 4)},
+      {__shfl_sync(0xffffffffu, inv1, 8 * c),
+       __shfl_sync(0xffffffffu, inv1, 8 * c + 4)}};
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = r_lo + 8 * hf;
-    if (row >= s_len) continue;
-    const float inv = hf ? inv1 : inv0;
-    float* orow = o + ((size_t)(b * hq + h) * s_len + row) * D + 8 * c;
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int cb = 0; cb < D / 32; ++cb)
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + 16 * warp + 8 * nt + 2 * c + e;
+      if (row >= s_len) continue;
+      float* orow = o + ((size_t)(b * hq + h) * s_len + row) * D + 2 * g;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 2 * hf + e;
-        *reinterpret_cast<float4*>(orow + 32 * cb + 4 * e) =
-            make_float4(acc[cb][0][i] * inv, acc[cb][1][i] * inv,
-                        acc[cb][2][i] * inv, acc[cb][3][i] * inv);
-      }
-  }
+      for (int mt = 0; mt < D / 16; ++mt)
+        *reinterpret_cast<float2*>(orow + 16 * mt) =
+            make_float2(acc[mt][nt][e] * inv[nt][e],
+                        acc[mt][nt][2 + e] * inv[nt][e]);
+    }
 }
 
 template <int D>

@@ -2,16 +2,29 @@
 (``tf32x3``), beside the FMA kernel and SDPA, in one chip call.
 
     python tools/torch_flash_ab.py [--variant NAME=FLAGS ...] [--rounds 3]
+    python tools/torch_flash_ab.py --host [--src DIR] [--label NAME]
+    python tools/torch_flash_ab.py --mma-peak
 
-A variant ``NAME=FLAGS`` builds ``csrc/flash_attention.cu`` with the
-space-separated ``-D`` flags FLAGS (the kernel's ``REPRO_FLASH_X3_*``
-macros: ``WARPS``, warps a block, 16 q rows each; ``SPLIT``, 0 rounds
-both TF32 parts by ``cvt.rna``, 1 truncates the high part by a mask and
-hands the low part over unrounded; ``SM_WARPS_<D>``, the warps an SM is
-to hold at head size D), one ``nvcc`` each, all started together, and
-keeps each build's ``-Xptxas -v`` report of the 3xTF32 kernel.  Without
-``--variant``: the shipped kernel, 8 warps a block, and the masked
-split.  The shapes and inputs are
+A variant ``NAME=FLAGS`` builds ``flash_attention.cu`` with the
+space-separated ``-D`` flags in FLAGS, from this tree's ``csrc`` or, with
+a token ``--csrc=DIR`` among them, from DIR (another tree's sources, for
+example a commit unpacked by ``git archive`` into an ignored directory),
+one ``nvcc`` each, all started together, and keeps each build's
+``-Xptxas -v`` report of the 3xTF32 kernel.  Without ``--variant``: this
+tree's kernel alone.
+
+With ``--host``, no variants: the wrapper ``flash_attention`` of the
+``repro_torch`` in DIR (default: this tree's ``src``) is timed on the
+host: the median over 7 rounds of the host clock around 100 calls queued
+without a synchronisation (``host_us`` a call; the card runs behind), at
+granite-8b's heads and S = 256 in float32 and bfloat16; run it on two
+trees in turn (parent, change, change, parent) to compare the wrappers'
+host cost.
+
+With ``--mma-peak``: the rate of ``mma.sync.m16n8k8`` in TF32 alone, the
+ceiling of the 3xTF32 kernel's products (the data sheet's 495 TFLOP/s is
+wgmma's): a microkernel (``MMA_PEAK_CU`` below) in which each warp issues
+products into 8 independent accumulators, at 4 to 16 warps an SM.  The shapes and inputs are
 ``chip_smoke.py``'s ``time_flash`` rows in float32 (granite-8b's heads at
 S = 256, 512, 1024, zamba2-1.2b's shared attention at S = 1024, causal).
 Each round times every variant, the FMA kernel (the shipped library's
@@ -38,8 +51,7 @@ SHAPES = [(32, 8, 256, 128), (32, 8, 512, 128), (32, 8, 1024, 128),
           (32, 32, 1024, 64)]
 
 
-DEFAULT_VARIANTS = ["ship=", "w8=-DREPRO_FLASH_X3_WARPS=8",
-                    "mask=-DREPRO_FLASH_X3_SPLIT=1"]
+DEFAULT_VARIANTS = ["ship="]
 
 
 def _build(variants: dict[str, str]) -> dict:
@@ -50,8 +62,14 @@ def _build(variants: dict[str, str]) -> dict:
     procs = {}
     for var, flags in variants.items():
         lib = out_dir / f"libflash-{var}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, *flags.split(), "-o",
-               str(lib), str(build.CSRC / "flash_attention.cu")]
+        csrc, defines = build.CSRC, []
+        for tok in flags.split():
+            if tok.startswith("--csrc="):
+                csrc = Path(tok.removeprefix("--csrc=")).resolve()
+            else:
+                defines.append(tok)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(lib),
+               str(csrc / "flash_attention.cu")]
         procs[var] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       lib)
@@ -80,14 +98,112 @@ def _entry(lib, name):
     return fn
 
 
+MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void mma_peak(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(1e-3f * (threadIdx.x + i));
+  for (int i = 0; i < 2; ++i) b[i] = __float_as_uint(1e-3f * (threadIdx.x - i));
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+  }
+  float acc = 0.f;
+  for (int j = 0; j < 8; ++j) acc += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+extern "C" int launch_mma_peak(float* out, int blocks, int threads,
+                               int iters, void* stream) {
+  mma_peak<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _mma_peak(cs) -> int:
+    """TFLOP/s of TF32 mma.sync alone at 4, 8 and 16 warps an SM."""
+    import torch
+    from repro_torch.kernels import build
+    out_dir = build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "mma_peak.cu", out_dir / "libmma_peak.so"
+    src.write_text(MMA_PEAK_CU)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).launch_mma_peak
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [p, i, i, i, p], i
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters, rows = 4096, []
+    for warps in (4, 8, 16):
+        blocks, threads = sms * warps // 4, 128
+        out = torch.empty(blocks * threads, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        call = lambda: fn(out.data_ptr(), blocks, threads, iters, stream)
+        ms = cs._time_ms(call, iters=5)
+        flops = blocks * 4 * iters * 8 * 2048   # warps x products x flops
+        rows.append({"warps_per_sm": warps, "ms": ms,
+                     "tflops": flops / (ms * 1e-3) / 1e12})
+        print(f"[mma_peak] {rows[-1]}", flush=True)
+    _append({"nvidia_smi": cs._smi(), "mma_peak": rows})
+    return 0
+
+
+def _host(cs, fa, args) -> int:
+    import time
+    import torch
+    rows = []
+    hq, hkv, s, d = SHAPES[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = cs._qkv(1, hq, hkv, s, s, d, dtype, seed=99)
+        rounds = []
+        for _ in range(8):                 # the first round warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fa.flash_attention(q, k, v)
+            rounds.append((time.perf_counter() - t0) * 1e4)  # us a call
+        torch.cuda.synchronize()
+        rows.append({"dtype": str(dtype).removeprefix("torch."),
+                     "path": fa.flash_path(q, k, v),
+                     "shape": [1, hq, hkv, s, s, d],
+                     "host_us": statistics.median(rounds[1:]),
+                     "host_us_rounds": rounds[1:]})
+    out = {"label": args.label, "source": fa.__file__,
+           "nvidia_smi": cs._smi(), "host_rows": rows}
+    _append(out)
+    return 0
+
+
+def _append(out: dict) -> None:
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with open(out_dir / "flash_ab.jsonl", "a") as f:
+        f.write(json.dumps(out) + "\n")
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=None,
                     help="NAME=FLAGS, repeatable")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--host", action="store_true")
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--mma-peak", action="store_true")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
@@ -95,6 +211,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_flash_ab: no CUDA card", file=sys.stderr)
         return 1
+    if args.host:
+        return _host(cs, fa, args)
+    if args.mma_peak:
+        return _mma_peak(cs)
     variants = dict(v.split("=", 1)
                     for v in (args.variant or DEFAULT_VARIANTS))
     libs = _build(variants)
@@ -141,11 +261,7 @@ def main() -> int:
     out = {"nvidia_smi": cs._smi(), "variants": variants,
            "ptxas": {var: rep for var, (_, rep) in libs.items()},
            "rows": rows}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    with open(out_dir / "flash_ab.jsonl", "a") as f:
-        f.write(json.dumps(out) + "\n")
-    print(json.dumps(out), flush=True)
+    _append(out)
     return 0
 
 
