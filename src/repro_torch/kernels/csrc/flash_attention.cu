@@ -319,6 +319,7 @@ namespace x3 {
 constexpr int NW = 4;            // warps a block, 16 q rows each
 constexpr int BQ = 16 * NW;
 constexpr int BKV = 64;
+constexpr int NG = BKV / 8;      // groups of 8 keys a KV tile
 constexpr int NTH = 32 * NW;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -330,17 +331,6 @@ struct Tile {
   static constexpr int SMEM = (int)sizeof(float) * (QF + BKV * (LDK + LDV));
   static constexpr int MIN_BLOCKS = D == 128 ? 2 : 3;  // registers allow
 };
-
-// The TF32 pair of v: the high part is v itself (the tensor cores read
-// only a TF32 operand's top 19 bits, so they take v truncated), the low
-// part v minus that truncation, exact in float32 (and truncated in turn)
-__device__ __forceinline__ uint32_t hi_tf32(float v) {
-  return __float_as_uint(v);
-}
-__device__ __forceinline__ uint32_t lo_tf32(float v) {
-  return __float_as_uint(v -
-                         __uint_as_float(__float_as_uint(v) & 0xffffe000u));
-}
 
 // d += a b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
@@ -453,12 +443,12 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
 
     // S = Q K^T: score fragment n holds keys k0 + 8 n + 2 c (+1), rows g
     // (s[n][0..1]) and g + 8 (s[n][2..3])
-    float s[8][4];
+    float s[NG][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < NG; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll 1
+#pragma unroll 2
     for (int t = 0; t < D / 16; ++t) {
       uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
@@ -472,7 +462,7 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
         }
       }
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NG; ++n) {
         const float4 x = *reinterpret_cast<const float4*>(
             &ks[(8 * n + g) * T::LDK + 16 * t + 4 * c]);
         const uint32_t bhi[2][2] = {{hi_tf32(x.x), hi_tf32(x.y)},
@@ -491,7 +481,7 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
 
     if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NG; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kp = k0 + 8 * n + 2 * c + i % 2;
@@ -501,7 +491,7 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NG; ++n) {
       mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
       mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
@@ -519,7 +509,7 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NG; ++n) {
       s[n][0] = exp2_approx(s[n][0] - mu0);
       s[n][1] = exp2_approx(s[n][1] - mu0);
       s[n][2] = exp2_approx(s[n][2] - mu1);
@@ -554,7 +544,7 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
     // score pair s[n][2 nt ..] and V^T's A fragment the float2s of V's
     // rows 2 c and 2 c + 1 at column 16 mt + 2 g
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NG; ++n) {
       const uint32_t bhi[2][2] = {{hi_tf32(s[n][0]), hi_tf32(s[n][1])},
                                   {hi_tf32(s[n][2]), hi_tf32(s[n][3])}};
       const uint32_t blo[2][2] = {{lo_tf32(s[n][0]), lo_tf32(s[n][1])},

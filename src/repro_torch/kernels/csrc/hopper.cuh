@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the hand-written sm_90a kernels: TMA
 // tensor maps and loads, mbarriers, cp.async, the TF32 mma.sync product and
-// its 3xTF32 split, and the wgmma instructions with their shared-memory
+// the 3xTF32 splits, and the wgmma instructions with their shared-memory
 // descriptors, all as raw PTX (no CUTLASS or CuTe: a source that includes
 // this builds in seconds).
 //
@@ -154,6 +154,18 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// v as a TF32 pair without rounding: the high part is v itself (the tensor
+// cores read only a TF32 operand's top 19 bits, so they take v truncated),
+// the low part v minus that truncation, exact in float32 (and truncated in
+// turn); two instructions an element, where split_tf32 takes three
+__device__ __forceinline__ uint32_t hi_tf32(float v) {
+  return __float_as_uint(v);
+}
+__device__ __forceinline__ uint32_t lo_tf32(float v) {
+  return __float_as_uint(v -
+                         __uint_as_float(__float_as_uint(v) & 0xffffe000u));
 }
 
 // d += a b for one 16 x 8 x 8 TF32 tile (row-major A, column-major B).

@@ -76,11 +76,15 @@ def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
     assert bool((err <= 2e-2 * (1 + want.float().abs())).all())
 
 
+def _off16(x):
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
 def test_flash_bf16_off_a_16_byte_boundary_takes_the_fma_path(card):
     q, k, v = _qkv(card, 1, 4, 2, 128, 128, 64, torch.bfloat16)
-    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)[1:]
-    q_off.copy_(q.reshape(-1))
-    q_off = q_off.view(q.shape)
+    q_off = _off16(q)
     assert q_off.data_ptr() % 16 and q_off.is_contiguous()
     before = path_launches["fma"].count
     got = flash_attention(q_off, k, v)
@@ -88,12 +92,6 @@ def test_flash_bf16_off_a_16_byte_boundary_takes_the_fma_path(card):
     assert path_launches["fma"].count == before + 1
     torch.testing.assert_close(got.float(), flash_attention(q, k, v).float(),
                                rtol=2e-2, atol=2e-2)
-
-
-def _off16(x):
-    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
-    flat.copy_(x.reshape(-1))
-    return flat.view(x.shape)
 
 
 @pytest.mark.parametrize("offset,path", [(False, "tf32x3"), (True, "fma")])
