@@ -55,9 +55,8 @@
 // across the whole 64-key tile; lane 4 g + c holds rows g and g + 8.  K
 // and V come through shared memory by 16-byte cp.async, zero-filled past
 // T, one buffer each: V of a tile loads while S = Q K^T is computed and
-// the next K while O += P V is, so a block's loads overlap its arithmetic,
-// and two barriers a tile guard both buffers; 2 (D = 128) or 3 blocks
-// share an SM.  Every operand fragment comes from
+// the next K while O += P V is, so a block's loads overlap its arithmetic;
+// 2 (D = 128) or 3 blocks share an SM.  Every operand fragment comes from
 // shared memory as a float4 or two float2s that land in the registers the
 // mma wants (the contraction orders and O's columns are free, and chosen
 // so), with no register moves and no bank conflicts:
@@ -439,11 +438,8 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
 
   for (int jt = 0; jt < n_kv; ++jt) {
     const int k0 = jt * BKV;
-    // this tile's K is in, and every warp has read the last tile's V: load
-    // this tile's V (tile 0's came with its K) while QK^T runs
-    cp_async_wait<0>();
+    cp_async_wait<1>();  // K of this tile is in (its V may still load)
     __syncthreads();
-    if (jt > 0) load_kv<D>(vs, T::LDV, vb, k0, t_len);
 
     // S = Q K^T: score fragment n holds keys k0 + 8 n + 2 c (+1), rows g
     // (s[n][0..1]) and g + 8 (s[n][2..3])
@@ -477,6 +473,11 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
         mma3(s[n], ahi[1], alo[1], bhi[1], blo[1]);
       }
     }
+    __syncthreads();  // every warp has read K: load the next tile's
+    if (jt + 1 < n_kv)
+      load_kv<D>(ks, T::LDK, kb, k0 + BKV, t_len);
+    else
+      cp_async_commit();
 
     if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
 #pragma unroll
@@ -536,11 +537,8 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
       acc[mt][1][3] *= ao1;
     }
 
-    // this tile's V is in, and every warp has read its K: load the next
-    // tile's K while P V runs
-    cp_async_wait<0>();
+    cp_async_wait<1>();  // V of this tile is in (the next K may still load)
     __syncthreads();
-    if (jt + 1 < n_kv) load_kv<D>(ks, T::LDK, kb, k0 + BKV, t_len);
     // O^T += V^T P^T.  k-step n contracts keys k0 + 8 n ..; taking k = c,
     // c + 4 as keys 2 c, 2 c + 1 makes P^T's B fragment of n-tile nt the
     // score pair s[n][2 nt ..] and V^T's A fragment the float2s of V's
@@ -565,6 +563,11 @@ __global__ void __launch_bounds__(NTH, Tile<D>::MIN_BLOCKS)
         mma3(acc[mt][1], ahi, alo, bhi[1], blo[1]);
       }
     }
+    __syncthreads();  // every warp has read V: load the next tile's
+    if (jt + 1 < n_kv)
+      load_kv<D>(vs, T::LDV, vb, k0 + BKV, t_len);
+    else
+      cp_async_commit();
   }
 
 #pragma unroll
