@@ -57,9 +57,13 @@ path_launches = {path: LaunchCounter() for path in PATHS}
 def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these contiguous inputs: one of
     :data:`PATHS` (the module doc says which inputs go where)."""
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    return _path(q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+
+
+def _path(dtype: torch.dtype, ptrs: tuple[int, ...]) -> str:
+    if any(p % 16 for p in ptrs):
         return "fma"
-    return "wgmma" if q.dtype == torch.bfloat16 else "tf32x3"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,11 +132,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError("flash attention kernel needs non-empty inputs")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    path = flash_path(q, k, v)
-    fn = _fn(path)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    path = _path(q.dtype, ptrs)
+    args = (*ptrs, o.data_ptr(),
             *([_DTYPE_CODE[q.dtype]] if path == "fma" else []), b, hq, hkv,
             s, t, d, int(causal), float(scale))
+    fn = _fn(path)
     if q.device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:

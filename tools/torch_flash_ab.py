@@ -2,7 +2,7 @@
 (``tf32x3``), beside the FMA kernel and SDPA, in one chip call.
 
     python tools/torch_flash_ab.py [--variant NAME=FLAGS ...] [--rounds 3]
-    python tools/torch_flash_ab.py --host [--src DIR] [--label NAME]
+    python tools/torch_flash_ab.py --host [--against DIR]
     python tools/torch_flash_ab.py --mma-peak
 
 A variant ``NAME=FLAGS`` builds ``flash_attention.cu`` with the
@@ -13,13 +13,15 @@ one ``nvcc`` each, all started together, and keeps each build's
 ``-Xptxas -v`` report of the 3xTF32 kernel.  Without ``--variant``: this
 tree's kernel alone.
 
-With ``--host``, no variants: the wrapper ``flash_attention`` of the
-``repro_torch`` in DIR (default: this tree's ``src``) is timed on the
-host: the median over 7 rounds of the host clock around 100 calls queued
-without a synchronisation (``host_us`` a call; the card runs behind), at
-granite-8b's heads and S = 256 in float32 and bfloat16; run it on two
-trees in turn (parent, change, change, parent) to compare the wrappers'
-host cost.
+With ``--host``, no variants: the wrapper ``flash_attention`` is timed
+on the host, the median over 7 rounds of the host clock around 100 calls
+queued without a synchronisation (``host_us`` a call; the card runs
+behind), at granite-8b's heads and S = 256 in float32 and bfloat16, and
+1000 calls are profiled (``cProfile``; the functions with the most time
+of their own).  With ``--against DIR``, the wrapper of the ``repro_torch``
+under DIR (another tree's ``src``, loaded under another name) is timed
+in the same process, the rounds alternating, so that both see the same
+host.
 
 With ``--mma-peak``: the rate of ``mma.sync.m16n8k8`` in TF32 alone, the
 ceiling of the 3xTF32 kernel's products (the data sheet's 495 TFLOP/s is
@@ -37,8 +39,10 @@ the rounds are reported with each variant's largest error
 from __future__ import annotations
 
 import argparse
+import cProfile
 import ctypes
 import json
+import pstats
 import statistics
 import subprocess
 import sys
@@ -157,29 +161,60 @@ def _mma_peak(cs) -> int:
     return 0
 
 
+def _other_tree(src: str):
+    """The flash-attention module of the ``repro_torch`` under ``src``,
+    loaded as package ``other_repro_torch`` (its imports are relative)."""
+    import importlib
+    import importlib.util
+    pkg = Path(src).resolve() / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_repro_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("other_repro_torch.kernels.flash_attention")
+
+
 def _host(cs, fa, args) -> int:
     import time
     import torch
+    trees = {"this": fa}
+    if args.against:
+        trees["against"] = _other_tree(args.against)
     rows = []
     hq, hkv, s, d = SHAPES[0]
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = cs._qkv(1, hq, hkv, s, s, d, dtype, seed=99)
-        rounds = []
+        rounds = {name: [] for name in trees}
         for _ in range(8):                 # the first round warms up
+            for name, mod in trees.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    mod.flash_attention(q, k, v)
+                rounds[name].append((time.perf_counter() - t0) * 1e4)
+        for name, mod in trees.items():
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fa.flash_attention(q, k, v)
-            rounds.append((time.perf_counter() - t0) * 1e4)  # us a call
-        torch.cuda.synchronize()
-        rows.append({"dtype": str(dtype).removeprefix("torch."),
-                     "path": fa.flash_path(q, k, v),
-                     "shape": [1, hq, hkv, s, s, d],
-                     "host_us": statistics.median(rounds[1:]),
-                     "host_us_rounds": rounds[1:]})
-    out = {"label": args.label, "source": fa.__file__,
-           "nvidia_smi": cs._smi(), "host_rows": rows}
-    _append(out)
+            prof = cProfile.Profile()
+            prof.enable()
+            for _ in range(1000):
+                mod.flash_attention(q, k, v)
+            prof.disable()
+            torch.cuda.synchronize()
+            stats = sorted(pstats.Stats(prof).stats.items(),
+                           key=lambda kv: -kv[1][2])[:10]
+            rows.append({
+                "tree": name, "source": mod.__file__,
+                "dtype": str(dtype).removeprefix("torch."),
+                "path": mod.flash_path(q, k, v),
+                "shape": [1, hq, hkv, s, s, d],
+                "host_us": statistics.median(rounds[name][1:]),
+                "host_us_rounds": rounds[name][1:],
+                "profile_us_a_call": [
+                    [f"{Path(f).name}:{line}({fn})", tt * 1e3]
+                    for (f, line, fn), (_, _, tt, _, _) in stats]})
+    _append({"nvidia_smi": cs._smi(), "host_rows": rows})
     return 0
 
 
@@ -198,12 +233,11 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--host", action="store_true")
-    ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--label", default="change")
+    ap.add_argument("--against", default=None,
+                    help="with --host: another tree's src")
     ap.add_argument("--mma-peak", action="store_true")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
-    sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
