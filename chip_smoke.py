@@ -39,21 +39,32 @@ which fails the run (non-zero exit, no result line) if it fails:
    a task), every matmul takes the pipelined float32 kernel, the outputs
    of a type are equal and agree with the plain version;
 6. serve, one after the other, full-width granite-8b, zamba2-1.2b and
-   xlstm-125m (random weights from a seed) through the port's
+   xlstm-125m in float32, then qwen3-moe-30b-a3b and moonshot-v1-16b-a3b
+   in bfloat16 (30.1 B and 28.9 B parameters: an 80 GB card holds them
+   only so), random weights from a seed, through the port's
    PTT-scheduled ``ServingEngine``: 8 requests of 256-1024 prompt tokens
    (one ragged) and 16 new tokens each, on the same places and scheduler;
    the launch counts are set to 0 just before
    each model's run and read just after, and must equal the counts that
    the model's ``layer_plan`` gives per prefill (flash attention once per
-   attention block or shared-block application, the SSD scan once per
-   Mamba-2 layer and twice per mLSTM layer) times the prefills, and every
-   float32 flash launch takes the ``tf32x3`` path;
+   attention or MoE block or shared-block application, the SSD scan once
+   per Mamba-2 layer and twice per mLSTM layer) times the prefills, and
+   every flash launch takes its dtype's path (float32 ``tf32x3``,
+   bfloat16 ``wgmma``);
 7. check what came out, for each model: every request finished with its
    tokens; the engine's first token equals a direct prefill's; prefill +
-   decode agrees with a full forward at full width; the reduced model on
-   the card agrees with the CPU path (rel 5e-3, the model tolerance of the
-   tests).  For xlstm-125m it also times one 1024-token prefill and the
-   sLSTM loop inside it.
+   decode agrees with a full forward at full width (an MoE model at
+   capacity factor 16, where a forward drops no token that a one-token
+   decode keeps); the reduced model on the card agrees with the CPU path
+   in float32 (rel 5e-3, the model tolerance of the tests, greedy tokens
+   equal) and, for a bfloat16 model, also in bfloat16.  bfloat16 logits
+   are held on the median over tokens of each token's rel, at
+   ``BF16_FULL_TOL`` (48 layers) or ``BF16_REDUCED_TOL`` (4): a routing
+   flip moves one token's logits by 0.2-0.9 in the reference itself, and
+   its drift grows with depth (``tools/moe_bf16_drift.py`` measures it).
+   For xlstm-125m it also times one 1024-token prefill and the sLSTM loop
+   inside it; for a bfloat16 model, the card time of one decode step
+   (``torch.profiler``) against the bytes of the weights it must read.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
 carry their bfloat16 numbers under ``"bfloat16"``), then the
@@ -87,7 +98,24 @@ FLASH_F32_KEEP = 2e-5  # flash attention's 3xTF32 path stays only this far
 FLASH_UNIT = {"wgmma": "bfloat16", "tf32x3": "3xtf32", "fma": "float32"}
 
 DEVICE = "cuda"
-ARCHS = ("granite-8b", "zamba2-1.2b", "xlstm-125m")
+# (arch, dtype) served in phase 6, one after another
+SERVED = (("granite-8b", "float32"), ("zamba2-1.2b", "float32"),
+          ("xlstm-125m", "float32"), ("qwen3-moe-30b-a3b", "bfloat16"),
+          ("moonshot-v1-16b-a3b", "bfloat16"))
+# the flash path every served launch of a dtype takes
+SERVED_FLASH_PATH = {"float32": "tf32x3", "bfloat16": "wgmma"}
+# the served head layouts (Hq, Hkv, D) by dtype: granite-8b and zamba2's
+# shared attention in float32, qwen3-moe and moonshot in bfloat16
+SERVED_LAYOUTS = {"float32": {(32, 8, 128), (32, 32, 64)},
+                  "bfloat16": {(32, 4, 128), (16, 16, 128)}}
+# bfloat16 logits are held on the median over tokens of each token's rel,
+# at twice the reference's own largest median drift from its float32 run
+# at the model's depth, to one figure (tools/moe_bf16_drift.py on the CPU,
+# 16 runs at 4 layers and 8 at 48): 0.051 at the reduced models' 4
+# layers, 0.187 at the MoE models' 48
+BF16_REDUCED_TOL = 0.1
+BF16_FULL_TOL = 0.4
+MOE_CHECK_CAPACITY = 16.0  # prefill + decode against forward, MoE models
 PROMPT_LENS = (256, 1024, 300, 512, 768, 640, 384, 896)   # 300 is ragged
 NEW_TOKENS = 16
 SLOW_PLACE = {0: 4.0}
@@ -176,9 +204,8 @@ def check_flash(report: dict) -> dict:
     the path it took (aligned float32: the 3xTF32 kernel, held also to
     ``FLASH_F32_KEEP``; aligned bfloat16: the wgmma one; a q off a 16-byte
     boundary, in either dtype: the FMA kernel) and checking that path's
-    counter.  Returns the largest error in each dtype at the main path's
-    head layouts: granite-8b's (Hq 32, Hkv 8, D 128) and zamba2-1.2b's
-    shared attention (Hq = Hkv = 32, D 64)."""
+    counter.  Returns the largest error in each dtype at the head layouts
+    served in it (``SERVED_LAYOUTS``)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain,
@@ -194,10 +221,13 @@ def check_flash(report: dict) -> dict:
         (1, 16, 4, 384, 384, 64, True),         # D = 64
         (1, 32, 32, 1024, 1024, 64, True),      # zamba2's shared attention
         (1, 32, 32, 300, 300, 64, True),        # the same, ragged
+        (1, 32, 4, 1024, 1024, 128, True),      # qwen3-moe: GQA group 8
+        (1, 32, 4, 300, 300, 128, True),        # the same, ragged
+        (1, 16, 16, 1024, 1024, 128, True),     # moonshot
+        (1, 16, 16, 300, 300, 128, True),       # the same, ragged
         (1, 8, 2, 40, 40, 32, True),            # S < 64, one ragged tile
         (1, 16, 4, 200, 200, 64, True, True),   # the FMA kernel
     ]
-    main_layouts = {(32, 8, 128), (32, 32, 64)}
     worst_main = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -224,7 +254,7 @@ def check_flash(report: dict) -> dict:
             print(f"[check] flash_attention {row}", flush=True)
             _require(ok, f"flash attention kernel against its plain "
                          f"version: {row}")
-            if (hq, hkv, d) in main_layouts:
+            if (hq, hkv, d) in SERVED_LAYOUTS[name]:
                 worst_main[name] = max(worst_main[name], row["max_abs_err"])
     _require({r["path"] for r in rows} == {"wgmma", "tf32x3", "fma"},
              "flash attention checks took every path")
@@ -236,7 +266,9 @@ def time_flash(report: dict) -> list[dict]:
     """Kernel, plain version, SDPA and the bound at the prefill shapes:
     granite-8b's heads (Hq 32, Hkv 8, D 128) at S = 256, 512 and 1024 and
     zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64) at S = 1024, in
-    both dtypes; each row names the kernel's path and prices its products
+    both dtypes, and qwen3-moe's (Hq 32, Hkv 4, D 128) and moonshot's
+    (Hq = Hkv = 16, D 128) at S = 1024 in bfloat16, the dtype they are
+    served in; each row names the kernel's path and prices its products
     at that path's unit (``FLASH_UNIT``).  A float32 row also times the
     FMA kernel on the same values with q off a 16-byte boundary
     (``fma_ms``) and gives the FMA-priced bound (``fma_bound_ms``)."""
@@ -248,8 +280,10 @@ def time_flash(report: dict) -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
+        moe = ((32, 4, 1024, 128), (16, 16, 1024, 128))
         for hq, hkv, s, d in ((32, 8, 256, 128), (32, 8, 512, 128),
-                              (32, 8, 1024, 128), (32, 32, 1024, 64)):
+                              (32, 8, 1024, 128), (32, 32, 1024, 64),
+                              *(moe if dtype == torch.bfloat16 else ())):
             q, k, v = _qkv(1, hq, hkv, s, s, d, dtype, seed=99)
             ms = _time_ms(lambda: flash_attention(q, k, v), iters=20)
             plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v),
@@ -847,12 +881,15 @@ def _launches_per_prefill(cfg) -> dict:
     """Kernel launches one prefill makes, from the model's layer plan."""
     from repro_torch.models import layer_plan
     plan = layer_plan(cfg)
-    return {"flash_attention": sum(k in ("attn", "shared_attn") for k in plan),
+    return {"flash_attention": sum(k in ("attn", "attn_moe", "shared_attn")
+                                   for k in plan),
             "ssd_scan": plan.count("mamba2") + 2 * plan.count("mlstm")}
 
 
 def serve(report: dict, cfg) -> dict:
     """The main path: the model of ``cfg`` through the port's engine."""
+    import dataclasses
+    import statistics
     import numpy as np
     import torch
     from repro_torch.core import tpu_pod_slices
@@ -907,14 +944,16 @@ def serve(report: dict, cfg) -> dict:
         _require(n_launch[name] == n * n_prefill,
                  f"{cfg.name}: {name} launched {n_launch[name]} times for "
                  f"{n_prefill} prefills of {n} launches each")
-    _require(n_flash_path["tf32x3"] == n_launch["flash_attention"],
+    path = SERVED_FLASH_PATH[cfg.dtype]
+    _require(n_flash_path[path] == n_launch["flash_attention"],
              f"{cfg.name}: flash launches by path {n_flash_path}: every "
-             f"float32 prefill should take the 3xTF32 kernel")
+             f"{cfg.dtype} prefill should take the {path} kernel")
     dec = sorted(r.duration for r in metrics.records
                  if r.type_name.startswith("decode"))
     n_tokens = sum(len(r.out_tokens) for r in reqs)
     out = {
-        "arch": cfg.name, "params_b": n_params / 1e9, "init_s": init_s,
+        "arch": cfg.name, "dtype": cfg.dtype, "params_b": n_params / 1e9,
+        "init_s": init_s,
         "requests": len(prompts), "prompt_lens": list(PROMPT_LENS),
         "new_tokens": NEW_TOKENS, "scheduler": "DAM-C",
         "slowdown": {str(k): v for k, v in SLOW_PLACE.items()},
@@ -940,23 +979,49 @@ def serve(report: dict, cfg) -> dict:
         logits, _ = prefill(engine.params, cfg, toks, max_len)
         _require(int(torch.argmax(logits[0])) == r.out_tokens[0],
                  "engine's first token against a direct prefill")
-        # prefill + decode agrees with a full forward (full width)
-        full, _ = forward(engine.params, cfg, toks)
-        _, state = prefill(engine.params, cfg, toks[:, :-2], max_len)
-        for i in (2, 1):
-            step, state = decode_step(engine.params, cfg, state, toks[:, -i])
-            rel = _rel(step, full[:, -i])
-            _require(bool(torch.isfinite(step).all()) and rel < 5e-3,
-                     f"prefill + decode against forward: rel {rel}")
-            out["prefill_decode_vs_forward_rel"] = rel
+        # prefill + decode agrees with a full forward (full width); an MoE
+        # model at a capacity where the forward drops nothing
+        chk = cfg
+        if cfg.family == "moe":
+            chk = dataclasses.replace(cfg, capacity_factor=MOE_CHECK_CAPACITY)
+        n_dec = 2 if cfg.dtype == "float32" else 16
+        full, _ = forward(engine.params, chk, toks)
+        _, state = prefill(engine.params, chk, toks[:, :-n_dec], max_len)
+        rels = []
+        for i in range(n_dec, 0, -1):
+            step, state = decode_step(engine.params, chk, state, toks[:, -i])
+            _require(bool(torch.isfinite(step).all()),
+                     "prefill + decode: finite logits")
+            rels.append(_rel(step, full[:, -i]))
+        out["prefill_decode_vs_forward_rel"] = rels
+        if cfg.dtype == "float32":
+            _require(max(rels) < 5e-3,
+                     f"prefill + decode against forward: rel {rels}")
+        else:
+            _require(statistics.median(rels) < BF16_FULL_TOL,
+                     f"prefill + decode against forward: rel {rels}, "
+                     f"median over the tokens not under {BF16_FULL_TOL}")
+            out["decode_step_card"] = decode_card_time(engine.params, cfg,
+                                                       prompts[2], max_len)
         if cfg.family == "ssm":
             out["prefill_split"] = slstm_share(engine.params, cfg, prompts[1])
     del engine
     torch.cuda.empty_cache()
-    out["reduced_cuda_vs_cpu_rel"] = reduced_vs_cpu(cfg.reduced())
-    print(f"[check] {cfg.name}: prefill+decode vs forward rel "
-          f"{out['prefill_decode_vs_forward_rel']:.3e}; reduced model card "
-          f"vs CPU rel {out['reduced_cuda_vs_cpu_rel']:.3e}", flush=True)
+    reduced = cfg.reduced()
+    out["reduced_cuda_vs_cpu_rel"] = reduced_vs_cpu(
+        dataclasses.replace(reduced, dtype="float32"))
+    if cfg.dtype == "bfloat16":
+        out["reduced_cuda_vs_cpu_bf16"] = reduced_vs_cpu_bf16(reduced)
+    print(f"[check] {cfg.name}: prefill+decode vs forward rel {rels}; "
+          f"reduced model card vs CPU rel "
+          f"{out['reduced_cuda_vs_cpu_rel']:.3e} (float32)"
+          + (f", {out['reduced_cuda_vs_cpu_bf16']} (bfloat16)"
+             if cfg.dtype == "bfloat16" else ""), flush=True)
+    print(f"[serve] {cfg.name} ({cfg.dtype}): init {out['init_s']:.2f} s, "
+          f"peak {out['peak_mem_gb']:.2f} GB, TTFT p50 / p99 "
+          f"{out['ttft_ms_p50']:.1f} / {out['ttft_ms_p99']:.1f} ms, decode "
+          f"step p50 {out['decode_step_ms_p50']:.1f} ms, "
+          f"{out['output_tokens_per_s']:.2f} output tokens/s", flush=True)
     report.setdefault("serve", {})[cfg.name] = out
     return out
 
@@ -1037,6 +1102,110 @@ def reduced_vs_cpu(cfg) -> float:
     return worst
 
 
+def reduced_vs_cpu_bf16(cfg) -> dict:
+    """The reduced model in bfloat16 on the card against the CPU path with
+    the same weights, logits only, the tokens teacher-forced (a greedy
+    choice may differ in bfloat16): the forward at every token and the
+    served outputs (prefill's last token and 4 decode steps), each held at
+    ``BF16_REDUCED_TOL`` on the median over tokens."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cpu = init_params(cfg, seed=1, device="cpu")
+    gpu = _tree_to(cpu, DEVICE)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 154))
+    outs = []
+    with torch.inference_mode():
+        for params, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+            t = torch.as_tensor(toks, device=dev)
+            fwd, _ = forward(params, cfg, t[:, :150])
+            logits, state = prefill(params, cfg, t[:, :150], 160)
+            seq = [logits]
+            for i in range(150, 154):
+                logits, state = decode_step(params, cfg, state, t[:, i])
+                seq.append(logits)
+            outs.append((fwd.cpu(), torch.stack(seq).cpu()))
+    res = {}
+    for name, want, got in zip(("forward", "served"), *outs):
+        _require(bool(torch.isfinite(got).all()),
+                 f"reduced bfloat16 model on the card: finite {name} logits")
+        per_token = _rel_by_token(got, want)
+        res[name] = {"median": statistics.median(per_token),
+                     "max": max(per_token), "tokens": len(per_token)}
+        _require(res[name]["median"] < BF16_REDUCED_TOL,
+                 f"reduced bfloat16 model card against CPU, {name}: {res}")
+    return res
+
+
+def _decode_weight_bytes(cfg, length: int) -> int:
+    """Bytes one decode step of one sequence of an MoE model must read:
+    every attention projection, each router, the chosen ``top_k`` experts
+    and the shared expert of every layer, the cache rows it attends to and
+    the LM head, in the model's dtype (each read once)."""
+    from repro_torch.models import layer_plan
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    moe = (d * cfg.n_experts + cfg.top_k * 3 * d * cfg.d_ff
+           + 3 * d * cfg.moe_shared_ff)
+    cache = 2 * length * cfg.n_kv_heads * hd
+    per_layer = attn + moe + cache
+    n = layer_plan(cfg).count("attn_moe")
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    return (n * per_layer + d * cfg.vocab) * itemsize
+
+
+def decode_card_time(params, cfg, prompt, max_len) -> dict:
+    """One decode step after a prefill of ``prompt``, on one thread: its
+    wall time until the card is done (``host_ms``), its card time
+    (``card_ms``, the kernels' time in a ``torch.profiler`` trace of one
+    step) and kernel count, and the least card time, the bytes of the
+    weights the step must read (``_decode_weight_bytes``) at the memory
+    rate."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, prefill
+    toks = torch.as_tensor(prompt, device=DEVICE)[None]
+    with torch.inference_mode():
+        _, state = prefill(params, cfg, toks, max_len)
+        nxt = toks[:, -1]
+
+        def step():
+            decode_step(params, cfg, state, nxt)
+        host_ms = _time_ms(step, iters=3, warmup=1, run_ahead=False)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    # the kernels' own events (an operator's event also carries the time
+    # of the kernels it launched)
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    card_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    _require(card_ms > 0, f"{cfg.name}: the traced decode step ran nothing "
+                          f"on the card")
+    nbytes = _decode_weight_bytes(cfg, len(prompt) + 5)
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
+    out = {"tokens_before": len(prompt), "host_ms": host_ms,
+           "card_ms": card_ms,
+           "kernels": sum(ev.count for ev in kernels),
+           "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total / 1e3
+                              for ev in top},
+           "weight_gb": nbytes / 1e9,
+           "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+    print(f"[serve] {cfg.name} decode step {out}", flush=True)
+    return out
+
+
+def _rel_by_token(got, want) -> list[float]:
+    """``_rel`` of each token's logits (the last axis) apart."""
+    got, want = got.double().cpu(), want.double().cpu()
+    err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    return err.flatten().tolist()
+
+
 def _rel(got, want) -> float:
     got, want = got.double().cpu(), want.double().cpu()
     return float((got - want).abs().max() / want.abs().max())
@@ -1057,6 +1226,7 @@ def _tree_to(tree, device):
 
 
 def main() -> int:
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -1091,7 +1261,8 @@ def main() -> int:
     copy_timing = time_copy(report)
     stencil_timing = time_stencil(report)
     node = node_dag(report)
-    served = [serve(report, get_config(arch)) for arch in ARCHS]
+    served = [serve(report, dataclasses.replace(get_config(arch), dtype=dtype))
+              for arch, dtype in SERVED]
 
     def kernel_row(name, row, max_err, replaces, by_path, bf16=None,
                    bf16_err=None):
@@ -1122,9 +1293,9 @@ def main() -> int:
     def node_by(name):
         return {"node_dag": node["launches"][name]}
 
-    def flash_at(dtype):           # granite-8b's heads at S = 1024
+    def flash_at(dtype, heads=(32, 8, 1024)):  # granite-8b's, S = 1024
         return next(r for r in flash_timing if r["dtype"] == dtype
-                    and r["shape"][1:4] == [32, 8, 1024])
+                    and r["shape"][1:4] == list(heads))
 
     flash_row = kernel_row("flash_attention", flash_at("float32"),
                            flash_err["float32"],
@@ -1133,6 +1304,12 @@ def main() -> int:
                            flash_err["bfloat16"])
     flash_row["fma_ms"] = flash_at("float32")["fma_ms"]
     flash_row["fma_bound_ms"] = flash_at("float32")["fma_bound_ms"]
+    flash_row["bfloat16_served"] = {
+        arch: {k: r[k] for k in ("path", "shape", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by")}
+        for arch, r in (
+            ("qwen3-moe-30b-a3b", flash_at("bfloat16", [32, 4, 1024])),
+            ("moonshot-v1-16b-a3b", flash_at("bfloat16", [16, 16, 1024])))}
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}

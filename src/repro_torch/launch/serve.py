@@ -6,11 +6,17 @@ interference.  Runs on the card unless ``--device cpu`` is given.
         --requests 8 --prompt-len 512 --scheduler DAM-C --slow-core 0:4
 
 ``--reduced`` serves the small same-family config (``ModelConfig.reduced``)
-instead of the full-width one.
+instead of the full-width one; ``--dtype`` overrides the config's dtype, as
+the reference's dry-run does.  The MoE models fit one 80 GB card only in
+bfloat16:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --dtype bfloat16 --scheduler DAM-C
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -32,11 +38,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--slow-core", default=None,
                     help="core:factor, e.g. 0:4 = core 0 runs 4x slower")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                    help="override the config's dtype")
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     topo = tpu_pod_slices(args.pods, args.slices)
     slowdown = None
     if args.slow_core:
@@ -54,7 +64,7 @@ def main(argv=None) -> dict:
     placement = dict(metrics.priority_placement())
     print(f"[serve] {stats}")
     print(f"[serve] prefill placement: {placement}")
-    return {"stats": stats, "placement": placement}
+    return {"stats": stats, "placement": placement, "dtype": cfg.dtype}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Model zoo (functional torch over nested-dict params).  The port covers
-the dense ``attn`` plan, the hybrid (Mamba-2 + shared attention) and the
-ssm (mLSTM + sLSTM) plans; see ``transformer.py``."""
+every layer plan of the reference: the dense ``attn`` plan, MoE
+(``attn_moe``), the hybrid (Mamba-2 + shared attention) and the ssm
+(mLSTM + sLSTM) plans; see ``transformer.py``."""
+from .moe import init_moe, moe_block
 from .transformer import (decode_step, forward, init_decode_state,
                           init_params, layer_plan, prefill)
 
-__all__ = ["decode_step", "forward", "init_decode_state", "init_params",
-           "layer_plan", "prefill"]
+__all__ = ["decode_step", "forward", "init_decode_state", "init_moe",
+           "init_params", "layer_plan", "moe_block", "prefill"]

@@ -1,9 +1,11 @@
-"""Decoder LM over the ``attn``, ``hybrid`` and ``ssm`` layer plans (port of
+"""Decoder LM over every layer plan of the reference (port of
 ``repro/models/transformer.py``).
 
 Families:
   dense / vlm / audio — pre-norm GQA attention + FFN (the frontends of vlm
       and audio are not ported yet);
+  moe — attention + top-k capacity-routed MoE FFN (+ optional shared
+      expert, ``moe.py``); ``forward`` returns the summed aux loss;
   hybrid (zamba2) — Mamba-2 backbone; ONE weight-shared attention+FFN block
       applied every ``shared_attn_every`` layers, each application with its
       own KV cache;
@@ -21,9 +23,6 @@ unlike the reference: ``prefill`` writes each block's state into a state
 preallocated for ``max_len``, and ``decode_step`` writes each block's new
 state (the K/V row and ``length`` of a cache, the recurrent state of an
 SSM block) into the ``state`` it is given and returns that same object.
-
-The ``attn_moe`` block kind raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ from .attention import (attention_block, attention_decode, init_attention,
 from .layers import ffn, init_ffn, init_linear, rms_norm
 from .mamba2 import (init_mamba2, init_mamba2_state, mamba2_block,
                      mamba2_decode)
+from .moe import init_moe, moe_block
 from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
                     init_slstm_state, mlstm_block, mlstm_decode, slstm_block,
                     slstm_decode)
@@ -45,10 +45,9 @@ from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
 Params = dict
 PyTree = Any
 
-_NOT_PORTED = {"attn_moe": "ROADMAP Queue 1 item 5 (MoE)"}
-_ATTN = ("attn", "shared_attn")
-_STATE_KEY = {"attn": "kv", "shared_attn": "shared_kv", "mamba2": "mamba",
-              "mlstm": "mlstm", "slstm": "slstm"}
+_ATTN = ("attn", "attn_moe", "shared_attn")
+_STATE_KEY = {"attn": "kv", "attn_moe": "kv", "shared_attn": "shared_kv",
+              "mamba2": "mamba", "mlstm": "mlstm", "slstm": "slstm"}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,16 +74,6 @@ def layer_plan(cfg: ModelConfig) -> list[str]:
     raise ValueError(f"unknown family {cfg.family}")
 
 
-def _ported_plan(cfg: ModelConfig) -> list[str]:
-    plan = layer_plan(cfg)
-    for kind in plan:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet; see "
-                f"{_NOT_PORTED[kind]}")
-    return plan
-
-
 def _layer(tree: PyTree, i: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
@@ -95,9 +84,10 @@ def _walk(params: Params, cfg: ModelConfig) -> Iterator[tuple[str, Params,
                                                                int]]:
     """(kind, block params, index into the kind's state stack) for each
     block of the plan, in order.  A stacked kind's i-th block is layer i of
-    its stack; the shared block's i-th application has the i-th cache."""
+    its stack; the shared block's i-th application has the i-th cache.
+    (``attn`` and ``attn_moe`` both keep ``kv``; no plan has both.)"""
     seen: Counter = Counter()
-    for kind in _ported_plan(cfg):
+    for kind in layer_plan(cfg):
         i = seen[kind]
         seen[kind] += 1
         p = (params["shared_attn"] if kind == "shared_attn"
@@ -118,14 +108,19 @@ def _init_block(cfg: ModelConfig, kind: str, stack: tuple[int, ...],
     d, dt, device = cfg.d_model, kw["dtype"], kw["device"]
     ln = lambda: torch.ones(stack + (d,), dtype=dt, device=device)
     if kind in _ATTN:
-        return {
+        p = {
             "ln1": ln(),
             "attn": init_attention(d, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.resolved_head_dim, cfg.qkv_bias,
                                    stack=stack, **kw),
             "ln2": ln(),
-            "ffn": init_ffn(d, cfg.d_ff, cfg.act, stack=stack, **kw),
         }
+        if kind == "attn_moe":
+            p["moe"] = init_moe(d, cfg.n_experts, cfg.d_ff,
+                                cfg.moe_shared_ff, stack=stack, **kw)
+        else:
+            p["ffn"] = init_ffn(d, cfg.d_ff, cfg.act, stack=stack, **kw)
+        return p
     if kind == "mamba2":
         return {"ln1": ln(),
                 "mamba": init_mamba2(d, cfg.n_heads, cfg.mamba_head_dim,
@@ -144,7 +139,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
     """Random weights with the reference's init scales, drawn on ``device``
     from a seeded ``torch.Generator`` (none on the meta device, where the
     tree has shapes only)."""
-    plan = _ported_plan(cfg)
+    plan = layer_plan(cfg)
     device = torch.device(device)
     gen = None
     if device.type != "meta":
@@ -170,19 +165,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 # forward / prefill
 # ---------------------------------------------------------------------------
 
+def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor):
+    """The second half of an attention block: (x_out, the MoE aux loss, or
+    None for a dense FFN)."""
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    if kind == "attn_moe":
+        y, aux = moe_block(p["moe"], h, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor)
+        return x + y, aux
+    return x + ffn(p["ffn"], h, cfg.act), None
+
+
 def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
            positions: torch.Tensor, with_state: bool):
     """One block over the whole sequence: (x_out, its decode state — (k, v)
-    for attention — or None without ``with_state``)."""
+    for attention — or None without ``with_state``, its aux loss or
+    None)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if kind in _ATTN:
         y, kv = attention_block(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             positions=positions, return_kv=True)
-        x = x + y
-        h = rms_norm(x, p["ln2"], cfg.rms_eps)
-        return x + ffn(p["ffn"], h, cfg.act), kv
+        x, aux = _mlp(cfg, kind, p, x + y)
+        return x, kv, aux
     if kind == "mamba2":
         out = mamba2_block(p["mamba"], h, n_heads=cfg.n_heads,
                            head_dim=cfg.mamba_head_dim,
@@ -196,19 +202,23 @@ def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     else:
         raise ValueError(kind)
     y, st = out if with_state else (out, None)
-    return x + y, st
+    return x + y, st, None
 
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: [B, S] -> (logits [B, S, V] float32, aux_loss 0)."""
+    """tokens: [B, S] -> (logits [B, S, V] float32, the summed MoE aux
+    loss, float32; 0 without MoE blocks)."""
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux_total = torch.zeros((), device=x.device)
     for kind, p, _ in _walk(params, cfg):
-        x, _ = _block(cfg, kind, p, x, positions, with_state=False)
+        x, _, aux = _block(cfg, kind, p, x, positions, with_state=False)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x @ _head(params, cfg)).float()
-    return logits, torch.zeros((), device=x.device)
+    return logits, aux_total
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -222,7 +232,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device)[None, :]
     state = init_decode_state(cfg, bsz, max_len, device=x.device)
     for kind, p, i in _walk(params, cfg):
-        x, st = _block(cfg, kind, p, x, positions, with_state=True)
+        x, st, _ = _block(cfg, kind, p, x, positions, with_state=True)
         slot = state[_STATE_KEY[kind]]
         if kind in _ATTN:
             slot["k"][i, :, :s], slot["v"][i, :, :s] = st
@@ -247,18 +257,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     {"k", "v": [L,B,T,Hkv,D], "length": [L,B]} for ``kv`` (attention
     layers) and ``shared_kv`` (applications of the shared block), and the
     recurrent states ``mamba``, ``mlstm`` and ``slstm``."""
-    n = Counter(_ported_plan(cfg))
+    n = Counter(_STATE_KEY[kind] for kind in layer_plan(cfg))
     dt, hd = _dtype(cfg), cfg.resolved_head_dim
     state: dict[str, PyTree] = {}
-    for kind in _ATTN:
-        if n[kind]:
-            state[_STATE_KEY[kind]] = init_kv_cache(
-                batch, max_len, cfg.n_kv_heads, hd, dt, device,
-                stack=(n[kind],))
-    if n["mamba2"]:
+    for key in ("kv", "shared_kv"):
+        if n[key]:
+            state[key] = init_kv_cache(batch, max_len, cfg.n_kv_heads, hd,
+                                       dt, device, stack=(n[key],))
+    if n["mamba"]:
         state["mamba"] = init_mamba2_state(
             batch, cfg.n_heads, cfg.mamba_head_dim, cfg.ssm_state, dt, device,
-            stack=(n["mamba2"],))
+            stack=(n["mamba"],))
     if n["mlstm"]:
         d_inner = int(cfg.d_model * cfg.mlstm_proj_factor)
         state["mlstm"] = init_mlstm_state(
@@ -280,9 +289,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
             p["attn"], h, st, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta)
-        x = x + y
-        h = rms_norm(x, p["ln2"], cfg.rms_eps)
-        return x + ffn(p["ffn"], h, cfg.act), None
+        return _mlp(cfg, kind, p, x + y)[0], None
     if kind == "mamba2":
         y, new = mamba2_decode(p["mamba"], h, st, n_heads=cfg.n_heads,
                                head_dim=cfg.mamba_head_dim,

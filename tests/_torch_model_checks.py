@@ -1,6 +1,7 @@
 """Model-level checks of the port against the JAX package, shared by
-``tests/test_torch_models.py`` (the dense model) and
-``tests/test_torch_ssm_models.py`` (the SSM families).
+``tests/test_torch_models.py`` (the dense model),
+``tests/test_torch_ssm_models.py`` (the SSM families) and
+``tests/test_torch_moe.py`` (the MoE family).
 
 Each ``check_*`` takes the ``(cfg_j, cfg_t, params_j, params_t)`` of one
 reduced model, or an architecture's name.  Logits are held at the
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 
 from repro import configs as jconfigs
+from repro.models import decode_step as jdecode_step
 from repro.models import forward as jforward
 from repro.models import init_params as jinit_params
+from repro.models.transformer import prefill as jprefill
 from repro_torch import configs as tconfigs
 from repro_torch.models import decode_step, forward, init_params, prefill
 
@@ -23,6 +26,12 @@ def rel(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
+def rel_by_token(got, want) -> np.ndarray:
+    """``rel`` of each token's logits (the last axis) apart."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max(-1) / np.abs(want).max(-1)
+
+
 def check_forward(model, seq_len: int) -> None:
     cfg_j, cfg_t, params_j, params_t = model
     tokens = np.random.default_rng(2).integers(0, cfg_j.vocab, (2, seq_len))
@@ -30,6 +39,27 @@ def check_forward(model, seq_len: int) -> None:
     want, _ = jforward(params_j, cfg_j, jnp.asarray(tokens))
     assert got.dtype == torch.float32
     assert rel(got.numpy(), want) < 5e-3
+
+
+def check_prefill_and_decode(model, prompt_len: int, steps: int) -> None:
+    """Prefill's last-token logits and ``steps`` teacher-forced decode
+    steps against the reference's."""
+    cfg_j, cfg_t, params_j, params_t = model
+    tokens = np.random.default_rng(3).integers(0, cfg_j.vocab,
+                                               (2, prompt_len + steps))
+    max_len = prompt_len + steps + 4
+    want, state_j = jprefill(params_j, cfg_j,
+                             jnp.asarray(tokens[:, :prompt_len]), max_len)
+    got, state_t = prefill(params_t, cfg_t,
+                           torch.from_numpy(tokens[:, :prompt_len]), max_len)
+    assert got.shape == (2, cfg_t.vocab) and got.dtype == torch.float32
+    assert rel(got.numpy(), want) < 5e-3
+    for i in range(prompt_len, prompt_len + steps):
+        want, state_j = jdecode_step(params_j, cfg_j, state_j,
+                                     jnp.asarray(tokens[:, i], jnp.int32))
+        got, state_t = decode_step(params_t, cfg_t, state_t,
+                                   torch.from_numpy(tokens[:, i]))
+        assert rel(got.numpy(), want) < 5e-3
 
 
 def check_prefill_then_decode_equals_forward(model) -> None:

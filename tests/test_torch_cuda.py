@@ -2,12 +2,17 @@
 
 Skipped where there is no CUDA card (the kernels have no CPU mode); on the
 card run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+Beside the kernels: the MoE block on the card against its CPU path, and
+the memory a stacked bfloat16 initialisation needs.
 This file imports no jax: the machine with the card need not have it.
 """
 import pytest
 import torch
 
+from repro_torch.bridge import to_torch
 from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
+from repro_torch.models import init_moe, moe_block
+from repro_torch.models.layers import init_linear
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  launches, path_launches)
@@ -61,6 +66,8 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
     (1, 8, 8, 200, 520, 32, True),      # T > S
     (1, 8, 2, 130, 70, 128, False),     # non-causal, T < S
     (1, 4, 1, 64, 64, 32, False),       # one tile
+    (1, 32, 4, 1024, 1024, 128, True),  # qwen3-moe's heads, GQA group 8
+    (1, 16, 16, 300, 300, 128, True),   # moonshot's heads, ragged
 ])
 def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
     q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.bfloat16)
@@ -434,3 +441,34 @@ def test_node_kernels_refuse_inputs_that_need_a_gradient(card):
         assert ops.matmul(a, a).grad_fn is None
         assert ops.copy(a).grad_fn is None
         assert ops.stencil(u).grad_fn is None
+
+
+@pytest.mark.parametrize("s", [40, 1])      # 40: capacity slots; 1: pairs
+def test_moe_block_on_the_card_matches_the_cpu_path(card, s):
+    """A reduced MoE block (8 experts, top-2, a shared expert) in float32:
+    the card's products against the CPU's, routing and all."""
+    gen = torch.Generator().manual_seed(0)
+    p = init_moe(64, 8, 128, 96, gen=gen, device="cpu")
+    x = torch.randn((2, s, 64), generator=gen)
+    want, aux_want = moe_block(p, x, top_k=2)
+    got, aux = moe_block(to_torch(p, card), x.to(card), top_k=2)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux.cpu(), aux_want, rtol=1e-5, atol=0)
+
+
+def test_stacked_bf16_init_holds_one_float32_slice_at_a_time(card):
+    """A stacked bfloat16 leaf is drawn slice by slice: the peak beside its
+    final size is one slice in float32, not the stack."""
+    shape, stack = (16, 512, 256), (8,)
+    slice_f32 = 16 * 512 * 256 * 4               # 8 MiB
+    final = 8 * 16 * 512 * 256 * 2              # 32 MiB
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    w = init_linear(shape, gen=gen, device=card, dtype=torch.bfloat16,
+                    scale=0.5, stack=stack)
+    torch.cuda.synchronize()
+    assert w.dtype == torch.bfloat16 and w.shape == stack + shape
+    assert torch.cuda.max_memory_allocated(card) - base <= final + slice_f32
+    assert float(w.float().std()) == pytest.approx(0.5, rel=0.01)

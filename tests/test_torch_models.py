@@ -1,5 +1,6 @@
 """The port's dense model against the JAX package's, on the CPU (the SSM
-families are in ``tests/test_torch_ssm_models.py``).
+families are in ``tests/test_torch_ssm_models.py``, MoE in
+``tests/test_torch_moe.py``).
 
 Weights are initialised by the JAX package and bridged leaf for leaf
 (``repro_torch.bridge``); token inputs come from a numpy seed.  Logits
@@ -23,9 +24,9 @@ from repro.models import layers as jlayers
 from repro.models.transformer import prefill as jprefill
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import to_torch
-from repro_torch.models import decode_step, init_params, layers, prefill
+from repro_torch.models import decode_step, layers, prefill
 from _torch_model_checks import (check_forward, check_full_width_tree,
-                                 check_init_scales,
+                                 check_init_scales, check_prefill_and_decode,
                                  check_prefill_then_decode_equals_forward)
 from _torch_model_checks import rel as _rel
 
@@ -117,8 +118,17 @@ def test_full_width_param_tree_on_meta_device():
     check_full_width_tree(ARCH)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
-                                  "moonshot-v1-16b-a3b"])
-def test_unported_block_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(tconfigs.ARCHS[arch].reduced(), device="meta")
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "nemotron-4-15b",
+                                  "stablelm-3b", "musicgen-large",
+                                  "internvl2-76b"])
+def test_dense_configs_logits_match_reference(arch):
+    """The other dense plans' reduced models: qwen2.5 (QKV bias), nemotron
+    (squared ReLU), stablelm, musicgen (GELU) and internvl2, the last two
+    on their text path (no frontend): forward, prefill and one decode
+    step."""
+    cfg_j = jconfigs.ARCHS[arch].reduced()
+    params_j = jinit_params(cfg_j, jax.random.PRNGKey(0))
+    model = (cfg_j, tconfigs.ARCHS[arch].reduced(), params_j,
+             to_torch(params_j))
+    check_forward(model, 20)
+    check_prefill_and_decode(model, prompt_len=24, steps=1)

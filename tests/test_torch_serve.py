@@ -60,6 +60,13 @@ def test_engine_greedy_tokens_match_reference_ssm(arch):
     _greedy_tokens_match(arch)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
+def test_engine_greedy_tokens_match_reference_moe(arch):
+    """The MoE family through both engines: prefill routes by capacity
+    slots, each one-token decode by (token, expert) pairs."""
+    _greedy_tokens_match(arch)
+
+
 def _slots(slot_cls, rng_seed):
     rng = np.random.default_rng(rng_seed)
     out = []
@@ -115,6 +122,15 @@ def test_launcher_serves_reduced_ssm_model_on_cpu(arch):
                         "--requests", "2", "--prompt-len", "12",
                         "--new-tokens", "2"])
     assert out["stats"]["completed"] == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launcher_serves_reduced_moe_model_on_cpu(dtype):
+    out = tlaunch.main(["--arch", "moonshot-v1-16b-a3b", "--reduced",
+                        "--device", "cpu", "--dtype", dtype, "--requests",
+                        "2", "--prompt-len", "12", "--new-tokens", "2"])
+    assert out["stats"]["completed"] == 2
+    assert out["dtype"] == dtype
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -1,9 +1,12 @@
 """Where a served request's time goes in the PyTorch port, on the card.
 
-    python tools/torch_serve_probe.py [--reduced] [--device cuda]
+    python tools/torch_serve_probe.py [--arch ARCH] [--dtype bfloat16]
+        [--reduced] [--device cuda]
 
-Full-width granite-8b (random weights from a seed) unless ``--reduced``.
-Measures, outside the engine:
+Full-width ``--arch`` (granite-8b by default; random weights from a seed)
+unless ``--reduced``, in the config's dtype unless ``--dtype`` overrides
+it (the MoE models fit the card only in bfloat16).  Measures, outside the
+engine:
 
 * one prefill (S = 1024): wall time, and the device time by kernel name
   from ``torch.profiler`` (flash attention against the GEMMs and the rest);
@@ -13,7 +16,8 @@ Measures, outside the engine:
 * decode steps on 4 threads at once, each with its own request state, as
   the engine's 4 places run them on one card: wall time per step.
 
-Prints one JSON object and writes it to ``chiprun_out/serve_probe.json``.
+Prints one JSON object and writes it to
+``chiprun_out/serve_probe-<arch>.json``.
 """
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ def _sync(device):
 
 
 def _profile(fn, device):
-    """Device time (ms) by kernel name for one call of ``fn``."""
-    import torch
+    """Device time (ms) by kernel name for one call of ``fn``: the kernels'
+    own events only (an operator's event carries the time of the kernels
+    it launched too, so counting both would count each kernel twice)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -48,15 +54,15 @@ def _profile(fn, device):
     rows = {}
     n_kernels = 0
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or getattr(
-            ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows[ev.key] = rows.get(ev.key, 0.0) + dev_us / 1e3
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.self_device_time_total / 1e3
+            rows[ev.key] = rows.get(ev.key, 0.0) + ms
             n_kernels += ev.count
     return dict(sorted(rows.items(), key=lambda kv: -kv[1])), n_kernels
 
 
 def main(argv=None) -> dict:
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -64,6 +70,8 @@ def main(argv=None) -> dict:
     from repro_torch.serve import resolve_device
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prompt-len", type=int, default=1024)
@@ -71,14 +79,17 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config("granite-8b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     params = init_params(cfg, 0, device)
     rng = np.random.default_rng(0)
     s = args.prompt_len
     max_len = s + args.steps + 8
-    out: dict = {"arch": cfg.name, "device": str(device), "prompt_len": s}
+    out: dict = {"arch": cfg.name, "dtype": cfg.dtype, "device": str(device),
+                 "prompt_len": s}
     if device.type == "cuda":
         out["card"] = torch.cuda.get_device_name(0)
 
@@ -156,7 +167,8 @@ def main(argv=None) -> dict:
     print(json.dumps(out), flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "serve_probe.json").write_text(json.dumps(out, indent=1))
+    (out_dir / f"serve_probe-{cfg.name}.json").write_text(
+        json.dumps(out, indent=1))
     return out
 
 
