@@ -79,20 +79,19 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
     gate_vals, expert_idx = gate_vals[..., :top_k], expert_idx[..., :top_k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # one-hot [G,S,K,E] (``F.one_hot`` would check the indices on the host)
-    oh_all = (expert_idx[..., None]
-              == torch.arange(n_experts, device=xg.device)).long()
+    # one-hot [G, E, S*K] over the flattened (s, k) order, (s, k) last so
+    # that the running count below scans the innermost axis (a scan over
+    # an outer axis took half of a qwen3-moe prefill's card time)
+    flat = expert_idx.reshape(n_groups, 1, sg * top_k)
+    oh = (flat == torch.arange(n_experts, device=xg.device)[:, None]).int()
     me = probs.mean(dim=(0, 1))
-    ce = oh_all.sum(2).float().mean(dim=(0, 1)) / top_k
+    ce = oh.sum(-1).float().mean(dim=0) / (sg * top_k)
     aux = n_experts * torch.sum(me * ce)
 
     capacity = max(1, int(capacity_factor * sg * top_k / n_experts))
     # the place of each (s, k) in its expert's queue: the running count of
     # that expert over the flattened (s, k) order
-    oh_flat = oh_all.reshape(n_groups, sg * top_k, n_experts)
-    pos = (oh_flat.cumsum(1) - 1).gather(
-        2, expert_idx.reshape(n_groups, sg * top_k, 1))
-    pos = pos.reshape(n_groups, sg, top_k)
+    pos = (oh.cumsum(-1) - 1).gather(1, flat).reshape(n_groups, sg, top_k)
     keep = pos < capacity
     gates = torch.where(keep, gate_vals, 0.0)
     return expert_idx, gates, pos, keep, capacity, aux
