@@ -17,7 +17,7 @@ every expert on its capacity slots, the port moves the same rows by index
 and runs only what can hold a kept row, in one of two forms of one
 function:
 
-- **slots** (prefill, training): every expert on its slots
+- **slots** (prefill and forward): every expert on its slots
   ``[G, E, C, d]``, C cut to the group's token count (a slot past it is
   never filled); tokens scattered to ``e * C + pos``, outputs gathered back
   from there.  It reads every expert's weights once.
@@ -98,8 +98,8 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
 
 
 def _per_pair(xg, top_k):
-    """[G, S, d] -> [G, S*K, d], each token's row once per k (no
-    ``repeat_interleave``, which waits for the card to size its output)."""
+    """[G, S, d] -> [G, S*K, d], each token's row once per k, in the
+    flattened (s, k) order."""
     n_groups, sg, d = xg.shape
     return xg[:, :, None].expand(-1, -1, top_k, -1).reshape(
         n_groups, sg * top_k, d)
