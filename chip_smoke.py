@@ -57,11 +57,15 @@ which fails the run (non-zero exit, no result line) if it fails:
    capacity factor 16, where a forward drops no token that a one-token
    decode keeps); the reduced model on the card agrees with the CPU path
    in float32 (rel 5e-3, the model tolerance of the tests, greedy tokens
-   equal) and, for a bfloat16 model, also in bfloat16.  bfloat16 logits
-   are held on the median over tokens of each token's rel, at
-   ``BF16_FULL_TOL`` (48 layers) or ``BF16_REDUCED_TOL`` (4): a routing
-   flip moves one token's logits by 0.2-0.9 in the reference itself, and
-   its drift grows with depth (``tools/moe_bf16_drift.py`` measures it).
+   equal) and, for a bfloat16 model, also in bfloat16; an MoE model's
+   prefill + decode also agrees with its forward at full width and
+   ``MOE_CHECK_LAYERS`` layers in float32 (rel 5e-3, every step), where a
+   decode fault shows that 48 layers of bfloat16 drift would hide.
+   bfloat16 logits are held on the median over tokens of each token's
+   rel, at ``BF16_FULL_TOL`` (48 layers) or ``BF16_REDUCED_TOL`` (4),
+   grounded in the reference's own drift (``tools/moe_bf16_drift.py``):
+   a routing flip moves one token's logits by 0.2-0.9 in the reference
+   itself, and its drift grows with depth.
    For xlstm-125m it also times one 1024-token prefill and the sLSTM loop
    inside it; for a bfloat16 model, the card time of one decode step
    (``torch.profiler``) against the bytes of the weights it must read.
@@ -108,14 +112,18 @@ SERVED_FLASH_PATH = {"float32": "tf32x3", "bfloat16": "wgmma"}
 # shared attention in float32, qwen3-moe and moonshot in bfloat16
 SERVED_LAYOUTS = {"float32": {(32, 8, 128), (32, 32, 64)},
                   "bfloat16": {(32, 4, 128), (16, 16, 128)}}
-# bfloat16 logits are held on the median over tokens of each token's rel,
-# at twice the reference's own largest median drift from its float32 run
-# at the model's depth, to one figure (tools/moe_bf16_drift.py on the CPU,
-# 16 runs at 4 layers and 8 at 48): 0.051 at the reduced models' 4
-# layers, 0.187 at the MoE models' 48
+# bfloat16 logits are held on the median over tokens of each token's rel
+# (a routing flip moves one token's logits by 0.2-0.9 in the reference
+# itself); tools/moe_bf16_drift.py measures the reference on the CPU.
+# The reduced models, card against CPU: twice the reference's largest
+# median drift from its float32 run at their 4 layers (0.051, 16 runs).
 BF16_REDUCED_TOL = 0.1
-BF16_FULL_TOL = 0.4
+# The served 48-layer models' prefill + decode against their forward: the
+# reference's largest median drift on that same comparison at 48 layers
+# (0.017-0.194 over 8 runs, 4 seeds each; 0.004-0.008 at 4 layers).
+BF16_FULL_TOL = 0.2
 MOE_CHECK_CAPACITY = 16.0  # prefill + decode against forward, MoE models
+MOE_CHECK_LAYERS = 6       # ... and at full width in float32 at this depth
 PROMPT_LENS = (256, 1024, 300, 512, 768, 640, 384, 896)   # 300 is ragged
 NEW_TOKENS = 16
 SLOW_PLACE = {0: 4.0}
@@ -894,7 +902,7 @@ def serve(report: dict, cfg) -> dict:
     import torch
     from repro_torch.core import tpu_pod_slices
     from repro_torch.kernels import flash_attention, ssd_scan
-    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models import prefill
     from repro_torch.serve import ServingEngine
 
     counters = {"flash_attention": flash_attention.launches,
@@ -984,15 +992,8 @@ def serve(report: dict, cfg) -> dict:
         chk = cfg
         if cfg.family == "moe":
             chk = dataclasses.replace(cfg, capacity_factor=MOE_CHECK_CAPACITY)
-        n_dec = 2 if cfg.dtype == "float32" else 16
-        full, _ = forward(engine.params, chk, toks)
-        _, state = prefill(engine.params, chk, toks[:, :-n_dec], max_len)
-        rels = []
-        for i in range(n_dec, 0, -1):
-            step, state = decode_step(engine.params, chk, state, toks[:, -i])
-            _require(bool(torch.isfinite(step).all()),
-                     "prefill + decode: finite logits")
-            rels.append(_rel(step, full[:, -i]))
+        n_dec = 2 if cfg.dtype == "float32" else NEW_TOKENS
+        rels = decode_vs_forward(engine.params, chk, toks, n_dec)
         out["prefill_decode_vs_forward_rel"] = rels
         if cfg.dtype == "float32":
             _require(max(rels) < 5e-3,
@@ -1012,7 +1013,13 @@ def serve(report: dict, cfg) -> dict:
         dataclasses.replace(reduced, dtype="float32"))
     if cfg.dtype == "bfloat16":
         out["reduced_cuda_vs_cpu_bf16"] = reduced_vs_cpu_bf16(reduced)
-    print(f"[check] {cfg.name}: prefill+decode vs forward rel {rels}; "
+    if cfg.family == "moe":
+        out["cut_depth_f32_decode_vs_forward"] = cut_depth_f32(cfg,
+                                                               prompts[2])
+    print(f"[check] {cfg.name}: prefill+decode vs forward rel {rels}"
+          + (f", at {MOE_CHECK_LAYERS} layers in float32 largest "
+             f"{out['cut_depth_f32_decode_vs_forward']['max_rel']:.3e}"
+             if cfg.family == "moe" else "") + "; "
           f"reduced model card vs CPU rel "
           f"{out['reduced_cuda_vs_cpu_rel']:.3e} (float32)"
           + (f", {out['reduced_cuda_vs_cpu_bf16']} (bfloat16)"
@@ -1024,6 +1031,48 @@ def serve(report: dict, cfg) -> dict:
           f"{out['output_tokens_per_s']:.2f} output tokens/s", flush=True)
     report.setdefault("serve", {})[cfg.name] = out
     return out
+
+
+def decode_vs_forward(params, cfg, toks, n_dec: int) -> list[float]:
+    """A prefill of all but the last ``n_dec`` tokens of ``toks`` [1, S]
+    and teacher-forced decode steps of those, against a forward of all of
+    them: each step's rel."""
+    import torch
+    from repro_torch.models import decode_step, forward, prefill
+    full, _ = forward(params, cfg, toks)
+    _, state = prefill(params, cfg, toks[:, :-n_dec], toks.shape[1])
+    rels = []
+    for i in range(n_dec, 0, -1):
+        step, state = decode_step(params, cfg, state, toks[:, -i])
+        _require(bool(torch.isfinite(step).all()),
+                 "prefill + decode: finite logits")
+        rels.append(_rel(step, full[:, -i]))
+    return rels
+
+
+def cut_depth_f32(cfg, prompt) -> dict:
+    """The MoE model at full width and ``MOE_CHECK_LAYERS`` layers in
+    float32, at capacity ``MOE_CHECK_CAPACITY``: prefill + ``NEW_TOKENS``
+    decode steps against a forward, every step under rel 5e-3, the model
+    tolerance.  In bfloat16 at 48 layers rounding drift hides a decode
+    fault; here each planted one fails by far (PERF.md)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import init_params
+    chk = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS,
+                              dtype="float32",
+                              capacity_factor=MOE_CHECK_CAPACITY)
+    params = init_params(chk, seed=0, device=DEVICE)
+    toks = torch.as_tensor(prompt, device=DEVICE)[None]
+    with torch.inference_mode():
+        rels = decode_vs_forward(params, chk, toks, NEW_TOKENS)
+    del params
+    torch.cuda.empty_cache()
+    _require(max(rels) < 5e-3,
+             f"{cfg.name} at {MOE_CHECK_LAYERS} layers in float32: prefill "
+             f"+ decode against forward: rel {rels}")
+    return {"layers": MOE_CHECK_LAYERS, "steps": NEW_TOKENS,
+            "max_rel": max(rels), "rels": rels}
 
 
 def slstm_share(params, cfg, prompt) -> dict:

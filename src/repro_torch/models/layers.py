@@ -79,18 +79,12 @@ def init_linear(shape: tuple[int, ...], *,
                 stack: tuple[int, ...] = ()) -> torch.Tensor:
     """Normal(0, scale) of ``stack + shape``; scale defaults to
     ``shape[0] ** -0.5`` (fan-in), as the reference's ``init_linear``.
-    Drawn in float32 one ``shape`` slice at a time into a tensor of
-    ``dtype``, so a stacked bfloat16 leaf needs one slice of float32 beside
-    it, not the whole stack (qwen3-moe's ``experts_gate`` stack would take
-    38.7 GB of float32)."""
+    Drawn straight into a tensor of ``dtype`` (``normal_`` computes in
+    float32 and rounds), so a bfloat16 leaf needs no float32 copy of itself
+    (qwen3-moe's ``experts_gate`` stack would take 38.7 GB of float32)."""
     scale = shape[0] ** -0.5 if scale is None else scale
     w = torch.empty(tuple(stack) + tuple(shape), dtype=dtype, device=device)
-    if w.device.type == "meta":
-        return w
-    for piece in w.view(-1, *shape):
-        piece.copy_(torch.empty(shape, dtype=torch.float32, device=device)
-                    .normal_(0.0, scale, generator=gen))
-    return w
+    return w.normal_(0.0, scale, generator=gen)
 
 
 def init_ffn(d_model: int, d_ff: int, act: str, *,

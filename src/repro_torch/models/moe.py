@@ -66,10 +66,11 @@ def init_moe(d_model: int, n_experts: int, expert_ff: int,
 
 
 def route(params: dict, xg: torch.Tensor, top_k: int,
-          capacity_factor: float):
+          capacity_factor: float, with_aux: bool = True):
     """Routing of the groups ``xg`` [G, S_g, d]: (expert_idx [G,S_g,K],
     gates [G,S_g,K] float32 with a dropped (token, k) at 0, pos [G,S_g,K],
-    keep [G,S_g,K], capacity, aux loss float32)."""
+    keep [G,S_g,K], capacity, aux loss float32, or None without
+    ``with_aux``)."""
     n_groups, sg, _ = xg.shape
     n_experts = params["router"].shape[-1]
     logits = xg.float() @ params["router"].float()
@@ -84,9 +85,11 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
     # an outer axis took half of a qwen3-moe prefill's card time)
     flat = expert_idx.reshape(n_groups, 1, sg * top_k)
     oh = (flat == torch.arange(n_experts, device=xg.device)[:, None]).int()
-    me = probs.mean(dim=(0, 1))
-    ce = oh.sum(-1).float().mean(dim=0) / (sg * top_k)
-    aux = n_experts * torch.sum(me * ce)
+    aux = None
+    if with_aux:
+        me = probs.mean(dim=(0, 1))
+        ce = oh.sum(-1).float().mean(dim=0) / (sg * top_k)
+        aux = n_experts * torch.sum(me * ce)
 
     capacity = max(1, int(capacity_factor * sg * top_k / n_experts))
     # the place of each (s, k) in its expert's queue: the running count of
@@ -144,8 +147,10 @@ def _experts_by_pair(params, xg, expert_idx):
 
 def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
-              group_size: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d] in x's dtype, aux_loss float32)."""
+              group_size: int = 2048, with_aux: bool = True
+              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x: [B, S, d] -> (y [B, S, d] in x's dtype, aux_loss float32, or None
+    without ``with_aux``: prefill and decode skip its reductions)."""
     bsz, s, d = x.shape
     n_experts = params["router"].shape[-1]
     n_tokens = bsz * s
@@ -154,7 +159,7 @@ def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
         sg = n_tokens           # degenerate small case: one group
     xg = x.reshape(n_tokens // sg, sg, d)
     expert_idx, gates, pos, keep, capacity, aux = route(
-        params, xg, top_k, capacity_factor)
+        params, xg, top_k, capacity_factor, with_aux)
     if sg * top_k < n_experts:
         out = _experts_by_pair(params, xg, expert_idx)
     else:

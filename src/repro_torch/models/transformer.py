@@ -165,13 +165,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
 # forward / prefill
 # ---------------------------------------------------------------------------
 
-def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor):
-    """The second half of an attention block: (x_out, the MoE aux loss, or
-    None for a dense FFN)."""
+def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+         with_aux: bool = False):
+    """The second half of an attention block: (x_out, the MoE aux loss with
+    ``with_aux``, else None, and None for a dense FFN)."""
     h = rms_norm(x, p["ln2"], cfg.rms_eps)
     if kind == "attn_moe":
         y, aux = moe_block(p["moe"], h, top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor,
+                           with_aux=with_aux)
         return x + y, aux
     return x + ffn(p["ffn"], h, cfg.act), None
 
@@ -179,15 +181,15 @@ def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor):
 def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
            positions: torch.Tensor, with_state: bool):
     """One block over the whole sequence: (x_out, its decode state — (k, v)
-    for attention — or None without ``with_state``, its aux loss or
-    None)."""
+    for attention — or None without ``with_state``, its MoE aux loss
+    without ``with_state`` (a prefill drops it) or None)."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     if kind in _ATTN:
         y, kv = attention_block(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             positions=positions, return_kv=True)
-        x, aux = _mlp(cfg, kind, p, x + y)
+        x, aux = _mlp(cfg, kind, p, x + y, with_aux=not with_state)
         return x, kv, aux
     if kind == "mamba2":
         out = mamba2_block(p["mamba"], h, n_heads=cfg.n_heads,

@@ -457,8 +457,9 @@ def test_moe_block_on_the_card_matches_the_cpu_path(card, s):
 
 
 def test_stacked_bf16_init_holds_one_float32_slice_at_a_time(card):
-    """A stacked bfloat16 leaf is drawn slice by slice: the peak beside its
-    final size is one slice in float32, not the stack."""
+    """A stacked bfloat16 leaf is drawn straight into bfloat16: the peak
+    beside its final size stays within one slice in float32, far from a
+    float32 copy of the stack."""
     shape, stack = (16, 512, 256), (8,)
     slice_f32 = 16 * 512 * 256 * 4               # 8 MiB
     final = 8 * 16 * 512 * 256 * 2              # 32 MiB

@@ -18,8 +18,12 @@ figure (0.012-0.051 over 16 runs of the reduced models by
 ``tools/moe_bf16_drift.py``: both archs, capacity 1.25 and 16, 4 seeds,
 B = 2, S = 130; the port's median drift from the reference's bfloat16 run
 there 0.012-0.026).  The test asserts the grounding on its own inputs
-too.  The drift grows with depth: ``chip_smoke.py`` holds the 48-layer
-models at 0.4 by the same rule.
+too.  A fault planted in decode fails these limits (the expert and
+routing faults in bfloat16; every one in float32).  The drift grows with
+depth: ``chip_smoke.py`` holds the 48-layer models' prefill + decode
+against their forward at 0.2, the reference's own largest median on that
+same comparison at 48 layers, and checks the same path at full width and
+6 layers in float32 at rel 5e-3.
 """
 import dataclasses
 import importlib.util
@@ -44,6 +48,8 @@ from repro_torch.bridge import to_torch
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_moe, init_params, layer_plan, moe_block,
                                 prefill)
+from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import route
 from _torch_model_checks import (check_forward, check_full_width_tree,
                                  check_init_scales, check_prefill_and_decode,
@@ -94,6 +100,9 @@ def test_moe_block_matches_reference(s, shared_ff):
                                atol=2e-4)
     assert aux.dtype == torch.float32
     assert float(aux) == pytest.approx(float(aux_j), rel=1e-5)
+    y_no_aux, no_aux = moe_block(to_torch(p_j), torch.from_numpy(x), top_k=2,
+                                 with_aux=False)
+    assert no_aux is None and torch.equal(y_no_aux, y)
     idx, _, _, keep, _, _ = route(to_torch(p_j),
                                   torch.from_numpy(x).reshape(1, -1, 32), 2,
                                   1.25)
@@ -263,6 +272,82 @@ def test_moe_bfloat16_drift_is_within_the_reference_own(model):
                                       want["float32"])) < BF16_MODEL_TOL
         assert np.median(rel_by_token(got, want["bfloat16"])) < BF16_MODEL_TOL
         assert np.median(rel_by_token(got, want["float32"])) < BF16_MODEL_TOL
+
+
+def _plant(fault, params, cfg, monkeypatch):
+    """A fault in the decode path: (params, cfg) for the decode steps."""
+    if fault == "no_shared":            # the shared expert skipped
+        moe = params["stacks"]["attn_moe"]["moe"]
+        assert "shared" in moe
+        params = {**params, "stacks": {"attn_moe": {
+            **params["stacks"]["attn_moe"],
+            "moe": {k: v for k, v in moe.items() if k != "shared"}}}}
+    elif fault == "top_k_minus_1":      # one expert fewer per token
+        cfg = dataclasses.replace(cfg, top_k=cfg.top_k - 1)
+    elif fault == "unnormalised_gates":  # the top-k gates not renormalised
+        route_ok = moe_mod.route
+
+        def faulty(params, xg, top_k, capacity_factor, with_aux=True):
+            out = route_ok(params, xg, top_k, capacity_factor, with_aux)
+            probs = torch.softmax(xg.float() @ params["router"].float(), -1)
+            mass = probs.sort(-1, descending=True).values[..., :top_k].sum(-1)
+            return (out[0], out[1] * mass[..., None], *out[2:])
+        monkeypatch.setattr(moe_mod, "route", faulty)
+    elif fault == "stale_kv":           # the token misses its own K/V row
+        attend = ops.decode_attention
+        monkeypatch.setattr(ops, "decode_attention",
+                            lambda q, k, v, n, **kw: attend(q, k, v, n - 1,
+                                                            **kw))
+    else:
+        raise ValueError(fault)
+    return params, cfg
+
+
+@pytest.mark.parametrize("arch,fault", [
+    ("qwen3-moe-30b-a3b", "top_k_minus_1"),
+    ("qwen3-moe-30b-a3b", "unnormalised_gates"),
+    ("qwen3-moe-30b-a3b", "stale_kv"),
+    ("moonshot-v1-16b-a3b", "no_shared"),
+    ("moonshot-v1-16b-a3b", "unnormalised_gates"),
+    ("moonshot-v1-16b-a3b", "stale_kv")])
+def test_a_planted_decode_fault_fails_the_model_checks(arch, fault,
+                                                       monkeypatch):
+    """A fault planted in the reduced model's decode path, prefill and
+    forward left whole: prefill's last token and 4 teacher-forced decode
+    steps, B = 2, against the sound port's.  In float32 every fault fails
+    the model tolerance, rel 5e-3, tenfold at least; in bfloat16 the expert and
+    routing faults fail ``BF16_MODEL_TOL`` on the median over tokens.  A
+    stale K/V row moves the bfloat16 median less (0.04-0.13 of the
+    logits' largest): the float32 checks are the ones that catch it."""
+    cfg_j = jconfigs.ARCHS[arch].reduced()
+    params_j = jinit_params(cfg_j, jax.random.PRNGKey(0))
+    tokens = torch.from_numpy(
+        np.random.default_rng(8).integers(0, cfg_j.vocab, (2, 134)))
+    drift = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(tconfigs.ARCHS[arch].reduced(),
+                                  dtype=dtype)
+        params = to_torch(jax.tree.map(
+            lambda a: a.astype(getattr(jnp, dtype)), params_j))
+        outs = []
+        with monkeypatch.context() as m, torch.inference_mode():
+            for planted in (False, True):
+                out, state = prefill(params, cfg, tokens[:, :130], 136)
+                p_dec, c_dec = ((_plant(fault, params, cfg, m)) if planted
+                                else (params, cfg))
+                seq = [out]
+                for i in range(130, 134):
+                    out, state = decode_step(p_dec, c_dec, state,
+                                             tokens[:, i])
+                    seq.append(out)
+                outs.append(torch.stack(seq).numpy())
+        assert np.isfinite(outs[1]).all()
+        drift[dtype] = rel_by_token(outs[1], outs[0])
+    assert drift["float32"].max() > 10 * 5e-3
+    if fault != "stale_kv":
+        assert np.median(drift["bfloat16"]) > BF16_MODEL_TOL
+    else:
+        assert np.median(drift["bfloat16"]) > 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -19,7 +19,9 @@ logit), summarised as median, 90th percentile and largest:
   ``--decode`` tokens and teacher-forced decode steps of those, against
   its bfloat16 forward (what ``chip_smoke.py`` checks the port for);
 - with ``--port``, ``port_vs_ref_bf16``: the port's bfloat16 forward
-  against the reference's.
+  against the reference's, and ``port_dec_vs_fwd_bf16``: the port's
+  prefill and decode steps against its own bfloat16 forward, as
+  ``dec_vs_fwd_bf16`` for the reference.
 
 A routing flip (two router probabilities within bfloat16's rounding of
 each other) moves one token's logits by 0.2-0.9, so the largest is set by
@@ -52,19 +54,28 @@ def summary(r: np.ndarray) -> dict:
             "q90": float(np.quantile(r, 0.9)), "max": float(r.max())}
 
 
-def port_forward(params, arch, cfg, tokens) -> np.ndarray:
-    """The port's forward of the reduced ``arch`` as ``cfg`` cuts it."""
+def port_run(params, arch, cfg, tokens, n_dec) -> tuple:
+    """The port's forward of the reduced ``arch`` as ``cfg`` cuts it, and
+    its prefill of all but the last ``n_dec`` tokens and decode steps of
+    those: (forward logits, decode logits [B, n_dec, V])."""
     import torch
     from repro_torch.bridge import to_torch
     from repro_torch.configs import ARCHS as PORT_ARCHS
+    from repro_torch.models import decode_step as port_step
     from repro_torch.models import forward as port_fwd
+    from repro_torch.models import prefill as port_prefill
     pcfg = dataclasses.replace(PORT_ARCHS[arch].reduced(),
                                n_layers=cfg.n_layers,
                                capacity_factor=cfg.capacity_factor,
                                dtype=cfg.dtype)
+    p, t = to_torch(params), torch.from_numpy(tokens)
+    seq = tokens.shape[1]
     with torch.inference_mode():
-        return port_fwd(to_torch(params), pcfg,
-                        torch.from_numpy(tokens))[0].numpy()
+        fwd = port_fwd(p, pcfg, t)[0].numpy()
+        _, state = port_prefill(p, pcfg, t[:, :-n_dec], seq + 4)
+        dec = [port_step(p, pcfg, state, t[:, i])[0].numpy()
+               for i in range(seq - n_dec, seq)]
+    return fwd, np.stack(dec, 1)
 
 
 def run(arch, layers, seed, cap, batch, seq, n_dec, port) -> dict:
@@ -92,8 +103,10 @@ def run(arch, layers, seed, cap, batch, seq, n_dec, port) -> dict:
            "dec_vs_fwd_bf16": summary(rel_by_token(
                np.stack(dec, 1), fwd_b[:, seq - n_dec:]))}
     if port:
-        out["port_vs_ref_bf16"] = summary(rel_by_token(
-            port_forward(params_b, arch, cfg_b, tokens), fwd_b))
+        p_fwd, p_dec = port_run(params_b, arch, cfg_b, tokens, n_dec)
+        out["port_vs_ref_bf16"] = summary(rel_by_token(p_fwd, fwd_b))
+        out["port_dec_vs_fwd_bf16"] = summary(rel_by_token(
+            p_dec, p_fwd[:, seq - n_dec:]))
     return out
 
 
