@@ -3,9 +3,11 @@
 <name>.py        — the wrapper (kernel on CUDA, plain version on the CPU),
                    the plain version and the launch counter
 csrc/<name>.cu   — the CUDA C++ source (sm_90a, plain C interface)
+                   (flash_attention_bwd.cu: flash attention's backward)
 build.py         — nvcc -> shared library -> ctypes, at first use
 common.py        — the launch counter and the refusal of inputs that need
-                   a gradient, shared by the wrappers
+                   a gradient (every kernel but flash attention's, which
+                   has a backward), shared by the wrappers
 ops.py           — the entry points the model calls
 ref.py           — dense torch oracles
 

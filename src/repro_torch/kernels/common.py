@@ -1,5 +1,5 @@
-"""What every kernel wrapper shares: its launch counter and its refusal of
-inputs that need a gradient."""
+"""What every kernel wrapper shares: its launch counter and, for a kernel
+without a backward, its refusal of inputs that need a gradient."""
 from __future__ import annotations
 
 import threading
@@ -29,13 +29,15 @@ class LaunchCounter:
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise when autograd would need a gradient through a CUDA kernel.
+    """Raise when autograd would need a gradient through a CUDA kernel
+    that has no backward.
 
-    The kernels have no backward yet (nor have the TPU kernels they
-    replace: no custom VJP), so their output would carry no ``grad_fn`` and
-    the gradient would be lost without a word.  Run them under
-    ``torch.no_grad()`` or ``torch.inference_mode()``; on the CPU the plain
-    version is differentiable."""
+    Flash attention has one (``flash_attention.FlashAttention``); the SSD
+    scan, matmul, copy and stencil kernels have none (nor have the TPU
+    kernels they replace: no custom VJP), so their output would carry no
+    ``grad_fn`` and the gradient would be lost without a word.  Run them
+    under ``torch.no_grad()`` or ``torch.inference_mode()``; on the CPU the
+    plain version is differentiable."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward; an input requires "

@@ -28,13 +28,24 @@ the alignment of the contiguous inputs:
   the CUDA cores.
 
 ``launches`` counts every launch; ``path_launches[path]`` those of one
-path.  The kernels have no backward: on the card the wrapper refuses
-inputs that require grad under grad mode rather than return a result cut
-off from autograd.  The plain version walks the kernels' tile schedule
+path.  The plain version walks the kernels' tile schedule
 in torch: the same 64-row q tiles and 64-key KV tiles, the same skip of KV
 tiles past the causal diagonal, the same online-softmax rescale.  It is
 the CPU path and the kernels' yardstick of correctness on the card, not
 of speed.
+
+The gradient.  :func:`flash_attention` goes through :class:`FlashAttention`,
+a ``torch.autograd.Function`` that saves q, k, v and the output.  Its
+backward launches ``csrc/flash_attention_bwd.cu`` for CUDA tensors (float32
+or bfloat16, D in 32/64/128, any S and T; one C call of three kernels, one
+count in ``bwd_launches``): a pre-pass that recomputes each row's
+log-sum-exp and ``rowsum(dO * O)``, then dK and dV per key tile over the
+group's q heads and the live q tiles, then dQ per q tile over the live key
+tiles, float32 FMAs, no atomics.  On the CPU it takes
+:func:`flash_attention_bwd_plain`, which walks the same three loops.  The
+TPU kernel has no backward; this one computes what the JAX package's
+autodiff of ``attention_ref`` computes.  Under ``torch.no_grad()`` or
+``torch.inference_mode()`` the forward launches as it always did.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ import ctypes
 
 import torch
 
-from .common import LaunchCounter, refuse_grad
+from .common import LaunchCounter
 
 BQ = 64     # query rows per tile (BQ, x3::BQ, fa::BQ in the .cu)
 BK = 64     # keys per tile (BK, x3::BKV, fa::BKV)
@@ -52,6 +63,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
 path_launches = {path: LaunchCounter() for path in PATHS}
+bwd_launches = LaunchCounter()
 
 
 def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -87,13 +99,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     _check(q, k, v, causal)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
-    refuse_grad("flash_attention", q, k, v)
-    return _launch(q, k, v, causal, q.shape[3] ** -0.5 if scale is None
-                   else scale)
+    return FlashAttention.apply(q, k, v, causal,
+                                q.shape[3] ** -0.5 if scale is None
+                                else scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernels' forward and backward on the card and
+    their plain versions on the CPU (the module doc says which)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cpu":
+            o = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            o = _launch(q, k, v, causal, scale)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                    scale=ctx.scale)
+        return (*grads, None, None)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, scale: float | None = None
+                        ) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of attention from q, k, v, its output ``o`` and the
+    output's gradient ``do``: the backward kernel for CUDA tensors, its
+    plain version for CPU ones."""
+    _check(q, k, v, causal)
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         scale=scale)
+    return _launch_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                       o.contiguous(), do.contiguous(), causal, scale)
 
 
 _ENTRY = {"wgmma": "repro_flash_attention_wgmma",
@@ -188,3 +238,140 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         out[:, :, :, q0:q1] = acc / torch.where(l > 0, l, 1.0)[..., None]
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, do: torch.Tensor, causal: bool,
+                scale: float) -> tuple[torch.Tensor, ...]:
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or d not in HEAD_DIMS or not s * t * b:
+        raise ValueError(f"flash attention backward kernel takes float32 or "
+                         f"bfloat16, D in {HEAD_DIMS} and non-empty inputs; "
+                         f"got {q.dtype}, {tuple(q.shape)}, {tuple(k.shape)}")
+    for name, x in (("output", o), ("output gradient", do)):
+        if (x.shape != q.shape or x.dtype != q.dtype
+                or x.device != q.device):
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device} does not fit q {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _DTYPE_CODE[q.dtype], b, hq,
+            hkv, s, t, d, int(causal), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    bwd_launches.add()
+    return dq, dk, dv
+
+
+def _bwd_entry():
+    """The backward's C entry point, typed on first use and then cached."""
+    fn = _fns.get("bwd")
+    if fn is None:
+        from .build import load
+        fn = load("flash_attention_bwd").repro_flash_attention_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, p]
+        _fns["bwd"] = fn
+    return fn
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              scale: float | None = None
+                              ) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's arithmetic in torch, tile by tile, in float32:
+    (dq, dk, dv) in the inputs' dtype from q, k, v, the forward's output o
+    and its gradient do.  The same three loops as the kernels: each q
+    tile's log-sum-exp by the online max and sum over its live key tiles;
+    dK and dV per key tile, over the group's q heads and then the q tiles
+    that see it; dQ per q tile over its live key tiles."""
+    _check(q, k, v, causal)
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, hkv, g, s, d)
+    of = o.float().reshape(b, hkv, g, s, d)
+    dof = do.float().reshape(b, hkv, g, s, d)
+    kf, vf = k.float(), v.float()
+    offset = t - s
+    n_all = -(-t // BK)
+    neg_inf = float("-inf")
+
+    def live_tiles(q1: int) -> int:
+        return min(n_all, (q1 - 1 + offset) // BK + 1) if causal else n_all
+
+    def scores(qi, q0, q1, k0, k1):
+        sc = qi @ kf[:, :, None, k0:k1].transpose(-1, -2) * scale
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)[:, None] + offset
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            sc = sc.masked_fill(kpos > qpos, neg_inf)
+        return sc
+
+    # 1. the pre-pass: log-sum-exp (-inf for a row with no live key) and
+    # delta = rowsum(dO * O)
+    lse = torch.empty((b, hkv, g, s), device=q.device)
+    for q0 in range(0, s, BQ):
+        q1 = min(q0 + BQ, s)
+        m = torch.full((b, hkv, g, q1 - q0), neg_inf, device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(live_tiles(q1)):
+            sc = scores(qf[..., q0:q1, :], q0, q1, j * BK,
+                        min(j * BK + BK, t))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            m_use = m_new.masked_fill(m_new == neg_inf, 0.0)
+            l = torch.exp(m - m_use) * l + torch.exp(
+                sc - m_use[..., None]).sum(dim=-1)
+            m = m_new
+        lse[..., q0:q1] = torch.where(l > 0, m + torch.log(l),
+                                      torch.full_like(l, neg_inf))
+    delta = (dof * of).sum(dim=-1)
+    lse_use = lse.masked_fill(lse == neg_inf, float("inf"))   # p = 0
+
+    def p_ds(heads: slice, q0, q1, k0, k1):
+        """P and dS of one tile, for the q heads ``heads`` of each group."""
+        sc = scores(qf[:, :, heads, q0:q1], q0, q1, k0, k1)
+        p = torch.exp(sc - lse_use[:, :, heads, q0:q1, None])
+        dp = dof[:, :, heads, q0:q1] @ vf[:, :, None, k0:k1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, heads, q0:q1, None])
+
+    # 2. dK and dV: per key tile, over the group's q heads, then the q
+    # tiles that see the key tile
+    dk = torch.zeros((b, hkv, t, d), device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, t, BK):
+        k1 = min(k0 + BK, t)
+        first = max(0, k0 - offset) // BQ * BQ if causal else 0
+        for gi in range(g):
+            for q0 in range(first, s, BQ):
+                q1 = min(q0 + BQ, s)
+                p, ds = p_ds(slice(gi, gi + 1), q0, q1, k0, k1)
+                dv[:, :, k0:k1] += (p.transpose(-1, -2)
+                                    @ dof[:, :, gi:gi + 1, q0:q1])[:, :, 0]
+                dk[:, :, k0:k1] += (ds.transpose(-1, -2)
+                                    @ qf[:, :, gi:gi + 1, q0:q1])[:, :, 0]
+    dk *= scale
+
+    # 3. dQ: per q tile, over its live key tiles
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, s, BQ):
+        q1 = min(q0 + BQ, s)
+        for j in range(live_tiles(q1)):
+            k0, k1 = j * BK, min(j * BK + BK, t)
+            _, ds = p_ds(slice(None), q0, q1, k0, k1)
+            dq[..., q0:q1, :] += ds @ kf[:, :, None, k0:k1]
+    dq *= scale
+    return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

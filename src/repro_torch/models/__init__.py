@@ -1,10 +1,11 @@
 """Model zoo (functional torch over nested-dict params).  The port covers
 every layer plan of the reference: the dense ``attn`` plan, MoE
 (``attn_moe``), the hybrid (Mamba-2 + shared attention) and the ssm
-(mLSTM + sLSTM) plans; see ``transformer.py``."""
+(mLSTM + sLSTM) plans, and the training loss; see ``transformer.py``."""
 from .moe import init_moe, moe_block
 from .transformer import (decode_step, forward, init_decode_state,
-                          init_params, layer_plan, prefill)
+                          init_params, layer_plan, loss_and_metrics, prefill)
 
 __all__ = ["decode_step", "forward", "init_decode_state", "init_moe",
-           "init_params", "layer_plan", "moe_block", "prefill"]
+           "init_params", "layer_plan", "loss_and_metrics", "moe_block",
+           "prefill"]

@@ -17,6 +17,12 @@ plan order) and, for the hybrid, the unstacked ``shared_attn``.  The
 reference scans over each stack with ``jax.lax.scan``; here a Python loop
 walks the plan and indexes the stacks.  Logits come back in float32.
 
+Training: ``forward(..., remat=True)`` recomputes each stacked layer in
+the backward (``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` of its scan body; the hybrid's shared block
+is not rematerialised there either), and :func:`loss_and_metrics` is the
+reference's loss.  The ``frontend`` prefix of vlm and audio is not ported.
+
 The decode state mirrors the reference's too: one stacked tree per state
 kind (``kv``, ``shared_kv``, ``mamba``, ``mlstm``, ``slstm``).  In place,
 unlike the reference: ``prefill`` writes each block's state into a state
@@ -30,6 +36,7 @@ from collections import Counter
 from typing import Any, Iterator
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (attention_block, attention_decode, init_attention,
@@ -80,6 +87,16 @@ def _layer(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def _unstack(tree: PyTree) -> PyTree:
+    """Each leaf of a stacked tree as its tuple of per-layer views, by one
+    ``unbind`` a leaf: its gradient is then one stack of the layers'
+    gradients, where a view per layer would add a zero-filled stack of
+    every leaf for each layer."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v) for k, v in tree.items()}
+    return tree.unbind(0)
+
+
 def _walk(params: Params, cfg: ModelConfig) -> Iterator[tuple[str, Params,
                                                                int]]:
     """(kind, block params, index into the kind's state stack) for each
@@ -87,11 +104,13 @@ def _walk(params: Params, cfg: ModelConfig) -> Iterator[tuple[str, Params,
     its stack; the shared block's i-th application has the i-th cache.
     (``attn`` and ``attn_moe`` both keep ``kv``; no plan has both.)"""
     seen: Counter = Counter()
+    stacks = {kind: _unstack(stack)
+              for kind, stack in params["stacks"].items()}
     for kind in layer_plan(cfg):
         i = seen[kind]
         seen[kind] += 1
         p = (params["shared_attn"] if kind == "shared_attn"
-             else _layer(params["stacks"][kind], i))
+             else _layer(stacks[kind], i))
         yield kind, p, i
 
 
@@ -207,15 +226,27 @@ def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     return x + y, st, None
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+               positions: torch.Tensor):
+    """One block of the forward: (x_out, its MoE aux loss or None)."""
+    x, _, aux = _block(cfg, kind, p, x, positions, with_state=False)
+    return x, aux
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V] float32, the summed MoE aux
-    loss, float32; 0 without MoE blocks)."""
+    loss, float32; 0 without MoE blocks).  With ``remat`` each stacked
+    layer keeps only its input for the backward and runs again there."""
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
     for kind, p, _ in _walk(params, cfg):
-        x, _, aux = _block(cfg, kind, p, x, positions, with_state=False)
+        if remat and kind != "shared_attn":
+            x, aux = checkpoint(_block_fwd, cfg, kind, p, x, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_fwd(cfg, kind, p, x, positions)
         if aux is not None:
             aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -247,6 +278,24 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _head(params, cfg)).float()
     return logits, state
+
+
+def loss_and_metrics(params: Params, cfg: ModelConfig, batch: dict,
+                     remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL over ``loss_mask`` (all tokens without one) plus
+    ``aux_loss_coef`` x the MoE aux loss: (total, {"loss", "aux_loss",
+    "tokens"}), as the reference's."""
+    if batch.get("frontend") is not None:
+        raise NotImplementedError("the vlm/audio frontend prefix is not "
+                                  "ported")
+    logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + cfg.aux_loss_coef * aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------

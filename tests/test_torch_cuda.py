@@ -13,7 +13,10 @@ from repro_torch.bridge import to_torch
 from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
 from repro_torch.models import init_moe, moe_block
 from repro_torch.models.layers import init_linear
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (bwd_launches,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain,
                                                  launches, path_launches)
 
@@ -253,17 +256,62 @@ def test_ssd_kernel_reads_no_stale_scratch(card):
 
 
 def test_kernels_refuse_inputs_that_need_a_gradient(card):
-    """No backward yet: under grad mode an input that requires grad is
-    refused, never answered with a result cut off from autograd."""
+    """A kernel without a backward (the SSD scan's) refuses, under grad
+    mode, an input that requires grad, never answering with a result cut
+    off from autograd; flash attention has a backward, so its output
+    carries a ``grad_fn``."""
     q, k, v = _qkv(card, 1, 4, 2, 64, 64, 32, torch.float32)
     x, a, bm, cm = _ssd_inputs(card, 1, 64, 2, 16, 8, torch.float32)
-    with pytest.raises(RuntimeError, match="backward"):
-        flash_attention(q.requires_grad_(), k, v)
+    assert flash_attention(q.requires_grad_(), k, v).grad_fn is not None
     with pytest.raises(RuntimeError, match="backward"):
         ops.ssd_scan(x, a, bm.requires_grad_(), cm)
     with torch.no_grad():                 # no gradient asked: the kernel runs
         assert flash_attention(q, k, v).grad_fn is None
         assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
+    (2, 32, 8, 256, 256, 128, True),
+    (1, 8, 1, 300, 300, 64, True),      # GQA group 8, ragged
+    (1, 4, 4, 37, 301, 32, True),       # S < T, end-aligned, group 1
+    (1, 8, 2, 130, 70, 128, False),     # S > T
+    (2, 4, 2, 40, 40, 64, True),        # S shorter than one tile
+])
+def test_flash_bwd_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t,
+                                        d, causal):
+    q, k, v = _qkv(card, b, hq, hkv, s, t, d, dtype)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    do = torch.randn(q.shape, device=card).to(dtype)
+    before = bwd_launches.count
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert bwd_launches.count == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol * (1 + w.float().abs())).all()), float(
+            err.max())
+
+
+def test_flash_gradients_flow_through_the_kernels(card):
+    """Autograd through ``flash_attention`` on the card launches the
+    forward and the backward kernel once each and gives the plain
+    version's gradients (float32, 2e-4)."""
+    q, k, v = _qkv(card, 1, 8, 2, 200, 200, 64, torch.float32)
+    do = torch.randn(q.shape, device=card)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = launches.count, bwd_launches.count
+    out = flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (launches.count, bwd_launches.count) == (fwd + 1, bwd + 1)
+    want = flash_attention_bwd_plain(q, k, v, out.detach(), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
 
 
 def _randn(card, shape, dtype, seed):

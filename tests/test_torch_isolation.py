@@ -25,6 +25,8 @@ COPIED = (
         "metrics", "dag", "interference", "faults", "preemption", "shards",
         "runtime")]
     + ["serve/batching.py", "serve/overload.py"]
+    + ["data/__init__.py", "data/pipeline.py"]
+    + [f"runtime/{n}.py" for n in ("__init__", "elastic", "ft")]
 )
 
 # the only edits a copy may carry: (original text, port text)
@@ -61,6 +63,10 @@ def test_port_imports_no_jax_and_builds_nothing():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in res["modules"]
     assert "repro_torch.kernels.flash_attention" in res["modules"]
+    for name in ("optim.adamw", "optim.compression", "train.train_step",
+                 "train.trainer", "checkpoint.checkpointer", "launch.train",
+                 "data.pipeline", "runtime.elastic", "runtime.ft"):
+        assert f"repro_torch.{name}" in res["modules"], name
     assert res["bad"] == []
     assert res["built"] == []
 
@@ -73,6 +79,14 @@ def _imported_modules(path: Path):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+
+
+def test_static_scan_covers_the_training_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for rel in ("optim/adamw.py", "optim/compression.py",
+                "train/train_step.py", "train/trainer.py",
+                "checkpoint/checkpointer.py", "launch/train.py"):
+        assert rel in scanned, rel
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
