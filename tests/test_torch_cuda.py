@@ -521,3 +521,48 @@ def test_stacked_bf16_init_holds_one_float32_slice_at_a_time(card):
     assert w.dtype == torch.bfloat16 and w.shape == stack + shape
     assert torch.cuda.max_memory_allocated(card) - base <= final + slice_f32
     assert float(w.float().std()) == pytest.approx(0.5, rel=0.01)
+
+
+def _train_batch(vocab, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, vocab, (2, 97), generator=g)
+    return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+
+
+def test_grad_step_on_the_card_matches_the_cpu_path(card):
+    """Reduced granite-8b's loss and gradients on the card (the flash
+    kernels forward and backward) against the CPU path (the plain
+    versions): the loss at rel 1e-5, each leaf at 1e-4 x its largest
+    magnitude; one forward and one backward launch a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import make_grad_step
+    cfg = get_config("granite-8b").reduced()
+    cpu = init_params(cfg, seed=3)
+    gpu = to_torch(cpu, card)
+    step = make_grad_step(cfg, remat=False)
+    want, met_want = step(cpu, _train_batch(cfg.vocab, "cpu"))
+    fwd, bwd = launches.count, bwd_launches.count
+    got, met = step(gpu, _train_batch(cfg.vocab, card))
+    torch.cuda.synchronize()
+    assert (launches.count - fwd, bwd_launches.count - bwd) == (
+        cfg.n_layers, cfg.n_layers)
+    assert float(met["loss"]) == pytest.approx(float(met_want["loss"]),
+                                               rel=1e-5)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+def test_ssd_model_refuses_to_train_on_the_card(card):
+    """The SSD scan's kernel has no backward: a train step of an SSD model
+    on the card raises, where a plain version would train quietly."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import make_grad_step
+    cfg = get_config("xlstm-125m").reduced()
+    params = init_params(cfg, seed=0, device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        make_grad_step(cfg, remat=False)(params,
+                                         _train_batch(cfg.vocab, card))
