@@ -22,9 +22,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    kernel path it took and checks that path's launch counter, and every
    path is taken (matmul: ``wgmma``, ``fma_pipelined``, ``general``;
    flash attention: ``wgmma``, ``tf32x3``, ``fma``); flash attention's
-   backward kernel (dq, dk, dv; one path, float32 FMAs) at the training
-   shape and at ragged, non-causal, short and GQA 1 / 4 / 8 cases, at the
-   forward's tolerance x (1 + |g|), its counter checked;
+   backward (dq, dk, dv) at the training shape and at ragged, non-causal,
+   short, GQA 1 / 4 / 8 and q-off-16-byte cases, each naming its path
+   (``tf32x3`` for aligned float32, also held to ``FLASH_BWD_F32_KEEP``;
+   ``fma`` otherwise; both taken in float32), at the forward's tolerance
+   x (1 + |g|), its counters checked;
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
@@ -32,8 +34,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    row at [8, 4096, 4096], past the L2), the matmul and flash attention
    in both dtypes, each row naming its path (float32 flash rows also time
    the FMA kernel on the same values off a 16-byte boundary and give its
-   bound), flash attention's backward at the training shape beside SDPA's
-   backward (float32), the SSD rows with the
+   bound), flash attention's backward at the training shape on both
+   paths beside SDPA's backward (float32), the SSD rows with the
    wrapper's time per call (host included) and the passes' scratch;
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
@@ -81,9 +83,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    losses, one more gradient with and without remat (the same loss and
    gradient norm); every loss finite, the first near a random init's
    ln V + 1/2, the last below the first; per step 8 flash forward launches
-   (all ``tf32x3``; 16 with remat) and 8 backward; the step time, tokens
-   per second, peak memory and, from one traced step, the backward
-   kernel's share of the card time.
+   (all ``tf32x3``; 16 with remat) and 8 backward (all ``tf32x3``); the
+   step time, tokens per second, peak memory and, from one traced step,
+   the backward kernels' share of the card time.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
 carry their bfloat16 numbers under ``"bfloat16"``; the backward's launches
@@ -114,6 +116,9 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 3e-3, "bfloat16": 2e-2}
 SSD_F32_KEEP = 3e-4    # the SSD kernel's 3xTF32 stays only this far inside
 FLASH_F32_KEEP = 2e-5  # flash attention's 3xTF32 path stays only this far
+# ... and its backward's: ~4x the FMA kernel's worst, 1.05e-5 x (1 + |g|),
+# which a single TF32 product would exceed
+FLASH_BWD_F32_KEEP = 4e-5
 # the unit whose peak prices each flash path's products in its bound
 FLASH_UNIT = {"wgmma": "bfloat16", "tf32x3": "3xtf32", "fma": "float32"}
 
@@ -341,8 +346,11 @@ def time_flash(report: dict) -> list[dict]:
 
 # flash attention's backward: the training shape (granite-8b's heads, B 2,
 # S = T = 2048) first, then the edges: ragged S < T (end-aligned),
-# non-causal S > T, S shorter than one tile, GQA group 1 and 8, D 32 and 64
-FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal)
+# non-causal S > T, S shorter than one tile, GQA group 1 and 8, D 32 and 64,
+# S and T one past a 32-row step (ragged in the 16-row q steps and 32-key
+# tiles of the 3xTF32 kernels), and q off a 16-byte boundary (float32 on
+# the FMA kernels)
+FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (2, 32, 8, 2048, 2048, 128, True),
     (1, 32, 8, 300, 700, 128, True),
     (1, 8, 2, 130, 70, 64, False),
@@ -350,6 +358,8 @@ FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal)
     (1, 8, 8, 200, 200, 64, True),
     (1, 32, 4, 256, 256, 128, True),
     (1, 4, 1, 100, 356, 32, False),
+    (1, 8, 2, 33, 97, 128, True),
+    (1, 16, 4, 200, 200, 64, True, True),
 ]
 
 
@@ -377,40 +387,50 @@ def _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed):
 
 
 def check_flash_bwd(report: dict) -> dict:
-    """The backward kernel against its plain version on the card, every
+    """The backward kernels against their plain version on the card, every
     case in both dtypes, at the forward's tolerance x (1 + |g|) on each of
-    dq, dk and dv; each case checks that the backward's counter moved by
-    one (the kernel's one path: float32 FMAs on the CUDA cores).  Returns
-    the largest error in each dtype at the training shape."""
+    dq, dk and dv, and float32 on ``tf32x3`` also at ``FLASH_BWD_F32_KEEP``;
+    each case names its path (``flash_bwd_path``: aligned float32 on the
+    3xTF32 kernels, bfloat16 and a q off a 16-byte boundary on the FMA
+    kernels) and checks that the total and that path's counter moved by
+    one.  Returns the largest error in each dtype at the training shape."""
     import torch
     from repro_torch.kernels.flash_attention import (bwd_launches,
+                                                     bwd_path_launches,
                                                      flash_attention_bwd,
-                                                     flash_attention_bwd_plain)
+                                                     flash_attention_bwd_plain,
+                                                     flash_bwd_path)
     worst = {}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for i, (b, hq, hkv, s, t, d, causal) in enumerate(FLASH_BWD_CASES):
+        for i, (b, hq, hkv, s, t, d, causal, *off) in enumerate(
+                FLASH_BWD_CASES):
             q, k, v, o, do = _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal,
                                          seed=200 + i)
-            before = bwd_launches.count
+            if off:
+                q = _off16(q)
+            path = flash_bwd_path(q, k, v, o, do)
+            before = (bwd_launches.count, bwd_path_launches[path].count)
             got = flash_attention_bwd(q, k, v, o, do, causal=causal)
             torch.cuda.synchronize()
-            launched = bwd_launches.count - before
+            launched = (bwd_launches.count - before[0],
+                        bwd_path_launches[path].count - before[1])
             want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-            row = {"dtype": name, "path": "fma",
+            row = {"dtype": name, "path": path,
                    "shape": [b, hq, hkv, s, t, d], "causal": causal,
-                   "tol": TOL[name], "launches": launched}
-            ok = launched == 1
+                   "tol": TOL[name], "launches": launched[1]}
+            ok = launched == (1, 1)
             for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                 err = (g.float() - w.float()).abs()
+                rel = float((err / (1.0 + w.float().abs())).max())
                 ok = (ok and g.dtype == dtype and g.shape == w.shape
                       and bool(torch.isfinite(g).all())
                       and bool((err <= TOL[name] * (1.0 + w.float().abs())
-                                ).all()))
+                                ).all())
+                      and (path != "tf32x3" or rel <= FLASH_BWD_F32_KEEP))
                 row[f"{gname}_max_abs_err"] = float(err.max())
-                row[f"{gname}_max_rel_err"] = float(
-                    (err / (1.0 + w.float().abs())).max())
+                row[f"{gname}_max_rel_err"] = rel
             row["ok"] = ok
             rows.append(row)
             print(f"[check] flash_attention_bwd {row}", flush=True)
@@ -420,43 +440,69 @@ def check_flash_bwd(report: dict) -> dict:
                 worst[name] = max(row[f"{g}_max_abs_err"]
                                   for g in ("dq", "dk", "dv"))
             del q, k, v, o, do, got, want
+    _require({r["path"] for r in rows if r["dtype"] == "float32"}
+             == {"tf32x3", "fma"}, "float32 backward checks took both paths")
     report["flash_attention_bwd_checks"] = rows
     return worst
 
 
 def time_flash_bwd(report: dict) -> dict:
-    """The backward kernel, its plain version, SDPA's backward and the
-    bound at the training shape, float32.  SDPA's backward (float32, no
-    TF32) is ``torch.autograd.grad`` of its output on a graph recorded
-    once and kept, so only the backward is timed.  The bound prices the
-    5 products at 3xTF32's rate, the least time at float32's accuracy
-    (``fma_bound_ms`` at the FMA peak, the units this kernel uses)."""
+    """Both backward paths, the plain version, SDPA's backward and the
+    bound at the training shape, float32, in turns over two rounds (the
+    medians reported): ``tf32x3`` on the aligned inputs, ``fma`` on the
+    same values with q off a 16-byte boundary.  SDPA's backward (float32,
+    no TF32) is ``torch.autograd.grad`` of its output on a graph recorded
+    once and kept, so only the backward is timed.  The bound prices the 5
+    products the function needs at 3xTF32's rate, the least time at
+    float32's accuracy (``fma_bound_ms`` at the FMA peak, the units of the
+    FMA kernels); each path's ``tflops`` is those 5 products over its time
+    and ``bound_share`` its unit's bound over its time."""
+    import statistics
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_bwd_plain)
+                                                     flash_attention_bwd_plain,
+                                                     flash_bwd_path)
     b, hq, hkv, s, t, d, causal = FLASH_BWD_CASES[0]
     dtype = torch.float32
     q, k, v, o, do = _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed=299)
-    ms = _time_ms(lambda: flash_attention_bwd(q, k, v, o, do), iters=5)
-    plain_ms = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do),
-                        iters=1, warmup=1, run_ahead=False)
+    q_off = _off16(q)
+    _require(flash_bwd_path(q, k, v, o, do) == "tf32x3"
+             and flash_bwd_path(q_off, k, v, o, do) == "fma",
+             "backward timing paths")
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                          enable_gqa=True)
-    lib_ms = _time_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                  retain_graph=True), iters=5)
+    calls = {"tf32x3": lambda: flash_attention_bwd(q, k, v, o, do),
+             "fma": lambda: flash_attention_bwd(q_off, k, v, o, do),
+             "sdpa": lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True)}
+    rounds = {name: [] for name in calls}
+    for _ in range(2):
+        for name, fn in calls.items():
+            rounds[name].append(_time_ms(fn, iters=5))
+    ms = {name: statistics.median(r) for name, r in rounds.items()}
+    plain_ms = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do),
+                        iters=1, warmup=1, run_ahead=False)
     flops, nbytes = _attention_bwd_work(b, hq, hkv, s, t, d, dtype)
     bound_ms, bound_by = _bound({"3xtf32": flops}, nbytes)
-    row = {"dtype": "float32", "path": "fma", "shape": [b, hq, hkv, s, t, d],
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    fma_bound_ms = _bound({"float32": flops}, nbytes)[0]
+    paths = {path: {"ms": ms[path], "ms_rounds": rounds[path],
+                    "tflops": flops / (ms[path] * 1e-3) / 1e12,
+                    "bound_ms": bound, "bound_share": bound / ms[path]}
+             for path, bound in (("tf32x3", bound_ms),
+                                 ("fma", fma_bound_ms))}
+    row = {"dtype": "float32", "path": "tf32x3",
+           "shape": [b, hq, hkv, s, t, d], "ms": ms["tf32x3"],
+           "fma_ms": ms["fma"], "plain_ms": plain_ms,
+           "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
            "library": "SDPA backward (autograd.grad on a kept graph)",
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "fma_bound_ms": _bound({"float32": flops}, nbytes)[0],
+           "fma_bound_ms": fma_bound_ms, "paths": paths,
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "tflops": flops / (ms * 1e-3) / 1e12}
+           "tflops": paths["tf32x3"]["tflops"]}
     print(f"[time] flash_attention_bwd {row}", flush=True)
-    del q, k, v, o, do, leaves, out
+    del q, k, v, o, do, q_off, leaves, out, calls
     torch.cuda.empty_cache()
     report["flash_attention_bwd_timing"] = row
     return row
@@ -1419,7 +1465,8 @@ def _train_counters():
     from repro_torch.kernels import flash_attention
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
-            "tf32x3": flash_attention.path_launches["tf32x3"]}
+            "tf32x3": flash_attention.path_launches["tf32x3"],
+            "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"]}
 
 
 def _reset(counters) -> None:
@@ -1464,7 +1511,7 @@ def train_reduced_vs_cpu() -> dict:
     n_attn = cfg.n_layers
     _require(_counts(counters) == {"flash_attention": n_attn,
                                    "flash_attention_bwd": n_attn,
-                                   "tf32x3": n_attn},
+                                   "tf32x3": n_attn, "bwd_tf32x3": n_attn},
              f"reduced model's grad step launches {_counts(counters)}")
     out["loss_rel"] = abs(grads[DEVICE][1] - grads["cpu"][1]) / grads["cpu"][1]
     out["grad_rel"] = _tree_rel(grads[DEVICE][0], grads["cpu"][0])
@@ -1548,9 +1595,10 @@ def train(report: dict) -> dict:
         n = _counts(counters)
         _require(n == {"flash_attention": per_step * TRAIN_STEPS,
                        "flash_attention_bwd": per_step * TRAIN_STEPS,
-                       "tf32x3": per_step * TRAIN_STEPS},
+                       "tf32x3": per_step * TRAIN_STEPS,
+                       "bwd_tf32x3": per_step * TRAIN_STEPS},
                  f"straight run's launches {n}: want {per_step} forward "
-                 f"(all tf32x3) and {per_step} backward a step")
+                 f"and {per_step} backward a step, all tf32x3")
         out["launches_straight"] = n
         straight = [r["loss"] for r in a.history]
         walls = [r["wall_s"] for r in a.history]
@@ -1611,7 +1659,8 @@ def train(report: dict) -> dict:
         for on, fwd in ((False, per_step), (True, 2 * per_step)):
             _require(remat[on]["launches"] == {"flash_attention": fwd,
                                                "flash_attention_bwd": per_step,
-                                               "tf32x3": fwd},
+                                               "tf32x3": fwd,
+                                               "bwd_tf32x3": per_step},
                      f"grad step launches with remat={on}: "
                      f"{remat[on]['launches']}")
         for key in ("loss", "grad_norm"):
@@ -1636,17 +1685,22 @@ def train(report: dict) -> dict:
             return sum(ev.self_device_time_total for ev in kernels
                        if any(n in ev.key for n in names)) / 1e3
 
-        bwd_ms = share("bwd_prepass", "bwd_dkdv", "bwd_dq")
+        bwd_ms = share("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass",
+                       "bwd_dkdv", "bwd_dq")
+        bwd_x3_ms = share("bwd_x3_dq", "bwd_x3_dkdv")
         fwd_ms = share("flash_tf32x3")
         top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
         out["traced_step"] = {
             "card_ms": card_ms, "kernels": sum(ev.count for ev in kernels),
             "flash_bwd_ms": bwd_ms, "flash_bwd_share": bwd_ms / card_ms,
+            "flash_bwd_dq_ms": share("bwd_x3_dq"),
+            "flash_bwd_dkdv_ms": share("bwd_x3_dkdv"),
             "flash_fwd_ms": fwd_ms, "flash_fwd_share": fwd_ms / card_ms,
             "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total / 1e3
                                for ev in top}}
-        _require(bwd_ms > 0 and fwd_ms > 0,
-                 f"the traced step's flash kernels: {out['traced_step']}")
+        _require(bwd_ms > 0 and fwd_ms > 0 and bwd_x3_ms == bwd_ms,
+                 f"the traced step's flash kernels (the backward's all "
+                 f"tf32x3): {out['traced_step']}")
         del b, batch, step, prof
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
@@ -1802,7 +1856,12 @@ def main() -> int:
                               "backward: the JAX package's gradient is "
                               "autodiff of src/repro/kernels/ref.py:31 "
                               "attention_ref")
+    bwd_row["fma_ms"] = flash_bwd_timing["fma_ms"]
     bwd_row["fma_bound_ms"] = flash_bwd_timing["fma_bound_ms"]
+    bwd_row["launches_by_kernel_path"] = {
+        "tf32x3": trained["launches_straight"]["bwd_tf32x3"],
+        "fma": trained["launches_straight"]["flash_attention_bwd"]
+        - trained["launches_straight"]["bwd_tf32x3"]}
     bwd_row["bfloat16_max_abs_err"] = flash_bwd_err["bfloat16"]
     kernels = [
         flash_row,

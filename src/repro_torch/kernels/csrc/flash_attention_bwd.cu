@@ -1,5 +1,9 @@
 // Flash attention backward for Hopper, sm_90a: dQ, dK and dV of causal or
-// non-causal GQA attention, float32 FMAs on the CUDA cores.
+// non-causal GQA attention.  Two paths, chosen by the wrapper
+// (repro_torch/kernels/flash_attention.py::flash_bwd_path): float32 with
+// q, k, v, o and dO on 16-byte boundaries takes the 3xTF32 tensor-core
+// kernels (namespace x3, below); bfloat16, and float32 off a 16-byte
+// boundary, take the FMA kernels that follow this note.
 //
 // The TPU kernel src/repro/kernels/flash_attention.py::flash_attention_pallas
 // has no backward: the JAX package's training gradient is XLA's autodiff of
@@ -15,7 +19,7 @@
 //   and a KV head's dK and dV sum over the query heads of its group;
 //   float32 accumulation, gradients written in the inputs' dtype.
 //
-// Three kernels, launched one after the other by one C call:
+// FMA path: three kernels, launched one after the other by one C call:
 //   1. the pre-pass, one block per (64-row q tile, q head, batch): the row's
 //      log-sum-exp LSE = m + log l, recomputed by walking the live key tiles
 //      with the forward's online max and sum (the forward kernels stay as
@@ -36,15 +40,14 @@
 //
 // Bound.  The function needs 5 products of S x T x D over the live (query,
 // key) pairs (Q K^T, dO V^T, P^T dO, dS^T Q, dS K), 2 D operations a pair
-// each; this design does 8 (the pre-pass's Q K^T, and Q K^T and dO V^T
-// again in kernel 3).  At the training shape (B 2, Hq 32, Hkv 8, S = T =
-// 2048, D 128, causal) the 5 take 172 GFLOP against ~335 MB of q, k, v, o,
-// dO, dq, dk and dv in float32: bound by operations, 2.56 ms at the 67
-// TFLOP/s float32 FMA peak, 1.04 ms at the 3xTF32 tensor-core rate (495 / 3
-// TFLOP/s), which would keep float32's accuracy.  A simple kernel that is
-// right comes first; the tensor cores are later work.
+// each; both paths do 8 (the LSE pass's Q K^T, and Q K^T and dO V^T once
+// in each of the dK/dV and dQ kernels).  At the training shape (B 2, Hq 32,
+// Hkv 8, S = T = 2048, D 128, causal) the 5 take 172 GFLOP against ~335 MB
+// of q, k, v, o, dO, dq, dk and dv in float32: bound by operations, 2.56 ms
+// at the 67 TFLOP/s float32 FMA peak, 1.04 ms at the 3xTF32 tensor-core
+// rate (495 / 3 TFLOP/s), which keeps float32's accuracy.
 //
-// Layout of the products.  256 threads; thread (ty, tx) = (tid / 16,
+// FMA layout of the products.  256 threads; thread (ty, tx) = (tid / 16,
 // tid % 16) owns rows ty + 16 i (i < 4) of a 64 x 64 score tile and columns
 // tx + 16 j (j < 4), as in the forward's FMA kernel, so a row's max and sum
 // are shuffle reductions within a half-warp.  The accumulators of kernels 2
@@ -57,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -503,6 +508,571 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// -- float32 on 16-byte boundaries: 3xTF32 mma.sync ---------------------------
+//
+// Two kernels, launched one after the other by one C call, on the tensor
+// cores in 3xTF32 (mma.sync m16n8k8; each float32 operand a TF32 pair, the
+// high part the value itself, which the tensor cores truncate, the low part
+// the exact remainder; a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32,
+// which keeps float32's accuracy, as in the forward's tf32x3 kernel):
+//   1. dQ, one block per (64-row q tile, q head, batch), 4 warps of 16 rows.
+//      Q (scaled by scale log2 e: scores in base 2) and dO are stored once
+//      in A-fragment order; Delta = rowsum(dO * O) is summed on that load,
+//      in the lanes that hold the rows.  First pass: the live key tiles, 32
+//      keys each, through a 2-stage cp.async ring, S = Q K^T and the online
+//      max and sum give each row's LSE (base 2; +inf for a row past S or
+//      with no live key), written with Delta to scratch [B, Hq, S_pad] (S
+//      rounded up to 64).  Second pass: the same tiles, V_j loading while
+//      S_j and dQ_j are computed and K_{j+1} while dP_{j+1} is: dP = dO V^T,
+//      S = Q K^T, P = 2^(S - LSE), dS = P (dP - Delta) in registers, and dQ
+//      accumulated transposed, dQ^T += K^T dS^T, whose B fragments are the
+//      score fragments as they stand (keys 2c, 2c + 1 of a k-step taken as
+//      k = c, c + 4), so dS never leaves the registers.
+//   2. dK and dV, one block per (64-key tile, KV head, batch), 4 warps of
+//      16 keys; K (scaled by scale log2 e) and V stored once in A-fragment
+//      order.  The block walks the group's q heads and, for each, the 16-row
+//      q steps that see the key tile; Q, dO and their rows' LSE and Delta
+//      stream through a 2-stage cp.async ring, the next step loading while
+//      this one is computed.  With the keys as the rows, S^T = K Q^T and
+//      dP^T = V dO^T leave P^T and dS^T in accumulator fragments, which are
+//      the B fragments of dV^T += dO^T P^T and dK^T += Q^T dS^T (q rows 2c,
+//      2c + 1 of a k-step as k = c, c + 4): no P or dS in shared memory.
+// Every gradient element is written by one block and summed in one fixed
+// order, with no atomics: deterministic, run after run.  The q tile of
+// kernel 1 and the key tile of kernel 2 are the grid's slowest axis, the
+// causal heavy tiles first.
+//
+// Operands in shared memory.  A row-major tile has rows of D + 4 floats (4
+// mod 32 banks), and every fragment is one float4 or two float2s that land
+// in the registers the mma wants, with no bank conflicts: the contraction
+// over D takes, in k-steps 4u .. 4u + 3, lane c's columns 32u + 8c .. + 7
+// (k-step 4u + s: k = c is column 32u + 8c + 2s, k = c + 4 the next), so a
+// B fragment of a score product is half of a float4 of row 8n + g, and an
+// A fragment in fragment order is one float4 a (k-step, lane); the
+// transposed products read float2s of rows 8n + 2c and + 1 at column
+// 16 mt + 2g, the output's column order inside a 16-column block following
+// (row r of the m-tile is column 16 mt + 2 (r % 8) + r / 8).
+// Both kernels take 97 KiB of shared memory at D = 128: two blocks an SM.
+
+namespace x3 {
+
+using namespace hopper;
+
+constexpr int NW = 4;             // warps a block
+constexpr int NTH = 32 * NW;
+constexpr int BQ = 16 * NW;       // dQ kernel: q rows a block, 16 a warp
+constexpr int BKQ = 32;           // dQ kernel: keys a tile
+constexpr int NK = BKQ / 8;       // ... its n-tiles of 8 keys
+constexpr int BKV = 16 * NW;      // dK/dV kernel: keys a block, 16 a warp
+constexpr int BQS = 16;           // dK/dV kernel: q rows a step
+constexpr int NQ = BQS / 8;       // ... its n-tiles of 8 rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int LD = D + 4;           // row stride of a tile, floats
+  static constexpr int FRAG = 16 * NW * D;   // floats of a block's operand
+                                             // in fragment order
+  static constexpr int DQ_SMEM = (int)sizeof(float) * (2 * FRAG +
+                                                       2 * BKQ * LD);
+  static constexpr int DKDV_SMEM =
+      (int)sizeof(float) * (2 * FRAG + 4 * BQS * LD + 4 * BQS);
+};
+
+// d += a b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi);
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {  // 2^x, 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ROWS rows [r0, r0 + ROWS) of a row-major [n, D] matrix into dst (row
+// stride D + 4) by 16-byte cp.async, rows at or past n zero-filled; the
+// caller commits
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int n) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * (D / 4); i += NTH) {
+    const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * Tile<D>::LD + col,
+               in ? src + (size_t)(r0 + r) * D + col : src, in ? 16 : 0);
+  }
+}
+
+// The 8 floats of row r (columns 32u + 8c .. + 7 from p) or zeros
+__device__ __forceinline__ void row8(float (&x)[8], const float* p,
+                                     bool in) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 a = in ? ld4(p) : zero, b = in ? ld4(p + 4) : zero;
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+// A warp's 16 rows r0 + g, r0 + g + 8 of a row-major [n, D] matrix (rows at
+// or past n zeros), times mul, into dst in A-fragment order: k-step 4u + s
+// of lane 4g + c is the float4 (row g, row g + 8) x (column 32u + 8c + 2s,
+// + 1) at dst[(4u + s) * 32]; dst is the lane's own slot
+template <int D>
+__device__ __forceinline__ void load_frag(float4* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int n, float mul) {
+  const int g = threadIdx.x % 32 / 4, c = threadIdx.x % 4;
+  const bool in0 = r0 + g < n, in1 = r0 + g + 8 < n;
+  const float* p0 = src + (size_t)(r0 + g) * D + 8 * c;
+#pragma unroll
+  for (int u = 0; u < D / 32; ++u) {
+    float x[8], y[8];
+    row8(x, p0 + 32 * u, in0);
+    row8(y, p0 + 8 * D + 32 * u, in1);
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      dst[(4 * u + s) * 32] =
+          make_float4(x[2 * s] * mul, y[2 * s] * mul, x[2 * s + 1] * mul,
+                      y[2 * s + 1] * mul);
+  }
+}
+
+// s[n] = A B^T: A the warp's 16 rows in fragment order (aw, the lane's
+// slot), B rows 8n + g of a row-major tile bt (row stride D + 4); s[n][i]
+// is row g (i < 2) or g + 8 of A, row 8n + 2c + i % 2 of B
+template <int D, int NN>
+__device__ __forceinline__ void product_abt(float (&s)[NN][4],
+                                            const float4* aw,
+                                            const float* bt, int g, int c) {
+  constexpr int LD = Tile<D>::LD;
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+  for (int u = 0; u < D / 32; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const float4 x = aw[(4 * u + 2 * h + st) * 32];
+        const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ahi[st][i] = hi_tf32(e[i]);
+          alo[st][i] = lo_tf32(e[i]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            bt + (8 * n + g) * LD + 32 * u + 8 * c + 4 * h);
+        const uint32_t bhi[2][2] = {{hi_tf32(x.x), hi_tf32(x.y)},
+                                    {hi_tf32(x.z), hi_tf32(x.w)}};
+        const uint32_t blo[2][2] = {{lo_tf32(x.x), lo_tf32(x.y)},
+                                    {lo_tf32(x.z), lo_tf32(x.w)}};
+        mma3(s[n], ahi[0], alo[0], bhi[0], blo[0]);
+        mma3(s[n], ahi[1], alo[1], bhi[1], blo[1]);
+      }
+    }
+}
+
+// acc += X^T Y^T, transposed: X a row-major tile (rows 8n + 2c and + 1 of
+// k-step n, read as float2s at column 16 mt + 2g), Y given by its score
+// fragments y[n] (n-tile 0 from y[n][0..1], n-tile 1 from y[n][2..3]).
+// acc[mt][nt][i] is column 16 mt + 2g + i / 2 of X, row 8 nt + 2c + i % 2
+// of the fragments' first operand.  The tensor cores truncate each sum
+// they accumulate, so over the thousands of k-steps of a gradient the
+// accumulator would drift toward zero (~2e-4 of dK at the training
+// shape): this call's NN k-steps are summed in registers of their own and
+// added to acc with float32's rounding.
+template <int D, int NN>
+__device__ __forceinline__ void product_atb(float (&acc)[D / 16][2][4],
+                                            const float* xt,
+                                            const float (&y)[NN][4], int g,
+                                            int c) {
+  constexpr int LD = Tile<D>::LD;
+  uint32_t bhi[NN][2][2], blo[NN][2][2];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bhi[n][i / 2][i % 2] = hi_tf32(y[n][i]);
+      blo[n][i / 2][i % 2] = lo_tf32(y[n][i]);
+    }
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) {
+    float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float* xr = xt + (8 * n + 2 * c) * LD + 2 * g + 16 * mt;
+      const float2 a = *reinterpret_cast<const float2*>(xr);
+      const float2 b = *reinterpret_cast<const float2*>(xr + LD);
+      const uint32_t ahi[4] = {hi_tf32(a.x), hi_tf32(a.y), hi_tf32(b.x),
+                               hi_tf32(b.y)};
+      const uint32_t alo[4] = {lo_tf32(a.x), lo_tf32(a.y), lo_tf32(b.x),
+                               lo_tf32(b.y)};
+      mma3(t[0], ahi, alo, bhi[n][0], blo[n][0]);
+      mma3(t[1], ahi, alo, bhi[n][1], blo[n][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += t[nt][i];
+  }
+}
+
+// row 8 nt + 2c + e of a transposed accumulator, at columns 16 mt + 2g, + 1,
+// times mul
+template <int D>
+__device__ __forceinline__ void store_rows_t(float* out, int nt, int e,
+                                             const float (&acc)[D / 16][2][4],
+                                             float mul, int g) {
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+    *reinterpret_cast<float2*>(out + 16 * mt + 2 * g) =
+        make_float2(acc[mt][nt][e] * mul, acc[mt][nt][2 + e] * mul);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 2)
+    bwd_x3_dq(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ o,
+              const float* __restrict__ dout, float* __restrict__ lse,
+              float* __restrict__ delta, float* __restrict__ dq, int hq,
+              int hkv, int s_len, int s_pad, int t_len, int causal,
+              float scale) {
+  using T = Tile<D>;
+  extern __shared__ __align__(16) float smem[];
+  float4* qf = reinterpret_cast<float4*>(smem);  // [NW][D / 8][32]
+  float4* df = qf + T::FRAG / 4;                  // dO, the same order
+  float* ks = smem + 2 * T::FRAG;                 // [BKQ][LD]
+  float* vs = ks + BKQ * T::LD;  // [BKQ][LD]; first pass: K's 2nd stage
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heavy tiles first
+  const int offset = t_len - s_len;
+  const size_t kv = (size_t)(b * hkv + h / (hq / hkv)) * t_len * D;
+  const float* kb = k + kv;
+  const float* vb = v + kv;
+  const size_t qrow = (size_t)(b * hq + h) * s_len;
+  int n_kv = (t_len + BKQ - 1) / BKQ;
+  if (causal)  // the last live row of the tile sees keys up to here
+    n_kv = min(n_kv, (min(q0 + BQ, s_len) - 1 + offset) / BKQ + 1);
+  load_rows<D, BKQ>(ks, kb, 0, t_len);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r_lo = q0 + 16 * warp + g;   // the lane's rows: r_lo, r_lo + 8
+  const float4* qw = qf + warp * (D / 8) * 32 + lane;
+  const float4* dw = df + warp * (D / 8) * 32 + lane;
+  float dlt[2] = {0.f, 0.f};
+  {
+    const float sl2 = scale * LOG2E;
+    load_frag<D>(qf + warp * (D / 8) * 32 + lane, q + qrow * D,
+                 q0 + 16 * warp, s_len, sl2);
+    // dO in fragment order, and Delta of rows r_lo, r_lo + 8 from the
+    // same columns of dO and O, summed over the quad
+    const bool in[2] = {r_lo < s_len, r_lo + 8 < s_len};
+    float4* dst = df + warp * (D / 8) * 32 + lane;
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      float x[2][8], y[8];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t at = (qrow + r_lo + 8 * r) * D + 32 * u + 8 * c;
+        row8(x[r], dout + at, in[r]);
+        row8(y, o + at, in[r]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dlt[r] = fmaf(x[r][i], y[i], dlt[r]);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        dst[(4 * u + s) * 32] = make_float4(x[0][2 * s], x[1][2 * s],
+                                            x[0][2 * s + 1], x[1][2 * s + 1]);
+    }
+    dlt[0] = quad_sum(dlt[0]);
+    dlt[1] = quad_sum(dlt[1]);
+  }
+
+  // scores of rows r_lo (i < 2), r_lo + 8 at keys k0 + 8n + 2c + i % 2:
+  // -inf past T and, under the causal mask, past the row's diagonal; only
+  // tiles across either edge are masked
+  auto mask = [&](float (&s)[NK][4], int k0) {
+    if (k0 + BKQ > t_len || (causal && k0 + BKQ - 1 > q0 + offset)) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = k0 + 8 * n + 2 * c + i % 2;
+          if (kp >= t_len || (causal && kp > r_lo + 8 * (i / 2) + offset))
+            s[n][i] = -INFINITY;
+        }
+    }
+  };
+
+  // first pass: each row's log-sum-exp in base 2, K through a 2-stage ring
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<0>();   // K_j is in
+    __syncthreads();      // ... for every warp, which are done with K_j-1
+    if (j + 1 < n_kv) {
+      load_rows<D, BKQ>(j & 1 ? ks : vs, kb, (j + 1) * BKQ, t_len);
+      cp_async_commit();
+    }
+    float s[NK][4];
+    product_abt<D, NK>(s, qw, j & 1 ? vs : ks, g, c);
+    mask(s, j * BKQ);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      const float mn = fmaxf(m[r], quad_max(mx));
+      // a row with no live key yet keeps l = 0 (no inf - inf)
+      const float mu = mn == -INFINITY ? 0.f : mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        sum += exp2_approx(s[n][2 * r] - mu) +
+               exp2_approx(s[n][2 * r + 1] - mu);
+      l[r] = exp2_approx(m[r] - mu) * l[r] + sum;
+      m[r] = mn;
+    }
+  }
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const int row = r_lo + 8 * r;
+    // +inf for a row past S or with no live key: its P is 0
+    lse2[r] = row < s_len && lr > 0.f ? m[r] + log2f(lr) : INFINITY;
+    if (c == 0) {   // rows < s_pad: the tile lies inside the scratch
+      const size_t at = (size_t)(b * hq + h) * s_pad + row;
+      lse[at] = lse2[r];
+      delta[at] = row < s_len ? dlt[r] : 0.f;
+    }
+  }
+
+  // second pass: dQ^T += K^T dS^T; V_j+1 loads while S_j and dQ_j are
+  // computed, K_j+1 while dP_j+1 is
+  __syncthreads();   // every warp is done with the first pass's K tiles
+  load_rows<D, BKQ>(vs, vb, 0, t_len);
+  cp_async_commit();
+  load_rows<D, BKQ>(ks, kb, 0, t_len);
+  cp_async_commit();
+  float acc[D / 16][2][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * BKQ;
+    cp_async_wait<1>();   // V_j is in (K_j may still load)
+    __syncthreads();
+    float dp[NK][4];
+    product_abt<D, NK>(dp, dw, vs, g, c);
+    __syncthreads();      // every warp has read V_j
+    if (j + 1 < n_kv) load_rows<D, BKQ>(vs, vb, k0 + BKQ, t_len);
+    cp_async_commit();
+    cp_async_wait<1>();   // K_j is in (V_j+1 may still load)
+    __syncthreads();
+    float s[NK][4];
+    product_abt<D, NK>(s, qw, ks, g, c);
+    mask(s, k0);
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[n][i] = exp2_approx(s[n][i] - lse2[i / 2]) * (dp[n][i] - dlt[i / 2]);
+    product_atb<D, NK>(acc, ks, s, g, c);
+    __syncthreads();      // every warp has read K_j
+    if (j + 1 < n_kv) load_rows<D, BKQ>(ks, kb, k0 + BKQ, t_len);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + 16 * warp + 8 * nt + 2 * c + e;
+      if (row < s_len)
+        store_rows_t<D>(dq + (qrow + row) * D, nt, e, acc, scale, g);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 2)
+    bwd_x3_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int hq, int hkv, int s_len,
+                int s_pad, int t_len, int causal, float scale) {
+  using T = Tile<D>;
+  constexpr int LD = T::LD;
+  extern __shared__ __align__(16) float smem[];
+  float4* kf = reinterpret_cast<float4*>(smem);  // [NW][D / 8][32]
+  float4* vf = kf + T::FRAG / 4;                  // V, the same order
+  float* qs = smem + 2 * T::FRAG;                 // [2][BQS][LD]
+  float* dos = qs + 2 * BQS * LD;                 // [2][BQS][LD]
+  float* ls = dos + 2 * BQS * LD;                 // [2][BQS] LSE, base 2
+  float* dls = ls + 2 * BQS;                      // [2][BQS] Delta
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;   // key tile 0 sees the most rows: first
+  const int group = hq / hkv;
+  const int offset = t_len - s_len;
+  const size_t kvrow = (size_t)(b * hkv + hk) * t_len;
+  // under the causal mask, key k0 is live for rows i >= k0 - offset
+  const int first = causal ? max(0, k0 - offset) / BQS * BQS : 0;
+  const int n_qt = first < s_len ? (s_len - first + BQS - 1) / BQS : 0;
+  const int total = group * n_qt;   // q steps: the group's heads in turn
+
+  // q step it into stage it % 2: Q and dO rows (zero past S) and their
+  // LSE and Delta (the scratch covers s_pad >= q0 + BQS rows); one group
+  auto issue = [&](int it) {
+    const int st = it & 1, q0 = first + it % n_qt * BQS;
+    const int head = hk * group + it / n_qt;
+    const size_t qrow = (size_t)(b * hq + head) * s_len;
+    load_rows<D, BQS>(qs + st * BQS * LD, q + qrow * D, q0, s_len);
+    load_rows<D, BQS>(dos + st * BQS * LD, dout + qrow * D, q0, s_len);
+    const int t = threadIdx.x;
+    if (t < BQS / 2) {
+      const size_t at =
+          (size_t)(b * hq + head) * s_pad + q0 + t % (BQS / 4) * 4;
+      const bool is_lse = t < BQS / 4;
+      cp_async16((is_lse ? ls : dls) + st * BQS + t % (BQS / 4) * 4,
+                 (is_lse ? lse : delta) + at, 16);
+    }
+    cp_async_commit();
+  };
+  if (total > 0) issue(0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int kw = k0 + 16 * warp;   // the warp's keys: kw + g, kw + g + 8
+  const float4* kwf = kf + warp * (D / 8) * 32 + lane;
+  const float4* vwf = vf + warp * (D / 8) * 32 + lane;
+  load_frag<D>(kf + warp * (D / 8) * 32 + lane, k + kvrow * D, kw, t_len,
+               scale * LOG2E);
+  load_frag<D>(vf + warp * (D / 8) * 32 + lane, v + kvrow * D, kw, t_len,
+               1.f);
+
+  float acc_v[D / 16][2][4], acc_k[D / 16][2][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc_v[mt][nt][i] = 0.f;
+        acc_k[mt][nt][i] = 0.f;
+      }
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<0>();   // step it is in
+    __syncthreads();      // ... for every warp, which are done with it - 1
+    if (it + 1 < total) issue(it + 1);
+    const int st = it & 1, q0 = first + it % n_qt * BQS;
+    // under the causal mask a warp whose keys all lie past the step's last
+    // row's diagonal adds nothing
+    if (causal && kw > q0 + BQS - 1 + offset) continue;
+    const float* qt = qs + st * BQS * LD;
+    const float* dt = dos + st * BQS * LD;
+    // S^T = K Q^T and dP^T = V dO^T: key kw + g + 8 (i / 2), q row
+    // q0 + 8n + 2c + i % 2
+    float sp[NQ][4], dsp[NQ][4];
+    product_abt<D, NQ>(sp, kwf, qt, g, c);
+    product_abt<D, NQ>(dsp, vwf, dt, g, c);
+    if (causal && kw + 15 > q0 + offset) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kw + g + 8 * (i / 2) > q0 + 8 * n + 2 * c + i % 2 + offset)
+            sp[n][i] = -INFINITY;
+    }
+    // P^T = 2^(S^T - LSE) (0 where masked, and on a row whose LSE is +inf)
+    // and dS^T = P^T (dP^T - Delta); keys past T are never stored
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 lr = *reinterpret_cast<const float2*>(
+          ls + st * BQS + 8 * n + 2 * c);
+      const float2 dr = *reinterpret_cast<const float2*>(
+          dls + st * BQS + 8 * n + 2 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2_approx(sp[n][i] - (i % 2 ? lr.y : lr.x));
+        sp[n][i] = p;
+        dsp[n][i] = p * (dsp[n][i] - (i % 2 ? dr.y : dr.x));
+      }
+    }
+    product_atb<D, NQ>(acc_v, dt, sp, g, c);    // dV^T += dO^T P^T
+    product_atb<D, NQ>(acc_k, qt, dsp, g, c);   // dK^T += Q^T dS^T
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = kw + 8 * nt + 2 * c + e;
+      if (key >= t_len) continue;
+      store_rows_t<D>(dv + (kvrow + key) * D, nt, e, acc_v, 1.f, g);
+      store_rows_t<D>(dk + (kvrow + key) * D, nt, e, acc_k, scale, g);
+    }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, float* dq, float* dk, float* dv, float* lse,
+           float* delta, int b, int hq, int hkv, int s_len, int t_len,
+           int causal, float scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  const int n_q = (s_len + BQ - 1) / BQ, n_k = (t_len + BKV - 1) / BKV;
+  if (n_q > 65535 || n_k > 65535 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = allow_smem(bwd_x3_dq<D>, T::DQ_SMEM)) ||
+      (err = allow_smem(bwd_x3_dkdv<D>, T::DKDV_SMEM)))
+    return (int)err;
+  const int s_pad = n_q * BQ;   // the scratch's rows a head
+  bwd_x3_dq<D><<<dim3(hq, b, n_q), NTH, T::DQ_SMEM, stream>>>(
+      q, k, v, o, dout, lse, delta, dq, hq, hkv, s_len, s_pad, t_len, causal,
+      scale);
+  if ((err = cudaGetLastError())) return (int)err;
+  bwd_x3_dkdv<D><<<dim3(hkv, b, n_k), NTH, T::DKDV_SMEM, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, hq, hkv, s_len, s_pad, t_len,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace x3
+
 }  // namespace
 
 // dq, dk, dv of attention from q, k, v, its output o and the output's
@@ -530,4 +1100,36 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                      b, hq, hkv, s_len, t_len, causal, scale,
                                      st);
   return (int)cudaErrorInvalidValue;
+}
+
+// float32 in 3xTF32 on the tensor cores: q, k, v, o, dout, dq, dk and dv
+// 16-byte aligned (the wrapper checks); lse and delta float32 scratch of
+// B * Hq * S_pad each, S_pad = S rounded up to 64, 16-byte aligned.
+// Returns cudaGetLastError() after the launches (0 on success); a head size
+// other than 32, 64 or 128, or more than 65535 batches or tiles, gives
+// cudaErrorInvalidValue without a launch.
+extern "C" int repro_flash_attention_bwd_tf32x3(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    int b, int hq, int hkv, int s_len, int t_len, int d, int causal,
+    float scale, void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto w = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return x3::launch<32>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
+                            w(dv), w(lse), w(delta), b, hq, hkv, s_len, t_len,
+                            causal, scale, st);
+    case 64:
+      return x3::launch<64>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
+                            w(dv), w(lse), w(delta), b, hq, hkv, s_len, t_len,
+                            causal, scale, st);
+    case 128:
+      return x3::launch<128>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
+                             w(dv), w(lse), w(delta), b, hq, hkv, s_len,
+                             t_len, causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -37,14 +37,28 @@ of speed.
 The gradient.  :func:`flash_attention` goes through :class:`FlashAttention`,
 a ``torch.autograd.Function`` that saves q, k, v and the output.  Its
 backward launches ``csrc/flash_attention_bwd.cu`` for CUDA tensors (float32
-or bfloat16, D in 32/64/128, any S and T; one C call of three kernels, one
-count in ``bwd_launches``): a pre-pass that recomputes each row's
-log-sum-exp and ``rowsum(dO * O)``, then dK and dV per key tile over the
-group's q heads and the live q tiles, then dQ per q tile over the live key
-tiles, float32 FMAs, no atomics.  On the CPU it takes
-:func:`flash_attention_bwd_plain`, which walks the same three loops.  The
-TPU kernel has no backward; this one computes what the JAX package's
-autodiff of ``attention_ref`` computes.  Under ``torch.no_grad()`` or
+or bfloat16, D in 32/64/128, any S and T; one C call, one count in
+``bwd_launches``, and in ``bwd_path_launches`` of its path).  Which kernels
+is :func:`flash_bwd_path`, a plain function of the dtype and the alignment
+of q, k, v, o and dO:
+
+- ``"tf32x3"``: float32 with all five on 16-byte boundaries.  Tensor cores
+  in 3xTF32 (``mma.sync``), two kernels: dQ per 64-row q tile (a first
+  pass over its live 32-key tiles for each row's log-sum-exp, and
+  ``rowsum(dO * O)``, then dQ), and dK and dV per 64-key tile over the
+  group's q heads and their live 16-row q steps; Q, dO or K, V through
+  ``cp.async`` rings, P and dS in registers.
+- ``"fma"``: bfloat16, and float32 off a 16-byte boundary: three kernels
+  on float32 FMAs (a pre-pass for the log-sum-exp and
+  ``rowsum(dO * O)``, then dK and dV per 64-key tile over 64-row q tiles,
+  then dQ per q tile over 64-key tiles).
+
+Both keep every gradient element to one block and one order of summation
+(no atomics), so a result repeats bit for bit.  On the CPU the backward
+takes :func:`flash_attention_bwd_plain`, which walks the loops of the
+kernels that would take the inputs (``BWD_SCHEDULE``).  The TPU kernel has
+no backward; this one computes what the JAX package's autodiff of
+``attention_ref`` computes.  Under ``torch.no_grad()`` or
 ``torch.inference_mode()`` the forward launches as it always did.
 """
 from __future__ import annotations
@@ -61,9 +75,19 @@ HEAD_DIMS = (32, 64, 128)
 PATHS = ("wgmma", "tf32x3", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+BWD_PATHS = ("tf32x3", "fma")
+# The backward kernels' tile schedules, which the plain version walks: the
+# log-sum-exp pass (q rows a tile, keys a tile), dK/dV (keys a block, q rows
+# a step) and dQ (q rows a tile, keys a tile); tf32x3's x3::BQ, BKQ, BKV,
+# BQS and the FMA kernels' BQ, BK in csrc/flash_attention_bwd.cu
+BWD_SCHEDULE = {"tf32x3": {"lse": (64, 32), "dkdv": (64, 16), "dq": (64, 32)},
+                "fma": {"lse": (64, 64), "dkdv": (64, 64), "dq": (64, 64)}}
+BWD_PAD = 64   # tf32x3's LSE and Delta scratch: S rounded up to this
+
 launches = LaunchCounter()
 path_launches = {path: LaunchCounter() for path in PATHS}
 bwd_launches = LaunchCounter()
+bwd_path_launches = {path: LaunchCounter() for path in BWD_PATHS}
 
 
 def flash_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -76,6 +100,15 @@ def _path(dtype: torch.dtype, ptrs: tuple[int, ...]) -> str:
     if any(p % 16 for p in ptrs):
         return "fma"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def flash_bwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, do: torch.Tensor) -> str:
+    """The backward kernels that take these contiguous inputs: one of
+    :data:`BWD_PATHS` (the module doc says which inputs go where)."""
+    path = _path(q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), do.data_ptr()))
+    return "tf32x3" if path == "tf32x3" else "fma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -255,62 +288,76 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on "
                              f"{x.device} does not fit q {tuple(q.shape)} "
                              f"{q.dtype} on {q.device}")
+    path = flash_bwd_path(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    rows = -(-s // BWD_PAD) * BWD_PAD if path == "tf32x3" else s
+    lse = torch.empty((b, hq, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    with torch.cuda.device(q.device):
-        err = _bwd_entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _DTYPE_CODE[q.dtype], b, hq,
-            hkv, s, t, d, int(causal), float(scale),
-            torch.cuda.current_stream().cuda_stream)
+            lse.data_ptr(), delta.data_ptr(),
+            *([_DTYPE_CODE[q.dtype]] if path == "fma" else []), b, hq, hkv,
+            s, t, d, int(causal), float(scale))
+    with torch.cuda.device(q.device):
+        err = _bwd_entry(path)(*args,
+                               torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash attention backward kernel ({path}) launch "
+                           f"failed: CUDA error {err}")
     bwd_launches.add()
+    bwd_path_launches[path].add()
     return dq, dk, dv
 
 
-def _bwd_entry():
-    """The backward's C entry point, typed on first use and then cached."""
-    fn = _fns.get("bwd")
+_BWD_ENTRY = {"tf32x3": "repro_flash_attention_bwd_tf32x3",
+              "fma": "repro_flash_attention_bwd"}
+
+
+def _bwd_entry(path: str):
+    """The C entry point of the backward's ``path``, typed on first use and
+    then cached."""
+    fn = _fns.get(("bwd", path))
     if fn is None:
         from .build import load
-        fn = load("flash_attention_bwd").repro_flash_attention_bwd
+        fn = getattr(load("flash_attention_bwd"), _BWD_ENTRY[path])
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, p]
-        _fns["bwd"] = fn
+        fn.argtypes = ([p] * 10 + [i] * (8 if path == "fma" else 7)
+                       + [ctypes.c_float, p])
+        _fns[("bwd", path)] = fn
     return fn
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, *, causal: bool = True,
-                              scale: float | None = None
+                              scale: float | None = None,
+                              schedule: str | None = None
                               ) -> tuple[torch.Tensor, ...]:
-    """The backward kernel's arithmetic in torch, tile by tile, in float32:
+    """The backward kernels' arithmetic in torch, tile by tile, in float32:
     (dq, dk, dv) in the inputs' dtype from q, k, v, the forward's output o
-    and its gradient do.  The same three loops as the kernels: each q
-    tile's log-sum-exp by the online max and sum over its live key tiles;
-    dK and dV per key tile, over the group's q heads and then the q tiles
-    that see it; dQ per q tile over its live key tiles."""
+    and its gradient do.  It walks the tiles of the path ``schedule`` (one
+    of :data:`BWD_PATHS`; by default the path that would take these inputs,
+    :func:`flash_bwd_path`), by ``BWD_SCHEDULE``: each q tile's log-sum-exp
+    by the online max and sum over its live key tiles; dK and dV per key
+    block, over the group's q heads and then the q steps that see it; dQ
+    per q tile over its live key tiles."""
     _check(q, k, v, causal)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = d ** -0.5 if scale is None else scale
+    tiles = BWD_SCHEDULE[schedule or flash_bwd_path(q, k, v, o, do)]
     qf = q.float().reshape(b, hkv, g, s, d)
     of = o.float().reshape(b, hkv, g, s, d)
     dof = do.float().reshape(b, hkv, g, s, d)
     kf, vf = k.float(), v.float()
     offset = t - s
-    n_all = -(-t // BK)
     neg_inf = float("-inf")
 
-    def live_tiles(q1: int) -> int:
-        return min(n_all, (q1 - 1 + offset) // BK + 1) if causal else n_all
+    def live_tiles(q1: int, bk: int) -> int:
+        n_all = -(-t // bk)
+        return min(n_all, (q1 - 1 + offset) // bk + 1) if causal else n_all
 
     def scores(qi, q0, q1, k0, k1):
         sc = qi @ kf[:, :, None, k0:k1].transpose(-1, -2) * scale
@@ -320,16 +367,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             sc = sc.masked_fill(kpos > qpos, neg_inf)
         return sc
 
-    # 1. the pre-pass: log-sum-exp (-inf for a row with no live key) and
+    # 1. log-sum-exp (-inf for a row with no live key) and
     # delta = rowsum(dO * O)
+    bq, bk = tiles["lse"]
     lse = torch.empty((b, hkv, g, s), device=q.device)
-    for q0 in range(0, s, BQ):
-        q1 = min(q0 + BQ, s)
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
         m = torch.full((b, hkv, g, q1 - q0), neg_inf, device=q.device)
         l = torch.zeros_like(m)
-        for j in range(live_tiles(q1)):
-            sc = scores(qf[..., q0:q1, :], q0, q1, j * BK,
-                        min(j * BK + BK, t))
+        for j in range(live_tiles(q1, bk)):
+            sc = scores(qf[..., q0:q1, :], q0, q1, j * bk,
+                        min(j * bk + bk, t))
             m_new = torch.maximum(m, sc.amax(dim=-1))
             m_use = m_new.masked_fill(m_new == neg_inf, 0.0)
             l = torch.exp(m - m_use) * l + torch.exp(
@@ -347,16 +395,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         dp = dof[:, :, heads, q0:q1] @ vf[:, :, None, k0:k1].transpose(-1, -2)
         return p, p * (dp - delta[:, :, heads, q0:q1, None])
 
-    # 2. dK and dV: per key tile, over the group's q heads, then the q
-    # tiles that see the key tile
+    # 2. dK and dV: per key block, over the group's q heads, then the q
+    # steps that see the block
+    bk, bq = tiles["dkdv"]
     dk = torch.zeros((b, hkv, t, d), device=q.device)
     dv = torch.zeros_like(dk)
-    for k0 in range(0, t, BK):
-        k1 = min(k0 + BK, t)
-        first = max(0, k0 - offset) // BQ * BQ if causal else 0
+    for k0 in range(0, t, bk):
+        k1 = min(k0 + bk, t)
+        first = max(0, k0 - offset) // bq * bq if causal else 0
         for gi in range(g):
-            for q0 in range(first, s, BQ):
-                q1 = min(q0 + BQ, s)
+            for q0 in range(first, s, bq):
+                q1 = min(q0 + bq, s)
                 p, ds = p_ds(slice(gi, gi + 1), q0, q1, k0, k1)
                 dv[:, :, k0:k1] += (p.transpose(-1, -2)
                                     @ dof[:, :, gi:gi + 1, q0:q1])[:, :, 0]
@@ -365,11 +414,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dk *= scale
 
     # 3. dQ: per q tile, over its live key tiles
+    bq, bk = tiles["dq"]
     dq = torch.zeros_like(qf)
-    for q0 in range(0, s, BQ):
-        q1 = min(q0 + BQ, s)
-        for j in range(live_tiles(q1)):
-            k0, k1 = j * BK, min(j * BK + BK, t)
+    for q0 in range(0, s, bq):
+        q1 = min(q0 + bq, s)
+        for j in range(live_tiles(q1, bk)):
+            k0, k1 = j * bk, min(j * bk + bk, t)
             _, ds = p_ds(slice(None), q0, q1, k0, k1)
             dq[..., q0:q1, :] += ds @ kf[:, :, None, k0:k1]
     dq *= scale

@@ -14,11 +14,13 @@ from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
 from repro_torch.models import init_moe, moe_block
 from repro_torch.models.layers import init_linear
 from repro_torch.kernels.flash_attention import (bwd_launches,
+                                                 bwd_path_launches,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain,
-                                                 launches, path_launches)
+                                                 flash_bwd_path, launches,
+                                                 path_launches)
 
 torch.set_num_threads(1)
 
@@ -270,31 +272,73 @@ def test_kernels_refuse_inputs_that_need_a_gradient(card):
         assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
-                                       (torch.bfloat16, 2e-2)])
+FLASH_BWD_F32_KEEP = 4e-5   # the float32 error under which the 3xTF32
+                            # backward is kept (a 1xTF32 slip exceeds it)
+
+
+def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
+    q, k, v = _qkv(card, b, hq, hkv, s, t, d, dtype)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    g = torch.Generator(device=card)
+    g.manual_seed(s * 11 + t)
+    return q, k, v, o, torch.randn(q.shape, generator=g,
+                                   device=card).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,path,tol", [
+    (torch.float32, "tf32x3", 2e-4),    # aligned float32: 3xTF32 mma.sync
+    (torch.float32, "fma", 2e-4),       # q off a 16-byte boundary
+    (torch.bfloat16, "fma", 2e-2),
+])
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
     (2, 32, 8, 256, 256, 128, True),
     (1, 8, 1, 300, 300, 64, True),      # GQA group 8, ragged
     (1, 4, 4, 37, 301, 32, True),       # S < T, end-aligned, group 1
     (1, 8, 2, 130, 70, 128, False),     # S > T
     (2, 4, 2, 40, 40, 64, True),        # S shorter than one tile
+    (1, 8, 2, 33, 97, 128, True),       # one past 32-row / 32-key steps
+    (1, 4, 1, 17, 17, 32, True),        # one past a 16-row q step
 ])
-def test_flash_bwd_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t,
-                                        d, causal):
-    q, k, v = _qkv(card, b, hq, hkv, s, t, d, dtype)
-    with torch.no_grad():
-        o = flash_attention(q, k, v, causal=causal)
-    do = torch.randn(q.shape, device=card).to(dtype)
-    before = bwd_launches.count
+def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
+                                        s, t, d, causal):
+    q, k, v, o, do = _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal)
+    if path == "fma" and dtype == torch.float32:
+        q = _off16(q)
+    assert flash_bwd_path(q, k, v, o, do) == path
+    before = {p: c.count for p, c in bwd_path_launches.items()}
+    total = bwd_launches.count
     got = flash_attention_bwd(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
-    assert bwd_launches.count == before + 1
+    assert bwd_launches.count == total + 1
+    assert {p: c.count - before[p] for p, c in bwd_path_launches.items()} == {
+        p: int(p == path) for p in bwd_path_launches}
     want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all())
         err = (g.float() - w.float()).abs()
         assert bool((err <= tol * (1 + w.float().abs())).all()), float(
             err.max())
+        if path == "tf32x3":
+            assert bool((err <= FLASH_BWD_F32_KEEP * (1 + w.abs())).all()), \
+                float((err / (1 + w.abs())).max())
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, False),
+                                          (torch.float32, True),
+                                          (torch.bfloat16, False)])
+def test_flash_bwd_kernel_repeats_bit_for_bit(card, dtype, offset):
+    """No atomics: every gradient element is summed by one block in one
+    order, so two runs on one input agree bit for bit, on either path."""
+    q, k, v, o, do = _bwd_inputs(card, 2, 8, 2, 300, 300, 128, dtype, True)
+    if offset:
+        q = _off16(q)
+    first = flash_attention_bwd(q, k, v, o, do)
+    second = flash_attention_bwd(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_gradients_flow_through_the_kernels(card):
@@ -533,7 +577,8 @@ def test_grad_step_on_the_card_matches_the_cpu_path(card):
     """Reduced granite-8b's loss and gradients on the card (the flash
     kernels forward and backward) against the CPU path (the plain
     versions): the loss at rel 1e-5, each leaf at 1e-4 x its largest
-    magnitude; one forward and one backward launch a layer."""
+    magnitude; one forward and one backward launch a layer, the backward
+    on ``tf32x3``."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.optim.adamw import leaves
@@ -544,10 +589,12 @@ def test_grad_step_on_the_card_matches_the_cpu_path(card):
     step = make_grad_step(cfg, remat=False)
     want, met_want = step(cpu, _train_batch(cfg.vocab, "cpu"))
     fwd, bwd = launches.count, bwd_launches.count
+    bwd_x3 = bwd_path_launches["tf32x3"].count
     got, met = step(gpu, _train_batch(cfg.vocab, card))
     torch.cuda.synchronize()
-    assert (launches.count - fwd, bwd_launches.count - bwd) == (
-        cfg.n_layers, cfg.n_layers)
+    assert (launches.count - fwd, bwd_launches.count - bwd,
+            bwd_path_launches["tf32x3"].count - bwd_x3) == (
+        cfg.n_layers, cfg.n_layers, cfg.n_layers)
     assert float(met["loss"]) == pytest.approx(float(met_want["loss"]),
                                                rel=1e-5)
     for g, w in zip(leaves(got), leaves(want)):

@@ -1,8 +1,9 @@
 """Flash attention's backward on the CPU, against the JAX package's
 gradient: ``jax.vjp`` of ``repro.kernels.ref.attention_ref`` (the JAX
 package has no Pallas backward; its training gradient is autodiff of that
-function).  The port's plain backward walks the CUDA kernel's tile
-schedule, so these tests hold the kernel's algorithm; the kernel itself is
+function).  The port's plain backward walks the tile schedule of either
+backward path (``tf32x3``, the one float32 training takes, and ``fma``),
+so these tests hold the kernels' algorithm; the kernels themselves are
 held to the plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
@@ -17,12 +18,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (FlashAttention,
+from repro_torch.kernels.flash_attention import (BWD_PATHS, FlashAttention,
                                                  bwd_launches,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
-                                                 launches)
+                                                 flash_bwd_path, launches)
 
 torch.set_num_threads(1)
 
@@ -33,6 +34,16 @@ CASES = [  # (b, hq, hkv, s, t, d, causal)
     (2, 4, 1, 37, 130, 64, True),     # S < T (end-aligned), S < one tile
     (1, 8, 2, 100, 60, 32, False),    # non-causal, S > T
     (1, 4, 2, 50, 200, 128, False),   # non-causal, S < T, D = 128
+]
+
+# the edges of the tf32x3 schedule: 16-row q steps of dK/dV, 32-key tiles
+# of the LSE pass and of dQ, 64-row q tiles and 64-key blocks
+EDGE_CASES = [  # (b, hq, hkv, s, t, d, causal)
+    (1, 4, 2, 33, 33, 32, True),      # one past a 32-row step, S = T
+    (1, 4, 1, 17, 97, 64, True),      # one past a 16-row step; T one past 3 x 32
+    (2, 2, 2, 65, 65, 32, True),      # one past a 64-row tile and key block
+    (1, 4, 2, 31, 129, 32, True),     # one short of 32 rows; T one past 128
+    (1, 2, 1, 48, 40, 64, False),     # non-causal, S > T, T ragged in 32
 ]
 
 
@@ -59,13 +70,67 @@ def _rel(got, want) -> float:
 
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", CASES)
 def test_plain_backward_matches_jax_vjp(b, hq, hkv, s, t, d, causal):
+    """The plain backward at its default schedule: for aligned float32,
+    the ``tf32x3`` kernels'."""
     q, k, v, do = _inputs(b, hq, hkv, s, t, d)
     o, want = _jax_grads(q, k, v, do, causal)
-    got = flash_attention_bwd_plain(*map(torch.tensor, (q, k, v, o, do)),
-                                    causal=causal)
+    args = list(map(torch.tensor, (q, k, v, o, do)))
+    assert flash_bwd_path(*args) == "tf32x3"
+    got = flash_attention_bwd_plain(*args, causal=causal)
     for name, g, w in zip("qkv", got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel(g.numpy(), w) < 2e-4, name
+
+
+@pytest.mark.parametrize("schedule", BWD_PATHS)
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", EDGE_CASES)
+def test_plain_backward_at_the_schedules_edges(b, hq, hkv, s, t, d, causal,
+                                               schedule):
+    q, k, v, do = _inputs(b, hq, hkv, s, t, d, seed=4)
+    o, want = _jax_grads(q, k, v, do, causal)
+    got = flash_attention_bwd_plain(*map(torch.tensor, (q, k, v, o, do)),
+                                    causal=causal, schedule=schedule)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel(g.numpy(), w) < 2e-4, name
+
+
+def _off16(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts off a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)[1:]
+    flat.copy_(x.reshape(-1))
+    return flat.view(x.shape)
+
+
+def test_backward_path_chooser():
+    """Aligned float32 takes ``tf32x3``; bfloat16, and float32 with any of
+    q, k, v, o or dO off a 16-byte boundary, take ``fma``."""
+    ts = [torch.from_numpy(x) for x in _inputs(1, 4, 2, 40, 40, 32)]
+    q, k, v, do = ts
+    assert flash_bwd_path(q, k, v, q, do) == "tf32x3"
+    bf = [x.to(torch.bfloat16) for x in (q, k, v, q, do)]
+    assert flash_bwd_path(*bf) == "fma"
+    five = [q, k, v, q, do]
+    for i in range(5):
+        off = list(five)
+        off[i] = _off16(five[i])
+        assert off[i].data_ptr() % 16 and off[i].is_contiguous()
+        assert flash_bwd_path(*off) == "fma"
+
+
+def test_plain_backward_takes_the_schedule_of_the_path():
+    """By default the plain version walks the schedule of the path the
+    inputs would take on the card; the two schedules agree to float32's
+    rounding."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(1, 4, 2, 100, 100, 32, seed=5))
+    o = flash_attention(q, k, v)
+    by_path = {p: flash_attention_bwd_plain(q, k, v, o, do, schedule=p)
+               for p in BWD_PATHS}
+    default = flash_attention_bwd_plain(q, k, v, o, do)
+    off = flash_attention_bwd_plain(_off16(q), k, v, o, do)
+    for a, b, c, d in zip(default, by_path["tf32x3"], off, by_path["fma"]):
+        assert torch.equal(a, b) and torch.equal(c, d)
+        assert _rel(a.numpy(), d.numpy()) < 1e-5
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", CASES)

@@ -4,6 +4,8 @@
     python tools/torch_flash_ab.py [--variant NAME=FLAGS ...] [--rounds 3]
     python tools/torch_flash_ab.py --host [--against DIR]
     python tools/torch_flash_ab.py --mma-peak
+    python tools/torch_flash_ab.py --bwd [--variant NAME=FLAGS ...]
+                                   [--against DIR] [--rounds 3]
 
 A variant ``NAME=FLAGS`` builds ``flash_attention.cu`` with the
 space-separated ``-D`` flags in FLAGS, from this tree's ``csrc`` or, with
@@ -35,6 +37,19 @@ from CUDA events after a spin kernel holds the stream; the medians over
 the rounds are reported with each variant's largest error
 ``|o - plain| / (1 + |plain|)``.  Prints one JSON object and appends it to
 ``chiprun_out/flash_ab.jsonl``.
+
+With ``--bwd``: the backward at the training shape (q [2,32,2048,128],
+k/v [2,8,2048,128], causal, float32).  Each variant builds
+``flash_attention_bwd.cu`` as above and is called through its
+``repro_flash_attention_bwd_tf32x3``; beside them, in turn each round,
+this tree's wrapper on both paths (``tf32x3``; ``fma`` with q off a
+16-byte boundary), SDPA's backward on a kept graph and, with ``--against
+DIR``, the wrapper of the ``repro_torch`` under DIR (for example the
+parent commit's ``src``, unpacked by ``git archive`` into an ignored
+directory, which builds its own kernels there).  Each reports its median
+card time and its largest ``|g - plain| / (1 + |plain|)`` over dq, dk
+and dv; one profiled call of this tree's ``tf32x3`` path gives each
+kernel's card time.
 """
 from __future__ import annotations
 
@@ -58,14 +73,16 @@ SHAPES = [(32, 8, 256, 128), (32, 8, 512, 128), (32, 8, 1024, 128),
 DEFAULT_VARIANTS = ["ship="]
 
 
-def _build(variants: dict[str, str]) -> dict:
-    """{name: (ctypes library, compiler report)}, built in parallel."""
+def _build(variants: dict[str, str], source: str = "flash_attention",
+           kernel: str = "tf32x3") -> dict:
+    """{name: (ctypes library, compiler report of the kernels whose name
+    holds ``kernel``)}, ``csrc/<source>.cu`` built in parallel."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for var, flags in variants.items():
-        lib = out_dir / f"libflash-{var}.so"
+        lib = out_dir / f"lib{source}-{var}.so"
         csrc, defines = build.CSRC, []
         for tok in flags.split():
             if tok.startswith("--csrc="):
@@ -73,7 +90,7 @@ def _build(variants: dict[str, str]) -> dict:
             else:
                 defines.append(tok)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(lib),
-               str(csrc / "flash_attention.cu")]
+               str(csrc / f"{source}.cu")]
         procs[var] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       lib)
@@ -84,7 +101,7 @@ def _build(variants: dict[str, str]) -> dict:
             raise RuntimeError(f"nvcc failed for variant {var}:\n{log}")
         lines, report = log.splitlines(), []
         for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and "tf32x3" in ln:
+            if "Compiling entry" in ln and kernel in ln:
                 report += [x.strip() for x in lines[i:i + 4]
                            if "Compiling" in x or "spill" in x
                            or "registers" in x]
@@ -161,6 +178,77 @@ def _mma_peak(cs) -> int:
     return 0
 
 
+def _bwd(cs, fa, args) -> int:
+    """The backward's variants, paths, SDPA and another tree (``--bwd``)."""
+    import statistics
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    b, hq, hkv, s, t, d, causal = cs.FLASH_BWD_CASES[0]
+    q, k, v, o, do = cs._bwd_inputs(b, hq, hkv, s, t, d, torch.float32,
+                                    causal, seed=299)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do)
+    q_off = cs._off16(q)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    calls = {"tf32x3": lambda: fa.flash_attention_bwd(q, k, v, o, do),
+             "fma": lambda: fa.flash_attention_bwd(q_off, k, v, o, do),
+             "sdpa": lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True)}
+    if args.against:
+        other = _other_tree(args.against)
+        calls["against"] = lambda: other.flash_attention_bwd(q, k, v, o, do)
+    libs = _build(dict(v.split("=", 1) for v in args.variant or []),
+                  "flash_attention_bwd", "bwd_x3")
+    rows = -(-s // fa.BWD_PAD) * fa.BWD_PAD
+    for var, (lib, _) in libs.items():
+        fn = getattr(lib, "repro_flash_attention_bwd_tf32x3")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype, fn.argtypes = i, [p] * 10 + [i] * 7 + [ctypes.c_float, p]
+
+        def call(fn=fn):
+            grads = [torch.empty_like(x) for x in (q, k, v)]
+            scratch = [torch.empty((b, hq, rows), device=q.device)
+                       for _ in range(2)]
+            err = fn(*(x.data_ptr() for x in (q, k, v, o, do, *grads,
+                                               *scratch)),
+                     b, hq, hkv, s, t, d, int(causal), d ** -0.5,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"variant {var}: CUDA error {err}")
+            return grads
+        calls[f"variant:{var}"] = call
+    errs = {}
+    for name, fn in calls.items():
+        if name == "sdpa":
+            continue
+        got = fn()
+        torch.cuda.synchronize()
+        errs[name] = max(float(((g - w).abs() / (1 + w.abs())).max())
+                         for g, w in zip(got, want))
+    times = {name: [] for name in calls}
+    for _ in range(args.rounds):
+        for name, fn in calls.items():
+            times[name].append(cs._time_ms(fn, iters=5))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls["tf32x3"]()
+        torch.cuda.synchronize()
+    kernels = {ev.key[:80]: ev.self_device_time_total / 1e3
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    row = {"shape": [b, hq, hkv, s, t, d], "causal": causal,
+           "ms": {n: statistics.median(x) for n, x in times.items()},
+           "ms_rounds": times, "max_rel_err": errs,
+           "tf32x3_kernels_ms": kernels,
+           "against": args.against}
+    print(f"[ab-bwd] {row}", flush=True)
+    _append({"nvidia_smi": cs._smi(), "bwd": row,
+             "ptxas": {var: rep for var, (_, rep) in libs.items()}})
+    return 0
+
+
 def _other_tree(src: str):
     """The flash-attention module of the ``repro_torch`` under ``src``,
     loaded as package ``other_repro_torch`` (its imports are relative)."""
@@ -234,7 +322,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--against", default=None,
-                    help="with --host: another tree's src")
+                    help="with --host or --bwd: another tree's src")
+    ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--mma-peak", action="store_true")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
@@ -249,6 +338,8 @@ def main() -> int:
         return _host(cs, fa, args)
     if args.mma_peak:
         return _mma_peak(cs)
+    if args.bwd:
+        return _bwd(cs, fa, args)
     variants = dict(v.split("=", 1)
                     for v in (args.variant or DEFAULT_VARIANTS))
     libs = _build(variants)
