@@ -26,7 +26,10 @@ which fails the run (non-zero exit, no result line) if it fails:
    short, GQA 1 / 4 / 8 and q-off-16-byte cases, each naming its path
    (``tf32x3`` for aligned float32, also held to ``FLASH_BWD_F32_KEEP``;
    ``fma`` otherwise; both taken in float32), at the forward's tolerance
-   x (1 + |g|), its counters checked;
+   x (1 + |g|), its counters checked; the SSD scan's backward (dx, da, db,
+   dc) at zamba2's training shape, mLSTM's values and normalizer, ragged,
+   short, batched, untiled and strong-decay cases at ``SSD_TOL`` x (1 +
+   |g|), each call one count, and a second call equal bit for bit;
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
@@ -36,7 +39,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    the FMA kernel on the same values off a 16-byte boundary and give its
    bound), flash attention's backward at the training shape on both
    paths beside SDPA's backward (float32), the SSD rows with the
-   wrapper's time per call (host included) and the passes' scratch;
+   wrapper's time per call (host included) and the passes' scratch, the
+   SSD backward at zamba2's training shape (no library call computes it);
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
@@ -75,20 +79,27 @@ which fails the run (non-zero exit, no result line) if it fails:
    For xlstm-125m it also times one 1024-token prefill and the sLSTM loop
    inside it; for a bfloat16 model, the card time of one decode step
    (``torch.profiler``) against the bytes of the weights it must read;
-8. train: reduced granite-8b on the card against the CPU path (loss,
-   gradients, 3 AdamW steps), then full-width granite-8b cut to 8 layers
-   (2.15 B parameters, float32, B 2 x S 2048) through the port's
+8. train, one model after the other (``TRAIN_RUNS``): granite-8b at full
+   width cut to 8 layers (2.15 B parameters, B 2 x S 2048), zamba2-1.2b
+   at full width and depth (B 2 x S 2048) and xlstm-125m at full width
+   and depth (B 8 x S 512: its sLSTM loop runs once a token), all float32.
+   Each: the reduced model on the card against the CPU path (loss rel
+   1e-5, gradient leaves at 1e-4, the hybrid's at 3e-3, of each leaf's
+   largest; 3 AdamW steps' losses rel 1e-4), then through the port's
    ``Trainer``: 8 steps straight through with a checkpoint at step 4, a
    fresh trainer that restores it and takes steps 5-8 with the same
-   losses, one more gradient with and without remat (the same loss and
-   gradient norm); every loss finite, the first near a random init's
-   ln V + 1/2, the last below the first; per step 8 flash forward launches
-   (all ``tf32x3``; 16 with remat) and 8 backward (all ``tf32x3``); the
-   step time, tokens per second, peak memory and, from one traced step,
-   the backward kernels' share of the card time.
+   losses bit for bit, one more gradient with and without remat (the same
+   loss and gradient norm); every loss finite, the first near a random
+   init's ln V + 1/2, the last below the first; per step the launches the
+   layer plan gives (flash forward and backward once per attention block
+   or shared-block application, all ``tf32x3``; the SSD forward and
+   backward once per Mamba-2 layer and twice per mLSTM layer; remat runs
+   every stacked layer's forward twice); the step time, tokens per
+   second, peak memory and, from one traced step, the share of the card
+   time of the flash and SSD kernels, forward and backward.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
-carry their bfloat16 numbers under ``"bfloat16"``; the backward's launches
+carry their bfloat16 numbers under ``"bfloat16"``; the backwards' launches
 are phase 8's), then the
 ``nvidia-smi`` line, then, last,
 ``{"ok": true, "device": {...}}``.  The details (every case's error, every
@@ -642,6 +653,154 @@ def time_ssd(report: dict) -> list[dict]:
             print(f"[time] ssd_scan {row}", flush=True)
     report["ssd_scan_timing"] = rows
     return rows
+
+
+def _ssd_bwd_work(b, s, h, d, n, dtype):
+    """(flops by kind, bytes) the SSD scan's backward needs at the chunk
+    length L.  Per chunk of l tokens, over its l (l + 1) / 2 live (t, u)
+    pairs: C . B^T once per batch and the decay of each pair per (batch,
+    head), FMAs; per (batch, head) the four pair products G^T dy, M = dy
+    x^T, M B and M^T C, and five l x D x N products (the forward's and
+    the dual's local states, which the backward must recompute, and the
+    carries B R, dy h^T and x R^T), priced at 3xTF32's rate: the least
+    time at float32's accuracy (the kernel runs them all on FMAs,
+    ``fma_bound_ms``).  x, a, b, c, y and dy read once; dx, da, db and dc
+    written once."""
+    from repro_torch.kernels.ssd_scan import CHUNK
+    fma = mma = 0
+    for t0 in range(0, s, CHUNK):
+        ln = min(CHUNK, s - t0)
+        pairs = ln * (ln + 1) // 2
+        fma += b * 2 * pairs * n + b * h * pairs
+        mma += b * h * (4 * pairs * d + 4 * pairs * n + 10 * ln * d * n)
+    nbytes = (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n) * (
+        dtype.itemsize)
+    return {"float32": fma, "3xtf32": mma}, nbytes
+
+
+def _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed):
+    """x, a, b, c, the forward kernel's output y and a random dy."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, a, bm, cm = _ssd_inputs(b, s, h, d, n, dtype, decay, seed)
+    with torch.no_grad():
+        y = ssd_scan(x, a, bm, cm)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 1000)
+    dy = torch.randn(y.shape, generator=g, device=DEVICE).to(dtype)
+    return x, a, bm, cm, y, dy
+
+
+# (b, s, h, d, n, decay) of the backward: zamba2's heads at its training
+# length (B 1 and 2), the mLSTM values (B 2 x 4 heads folded, D = N = 384)
+# and normalizer (D 1), a ragged S, S shorter than one chunk, B > 1 with
+# D and N that the tiles do not divide, and strong decays down to log 1e-6
+SSD_BWD_CASES = [
+    (2, 2048, 32, 128, 64, "mild"),
+    (8, 512, 1, 384, 384, "mlstm"),
+    (8, 512, 1, 1, 384, "mlstm"),
+    (1, 300, 32, 128, 64, "mild"),
+    (2, 37, 4, 32, 16, "mild"),
+    (3, 200, 2, 48, 100, "mlstm"),
+    (4, 300, 1, 384, 384, "strong"),
+    (2, 1024, 32, 128, 64, "strong"),
+    (3, 130, 1, 1, 100, "strong"),
+]
+
+
+def check_ssd_bwd(report: dict) -> dict:
+    """The backward kernel (dx, da, db, dc) against its plain version on
+    the card, every case in both dtypes, at ``SSD_TOL`` x (1 + |g|); each
+    call moves the backward's counter by one; two calls on one input agree
+    bit for bit (no atomics).  Returns the largest error in each dtype at
+    zamba2's training shape."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (bwd_launches, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
+    worst = {}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for i, (b, s, h, d, n, decay) in enumerate(SSD_BWD_CASES):
+            ins = _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed=300 + i)
+            before = bwd_launches.count
+            got = ssd_scan_bwd(*ins)
+            torch.cuda.synchronize()
+            launched = bwd_launches.count - before
+            want = ssd_scan_bwd_plain(*ins)
+            row = {"dtype": name, "shape": [b, s, h, d, n], "decay": decay,
+                   "tol": SSD_TOL[name], "launches": launched}
+            ok = launched == 1
+            for gname, g, w, like in zip(("dx", "da", "db", "dc"), got, want,
+                                         ins):
+                err = (g.float() - w.float()).abs()
+                limit = SSD_TOL[name] * (1.0 + w.float().abs())
+                ok = (ok and g.dtype == dtype and g.shape == like.shape
+                      and bool(torch.isfinite(g).all())
+                      and bool((err <= limit).all()))
+                row[f"{gname}_max_abs_err"] = float(err.max())
+                row[f"{gname}_max_rel_err"] = float(
+                    (err / (1.0 + w.float().abs())).max())
+                row[f"{gname}_max_abs"] = float(w.float().abs().max())
+            row["ok"] = ok
+            rows.append(row)
+            print(f"[check] ssd_scan_bwd {row}", flush=True)
+            _require(ok, f"SSD scan backward kernel against its plain "
+                         f"version: {row}")
+            if i == 0:
+                worst[name] = max(row[f"{g}_max_abs_err"]
+                                  for g in ("dx", "da", "db", "dc"))
+            del ins, got, want
+    again = _ssd_bwd_inputs(3, 200, 2, 48, 100, torch.float32, "mlstm", 399)
+    first, second = ssd_scan_bwd(*again), ssd_scan_bwd(*again)
+    torch.cuda.synchronize()
+    _require(all(torch.equal(u, v) for u, v in zip(first, second)),
+             "the SSD backward repeats bit for bit")
+    report["ssd_scan_bwd_checks"] = rows
+    return worst
+
+
+def time_ssd_bwd(report: dict) -> dict:
+    """The backward kernel, its plain version and the bound
+    (``_ssd_bwd_work``) at zamba2's training shape (B 2 x S 2048, H 32,
+    D 128, N 64), float32; no PyTorch call computes the scan's gradient,
+    so library_ms is null.  Also the wrapper's time per call, host
+    included (``call_ms``), and the passes' scratch."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (bwd_scratch_floats,
+                                              ssd_scan_bwd,
+                                              ssd_scan_bwd_plain)
+    b, s, h, d, n, decay = SSD_BWD_CASES[0]
+    ins = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay, seed=399)
+    ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10)
+    call_ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10, run_ahead=False)
+    plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins), iters=2, warmup=1,
+                        run_ahead=False)
+    flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    fma_bound_ms = _bound({"float32": sum(flops.values())}, nbytes)[0]
+    row = {"case": "zamba2_train", "dtype": "float32",
+           "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "fma_bound_ms": fma_bound_ms,
+           "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
+           "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
+           "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
+    for label, (bb, hh, dd, nn, dec) in (
+            ("mlstm_values", (8, 1, 384, 384, "mlstm")),
+            ("mlstm_normalizer", (8, 1, 1, 384, "mlstm"))):
+        more = _ssd_bwd_inputs(bb, 512, hh, dd, nn, torch.float32, dec, 398)
+        fl, nb = _ssd_bwd_work(bb, 512, hh, dd, nn, torch.float32)
+        row[label] = {"shape": [bb, 512, hh, dd, nn],
+                      "ms": _time_ms(lambda: ssd_scan_bwd(*more), iters=10),
+                      "bound_ms": _bound(fl, nb)[0]}
+        del more
+    print(f"[time] ssd_scan_bwd {row}", flush=True)
+    del ins
+    torch.cuda.empty_cache()
+    report["ssd_scan_bwd_timing"] = row
+    return row
 
 
 def _randn(shape, dtype, seed):
@@ -1434,19 +1593,29 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
 
 
 # -- phase 8: training ----------------------------------------------------------
-# granite-8b at full width in float32, the reference's dtype, cut in depth
+# One run a model, one after the other, each through the port's Trainer in
+# float32, the reference's dtype.  granite-8b at full width is cut in depth
 # only (36 -> 8 layers): 2.15 B parameters, whose params, gradients and two
-# AdamW moments take 34.4 GB (all 36 layers would take 132 GB).
-TRAIN_ARCH = "granite-8b"
-TRAIN_LAYERS = 8
-TRAIN_BATCH, TRAIN_SEQ = 2, 2048
-TRAIN_STEPS, TRAIN_CKPT_STEP = 8, 4
-# Two warm-up steps are far too few for this width (Adam moves every weight
-# by about lr at once): at lr 3e-4 the loss rose from 11.1 to 23.2 by step 5
-# and ended at 9.7; at 3e-5 it rises to 14.8 by step 3 and ends at 7.4
-# (PERF.md).  The check asks only that the last loss is below the
-# first.
-TRAIN_OPT = dict(lr=3e-5, warmup_steps=2, total_steps=TRAIN_STEPS)
+# AdamW moments take 34.4 GB (all 36 layers would take 132 GB).  zamba2-1.2b
+# and xlstm-125m run at full width and depth.  xlstm's 3 sLSTM layers are a
+# Python loop over the tokens that autograd runs through, so it trains at
+# S 512 (B 8, the same 4096 tokens a step).
+#
+# Two warm-up steps are far too few for granite's width (Adam moves every
+# weight by about lr at once): at lr 3e-4 the loss rose from 11.1 to 23.2 by
+# step 5 and ended at 9.7; at 3e-5 it rises to 14.8 by step 3 and ends at
+# 7.4 (PERF.md).  The SSD models take the launcher's lr, 3e-4: at 3e-5 their
+# loss hardly moves in 8 steps.  The check asks only that the last loss is
+# below the first.
+TRAIN_RUNS = (
+    {"arch": "granite-8b", "layers": 8, "batch": 2, "seq": 2048,
+     "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "zamba2-1.2b", "layers": None, "batch": 2, "seq": 2048,
+     "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
+    {"arch": "xlstm-125m", "layers": None, "batch": 8, "seq": 512,
+     "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
+)
+TRAIN_WARMUP = 2
 TRAIN_CKPT_DIR = ROOT / ".train_ckpt"   # listed in .gitignore; removed after
 # The step-1 loss of a random init: its final rms_norm gives every token
 # unit RMS and the fan-in LM head N(0, 1/d) weights, so each token's logits
@@ -1462,11 +1631,13 @@ def _tree_rel(got, want) -> float:
 
 
 def _train_counters():
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, ssd_scan
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "tf32x3": flash_attention.path_launches["tf32x3"],
-            "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"]}
+            "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"],
+            "ssd_scan": ssd_scan.launches,
+            "ssd_scan_bwd": ssd_scan.bwd_launches}
 
 
 def _reset(counters) -> None:
@@ -1478,12 +1649,31 @@ def _counts(counters) -> dict:
     return {name: c.count for name, c in counters.items()}
 
 
-def train_reduced_vs_cpu() -> dict:
-    """Reduced granite-8b on the card (the flash kernels forward and
+def _step_launches(cfg, remat: bool = False) -> dict:
+    """Kernel launches of one train step, from the layer plan: one flash
+    forward and backward per attention block or shared-block application,
+    all on ``tf32x3``; one SSD forward and backward per Mamba-2 layer, two
+    per mLSTM layer.  With remat every stacked layer runs its forward again
+    in the backward (the hybrid's shared block is not rematerialised)."""
+    per = _launches_per_prefill(cfg)
+    from repro_torch.models import layer_plan
+    again = sum(k in ("attn", "attn_moe") for k in layer_plan(cfg)) if (
+        remat) else 0
+    fwd = per["flash_attention"] + again
+    ssd = per["ssd_scan"]
+    return {"flash_attention": fwd, "flash_attention_bwd":
+            per["flash_attention"], "tf32x3": fwd,
+            "bwd_tf32x3": per["flash_attention"],
+            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd}
+
+
+def train_reduced_vs_cpu(run: dict) -> dict:
+    """The reduced model on the card (the flash and SSD kernels forward and
     backward, cuBLAS) against the CPU path (plain versions), from the same
-    init and batches: the loss and its gradients (rel 1e-5; every leaf
-    within 1e-4 x its largest magnitude), then 3 AdamW steps' losses (rel
-    1e-4)."""
+    init and batches: the loss (rel 1e-5) and its gradients (every leaf
+    within ``grad_tol`` x its largest magnitude: 1e-4, and the SSD
+    tolerance 3e-3 for the hybrid, as ``tests/test_torch_train.py``), then
+    3 AdamW steps' losses (rel 1e-4)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1491,7 +1681,7 @@ def train_reduced_vs_cpu() -> dict:
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_grad_step, make_train_step
-    cfg = get_config(TRAIN_ARCH).reduced()
+    cfg = get_config(run["arch"]).reduced()
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=256,
                                         global_batch=2, seed=3))
     cpu = init_params(cfg, seed=2, device="cpu")
@@ -1508,17 +1698,19 @@ def train_reduced_vs_cpu() -> dict:
     for params, dev in ((cpu, "cpu"), (gpu, DEVICE)):
         g, met = make_grad_step(cfg, remat=False)(params, batch_on(0, dev))
         grads[dev] = (g, float(met["total_loss"]))
-    n_attn = cfg.n_layers
-    _require(_counts(counters) == {"flash_attention": n_attn,
-                                   "flash_attention_bwd": n_attn,
-                                   "tf32x3": n_attn, "bwd_tf32x3": n_attn},
-             f"reduced model's grad step launches {_counts(counters)}")
+    want = _step_launches(cfg)
+    _require(_counts(counters) == want,
+             f"reduced {cfg.name}'s grad step launches {_counts(counters)}, "
+             f"want {want}")
     out["loss_rel"] = abs(grads[DEVICE][1] - grads["cpu"][1]) / grads["cpu"][1]
     out["grad_rel"] = _tree_rel(grads[DEVICE][0], grads["cpu"][0])
-    _require(out["loss_rel"] < 1e-5 and out["grad_rel"] < 1e-4,
-             f"reduced model's loss and gradients, card against CPU: {out}")
+    out["grad_tol"] = run["grad_tol"]
+    _require(out["loss_rel"] < 1e-5 and out["grad_rel"] < run["grad_tol"],
+             f"reduced {cfg.name}'s loss and gradients, card against CPU: "
+             f"{out}")
     losses = {}
-    opt = AdamWConfig(**TRAIN_OPT)
+    opt = AdamWConfig(lr=run["lr"], warmup_steps=TRAIN_WARMUP,
+                      total_steps=run["steps"])
     for params, dev in ((cpu, "cpu"), (gpu, DEVICE)):
         state = init_opt_state(params)
         step = make_train_step(cfg, opt, remat=False)
@@ -1530,26 +1722,33 @@ def train_reduced_vs_cpu() -> dict:
     out["step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in
                                zip(losses[DEVICE], losses["cpu"]))
     _require(out["step_loss_rel"] < 1e-4,
-             f"reduced model's 3 AdamW steps, card against CPU: {out}")
+             f"reduced {cfg.name}'s 3 AdamW steps, card against CPU: {out}")
     print(f"[train] reduced {cfg.name} card against CPU {out}", flush=True)
     return out
 
 
-def train(report: dict) -> dict:
-    """Phase 8, the training path: full-width granite-8b at
-    ``TRAIN_LAYERS`` layers in float32 through the port's ``Trainer`` (its
-    default pod monitor over 2 pods fed the measured step times), B 2 x S
-    2048 of the synthetic Zipf stream.
+# the kernels of a traced step, by the names their sources give them
+FLASH_BWD_KERNELS = ("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv",
+                     "bwd_dq")
+SSD_BWD_KERNELS = ("ssd_bwd_",)
+SSD_FWD_KERNELS = ("ssd_chunk_", "ssd_state_pass")
 
-    The straight run: a trainer takes steps 1-4 and checkpoints at step 4
+
+def train_one(run: dict) -> dict:
+    """One model of phase 8 through the port's ``Trainer`` (its default pod
+    monitor over 2 pods fed the measured step times), float32, B x S of
+    the synthetic Zipf stream.
+
+    The straight run: a trainer takes steps 1 .. ckpt and checkpoints there
     (``save_async``; its run waits for the write at the end), then goes on
-    to step 8 with no further checkpoint.  A fresh trainer then restores
-    step 4 (``try_restore``: params, AdamW state, the stream's skip-ahead)
-    and takes steps 5-8, whose losses must equal the straight run's.  Then
-    one more step's gradient with and without remat: the same loss and
-    gradient norm, with twice the forward launches.  The launch counts are
-    set to 0 before each part and read after it: per step, 8 forward
-    launches (all ``tf32x3``) and 8 backward, 16 forward with remat."""
+    to the last step with no further checkpoint.  A fresh trainer then
+    restores the checkpoint (``try_restore``: params, AdamW state, the
+    stream's skip-ahead) and takes the remaining steps, whose losses must
+    equal the straight run's.  Then one more step's gradient with and
+    without remat: the same loss and gradient norm.  The launch counts are
+    set to 0 before each part and read after it, and must be
+    ``_step_launches`` a step.  Last, one traced step: the card time of the
+    flash and SSD kernels, forward and backward."""
     import dataclasses
     import gc
     import shutil
@@ -1565,21 +1764,24 @@ def train(report: dict) -> dict:
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
-    out = {"reduced_vs_cpu": train_reduced_vs_cpu()}
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
-    opt = AdamWConfig(**TRAIN_OPT)
-    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, seed=0)
-    no_ckpt = 2 * TRAIN_STEPS          # a checkpoint interval never reached
+    out = {"reduced_vs_cpu": train_reduced_vs_cpu(run)}
+    cfg = get_config(run["arch"])
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    steps, ckpt = run["steps"], run["ckpt"]
+    opt = AdamWConfig(lr=run["lr"], warmup_steps=TRAIN_WARMUP,
+                      total_steps=steps)
+    data = DataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                      global_batch=run["batch"], seed=0)
+    no_ckpt = 2 * steps                # a checkpoint interval never reached
     counters = _train_counters()
-    per_step = TRAIN_LAYERS
+    per_step = _step_launches(cfg)
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         a = Trainer(cfg, opt, data,
-                    TrainerConfig(total_steps=TRAIN_CKPT_STEP,
-                                  checkpoint_every=TRAIN_CKPT_STEP,
+                    TrainerConfig(total_steps=ckpt, checkpoint_every=ckpt,
                                   log_every=1, seed=0),
                     str(TRAIN_CKPT_DIR), device=DEVICE)
         torch.cuda.synchronize()
@@ -1587,66 +1789,61 @@ def train(report: dict) -> dict:
         n_params = sum(t.numel() for t in _leaves(a.params))
         _reset(counters)
         t0 = time.perf_counter()
-        a.run()                                   # steps 1-4, checkpoint 4
+        a.run()                                   # steps 1 .. ckpt
         first_s = time.perf_counter() - t0
-        a.tcfg = dataclasses.replace(a.tcfg, total_steps=TRAIN_STEPS,
+        a.tcfg = dataclasses.replace(a.tcfg, total_steps=steps,
                                      checkpoint_every=no_ckpt)
-        a.run()                                   # steps 5-8
+        a.run()                                   # the rest
         n = _counts(counters)
-        _require(n == {"flash_attention": per_step * TRAIN_STEPS,
-                       "flash_attention_bwd": per_step * TRAIN_STEPS,
-                       "tf32x3": per_step * TRAIN_STEPS,
-                       "bwd_tf32x3": per_step * TRAIN_STEPS},
-                 f"straight run's launches {n}: want {per_step} forward "
-                 f"and {per_step} backward a step, all tf32x3")
+        _require(n == {name: steps * k for name, k in per_step.items()},
+                 f"{cfg.name}'s straight run's launches {n}: want "
+                 f"{per_step} a step")
         out["launches_straight"] = n
+        out["launches_per_step"] = per_step
         straight = [r["loss"] for r in a.history]
         walls = [r["wall_s"] for r in a.history]
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["checkpoint_s"] = first_s - sum(walls[:TRAIN_CKPT_STEP])
+        out["checkpoint_s"] = first_s - sum(walls[:ckpt])
         out["losses"] = straight
         out["grad_norms"] = [r["grad_norm"] for r in a.history]
         out["step_ms"] = [1e3 * w for w in walls]
         out["step_ms_p50"] = 1e3 * statistics.median(walls[1:])
-        out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (
+        out["tokens_per_s"] = run["batch"] * run["seq"] / (
             out["step_ms_p50"] / 1e3)
         out["rescale_events"] = [e.kind for e in a.supervisor.events]
         _require(all(math.isfinite(x) for x in straight),
                  f"finite losses {straight}")
         init_loss = math.log(cfg.vocab) + 0.5
         _require(abs(straight[0] - init_loss) < INIT_LOSS_SLACK,
-                 f"step-1 loss {straight[0]} against a random init's "
-                 f"ln V + 1/2 = {init_loss}")
+                 f"{cfg.name}'s step-1 loss {straight[0]} against a random "
+                 f"init's ln V + 1/2 = {init_loss}")
         _require(straight[-1] < straight[0],
-                 f"the loss falls: step 1 {straight[0]}, step "
-                 f"{TRAIN_STEPS} {straight[-1]}")
+                 f"{cfg.name}'s loss falls: step 1 {straight[0]}, step "
+                 f"{steps} {straight[-1]}")
         del a
         gc.collect()
         torch.cuda.empty_cache()
 
         b = Trainer(cfg, opt, data,
-                    TrainerConfig(total_steps=TRAIN_STEPS,
-                                  checkpoint_every=no_ckpt, log_every=1,
-                                  seed=0),
+                    TrainerConfig(total_steps=steps, checkpoint_every=no_ckpt,
+                                  log_every=1, seed=0),
                     str(TRAIN_CKPT_DIR), device=DEVICE)
         t0 = time.perf_counter()
-        _require(b.try_restore() and b.step == TRAIN_CKPT_STEP
-                 and b.stream.step == TRAIN_CKPT_STEP,
-                 f"restore of step {TRAIN_CKPT_STEP}: at step {b.step}")
+        _require(b.try_restore() and b.step == ckpt and b.stream.step == ckpt,
+                 f"restore of step {ckpt}: at step {b.step}")
         torch.cuda.synchronize()
         out["restore_s"] = time.perf_counter() - t0
         b.run()
         resumed = [r["loss"] for r in b.history]
-        want = straight[TRAIN_CKPT_STEP:]
+        want = straight[ckpt:]
         out["resumed_losses"] = resumed
         out["resume_bit_for_bit"] = resumed == want
-        out["resume_rel"] = max(abs(x - y) / abs(y)
-                                for x, y in zip(resumed, want))
-        _require(len(resumed) == len(want) and out["resume_rel"] < 1e-6,
-                 f"resumed steps {resumed} against the straight run's {want}")
+        _require(out["resume_bit_for_bit"],
+                 f"{cfg.name}'s resumed steps {resumed} against the "
+                 f"straight run's {want}")
 
         batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE)
-                 for k, v in b.stream.batch_at(TRAIN_STEPS).items()}
+                 for k, v in b.stream.batch_at(steps).items()}
         remat = {}
         for on in (False, True):
             _reset(counters)
@@ -1656,13 +1853,11 @@ def train(report: dict) -> dict:
                          "launches": _counts(counters)}
             del grads, met
         out["remat"] = {str(k): v for k, v in remat.items()}
-        for on, fwd in ((False, per_step), (True, 2 * per_step)):
-            _require(remat[on]["launches"] == {"flash_attention": fwd,
-                                               "flash_attention_bwd": per_step,
-                                               "tf32x3": fwd,
-                                               "bwd_tf32x3": per_step},
-                     f"grad step launches with remat={on}: "
-                     f"{remat[on]['launches']}")
+        for on in (False, True):
+            _require(remat[on]["launches"] == _step_launches(cfg, on),
+                     f"{cfg.name}'s grad step launches with remat={on}: "
+                     f"{remat[on]['launches']}, want "
+                     f"{_step_launches(cfg, on)}")
         for key in ("loss", "grad_norm"):
             rel = abs(remat[True][key] - remat[False][key]) / abs(
                 remat[False][key])
@@ -1681,47 +1876,62 @@ def train(report: dict) -> dict:
         card_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
         _require(card_ms > 0, "the traced train step ran nothing on the card")
 
-        def share(*names):
+        def share(names):
             return sum(ev.self_device_time_total for ev in kernels
                        if any(n in ev.key for n in names)) / 1e3
 
-        bwd_ms = share("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass",
-                       "bwd_dkdv", "bwd_dq")
-        bwd_x3_ms = share("bwd_x3_dq", "bwd_x3_dkdv")
-        fwd_ms = share("flash_tf32x3")
         top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
-        out["traced_step"] = {
-            "card_ms": card_ms, "kernels": sum(ev.count for ev in kernels),
-            "flash_bwd_ms": bwd_ms, "flash_bwd_share": bwd_ms / card_ms,
-            "flash_bwd_dq_ms": share("bwd_x3_dq"),
-            "flash_bwd_dkdv_ms": share("bwd_x3_dkdv"),
-            "flash_fwd_ms": fwd_ms, "flash_fwd_share": fwd_ms / card_ms,
-            "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total / 1e3
-                               for ev in top}}
-        _require(bwd_ms > 0 and fwd_ms > 0 and bwd_x3_ms == bwd_ms,
-                 f"the traced step's flash kernels (the backward's all "
-                 f"tf32x3): {out['traced_step']}")
+        traced = {"card_ms": card_ms,
+                  "kernels": sum(ev.count for ev in kernels),
+                  "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total
+                                     / 1e3 for ev in top}}
+        for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
+                            ("flash_fwd", ("flash_tf32x3",)),
+                            ("ssd_bwd", SSD_BWD_KERNELS),
+                            ("ssd_fwd", SSD_FWD_KERNELS)):
+            traced[f"{name}_ms"] = share(names)
+            traced[f"{name}_share"] = traced[f"{name}_ms"] / card_ms
+        out["traced_step"] = traced
+        if per_step["flash_attention"]:
+            _require(traced["flash_bwd_ms"] > 0 and traced["flash_fwd_ms"] > 0
+                     and share(("bwd_x3_dq", "bwd_x3_dkdv"))
+                     == traced["flash_bwd_ms"],
+                     f"the traced step's flash kernels (the backward's all "
+                     f"tf32x3): {traced}")
+        if per_step["ssd_scan"]:
+            _require(traced["ssd_bwd_ms"] > 0 and traced["ssd_fwd_ms"] > 0,
+                     f"the traced step's SSD kernels: {traced}")
         del b, batch, step, prof
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    out.update(arch=cfg.name, layers=TRAIN_LAYERS, dtype=cfg.dtype,
-               params_b=n_params / 1e9, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-               steps=TRAIN_STEPS, checkpoint_step=TRAIN_CKPT_STEP,
-               opt=TRAIN_OPT, init_loss_expected=init_loss,
+    out.update(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+               params_b=n_params / 1e9, batch=run["batch"], seq=run["seq"],
+               steps=steps, checkpoint_step=ckpt, lr=run["lr"],
+               warmup_steps=TRAIN_WARMUP, init_loss_expected=init_loss,
                phase_s=time.perf_counter() - t_phase)
     print(f"[train] {out}", flush=True)
-    print(f"[train] {cfg.name} x {TRAIN_LAYERS} layers ({cfg.dtype}, "
-          f"{out['params_b']:.3f} B params): losses {straight}; step p50 "
+    print(f"[train] {cfg.name} x {cfg.n_layers} layers ({cfg.dtype}, "
+          f"{out['params_b']:.3f} B params, B {run['batch']} x S "
+          f"{run['seq']}): losses {straight}; step p50 "
           f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
-          f"peak {out['peak_mem_gb']:.2f} GB, backward kernel "
-          f"{100 * out['traced_step']['flash_bwd_share']:.1f}% of a step's "
-          f"card time; resume from step {TRAIN_CKPT_STEP} "
-          f"{'bit for bit' if out['resume_bit_for_bit'] else 'rel %.2e' % out['resume_rel']}"
-          f"; phase {out['phase_s']:.0f} s", flush=True)
-    report["train"] = out
+          f"peak {out['peak_mem_gb']:.2f} GB; of a step's card time flash "
+          f"backward {100 * traced['flash_bwd_share']:.1f}%, SSD backward "
+          f"{100 * traced['ssd_bwd_share']:.1f}%; resume from step {ckpt} "
+          f"bit for bit; {out['phase_s']:.0f} s", flush=True)
     return out
+
+
+def train(report: dict) -> dict:
+    """Phase 8: ``train_one`` for each of ``TRAIN_RUNS``, one after the
+    other.  Returns ``{"train:<arch>x<layers>": result}``."""
+    trained = {}
+    for run in TRAIN_RUNS:
+        out = train_one(run)
+        trained[f"train:{out['arch']}x{out['layers']}"] = out
+    report["train"] = trained
+    return trained
 
 
 def _rel_by_token(got, want) -> list[float]:
@@ -1778,12 +1988,14 @@ def main() -> int:
     flash_err = check_flash(report)
     flash_bwd_err = check_flash_bwd(report)
     ssd_err = check_ssd(report)
+    ssd_bwd_err = check_ssd_bwd(report)
     matmul_err = check_matmul(report)
     copy_err = check_copy(report)
     stencil_err = check_stencil(report)
     flash_timing = time_flash(report)
     flash_bwd_timing = time_flash_bwd(report)
     ssd_timing = time_ssd(report)
+    ssd_bwd_timing = time_ssd_bwd(report)
     matmul_timing = time_matmul(report)
     copy_timing = time_copy(report)
     stencil_timing = time_stencil(report)
@@ -1818,7 +2030,10 @@ def main() -> int:
     def served_by(name):
         return {o["arch"]: o["launches"][name] for o in served}
 
-    train_key = f"train:{trained['arch']}x{TRAIN_LAYERS}"
+    def trained_by(name):
+        return {key: out["launches_straight"][name]
+                for key, out in trained.items()
+                if out["launches_straight"][name]}
 
     def node_by(name):
         return {"node_dag": node["launches"][name]}
@@ -1831,8 +2046,7 @@ def main() -> int:
                            flash_err["float32"],
                            "src/repro/kernels/flash_attention.py:79",
                            {**served_by("flash_attention"),
-                            train_key: trained["launches_straight"][
-                                "flash_attention"]},
+                            **trained_by("flash_attention")},
                            flash_at("bfloat16"), flash_err["bfloat16"])
     flash_row["fma_ms"] = flash_at("float32")["fma_ms"]
     flash_row["fma_bound_ms"] = flash_at("float32")["fma_bound_ms"]
@@ -1845,24 +2059,39 @@ def main() -> int:
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}
-    flash_row["launches_by_kernel_path"]["tf32x3"] += trained[
-        "launches_straight"]["tf32x3"]
+    flash_row["launches_by_kernel_path"]["tf32x3"] += sum(
+        trained_by("tf32x3").values())
     bwd_row = kernel_row("flash_attention_bwd", flash_bwd_timing,
                          flash_bwd_err["float32"],
                          "src/repro/kernels/flash_attention.py:79",
-                         {train_key: trained["launches_straight"][
-                             "flash_attention_bwd"]})
+                         trained_by("flash_attention_bwd"))
     bwd_row["gradient_of"] = ("flash_attention_pallas, which has no Pallas "
                               "backward: the JAX package's gradient is "
                               "autodiff of src/repro/kernels/ref.py:31 "
                               "attention_ref")
     bwd_row["fma_ms"] = flash_bwd_timing["fma_ms"]
     bwd_row["fma_bound_ms"] = flash_bwd_timing["fma_bound_ms"]
+    bwd_x3 = sum(trained_by("bwd_tf32x3").values())
     bwd_row["launches_by_kernel_path"] = {
-        "tf32x3": trained["launches_straight"]["bwd_tf32x3"],
-        "fma": trained["launches_straight"]["flash_attention_bwd"]
-        - trained["launches_straight"]["bwd_tf32x3"]}
+        "tf32x3": bwd_x3,
+        "fma": sum(trained_by("flash_attention_bwd").values()) - bwd_x3}
     bwd_row["bfloat16_max_abs_err"] = flash_bwd_err["bfloat16"]
+    ssd_bwd_row = kernel_row("ssd_scan_bwd", ssd_bwd_timing,
+                             ssd_bwd_err["float32"],
+                             "src/repro/kernels/ssd_scan.py:68",
+                             trained_by("ssd_scan_bwd"))
+    ssd_bwd_row["gradient_of"] = ("ssd_scan_pallas, which has no Pallas "
+                                  "backward: the JAX package's gradient is "
+                                  "autodiff of src/repro/kernels/ref.py:105 "
+                                  "ssd_ref")
+    ssd_bwd_row["fma_bound_ms"] = ssd_bwd_timing["fma_bound_ms"]
+    ssd_bwd_row["launches_per_step"] = {
+        key: out["launches_per_step"]["ssd_scan_bwd"]
+        for key, out in trained.items()
+        if out["launches_per_step"]["ssd_scan_bwd"]}
+    ssd_bwd_row["bfloat16_max_abs_err"] = ssd_bwd_err["bfloat16"]
+    for label in ("mlstm_values", "mlstm_normalizer"):
+        ssd_bwd_row[label] = ssd_bwd_timing[label]
     kernels = [
         flash_row,
         bwd_row,
@@ -1870,7 +2099,8 @@ def main() -> int:
                    next(r for r in ssd_timing if r["case"] == "zamba2"
                         and r["shape"][1] == 1024),
                    ssd_err, "src/repro/kernels/ssd_scan.py:68",
-                   served_by("ssd_scan")),
+                   {**served_by("ssd_scan"), **trained_by("ssd_scan")}),
+        ssd_bwd_row,
         kernel_row("matmul",
                    next(r for r in matmul_timing if r["dtype"] == "float32"),
                    matmul_err["float32"], "src/repro/kernels/matmul.py:39",

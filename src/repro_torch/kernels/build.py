@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "ssd_scan", "matmul",
-           "copy", "stencil")
+SOURCES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd", "matmul", "copy", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -32,12 +32,12 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd would need a gradient through a CUDA kernel
     that has no backward.
 
-    Flash attention has one (``flash_attention.FlashAttention``); the SSD
-    scan, matmul, copy and stencil kernels have none (nor have the TPU
-    kernels they replace: no custom VJP), so their output would carry no
-    ``grad_fn`` and the gradient would be lost without a word.  Run them
-    under ``torch.no_grad()`` or ``torch.inference_mode()``; on the CPU the
-    plain version is differentiable."""
+    Flash attention and the SSD scan have one (``FlashAttention``,
+    ``SSDScan``); the matmul, copy and stencil kernels have none (nor have
+    the TPU kernels they replace: no custom VJP), so their output would
+    carry no ``grad_fn`` and the gradient would be lost without a word.
+    Run them under ``torch.no_grad()`` or ``torch.inference_mode()``; on
+    the CPU the plain version is differentiable."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward; an input requires "

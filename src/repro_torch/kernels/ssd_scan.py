@@ -28,8 +28,7 @@ tensor on the CPU.  The four passes are one C call and count as one launch.
 The wrapper makes the inputs contiguous, transposes nothing (the TPU
 wrapper moved H before S), and allocates the passes' float32 scratch with
 ``torch.empty``: C . B^T ``[B, nc, L, L]``, Acum ``[B, nc, H, L]`` and the
-states ``[B, nc, H, N, D]`` (nc chunks of L = ``CHUNK``).  The kernel has
-no backward, and refuses inputs that require grad under grad mode.
+states ``[B, nc, H, N, D]`` (nc chunks of L = ``CHUNK``).
 
 The plain version walks the same schedule in torch: all chunks' C . B^T
 and local states at once as batched einsums, the states passed in a loop
@@ -39,6 +38,28 @@ before the exponential (above the diagonal exp(Acum_t - Acum_u) overflows),
 float32 throughout; a ragged last chunk is zero-padded, as in the kernel.
 It is the CPU path and the kernel's yardstick of correctness on the card,
 not of speed.
+
+The gradient.  When grad mode is on and an input requires grad,
+:func:`ssd_scan` goes through :class:`SSDScan`, a
+``torch.autograd.Function`` that saves x, a, b and c (made contiguous)
+and y.  Its backward launches ``csrc/ssd_scan_bwd.cu`` for CUDA tensors
+(float32 or bfloat16, any S, D and N; seven passes, one C call, one count
+in ``bwd_launches``) and takes :func:`ssd_scan_bwd_plain` for CPU ones.
+With g_u the dual state (the loss's gradient at h_u),
+``sum_{t >= u} exp(Acum_t - Acum_u) dy_t (x) c_t``:
+
+    dx_u = g_u b_u,   db_u = sum_h x_u . g_u,   dc_t = sum_h dy_t . h_t,
+    da_t = sum_{k >= t} (dy_k . y_k - x_k . dx_k)   (per head, over D)
+
+per chunk as masked, decayed L x L products and the carries of the
+forward's chunk states h_c and of the dual's R_c, which are passed
+backwards along the chunks.  The kernel sums over heads and chunks in one
+fixed order with no atomics, so a result repeats bit for bit.  The TPU
+kernel has no backward; this one computes what the JAX package's autodiff
+of ``ssd_ref`` computes.  Under ``torch.no_grad()`` or
+``torch.inference_mode()``, or with no input that requires grad, the
+forward launches as it always did, outside the Function, and saves
+nothing.
 """
 from __future__ import annotations
 
@@ -47,12 +68,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .common import LaunchCounter, refuse_grad
+from .common import LaunchCounter
 
 CHUNK = 64     # tokens per chunk (L in csrc/ssd_scan.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 
 
 def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -74,12 +96,53 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     _check(x, a, b, c)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SSD scan for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
+        return SSDScan.apply(x, a, b, c)
+    return _forward(x, a, b, c)       # no graph, nothing saved
+
+
+def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, b, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD scan for device {x.device}")
-    refuse_grad("ssd_scan", x, a, b, c)
     return _launch(x, a, b, c)
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with the kernels' forward and backward on the card and
+    their plain versions on the CPU (the module doc says which)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c):
+        x, a, b, c = (t.contiguous() for t in (x, a, b, c))
+        y = _forward(x, a, b, c)
+        ctx.save_for_backward(x, a, b, c, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
+                 ) -> tuple[torch.Tensor, ...]:
+    """(dx, da, db, dc) of the scan from its inputs, its output ``y`` and
+    the output's gradient ``dy``, in the inputs' dtype: the backward kernel
+    for CUDA tensors, its plain version for CPU ones."""
+    _check(x, a, b, c)
+    for name, t in (("output", y), ("output gradient", dy)):
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not fit x {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, a, b, c, y, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD scan backward for device {x.device}")
+    return _launch_bwd(*(t.contiguous() for t in (x, a, b, c, y, dy)))
 
 
 def _lib() -> ctypes.CDLL:
@@ -108,10 +171,9 @@ def scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
     return bsz * nc * (CHUNK * CHUNK + h * CHUNK + h * n * d)
 
 
-def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
+def _kernel_check(x: torch.Tensor, n: int) -> None:
+    """What the forward and backward kernels take beyond :func:`_check`."""
     bsz, s, h, d = x.shape
-    n = b.shape[2]
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"SSD scan kernel takes float32 or bfloat16, not "
                          f"{x.dtype}")
@@ -122,6 +184,13 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"SSD scan kernel takes H <= 65535 and "
                          f"B * ceil(S / {CHUNK}) <= 65535; got x "
                          f"{tuple(x.shape)}")
+
+
+def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    bsz, s, h, d = x.shape
+    n = b.shape[2]
+    _kernel_check(x, n)
     x, a, b, c = (t.contiguous() for t in (x, a, b, c))
     y = torch.empty_like(x)
     n_scratch = scratch_floats(bsz, s, h, d, n)
@@ -137,6 +206,49 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {err}")
     launches.add()
     return y
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from .build import load
+    lib = load("ssd_scan_bwd")
+    fn = lib.repro_ssd_scan_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+    return lib
+
+
+def bwd_scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
+    """Floats of scratch the backward's passes use: C . B^T, Acum, the
+    forward's and the dual's chunk states, M, the da terms, and db's and
+    dc's per-head parts."""
+    nc = -(-s // CHUNK)
+    return (bsz * nc * (CHUNK * CHUNK + 2 * h * CHUNK + 2 * h * n * d
+                        + h * CHUNK * CHUNK) + 2 * bsz * s * h * n)
+
+
+def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
+                ) -> tuple[torch.Tensor, ...]:
+    bsz, s, h, d = x.shape
+    n = b.shape[2]
+    _kernel_check(x, n)
+    grads = tuple(torch.empty_like(t) for t in (x, a, b, c))
+    n_scratch = bwd_scratch_floats(bsz, s, h, d, n)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_ssd_scan_bwd(
+            *(t.data_ptr() for t in (x, a, b, c, y, dy, *grads)),
+            scratch.data_ptr(), n_scratch, _DTYPE_CODE[x.dtype], bsz, s, h,
+            d, n, stream)
+    if err:
+        raise RuntimeError(f"SSD scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    bwd_launches.add()
+    return grads
 
 
 def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -181,3 +293,73 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = y + torch.exp(acum)[..., None] * torch.einsum(
         "bctn,bchnd->bcthd", cc, hs)
     return y.reshape(bsz, nc * CHUNK, h, d)[:, :s].to(x.dtype)
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
+                       ) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's seven passes in torch, in float32: (dx, da,
+    db, dc) in the inputs' dtype.  Per chunk, G = tril(exp(Acum_t -
+    Acum_u) C_t . B_u), M = tril(exp(Acum_t - Acum_u) dy_t . x_u) and E =
+    exp(A_tot - Acum_u); h_c and R_c are the forward's and the dual's chunk
+    carries (the module doc gives the identities)."""
+    _check(x, a, b, c)
+    bsz, s, h, d = x.shape
+    n = b.shape[2]
+    nc = -(-s // CHUNK)
+    pad = nc * CHUNK - s
+
+    def chunks(t, *tail):          # zero-pad S, then [B, nc, L, ...]
+        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(bsz, nc, CHUNK, *tail)
+
+    xc, yc, dyc = chunks(x, h, d), chunks(y, h, d), chunks(dy, h, d)
+    ac, bc, cc = chunks(a, h), chunks(b, n), chunks(c, n)
+
+    # pass 1: C . B^T once per (batch, chunk); Acum
+    cb = torch.einsum("bctn,bcun->bctu", cc, bc)             # [B,nc,L,L]
+    acum = torch.cumsum(ac, dim=2)                           # [B,nc,L,H]
+    a_tot = acum[:, :, -1]                                   # [B,nc,H]
+    ew = torch.exp(a_tot[:, :, None] - acum)                 # E, [B,nc,L,H]
+
+    # pass 2: the forward's local end states and the dual's, [N, D] each
+    local = torch.einsum("bcun,bcuh,bcuhd->bchnd", bc, ew, xc)
+    dual = torch.einsum("bctn,bcth,bcthd->bchnd", cc, torch.exp(acum), dyc)
+
+    # pass 3: h_c passed forward along the chunks, R_c backward
+    hs, gs = [None] * nc, [None] * nc
+    run = torch.zeros((bsz, h, n, d), device=x.device)
+    for ci in range(nc):
+        hs[ci] = run
+        run = torch.exp(a_tot[:, ci])[..., None, None] * run + local[:, ci]
+    run = torch.zeros_like(run)
+    for ci in reversed(range(nc)):
+        gs[ci] = run
+        run = torch.exp(a_tot[:, ci])[..., None, None] * run + dual[:, ci]
+    hs, gs = torch.stack(hs, dim=1), torch.stack(gs, dim=1)  # [B,nc,H,N,D]
+
+    # pass 4: M, dx and each token's dy . y - x . dx (select, then decay)
+    live = torch.ones(CHUNK, CHUNK, dtype=torch.bool,
+                      device=x.device).tril()[:, :, None]
+    diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]   # [B,nc,t,u,H]
+    decay = torch.exp(torch.where(live, diff, float("-inf")))
+    m = torch.einsum("bcthd,bcuhd->bctuh", dyc, xc) * decay
+    dx = torch.einsum("bctu,bctuh,bcthd->bcuhd", cb, decay, dyc)
+    dx = dx + ew[..., None] * torch.einsum("bcun,bchnd->bcuhd", bc, gs)
+    q = (dyc * yc - xc * dx).sum(dim=-1)                     # [B,nc,L,H]
+
+    # pass 5: each head's db and dc
+    dc = torch.einsum("bctuh,bcun->bcthn", m, bc) + torch.exp(acum)[
+        ..., None] * torch.einsum("bcthd,bchnd->bcthn", dyc, hs)
+    db = torch.einsum("bctuh,bctn->bcuhn", m, cc) + ew[..., None] * (
+        torch.einsum("bcuhd,bchnd->bcuhn", xc, gs))
+
+    # pass 6: summed over the heads; pass 7: da, reverse cumsum over S
+    db, dc = db.sum(dim=3), dc.sum(dim=3)                    # [B,nc,L,N]
+    q = q.reshape(bsz, nc * CHUNK, h)[:, :s]
+    da = torch.flip(torch.cumsum(torch.flip(q, (1,)), dim=1), (1,))
+
+    def cut(t, like):
+        return t.reshape(bsz, nc * CHUNK, *t.shape[3:])[:, :s].to(like.dtype)
+
+    return cut(dx, x), da.to(a.dtype), cut(db, b), cut(dc, c)

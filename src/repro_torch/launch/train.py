@@ -6,9 +6,9 @@
 The same options as the reference, plus ``--device`` (default ``cuda``).
 It trains the reduced variant of ``--arch`` (``--full-config`` for the full
 one) end-to-end with checkpointing and the straggler monitor, and
-demonstrates restart-after-kill (``--resume``).  On the card only the
-attention families train: the SSD scan's kernel has no backward, so
-zamba2 and xlstm train on the CPU only.
+demonstrates restart-after-kill (``--resume``).  On the card the dense,
+MoE, hybrid and SSM families train through their kernels' forward and
+backward (flash attention, the SSD scan).
 """
 from __future__ import annotations
 

@@ -258,18 +258,109 @@ def test_ssd_kernel_reads_no_stale_scratch(card):
 
 
 def test_kernels_refuse_inputs_that_need_a_gradient(card):
-    """A kernel without a backward (the SSD scan's) refuses, under grad
-    mode, an input that requires grad, never answering with a result cut
-    off from autograd; flash attention has a backward, so its output
-    carries a ``grad_fn``."""
+    """No kernel answers an input that requires grad with a result cut off
+    from autograd: flash attention and the SSD scan have backwards, so
+    their outputs carry a ``grad_fn`` (``FlashAttention``, ``SSDScan``);
+    the node kernels, which have none, refuse (the test after the node
+    kernels').  With no gradient asked, each forward kernel runs once and
+    saves nothing."""
     q, k, v = _qkv(card, 1, 4, 2, 64, 64, 32, torch.float32)
     x, a, bm, cm = _ssd_inputs(card, 1, 64, 2, 16, 8, torch.float32)
     assert flash_attention(q.requires_grad_(), k, v).grad_fn is not None
-    with pytest.raises(RuntimeError, match="backward"):
-        ops.ssd_scan(x, a, bm.requires_grad_(), cm)
+    out = ops.ssd_scan(x, a, bm.requires_grad_(), cm)
+    assert isinstance(out.grad_fn, ssd_scan.SSDScan._backward_cls)
     with torch.no_grad():                 # no gradient asked: the kernel runs
         assert flash_attention(q, k, v).grad_fn is None
+        before = ssd_scan.launches.count
         assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+        assert ssd_scan.launches.count == before + 1
+
+
+SSD_BWD_CASES = [       # (b, s, h, d, n, strong)
+    (1, 2048, 32, 128, 64, False),    # zamba2's heads at its training length
+    (8, 256, 1, 384, 384, False),     # mLSTM values (B 2 x 4 heads folded)
+    (8, 256, 1, 1, 384, True),        # mLSTM normalizer (D = 1)
+    (1, 300, 32, 128, 64, False),     # ragged S
+    (2, 37, 4, 32, 16, False),        # S shorter than one chunk
+    (3, 150, 2, 48, 100, False),      # D and N the tiles do not divide
+    (4, 300, 1, 384, 384, True),      # strong decay, down to log 1e-6
+    (2, 1024, 32, 128, 64, True),     # B > 1 and H > 1, states underflow
+]
+
+
+def _ssd_bwd_inputs(card, b, s, h, d, n, dtype, strong):
+    x, a, bm, cm = _ssd_inputs(card, b, s, h, d, n, dtype, strong)
+    with torch.no_grad():
+        y = ops.ssd_scan(x, a, bm, cm)
+    g = torch.Generator(device=card)
+    g.manual_seed(s * 13 + d + n)
+    return x, a, bm, cm, y, torch.randn(y.shape, generator=g,
+                                        device=card).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,d,n,strong", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n,
+                                      strong):
+    """dx, da, db and dc of the backward kernel against its plain version,
+    at the SSD tolerance x (1 + |g|); one call, one launch."""
+    ins = _ssd_bwd_inputs(card, b, s, h, d, n, dtype, strong)
+    before = ssd_scan.bwd_launches.count
+    got = ssd_scan.ssd_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    assert ssd_scan.bwd_launches.count == before + 1
+    want = ssd_scan.ssd_scan_bwd_plain(*ins)
+    for g, w, like in zip(got, want, ins):
+        assert g.dtype == dtype and g.shape == like.shape
+        assert torch.isfinite(g).all()
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol * (1.0 + w.float().abs())).all()), float(
+            err.max())
+
+
+def test_ssd_bwd_kernel_repeats_bit_for_bit(card):
+    """No atomics: the sums over heads and chunks have one order, so two
+    runs on one input agree bit for bit."""
+    ins = _ssd_bwd_inputs(card, 2, 300, 4, 48, 100, torch.float32, True)
+    first = ssd_scan.ssd_scan_bwd(*ins)
+    second = ssd_scan.ssd_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+
+
+def test_ssd_bwd_reads_no_stale_scratch(card):
+    """The backward's scratch is ``torch.empty``: a block of NaNs freed
+    just before the call is handed out again, and no NaN comes through."""
+    shapes = (1, 300, 4, 64, 64)
+    poison = torch.full((ssd_scan.bwd_scratch_floats(*shapes),),
+                        float("nan"), device=card)
+    del poison
+    ins = _ssd_bwd_inputs(card, *shapes, torch.float32, False)
+    got = ssd_scan.ssd_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    want = ssd_scan.ssd_scan_bwd_plain(*ins)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-3, atol=3e-3)
+
+
+def test_ssd_gradients_flow_through_the_kernels(card):
+    """Autograd through ``ops.ssd_scan`` on the card launches the forward
+    and the backward kernel once each and gives the plain version's
+    gradients (float32, 3e-3)."""
+    x, a, bm, cm = _ssd_inputs(card, 2, 200, 3, 32, 16, torch.float32)
+    dy = torch.randn(x.shape, device=card)
+    leaves = [t.clone().requires_grad_() for t in (x, a, bm, cm)]
+    fwd, bwd = ssd_scan.launches.count, ssd_scan.bwd_launches.count
+    out = ops.ssd_scan(*leaves)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches.count, ssd_scan.bwd_launches.count) == (
+        fwd + 1, bwd + 1)
+    want = ssd_scan.ssd_scan_bwd_plain(x, a, bm, cm, out.detach(), dy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-3, atol=3e-3)
 
 
 FLASH_BWD_F32_KEEP = 4e-5   # the float32 error under which the 3xTF32
@@ -602,14 +693,40 @@ def test_grad_step_on_the_card_matches_the_cpu_path(card):
             w.abs().max())
 
 
-def test_ssd_model_refuses_to_train_on_the_card(card):
-    """The SSD scan's kernel has no backward: a train step of an SSD model
-    on the card raises, where a plain version would train quietly."""
+@pytest.mark.parametrize("arch,grad_tol", [("zamba2-1.2b", 3e-3),
+                                           ("xlstm-125m", 1e-4)])
+def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
+    """A reduced SSD model's grad step on the card (the SSD kernels forward
+    and backward, and zamba2's flash kernels) against the CPU path (the
+    plain versions): the loss at rel 1e-5, each leaf at ``grad_tol`` x its
+    largest magnitude (``tests/test_torch_train.py``'s tolerances); one
+    SSD forward and one backward launch per scan of the layer plan (a
+    Mamba-2 layer one, an mLSTM layer two), one flash forward and backward
+    per shared-block application."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, layer_plan
+    from repro_torch.optim.adamw import leaves
     from repro_torch.train import make_grad_step
-    cfg = get_config("xlstm-125m").reduced()
-    params = init_params(cfg, seed=0, device=card)
-    with pytest.raises(RuntimeError, match="no backward"):
-        make_grad_step(cfg, remat=False)(params,
-                                         _train_batch(cfg.vocab, card))
+    cfg = get_config(arch).reduced()
+    plan = layer_plan(cfg)
+    scans = plan.count("mamba2") + 2 * plan.count("mlstm")
+    attn = plan.count("shared_attn")
+    cpu = init_params(cfg, seed=3)
+    gpu = to_torch(cpu, card)
+    step = make_grad_step(cfg, remat=False)
+    want, met_want = step(cpu, _train_batch(cfg.vocab, "cpu"))
+    before = (ssd_scan.launches.count, ssd_scan.bwd_launches.count,
+              launches.count, bwd_launches.count)
+    got, met = step(gpu, _train_batch(cfg.vocab, card))
+    torch.cuda.synchronize()
+    after = (ssd_scan.launches.count, ssd_scan.bwd_launches.count,
+             launches.count, bwd_launches.count)
+    assert scans > 0
+    assert tuple(x - y for x, y in zip(after, before)) == (scans, scans,
+                                                            attn, attn)
+    assert float(met["loss"]) == pytest.approx(float(met_want["loss"]),
+                                               rel=1e-5)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - w).abs().max()) <= grad_tol * float(
+            w.abs().max())

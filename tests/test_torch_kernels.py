@@ -263,9 +263,10 @@ def test_ssd_cpu_path_takes_plain_version_and_counts_no_launch():
 
 
 def test_ssd_plain_version_is_differentiable_on_the_cpu():
-    """The CPU path keeps autograd (the CUDA kernel refuses instead): the
-    causal select comes before the exponential, so no inf * 0 reaches the
-    gradient even at mLSTM's strongest decay."""
+    """The CPU path keeps autograd (``SSDScan``: the plain forward and
+    the plain backward, as the kernels on the card): the causal select
+    comes before the exponential, so no inf * 0 reaches the gradient even
+    at mLSTM's strongest decay."""
     x, a, bm, cm = (t.requires_grad_() for t in
                     _t(*_ssd_inputs(1, 80, 1, 8, 8, "strong", seed=5)))
     ops.ssd_scan(x, a, bm, cm).square().sum().backward()

@@ -1,7 +1,9 @@
-"""Card time of the SSD scan kernel at the served shapes, for comparing two
-trees of the port in one chip call.
+"""Card time of the SSD scan kernel at the served shapes, or of its
+backward at the training shapes, for comparing two trees of the port in
+one chip call.
 
     python tools/torch_ssd_ab.py [--src DIR] [--label NAME] [--iters 20]
+                                 [--profile] [--bwd]
 
 Imports ``repro_torch`` from ``DIR`` (default: this tree's ``src``), so
 the kernel of another checkout (for example the parent commit unpacked
@@ -10,7 +12,10 @@ change, parent, one process each.  The shapes and inputs are
 ``chip_smoke.py``'s: zamba2's heads, the mLSTM values and the mLSTM
 normalizer at S = 256, 1024 and 4096, float32, card time from CUDA events
 around ``--iters`` calls after a spin kernel holds the stream; with
-``--profile``, also each pass's card time from ``torch.profiler``.  Prints
+``--profile``, also each pass's card time from ``torch.profiler``.  With
+``--bwd``, the backward kernel instead (``ssd_scan_bwd``) at
+``chip_smoke.py``'s training shapes: zamba2's heads at B 2 x S 2048, the
+mLSTM values and normalizer at B 8 (2 x 4 heads folded) x S 512.  Prints
 one JSON object (label, source, the card's name and power limit, ms by
 shape) and appends it to ``chiprun_out/ssd_ab.jsonl``.
 """
@@ -28,21 +33,36 @@ sys.path.insert(0, str(ROOT))
 CASES = {"zamba2": (1, 32, 128, 64, "mild"),
          "mlstm_values": (4, 1, 384, 384, "mlstm"),
          "mlstm_normalizer": (4, 1, 1, 384, "mlstm")}
+# the backward's cases: (b, s, h, d, n, decay) at the training shapes
+BWD_CASES = {"zamba2": (2, 2048, 32, 128, 64, "mild"),
+             "mlstm_values": (8, 512, 1, 384, 384, "mlstm"),
+             "mlstm_normalizer": (8, 512, 1, 1, 384, "mlstm")}
 
 
-def _passes_us(cs, ssd_scan, s, b, h, d, n, decay, calls=10) -> dict:
-    """Card time of each kernel that one call launches, in microseconds
-    (the mean over ``calls`` calls, from ``torch.profiler``)."""
+def _call(cs, ssd_scan, bwd, b, s, h, d, n, decay):
+    """A call of the forward (or, with ``bwd``, the backward) kernel on
+    ``chip_smoke.py``'s inputs of these shapes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    if bwd:
+        ins = cs._ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay,
+                                 seed=99)
+        return lambda: ssd_scan.ssd_scan_bwd(*ins)
     x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, torch.float32, decay,
                                   seed=99)
-    ssd_scan.ssd_scan(x, a, bm, cm)
+    return lambda: ssd_scan.ssd_scan(x, a, bm, cm)
+
+
+def _passes_us(fn, calls=10) -> dict:
+    """Card time of each kernel that one call of ``fn`` launches, in
+    microseconds (the mean over ``calls`` calls, from ``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            ssd_scan.ssd_scan(x, a, bm, cm)
+            fn()
         torch.cuda.synchronize()
     out = {}
     for evt in prof.key_averages():
@@ -62,7 +82,9 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="also the card time of each pass (torch.profiler) "
-                         "at S = 1024")
+                         "at S = 1024 (the backward: at its shapes)")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the backward kernel at the training shapes")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -71,20 +93,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_ssd_ab: no CUDA card", file=sys.stderr)
         return 1
+    if args.bwd:
+        cases = {label: spec for label, spec in BWD_CASES.items()}
+    else:
+        cases = {f"{label}@{s}": (b, s, h, d, n, decay)
+                 for s in (256, 1024, 4096)
+                 for label, (b, h, d, n, decay) in CASES.items()}
     rows = []
-    for s in (256, 1024, 4096):
-        for label, (b, h, d, n, decay) in CASES.items():
-            x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, torch.float32,
-                                          decay, seed=99)
-            ms = cs._time_ms(lambda: ssd_scan.ssd_scan(x, a, bm, cm),
-                             iters=args.iters)
-            rows.append({"case": label, "shape": [b, s, h, d, n], "ms": ms})
+    for label, spec in cases.items():
+        ms = cs._time_ms(_call(cs, ssd_scan, args.bwd, *spec),
+                         iters=args.iters)
+        rows.append({"case": label.split("@")[0], "shape": list(spec[:5]),
+                     "ms": ms})
     out = {"label": args.label, "source": ssd_scan.__file__,
-           "nvidia_smi": cs._smi(), "rows": rows}
+           "nvidia_smi": cs._smi(), "bwd": args.bwd, "rows": rows}
     if args.profile:
+        at = (BWD_CASES if args.bwd else
+              {label: (b, 1024, h, d, n, decay)
+               for label, (b, h, d, n, decay) in CASES.items()})
         out["passes_us"] = {
-            label: _passes_us(cs, ssd_scan, 1024, *spec)
-            for label, spec in CASES.items()}
+            label: _passes_us(_call(cs, ssd_scan, args.bwd, *spec))
+            for label, spec in at.items()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     with open(out_dir / "ssd_ab.jsonl", "a") as f:
