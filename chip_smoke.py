@@ -691,14 +691,18 @@ def _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed):
     return x, a, bm, cm, y, dy
 
 
-# (b, s, h, d, n, decay) of the backward: zamba2's heads at its training
-# length (B 1 and 2), the mLSTM values (B 2 x 4 heads folded, D = N = 384)
-# and normalizer (D 1), a ragged S, S shorter than one chunk, B > 1 with
-# D and N that the tiles do not divide, and strong decays down to log 1e-6
+# (b, s, h, d, n, decay) of the backward at phase 8's training shapes:
+# zamba2's heads at B 2 x S 2048, and xlstm's B 8 x S 512 with its 4 mLSTM
+# heads folded into the batch (``mlstm_block``): the values (B 32, D = N =
+# 384) and the normalizer (D 1)
+SSD_BWD_TRAIN = {"zamba2": (2, 2048, 32, 128, 64, "mild"),
+                 "mlstm_values": (32, 512, 1, 384, 384, "mlstm"),
+                 "mlstm_normalizer": (32, 512, 1, 1, 384, "mlstm")}
+# the training shapes, then a ragged S, S shorter than one chunk, B > 1
+# with D and N that the tiles do not divide, and strong decays down to
+# log 1e-6
 SSD_BWD_CASES = [
-    (2, 2048, 32, 128, 64, "mild"),
-    (8, 512, 1, 384, 384, "mlstm"),
-    (8, 512, 1, 1, 384, "mlstm"),
+    *SSD_BWD_TRAIN.values(),
     (1, 300, 32, 128, 64, "mild"),
     (2, 37, 4, 32, 16, "mild"),
     (3, 200, 2, 48, 100, "mlstm"),
@@ -762,43 +766,40 @@ def check_ssd_bwd(report: dict) -> dict:
 
 def time_ssd_bwd(report: dict) -> dict:
     """The backward kernel, its plain version and the bound
-    (``_ssd_bwd_work``) at zamba2's training shape (B 2 x S 2048, H 32,
-    D 128, N 64), float32; no PyTorch call computes the scan's gradient,
-    so library_ms is null.  Also the wrapper's time per call, host
-    included (``call_ms``), and the passes' scratch."""
+    (``_ssd_bwd_work``) at each of ``SSD_BWD_TRAIN``'s shapes, float32;
+    no PyTorch call computes the scan's gradient, so library_ms is null.
+    Also the wrapper's time per call, host included (``call_ms``), and the
+    passes' scratch.  The row of zamba2's shape, with the others under
+    their names."""
     import torch
     from repro_torch.kernels.ssd_scan import (bwd_scratch_floats,
                                               ssd_scan_bwd,
                                               ssd_scan_bwd_plain)
-    b, s, h, d, n, decay = SSD_BWD_CASES[0]
-    ins = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay, seed=399)
-    ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10)
-    call_ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10, run_ahead=False)
-    plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins), iters=2, warmup=1,
-                        run_ahead=False)
-    flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32)
-    bound_ms, bound_by = _bound(flops, nbytes)
-    fma_bound_ms = _bound({"float32": sum(flops.values())}, nbytes)[0]
-    row = {"case": "zamba2_train", "dtype": "float32",
-           "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
-           "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "fma_bound_ms": fma_bound_ms,
-           "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
-           "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
-           "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
-    for label, (bb, hh, dd, nn, dec) in (
-            ("mlstm_values", (8, 1, 384, 384, "mlstm")),
-            ("mlstm_normalizer", (8, 1, 1, 384, "mlstm"))):
-        more = _ssd_bwd_inputs(bb, 512, hh, dd, nn, torch.float32, dec, 398)
-        fl, nb = _ssd_bwd_work(bb, 512, hh, dd, nn, torch.float32)
-        row[label] = {"shape": [bb, 512, hh, dd, nn],
-                      "ms": _time_ms(lambda: ssd_scan_bwd(*more), iters=10),
-                      "bound_ms": _bound(fl, nb)[0]}
-        del more
+    rows = {}
+    for label, (b, s, h, d, n, decay) in SSD_BWD_TRAIN.items():
+        ins = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay, seed=399)
+        ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10)
+        call_ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10,
+                           run_ahead=False)
+        plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins), iters=2,
+                            warmup=1, run_ahead=False)
+        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32)
+        bound_ms, bound_by = _bound(flops, nbytes)
+        rows[label] = {
+            "case": f"{label}_train", "dtype": "float32",
+            "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fma_bound_ms": _bound({"float32": sum(flops.values())},
+                                   nbytes)[0],
+            "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
+            "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
+            "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
+        del ins
+        torch.cuda.empty_cache()
+    row = rows.pop("zamba2")
+    row.update(rows)
     print(f"[time] ssd_scan_bwd {row}", flush=True)
-    del ins
-    torch.cuda.empty_cache()
     report["ssd_scan_bwd_timing"] = row
     return row
 
@@ -1730,8 +1731,12 @@ def train_reduced_vs_cpu(run: dict) -> dict:
 # the kernels of a traced step, by the names their sources give them
 FLASH_BWD_KERNELS = ("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv",
                      "bwd_dq")
-SSD_BWD_KERNELS = ("ssd_bwd_",)
-SSD_FWD_KERNELS = ("ssd_chunk_", "ssd_state_pass")
+SSD_BWD_KERNELS = ("ssd_bwd_", "ssd_state_pass<true")
+SSD_FWD_KERNELS = ("ssd_chunk_out",)
+# the forward's passes 1 to 3, which the backward launches again on the
+# same inputs to recompute h_c: half of their time is the backward's
+SSD_SHARED_KERNELS = ("ssd_chunk_cb", "ssd_chunk_state",
+                      "ssd_state_pass<false")
 
 
 def train_one(run: dict) -> dict:
@@ -1885,11 +1890,12 @@ def train_one(run: dict) -> dict:
                   "kernels": sum(ev.count for ev in kernels),
                   "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total
                                      / 1e3 for ev in top}}
-        for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
-                            ("flash_fwd", ("flash_tf32x3",)),
-                            ("ssd_bwd", SSD_BWD_KERNELS),
-                            ("ssd_fwd", SSD_FWD_KERNELS)):
-            traced[f"{name}_ms"] = share(names)
+        shared_ms = share(SSD_SHARED_KERNELS) / 2
+        for name, names, extra in (("flash_bwd", FLASH_BWD_KERNELS, 0.0),
+                                   ("flash_fwd", ("flash_tf32x3",), 0.0),
+                                   ("ssd_bwd", SSD_BWD_KERNELS, shared_ms),
+                                   ("ssd_fwd", SSD_FWD_KERNELS, shared_ms)):
+            traced[f"{name}_ms"] = share(names) + extra
             traced[f"{name}_share"] = traced[f"{name}_ms"] / card_ms
         out["traced_step"] = traced
         if per_step["flash_attention"]:
@@ -2091,7 +2097,8 @@ def main() -> int:
         if out["launches_per_step"]["ssd_scan_bwd"]}
     ssd_bwd_row["bfloat16_max_abs_err"] = ssd_bwd_err["bfloat16"]
     for label in ("mlstm_values", "mlstm_normalizer"):
-        ssd_bwd_row[label] = ssd_bwd_timing[label]
+        ssd_bwd_row[label] = {key: ssd_bwd_timing[label][key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels = [
         flash_row,
         bwd_row,

@@ -20,13 +20,12 @@
 //   R_{c-1} = exp(A_tot,c) R_c + r_c,  r_c = (dy * exp(Acum))^T C.
 //
 // Passes, launched in order on the caller's stream by one C call:
-//   1. per (batch, chunk): C . B^T once for all heads, and each head's Acum;
-//   2. per (batch, chunk, head, N-tile, D-tile): the forward's local end
-//      states s_c and the dual's local states r_c;
-//   3. per (batch, head, element of the state): h_c passed forward along
-//      the chunks and R_c backward, in place, the loads of 8 chunks in
-//      flight (one at a time, the backward's pass took a third of its
-//      time at zamba2's training shape);
+//   1-3. the forward's passes 1 to 3 (csrc/ssd_chunk.cuh, the same kernels
+//      csrc/ssd_scan.cu launches): C . B^T and Acum per chunk, the local
+//      end states s_c (3xTF32 mma.sync for D >= 16), and h_c passed
+//      forward along the chunks; then the dual's local states r_c per
+//      (batch, chunk, head, N-tile, D-tile), and R_c passed backward by
+//      the same state pass run in reverse;
 //   4. per (batch, chunk, head): M (over D-tiles, kept in registers), dx
 //      and each token's dy . y - x . dx, summed over D in tile order;
 //   5. per (batch, chunk, head, N-tile): one head's db and dc;
@@ -34,20 +33,21 @@
 //   7. per (batch, head): da, the reverse cumulative sum of pass 4's terms
 //      over S, a warp a (batch, head).
 // Every sum has one fixed order and no pass uses atomics, so a result
-// repeats bit for bit.  All products are float32 FMAs through 64 x 64
-// shared tiles (a block of 256 threads, each a 4 x 4 patch; rows of 65
-// floats, so column reads are free of bank conflicts); bfloat16 inputs are
-// converted on load, all sums are float32.
+// repeats bit for bit.  The backward's own products (the dual's local
+// states and passes 4 and 5) are float32 FMAs through 64 x 64 shared
+// tiles (a block of 256 threads, each a 4 x 4 patch; rows of 65 floats, so
+// column reads are free of bank conflicts); bfloat16 inputs are converted
+// on load, all sums are float32.
 //
 // Bound.  At zamba2's heads (H 32, D 128, N 64), B 2 x S 2048, the function
 // needs ~14 GFLOP of products (the intra-chunk pairs of G^T dy, M, M B and
 // M^T C; the carries; the local states it must recompute) against ~270 MB
 // of inputs and gradients: on 3xTF32 tensor cores the operations and the
-// bytes each take ~0.08 ms; on FMAs, as here, the operations ~0.21 ms.
-// This design is the simple one: FMAs at 14-18 TFLOP/s through shared
-// tiles, the two state sets, M and the per-head db and dc through device
-// memory.  Moving the products onto 3xTF32 mma.sync, as the forward's are,
-// and fusing the recomputed forward passes, are left for later.
+// bytes each take ~0.08 ms; on FMAs the operations ~0.21 ms.  This design
+// is the simple one: its own products on FMAs through shared tiles, the
+// two state sets, M and the per-head db and dc through device memory.
+// Moving passes 4 and 5 onto 3xTF32 mma.sync, as the forward's products
+// are, and fusing the recomputed forward passes, are left for later.
 //
 // Above the diagonal exp(Acum_t - Acum_u) overflows (mLSTM's log-decay
 // reaches -13.8 a token), so the triangle is selected before the
@@ -55,48 +55,33 @@
 // x = a = b = c = dy = y = 0 past S and stores only rows before S.  The
 // scratch is the wrapper's torch.empty: every pass writes all of what a
 // later one reads.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "ssd_chunk.cuh"
 
 namespace {
 
-constexpr int L = 64;          // tokens per chunk (the forward's L)
-constexpr int T = 64;          // edge of a shared tile
-constexpr int LDT = T + 1;     // row stride of a shared tile, in floats
-constexpr int TILE = T * LDT;  // floats of a shared tile
-constexpr int NTH = 256;       // threads a block: 16 x 16, 4 x 4 outputs each
-constexpr int PASS_GROUP = 8;  // chunks whose loads pass 3 issues at once
-constexpr int kGridTooLarge = -2;
+// The backward's own passes run on FMAs through TILE x TILE shared tiles
+// (ssd_chunk.cuh's TILE, 64), a block of NTH = 256 threads, each a 4 x 4
+// patch of the output.
+constexpr int LDT = TILE + 1;      // row stride of a shared tile, in floats
+constexpr int FTILE = TILE * LDT;  // floats of a shared tile
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// A [T, T] tile of src (row stride ld) into shared dst: rows >= rows and
-// columns >= cols read as zeros; row r is multiplied by scale[r] if given.
+// A [TILE, TILE] tile of src (row stride ld) into shared dst: rows >= rows
+// and columns >= cols read as zeros; row r is multiplied by scale[r] if
+// given.
 template <typename S>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const S* __restrict__ src,
-                                          size_t ld, int rows, int cols,
-                                          const float* scale = nullptr) {
+__device__ __forceinline__ void load_ftile(float* __restrict__ dst,
+                                           const S* __restrict__ src,
+                                           size_t ld, int rows, int cols,
+                                           const float* scale = nullptr) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < T * T; i += NTH) {
-    const int r = i / T, q = i % T;
+  for (int i = threadIdx.x; i < TILE * TILE; i += NTH) {
+    const int r = i / TILE, q = i % TILE;
     float v = r < rows && q < cols ? to_f32(src[(size_t)r * ld + q]) : 0.f;
     dst[r * LDT + q] = scale ? v * scale[r] : v;
   }
 }
 
-// acc[i][j] += sum_k A(ty + 16 i, k) B(k, tx + 16 j) over the T values of k,
+// acc[i][j] += sum_k A(ty + 16 i, k) B(k, tx + 16 j) over the TILE values of k,
 // with A(r, k) = A[r * ars + k * aks] and B(k, c) = B[k * bks + c * bcs]:
 // the strides read either operand transposed.
 __device__ __forceinline__ void fma_tile(float (&acc)[4][4],
@@ -105,7 +90,7 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][4],
                                          int bks, int bcs) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll 4
-  for (int k = 0; k < T; ++k) {
+  for (int k = 0; k < TILE; ++k) {
     float av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * ars + k * aks];
@@ -118,72 +103,33 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][4],
   }
 }
 
-// -- pass 1: C . B^T per (batch, chunk); Acum per (batch, chunk, head) -------
+// -- the dual's local states r_c, stored [N, D] ------------------------------
 
+// r_c[n][d] = sum_t exp(Acum_t) dy_t[d] c_t[n] per (batch, chunk, head,
+// N-tile, D-tile), every chunk but the first (no chunk reads its carry)
 template <typename S>
 __global__ void __launch_bounds__(NTH)
-ssd_bwd_cb(const S* __restrict__ a, const S* __restrict__ bm,
-           const S* __restrict__ cm, float* __restrict__ cb,
-           float* __restrict__ acum, int s_len, int n_heads, int n_len,
-           int nc) {
-  __shared__ float ct[TILE], bt[TILE];
-  const int ci = blockIdx.x, b = blockIdx.y;
-  const int t0 = ci * L, len = min(L, s_len - t0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t row0 = (size_t)b * s_len + t0;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < n_len; n0 += T) {
-    load_tile(ct, cm + row0 * n_len + n0, n_len, len, n_len - n0);
-    load_tile(bt, bm + row0 * n_len + n0, n_len, len, n_len - n0);
-    __syncthreads();
-    fma_tile(acc, ct, LDT, 1, bt, 1, LDT);  // (t, u) += c[t][n] b[u][n]
-    __syncthreads();
-  }
-  float* out = cb + ((size_t)b * nc + ci) * L * L;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(ty + 16 * i) * L + tx + 16 * j] = acc[i][j];
-  for (int h = threadIdx.x; h < n_heads; h += NTH) {  // a thread a head
-    float run = 0.f;
-    float* ah = acum + (((size_t)b * nc + ci) * n_heads + h) * L;
-    for (int t = 0; t < L; ++t) {
-      if (t < len) run += to_f32(a[(row0 + t) * n_heads + h]);
-      ah[t] = run;
-    }
-  }
-}
-
-// -- pass 2: local states, stored [N, D] -------------------------------------
-
-// DUAL false: s_c[n][d] = sum_u exp(A_tot - Acum_u) x_u[d] b_u[n] (every
-// chunk but the last, whose end state no chunk reads); DUAL true: r_c[n][d]
-// = sum_t exp(Acum_t) dy_t[d] c_t[n] (every chunk but the first).
-template <typename S, bool DUAL>
-__global__ void __launch_bounds__(NTH)
-ssd_bwd_local(const S* __restrict__ v, const S* __restrict__ k,
-              const float* __restrict__ acum, float* __restrict__ states,
-              int s_len, int n_heads, int d_len, int n_len, int nc) {
-  __shared__ float ks[TILE], vs[TILE], w[L];
-  const int d_tiles = (d_len + T - 1) / T;
-  const int d0 = (blockIdx.x % d_tiles) * T, n0 = (blockIdx.x / d_tiles) * T;
+ssd_bwd_dual_local(const S* __restrict__ dy, const S* __restrict__ cm,
+                   const float* __restrict__ acum, float* __restrict__ states,
+                   int s_len, int n_heads, int d_len, int n_len, int nc) {
+  __shared__ float ks[FTILE], vs[FTILE], w[L];
+  const int d_tiles = (d_len + TILE - 1) / TILE;
+  const int d0 = (blockIdx.x % d_tiles) * TILE;
+  const int n0 = (blockIdx.x / d_tiles) * TILE;
   const int h = blockIdx.y, b = blockIdx.z / nc, ci = blockIdx.z % nc;
-  if (DUAL ? ci == 0 : ci == nc - 1) return;
+  if (ci == 0) return;
   const int t0 = ci * L, len = min(L, s_len - t0);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t row0 = (size_t)b * s_len + t0, xrow = (size_t)n_heads * d_len;
   const float* ac = acum + (((size_t)b * nc + ci) * n_heads + h) * L;
-  if (threadIdx.x < L)
-    w[threadIdx.x] = DUAL ? expf(ac[threadIdx.x])
-                          : expf(ac[L - 1] - ac[threadIdx.x]);
+  if (threadIdx.x < L) w[threadIdx.x] = expf(ac[threadIdx.x]);
   __syncthreads();
-  load_tile(vs, v + row0 * xrow + (size_t)h * d_len + d0, xrow, len,
-            d_len - d0, w);
-  load_tile(ks, k + row0 * n_len + n0, n_len, len, n_len - n0);
+  load_ftile(vs, dy + row0 * xrow + (size_t)h * d_len + d0, xrow, len,
+             d_len - d0, w);
+  load_ftile(ks, cm + row0 * n_len + n0, n_len, len, n_len - n0);
   __syncthreads();
   float acc[4][4] = {};
-  fma_tile(acc, ks, 1, LDT, vs, LDT, 1);  // (n, d) += k[t][n] v[t][d]
+  fma_tile(acc, ks, 1, LDT, vs, LDT, 1);  // (n, d) += c[t][n] w_t dy[t][d]
   float* out = states + (((size_t)b * nc + ci) * n_heads + h) *
                             ((size_t)n_len * d_len);
 #pragma unroll
@@ -197,56 +143,9 @@ ssd_bwd_local(const S* __restrict__ v, const S* __restrict__ k,
   }
 }
 
-// -- pass 3: the states passed along the chunks, in place --------------------
-
-// forward (REVERSE false): slot c holds s_c on entry (c < nc - 1) and h_c on
-// exit, h_0 = 0, h_{c+1} = exp(A_tot,c) h_c + s_c.  Backward: slot c holds
-// r_c on entry (c > 0) and R_c on exit, R_{nc-1} = 0, R_{c-1} = exp(A_tot,c)
-// R_c + r_c.  The i-th chunk walked is c = i (c = nc - 1 - i backward); the
-// loads of PASS_GROUP chunks are issued at once, V floats a thread.
-template <bool REVERSE, int V>
-__global__ void __launch_bounds__(NTH)
-ssd_bwd_pass(const float* __restrict__ acum, float* __restrict__ states,
-             int n_heads, size_t elems, int nc) {
-  using Vec = typename std::conditional<V == 4, float4, float>::type;
-  const size_t e = ((size_t)blockIdx.x * NTH + threadIdx.x) * V;
-  if (e >= elems) return;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t step = (size_t)n_heads * elems;
-  float* st = states + ((size_t)b * nc * n_heads + h) * elems + e;
-  const float* tot = acum + ((size_t)b * nc * n_heads + h) * L + (L - 1);
-  float run[V] = {};
-  for (int i0 = 0; i0 < nc; i0 += PASS_GROUP) {
-    Vec s[PASS_GROUP];
-    float f[PASS_GROUP];
-#pragma unroll
-    for (int g = 0; g < PASS_GROUP; ++g) {
-      const int i = i0 + g, c = REVERSE ? nc - 1 - i : i;
-      if (i < nc - 1) {  // the chunk's entry is read (its carry goes on)
-        s[g] = *reinterpret_cast<const Vec*>(st + c * step);
-        f[g] = expf(tot[(size_t)c * n_heads * L]);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < PASS_GROUP; ++g) {
-      const int i = i0 + g, c = REVERSE ? nc - 1 - i : i;
-      if (i >= nc) break;
-      Vec out;
-      float* ov = reinterpret_cast<float*>(&out);
-#pragma unroll
-      for (int v = 0; v < V; ++v) ov[v] = run[v];
-      *reinterpret_cast<Vec*>(st + c * step) = out;
-      if (i == nc - 1) break;
-      const float* sv = reinterpret_cast<const float*>(&s[g]);
-#pragma unroll
-      for (int v = 0; v < V; ++v) run[v] = fmaf(f[g], run[v], sv[v]);
-    }
-  }
-}
-
 // -- pass 4: M, dx and the da terms per (batch, chunk, head) -----------------
 
-constexpr size_t kSmemDx = sizeof(float) * (5 * (size_t)TILE + 3 * L);
+constexpr size_t kSmemDx = sizeof(float) * (5 * (size_t)FTILE + 3 * L);
 
 template <typename S>
 __global__ void __launch_bounds__(NTH)
@@ -258,11 +157,11 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
            int n_heads, int d_len, int n_len, int nc) {
   extern __shared__ float smem[];
   float* gs = smem;              // G [t][u]
-  float* dys = gs + TILE;        // dy [t][d]
-  float* xs = dys + TILE;        // x [u][d]
-  float* bs = xs + TILE;         // E_u b [u][n]
-  float* rs = bs + TILE;         // R_c [n][d]
-  float* as = rs + TILE;         // Acum
+  float* dys = gs + FTILE;        // dy [t][d]
+  float* xs = dys + FTILE;        // x [u][d]
+  float* bs = xs + FTILE;         // E_u b [u][n]
+  float* rs = bs + FTILE;         // R_c [n][d]
+  float* as = rs + FTILE;         // Acum
   float* ew = as + L;            // E = exp(A_tot - Acum)
   float* q = ew + L;             // dy . y - x . dx, summed over D
   const int h = blockIdx.x, b = blockIdx.y / nc, ci = blockIdx.y % nc;
@@ -286,17 +185,17 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
   }
 
   float m[4][4] = {};
-  for (int d0 = 0; d0 < d_len; d0 += T) {
+  for (int d0 = 0; d0 < d_len; d0 += TILE) {
     const int dc = d_len - d0;
-    load_tile(dys, dy + xoff + d0, xrow, len, dc);
-    load_tile(xs, x + xoff + d0, xrow, len, dc);
+    load_ftile(dys, dy + xoff + d0, xrow, len, dc);
+    load_ftile(xs, x + xoff + d0, xrow, len, dc);
     __syncthreads();
     fma_tile(m, dys, LDT, 1, xs, 1, LDT);  // M(t, u) += dy[t][d] x[u][d]
     float acc[4][4] = {};
     fma_tile(acc, gs, 1, LDT, dys, LDT, 1);  // dx(u, d) += G[t][u] dy[t][d]
-    for (int n0 = 0; n0 < n_len; n0 += T) {
-      load_tile(bs, bb + n0, n_len, len, n_len - n0, ew);
-      load_tile(rs, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0, dc);
+    for (int n0 = 0; n0 < n_len; n0 += TILE) {
+      load_ftile(bs, bb + n0, n_len, len, n_len - n0, ew);
+      load_ftile(rs, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0, dc);
       __syncthreads();
       fma_tile(acc, bs, LDT, 1, rs, LDT, 1);  // dx(u, d) += E_u b[u][n] R[n][d]
       __syncthreads();
@@ -335,7 +234,7 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
 
 // -- pass 5: one head's db and dc per (batch, chunk, head, N-tile) -----------
 
-constexpr size_t kSmemDbDc = sizeof(float) * (4 * (size_t)TILE + 2 * L);
+constexpr size_t kSmemDbDc = sizeof(float) * (4 * (size_t)FTILE + 2 * L);
 
 template <typename S>
 __global__ void __launch_bounds__(NTH)
@@ -347,12 +246,12 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
              int n_heads, int d_len, int n_len, int nc) {
   extern __shared__ float smem[];
   float* t0s = smem;            // M, then exp(Acum_t) dy [t][d]
-  float* t1s = t0s + TILE;      // b [u][n], then h_c [n][d]
-  float* t2s = t1s + TILE;      // c [t][n], then E_u x [u][d]
-  float* t3s = t2s + TILE;      // R_c [n][d]
-  float* et = t3s + TILE;       // exp(Acum)
+  float* t1s = t0s + FTILE;      // b [u][n], then h_c [n][d]
+  float* t2s = t1s + FTILE;      // c [t][n], then E_u x [u][d]
+  float* t3s = t2s + FTILE;      // R_c [n][d]
+  float* et = t3s + FTILE;       // exp(Acum)
   float* ew = et + L;           // E = exp(A_tot - Acum)
-  const int n0 = blockIdx.x * T, h = blockIdx.y;
+  const int n0 = blockIdx.x * TILE, h = blockIdx.y;
   const int b = blockIdx.z / nc, ci = blockIdx.z % nc;
   const int t0 = ci * L, len = min(L, s_len - t0);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -366,20 +265,20 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
     et[tid] = expf(acum[base * L + tid]);
     ew[tid] = expf(acum[base * L + L - 1] - acum[base * L + tid]);
   }
-  load_tile(t0s, mm + base * L * L, L, L, L);
-  load_tile(t1s, bm + brow, n_len, len, nn);
-  load_tile(t2s, cm + brow, n_len, len, nn);
+  load_ftile(t0s, mm + base * L * L, L, L, L);
+  load_ftile(t1s, bm + brow, n_len, len, nn);
+  load_ftile(t2s, cm + brow, n_len, len, nn);
   __syncthreads();
   float dc[4][4] = {}, db[4][4] = {};
   fma_tile(dc, t0s, LDT, 1, t1s, LDT, 1);  // dc(t, n) += M[t][u] b[u][n]
   fma_tile(db, t0s, 1, LDT, t2s, LDT, 1);  // db(u, n) += M[t][u] c[t][n]
-  for (int d0 = 0; d0 < d_len; d0 += T) {
+  for (int d0 = 0; d0 < d_len; d0 += TILE) {
     const int dcols = d_len - d0;
     __syncthreads();  // the last tiles are consumed
-    load_tile(t0s, dy + xoff + d0, xrow, len, dcols, et);
-    load_tile(t1s, hstates + soff + d0, d_len, nn, dcols);
-    load_tile(t2s, x + xoff + d0, xrow, len, dcols, ew);
-    load_tile(t3s, gstates + soff + d0, d_len, nn, dcols);
+    load_ftile(t0s, dy + xoff + d0, xrow, len, dcols, et);
+    load_ftile(t1s, hstates + soff + d0, d_len, nn, dcols);
+    load_ftile(t2s, x + xoff + d0, xrow, len, dcols, ew);
+    load_ftile(t3s, gstates + soff + d0, d_len, nn, dcols);
     __syncthreads();
     fma_tile(dc, t0s, LDT, 1, t1s, 1, LDT);  // dc(t, n) += e_t dy[t][d] h[n][d]
     fma_tile(db, t2s, LDT, 1, t3s, 1, LDT);  // db(u, n) += E_u x[u][d] R[n][d]
@@ -448,31 +347,6 @@ ssd_bwd_da(const float* __restrict__ q, S* __restrict__ da, int bsz, int s_len,
 
 // -- launch -------------------------------------------------------------------
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// pass 3 over states of `elems` floats a (batch, chunk, head); float4s
-// where elems is a multiple of 4 (every slot then starts on 16 bytes)
-template <bool REVERSE>
-cudaError_t pass_states(const float* acum, float* states, int bsz,
-                        int n_heads, size_t elems, int nc,
-                        cudaStream_t stream) {
-  if (elems % 4 == 0)
-    ssd_bwd_pass<REVERSE, 4>
-        <<<dim3((unsigned)((elems / 4 + NTH - 1) / NTH), n_heads, bsz), NTH,
-           0, stream>>>(acum, states, n_heads, elems, nc);
-  else
-    ssd_bwd_pass<REVERSE, 1>
-        <<<dim3((unsigned)((elems + NTH - 1) / NTH), n_heads, bsz), NTH, 0,
-           stream>>>(acum, states, n_heads, elems, nc);
-  return cudaGetLastError();
-}
-
 template <typename S>
 int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
            const S* dy, S* dx, S* da, S* db, S* dc, float* scratch, int bsz,
@@ -481,6 +355,7 @@ int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
   const int nc = (s_len + L - 1) / L;
   const size_t chunks = (size_t)bsz * nc;
   const size_t elems = (size_t)n_len * d_len;
+  // C . B^T, Acum and h_c first, as the forward's scratch lays them out
   float* cb = scratch;                                   // [B, nc, L, L]
   float* acum = cb + chunks * L * L;                     // [B, nc, H, L]
   float* hs = acum + chunks * n_heads * L;               // [B, nc, H, N, D]
@@ -489,23 +364,21 @@ int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
   float* q = mm + chunks * n_heads * L * L;              // [B, nc, H, L]
   float* dbp = q + chunks * n_heads * L;                 // [B, S, H, N]
   float* dcp = dbp + (size_t)bsz * s_len * n_heads * n_len;  // [B, S, H, N]
-  const int d_tiles = (d_len + T - 1) / T, n_tiles = (n_len + T - 1) / T;
+  const int d_tiles = (d_len + TILE - 1) / TILE;
+  const int n_tiles = (n_len + TILE - 1) / TILE;
   cudaError_t err;
   if ((err = allow_smem(ssd_bwd_dx<S>, kSmemDx)) ||
       (err = allow_smem(ssd_bwd_dbdc<S>, kSmemDbDc)))
     return (int)err;
 
-  ssd_bwd_cb<S><<<dim3(nc, bsz), NTH, 0, stream>>>(a, b, c, cb, acum, s_len,
-                                                 n_heads, n_len, nc);
-  if ((err = cudaGetLastError())) return (int)err;
-  const dim3 local(d_tiles * n_tiles, n_heads, (unsigned)chunks);
-  ssd_bwd_local<S, false><<<local, NTH, 0, stream>>>(x, b, acum, hs, s_len,
-                                                 n_heads, d_len, n_len, nc);
-  if ((err = cudaGetLastError())) return (int)err;
-  ssd_bwd_local<S, true><<<local, NTH, 0, stream>>>(dy, c, acum, gs, s_len,
-                                                n_heads, d_len, n_len, nc);
+  // passes 1 to 3: the forward's kernels (csrc/ssd_chunk.cuh)
+  if ((err = chunk_states(x, a, b, c, scratch, bsz, s_len, n_heads, d_len,
+                          n_len, stream)))
+    return (int)err;
+  ssd_bwd_dual_local<S>
+      <<<dim3(d_tiles * n_tiles, n_heads, (unsigned)chunks), NTH, 0,
+         stream>>>(dy, c, acum, gs, s_len, n_heads, d_len, n_len, nc);
   if ((err = cudaGetLastError()) ||
-      (err = pass_states<false>(acum, hs, bsz, n_heads, elems, nc, stream)) ||
       (err = pass_states<true>(acum, gs, bsz, n_heads, elems, nc, stream)))
     return (int)err;
   ssd_bwd_dx<S><<<dim3(n_heads, (unsigned)chunks), NTH, kSmemDx, stream>>>(
@@ -525,8 +398,6 @@ int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
 // Floats of scratch the passes use: C . B^T, Acum, the forward's and the
 // dual's chunk states, M, the da terms, then db's and dc's per-head parts.
 long long scratch_need(int bsz, int s_len, int n_heads, int d_len,
@@ -542,10 +413,11 @@ long long scratch_need(int bsz, int s_len, int n_heads, int d_len,
 // dtype: 0 = float32, 1 = bfloat16, for all of x, a, b, c, y, dy and the
 // gradients dx, da, db, dc (contiguous, the shapes of x, a, b, c).  scratch:
 // n_scratch floats, at least scratch_need(...) (the wrapper's
-// bwd_scratch_floats), 16-byte aligned; its contents on entry are never read.  Returns cudaGetLastError()
-// after the last launch (0 on success).  Without a launch: -2 when H or
-// B * ceil(S / 64) exceed a grid dimension (65535), and
-// cudaErrorInvalidValue for an unsupported dtype or too small a scratch.
+// bwd_scratch_floats), 16-byte aligned; its contents on entry are never
+// read.  Returns cudaGetLastError() after the last launch (0 on success).
+// Without a launch: -2 when H or B * ceil(S / 64) exceed a grid dimension
+// (65535), and cudaErrorInvalidValue for an unsupported dtype or too small
+// a scratch.
 extern "C" int repro_ssd_scan_bwd(const void* x, const void* a, const void* b,
                                   const void* c, const void* y,
                                   const void* dy, void* dx, void* da,

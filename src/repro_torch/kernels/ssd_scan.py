@@ -43,8 +43,10 @@ The gradient.  When grad mode is on and an input requires grad,
 :func:`ssd_scan` goes through :class:`SSDScan`, a
 ``torch.autograd.Function`` that saves x, a, b and c (made contiguous)
 and y.  Its backward launches ``csrc/ssd_scan_bwd.cu`` for CUDA tensors
-(float32 or bfloat16, any S, D and N; seven passes, one C call, one count
-in ``bwd_launches``) and takes :func:`ssd_scan_bwd_plain` for CPU ones.
+(float32 or bfloat16, any S, D and N; seven passes, the first three the
+forward's own kernels from ``csrc/ssd_chunk.cuh`` recomputing h_c; one C
+call, one count in ``bwd_launches``) and takes :func:`ssd_scan_bwd_plain`
+for CPU ones.
 With g_u the dual state (the loss's gradient at h_u),
 ``sum_{t >= u} exp(Acum_t - Acum_u) dy_t (x) c_t``:
 

@@ -277,9 +277,9 @@ def test_kernels_refuse_inputs_that_need_a_gradient(card):
 
 
 SSD_BWD_CASES = [       # (b, s, h, d, n, strong)
-    (1, 2048, 32, 128, 64, False),    # zamba2's heads at its training length
-    (8, 256, 1, 384, 384, False),     # mLSTM values (B 2 x 4 heads folded)
-    (8, 256, 1, 1, 384, True),        # mLSTM normalizer (D = 1)
+    (2, 2048, 32, 128, 64, False),    # zamba2's heads at its training shape
+    (32, 512, 1, 384, 384, False),    # mLSTM values (B 8 x 4 heads folded)
+    (32, 512, 1, 1, 384, True),       # mLSTM normalizer (D = 1)
     (1, 300, 32, 128, 64, False),     # ragged S
     (2, 37, 4, 32, 16, False),        # S shorter than one chunk
     (3, 150, 2, 48, 100, False),      # D and N the tiles do not divide

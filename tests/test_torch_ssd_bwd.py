@@ -14,6 +14,9 @@ Tolerance: the reference's SSD tolerance (``tests/test_kernels.py``),
 the plain forward (the port's gradient before the backward existed), the
 same.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -200,3 +203,40 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_ssd_bwd",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_chip_smoke_checks_the_backward_at_the_training_shapes(arch,
+                                                               monkeypatch):
+    """``chip_smoke.py`` holds the backward kernel to its plain version and
+    times it at ``SSD_BWD_TRAIN``'s shapes: they must be the (B, S, H, D,
+    N) of every scan that phase 8's training step of the full-width model
+    calls (xlstm folds its mLSTM heads into the batch).  The model runs on
+    the meta device, shapes only, with the kernels' wrappers stubbed."""
+    cs = _chip_smoke()
+    run = next(r for r in cs.TRAIN_RUNS if r["arch"] == arch)
+    seen = set()
+
+    def scan(x, a, b, c):
+        seen.add(tuple(x.shape) + (b.shape[-1],))
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(ops, "ssd_scan", scan)
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, **kw: torch.empty_like(q))
+    cfg = get_config(arch)
+    tokens = torch.zeros(run["batch"], run["seq"], dtype=torch.long,
+                         device="meta")
+    forward(init_params(cfg, device="meta"), cfg, tokens)
+    checked = {case[:5] for case in cs.SSD_BWD_TRAIN.values()}
+    assert seen and seen <= checked, (seen, checked)
+    assert {case[:5] for case in cs.SSD_BWD_CASES} >= checked

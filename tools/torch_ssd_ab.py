@@ -14,10 +14,11 @@ normalizer at S = 256, 1024 and 4096, float32, card time from CUDA events
 around ``--iters`` calls after a spin kernel holds the stream; with
 ``--profile``, also each pass's card time from ``torch.profiler``.  With
 ``--bwd``, the backward kernel instead (``ssd_scan_bwd``) at
-``chip_smoke.py``'s training shapes: zamba2's heads at B 2 x S 2048, the
-mLSTM values and normalizer at B 8 (2 x 4 heads folded) x S 512.  Prints
-one JSON object (label, source, the card's name and power limit, ms by
-shape) and appends it to ``chiprun_out/ssd_ab.jsonl``.
+``chip_smoke.py``'s training shapes (``SSD_BWD_TRAIN``): zamba2's heads at
+B 2 x S 2048, the mLSTM values and normalizer at B 32 (8 x 4 heads
+folded) x S 512.  Prints one JSON object (label, source, the card's name
+and power limit, ms by shape) and appends it to
+``chiprun_out/ssd_ab.jsonl``.
 """
 from __future__ import annotations
 
@@ -33,10 +34,6 @@ sys.path.insert(0, str(ROOT))
 CASES = {"zamba2": (1, 32, 128, 64, "mild"),
          "mlstm_values": (4, 1, 384, 384, "mlstm"),
          "mlstm_normalizer": (4, 1, 1, 384, "mlstm")}
-# the backward's cases: (b, s, h, d, n, decay) at the training shapes
-BWD_CASES = {"zamba2": (2, 2048, 32, 128, 64, "mild"),
-             "mlstm_values": (8, 512, 1, 384, 384, "mlstm"),
-             "mlstm_normalizer": (8, 512, 1, 1, 384, "mlstm")}
 
 
 def _call(cs, ssd_scan, bwd, b, s, h, d, n, decay):
@@ -94,7 +91,7 @@ def main() -> int:
         print("torch_ssd_ab: no CUDA card", file=sys.stderr)
         return 1
     if args.bwd:
-        cases = {label: spec for label, spec in BWD_CASES.items()}
+        cases = cs.SSD_BWD_TRAIN
     else:
         cases = {f"{label}@{s}": (b, s, h, d, n, decay)
                  for s in (256, 1024, 4096)
@@ -108,7 +105,7 @@ def main() -> int:
     out = {"label": args.label, "source": ssd_scan.__file__,
            "nvidia_smi": cs._smi(), "bwd": args.bwd, "rows": rows}
     if args.profile:
-        at = (BWD_CASES if args.bwd else
+        at = (cs.SSD_BWD_TRAIN if args.bwd else
               {label: (b, 1024, h, d, n, decay)
                for label, (b, h, d, n, decay) in CASES.items()})
         out["passes_us"] = {
