@@ -1,7 +1,11 @@
 """Architecture registry: the same ``ModelConfig`` instances as the JAX
 package's ``configs`` (``base.py`` and the arch files are verbatim copies),
-without its abstract jax input specs."""
+and its abstract input specs in PyTorch's idiom: tensors on the ``meta``
+device, which have a shape and a dtype and hold no memory, where the
+reference returns ``jax.ShapeDtypeStruct``s."""
 from __future__ import annotations
+
+import torch
 
 from .base import SHAPES, InputShape, ModelConfig, shape_applicable
 from .granite_8b import CONFIG as _granite
@@ -29,5 +33,32 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
+def _spec(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Abstract train-step batch: tokens + labels (+ the frontend prefix,
+    which takes ``frontend_len`` of the ``seq_len`` positions)."""
+    b = shape.global_batch
+    s = shape.seq_len
+    specs = {}
+    if cfg.frontend != "none":
+        s_text = s - cfg.frontend_len
+        specs["frontend"] = _spec((b, cfg.frontend_len, cfg.d_model),
+                                  getattr(torch, cfg.dtype))
+    else:
+        s_text = s
+    specs["tokens"] = _spec((b, s_text), torch.int32)
+    specs["labels"] = _spec((b, s_text), torch.int32)
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Abstract decode-step inputs: current token ids (the state's come from
+    ``init_decode_state`` on the meta device)."""
+    return {"tokens": _spec((shape.global_batch,), torch.int32)}
+
+
 __all__ = ["ARCHS", "SHAPES", "InputShape", "ModelConfig", "get_config",
-           "shape_applicable"]
+           "shape_applicable", "train_batch_specs", "decode_specs"]

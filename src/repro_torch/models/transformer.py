@@ -2,8 +2,8 @@
 ``repro/models/transformer.py``).
 
 Families:
-  dense / vlm / audio — pre-norm GQA attention + FFN (the frontends of vlm
-      and audio are not ported yet);
+  dense / vlm / audio — pre-norm GQA attention + FFN; vlm and audio take
+      precomputed ``frontend`` embeddings [B, P, d] as a prefix (below);
   moe — attention + top-k capacity-routed MoE FFN (+ optional shared
       expert, ``moe.py``); ``forward`` returns the summed aux loss;
   hybrid (zamba2) — Mamba-2 backbone; ONE weight-shared attention+FFN block
@@ -21,7 +21,13 @@ Training: ``forward(..., remat=True)`` recomputes each stacked layer in
 the backward (``torch.utils.checkpoint``, the counterpart of the
 reference's ``jax.checkpoint`` of its scan body; the hybrid's shared block
 is not rematerialised there either), and :func:`loss_and_metrics` is the
-reference's loss.  The ``frontend`` prefix of vlm and audio is not ported.
+reference's loss.
+
+The ``frontend`` prefix (``forward``, ``prefill`` and ``loss_and_metrics``
+through ``batch["frontend"]``), as the reference's: its embeddings, cast to
+the model's dtype, go before the token embeddings, the positions run over
+the whole ``P + S``, and the LM head runs over the text positions only
+(sliced after the final norm).  Any layer plan takes one.
 
 The decode state mirrors the reference's too: one stacked tree per state
 kind (``kv``, ``shared_kv``, ``mamba``, ``mlstm``, ``slstm``).  In place,
@@ -233,12 +239,25 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     return x, aux
 
 
+def _embed(params: Params, tokens: torch.Tensor,
+           frontend: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """The token embeddings after the ``frontend`` prefix, if any, cast to
+    their dtype: (x [B, P + S, d], P)."""
+    x = params["embed"][tokens]
+    if frontend is None:
+        return x, 0
+    return torch.cat([frontend.to(x.dtype), x], dim=1), frontend.shape[1]
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend: torch.Tensor | None = None,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: [B, S] -> (logits [B, S, V] float32, the summed MoE aux
-    loss, float32; 0 without MoE blocks).  With ``remat`` each stacked
-    layer keeps only its input for the backward and runs again there."""
-    x = params["embed"][tokens]
+    loss, float32; 0 without MoE blocks).  ``frontend`` [B, P, d] embeddings
+    are prepended; logits come back for the text positions only.  With
+    ``remat`` each stacked layer keeps only its input for the backward and
+    runs again there."""
+    x, prefix = _embed(params, tokens, frontend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
     for kind, p, _ in _walk(params, cfg):
@@ -249,32 +268,35 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x, aux = _block_fwd(cfg, kind, p, x, positions)
         if aux is not None:
             aux_total = aux_total + aux
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, prefix:]
     logits = (x @ _head(params, cfg)).float()
     return logits, aux_total
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int) -> tuple[torch.Tensor, PyTree]:
-    """Process the full prompt; return (last-token logits [B,V] float32,
-    decode state sized for ``max_len``) — the serving engine's prefill."""
-    x = params["embed"][tokens]
-    bsz, s = x.shape[0], x.shape[1]
-    if max_len < s:
-        raise ValueError(f"max_len {max_len} < prompt {s}")
-    positions = torch.arange(s, device=x.device)[None, :]
+            max_len: int, frontend: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, PyTree]:
+    """Process the full prompt, after the ``frontend`` prefix if any; return
+    (last-token logits [B,V] float32, decode state sized for ``max_len``,
+    holding the prefix's and the prompt's ``P + S`` positions) — the
+    serving engine's prefill."""
+    x, _ = _embed(params, tokens, frontend)
+    bsz, s_total = x.shape[0], x.shape[1]
+    if max_len < s_total:
+        raise ValueError(f"max_len {max_len} < prompt {s_total}")
+    positions = torch.arange(s_total, device=x.device)[None, :]
     state = init_decode_state(cfg, bsz, max_len, device=x.device)
     for kind, p, i in _walk(params, cfg):
         x, st, _ = _block(cfg, kind, p, x, positions, with_state=True)
         slot = state[_STATE_KEY[kind]]
         if kind in _ATTN:
-            slot["k"][i, :, :s], slot["v"][i, :, :s] = st
+            slot["k"][i, :, :s_total], slot["v"][i, :, :s_total] = st
         else:
             for name, t in st.items():
                 slot[name][i] = t
     for key in ("kv", "shared_kv"):
         if key in state:
-            state[key]["length"].fill_(s)
+            state[key]["length"].fill_(s_total)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _head(params, cfg)).float()
     return logits, state
@@ -285,10 +307,8 @@ def loss_and_metrics(params: Params, cfg: ModelConfig, batch: dict,
     """Mean next-token NLL over ``loss_mask`` (all tokens without one) plus
     ``aux_loss_coef`` x the MoE aux loss: (total, {"loss", "aux_loss",
     "tokens"}), as the reference's."""
-    if batch.get("frontend") is not None:
-        raise NotImplementedError("the vlm/audio frontend prefix is not "
-                                  "ported")
-    logits, aux = forward(params, cfg, batch["tokens"], remat=remat)
+    logits, aux = forward(params, cfg, batch["tokens"], batch.get("frontend"),
+                          remat=remat)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")

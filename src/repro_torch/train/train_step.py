@@ -59,18 +59,12 @@ def make_grad_step(cfg: ModelConfig, *, remat: bool = True):
     return grad_step
 
 
-def _no_frontend(batch: dict) -> None:
-    if batch.get("frontend") is not None:
-        raise NotImplementedError("the vlm/audio frontend prefix is not "
-                                  "ported")
-
-
 def make_prefill_step(cfg: ModelConfig, max_len: int):
     """(params, batch) -> (last-token logits, decode state)."""
 
     def prefill_step(params, batch):
-        _no_frontend(batch)
-        return _prefill(params, cfg, batch["tokens"], max_len)
+        return _prefill(params, cfg, batch["tokens"], max_len,
+                        batch.get("frontend"))
 
     return prefill_step
 
@@ -79,8 +73,8 @@ def make_forward_step(cfg: ModelConfig):
     """Inference forward (logits only) — the compute body of prefill."""
 
     def forward_step(params, batch):
-        _no_frontend(batch)
-        logits, _ = _forward(params, cfg, batch["tokens"])
+        logits, _ = _forward(params, cfg, batch["tokens"],
+                             batch.get("frontend"))
         return logits
 
     return forward_step

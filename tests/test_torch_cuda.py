@@ -2,10 +2,14 @@
 
 Skipped where there is no CUDA card (the kernels have no CPU mode); on the
 card run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Beside the kernels: the MoE block on the card against its CPU path, and
-the memory a stacked bfloat16 initialisation needs.
+Beside the kernels: the MoE block on the card against its CPU path, the
+memory a stacked bfloat16 initialisation needs, and reduced models (with
+the vlm and audio frontend prefix too) on the card against the CPU path.
 This file imports no jax: the machine with the card need not have it.
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -46,6 +50,7 @@ def _qkv(card, b, hq, hkv, s, t, d, dtype):
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
     (1, 32, 8, 256, 256, 128, True),
     (1, 32, 32, 300, 300, 64, True),    # zamba2's shared attention, ragged
+    (2, 32, 32, 2048, 2048, 64, True),  # musicgen-large's training shape
     (2, 8, 2, 100, 100, 64, True),
     (1, 4, 1, 37, 301, 32, True),
     (1, 8, 8, 130, 70, 128, False),
@@ -73,6 +78,9 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
     (1, 4, 1, 64, 64, 32, False),       # one tile
     (1, 32, 4, 1024, 1024, 128, True),  # qwen3-moe's heads, GQA group 8
     (1, 16, 16, 300, 300, 128, True),   # moonshot's heads, ragged
+    (1, 64, 8, 1280, 1280, 128, True),  # internvl2's: P 256 + 1024
+    (1, 64, 8, 556, 556, 128, True),    # the same, P 256 + 300: ragged
+    (2, 64, 8, 200, 330, 128, True),    # the same, T > S, B 2
 ])
 def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
     q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.bfloat16)
@@ -129,6 +137,7 @@ FLASH_F32_KEEP = 2e-5   # the float32 error under which 3xTF32 is kept
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
     (1, 32, 8, 1024, 1024, 128, True),  # granite-8b's heads, GQA group 4
     (1, 32, 32, 1024, 1024, 64, True),  # zamba2-1.2b's shared attention
+    (2, 32, 32, 2048, 2048, 64, True),  # musicgen-large's training shape
     (1, 8, 8, 256, 256, 32, True),      # D = 32, group 1
     (1, 8, 2, 256, 256, 64, True),      # D = 64, group 4
     (2, 4, 4, 100, 100, 128, True),     # ragged S = T
@@ -384,6 +393,7 @@ def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
 ])
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
     (2, 32, 8, 256, 256, 128, True),
+    (2, 32, 32, 2048, 2048, 64, True),  # musicgen-large's training shape
     (1, 8, 1, 300, 300, 64, True),      # GQA group 8, ragged
     (1, 4, 4, 37, 301, 32, True),       # S < T, end-aligned, group 1
     (1, 8, 2, 130, 70, 128, False),     # S > T
@@ -729,4 +739,105 @@ def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
     for g, w in zip(leaves(got), leaves(want)):
         assert g.device.type == "cuda"
         assert float((g.cpu() - w).abs().max()) <= grad_tol * float(
+            w.abs().max())
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_cuda", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the reduced bfloat16 models' card-against-CPU limit on the median over
+# tokens of each token's rel, where chip_smoke.py grounds it
+BF16_REDUCED_TOL = _chip_smoke().BF16_REDUCED_TOL
+
+
+def _prefixed(cfg, device, seed=5):
+    """A batch of 2 x 40 tokens and labels with a frontend prefix of the
+    reduced config's 16 positions, N(0, 1), the same values everywhere."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (2, 41), generator=g)
+    front = torch.randn((2, cfg.frontend_len, cfg.d_model), generator=g)
+    return {"tokens": toks[:, :-1].to(device),
+            "labels": toks[:, 1:].to(device), "frontend": front.to(device)}
+
+
+@pytest.mark.parametrize("arch,dtype,path", [
+    ("internvl2-76b", "bfloat16", "wgmma"),
+    ("musicgen-large", "float32", "tf32x3")])
+def test_prefixed_model_on_the_card_matches_the_cpu_path(card, arch, dtype,
+                                                         path):
+    """A reduced vlm / audio model with its frontend prefix on the card
+    (the flash kernel, one launch a layer on its dtype's path) against the
+    CPU path (the plain version), the same weights and prefix: the forward
+    at every text token and prefill + 4 teacher-forced decode steps;
+    float32 at rel 5e-3 of the largest logit, bfloat16 on the median over
+    tokens of each token's rel at ``BF16_REDUCED_TOL``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.optim.adamw import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    cpu = init_params(cfg, seed=4)
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    outs = []
+    with torch.inference_mode():
+        for params, dev in ((cpu, "cpu"), (gpu, card)):
+            batch = _prefixed(cfg, dev)
+            toks, front = batch["tokens"], batch["frontend"]
+            before = (launches.count, path_launches[path].count)
+            fwd, _ = forward(params, cfg, toks, front)
+            if dev == card:
+                torch.cuda.synchronize()
+                assert (launches.count - before[0],
+                        path_launches[path].count - before[1]) == (
+                    cfg.n_layers, cfg.n_layers)
+            logits, state = prefill(params, cfg, toks[:, :36], 60, front)
+            assert int(state["kv"]["length"][0, 0]) == cfg.frontend_len + 36
+            seq = [logits]
+            for i in range(36, 40):
+                logits, state = decode_step(params, cfg, state, toks[:, i])
+                seq.append(logits)
+            outs.append(torch.cat([fwd.reshape(-1, cfg.vocab),
+                                   torch.cat(seq)]).double().cpu())
+    want, got = outs
+    assert bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        assert float((got - want).abs().max()) <= 5e-3 * float(
+            want.abs().max())
+    else:
+        per_token = (got - want).abs().amax(-1) / want.abs().amax(-1)
+        assert float(per_token.median()) < BF16_REDUCED_TOL
+
+
+@pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-large"])
+def test_prefixed_model_trains_on_the_card(card, arch):
+    """A reduced vlm / audio model's grad step on a prefixed batch, in
+    float32, on the card (the flash kernels forward and backward, all on
+    ``tf32x3``, one each a layer) against the CPU path: the loss at rel
+    1e-5, each leaf at 1e-4 x its largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import make_grad_step
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, seed=3)
+    gpu = to_torch(cpu, card)
+    step = make_grad_step(cfg, remat=False)
+    want, met_want = step(cpu, _prefixed(cfg, "cpu"))
+    before = (launches.count, path_launches["tf32x3"].count,
+              bwd_launches.count, bwd_path_launches["tf32x3"].count)
+    got, met = step(gpu, _prefixed(cfg, card))
+    torch.cuda.synchronize()
+    after = (launches.count, path_launches["tf32x3"].count,
+             bwd_launches.count, bwd_path_launches["tf32x3"].count)
+    assert tuple(x - y for x, y in zip(after, before)) == (cfg.n_layers,) * 4
+    assert float(met["loss"]) == pytest.approx(float(met_want["loss"]),
+                                               rel=1e-5)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
             w.abs().max())

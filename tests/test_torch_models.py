@@ -123,9 +123,9 @@ def test_full_width_param_tree_on_meta_device():
                                   "internvl2-76b"])
 def test_dense_configs_logits_match_reference(arch):
     """The other dense plans' reduced models: qwen2.5 (QKV bias), nemotron
-    (squared ReLU), stablelm, musicgen (GELU) and internvl2, the last two
-    on their text path (no frontend): forward, prefill and one decode
-    step."""
+    (squared ReLU), stablelm, musicgen (GELU) and internvl2, here without
+    a frontend prefix (``tests/test_torch_frontend.py`` holds the prefix):
+    forward, prefill and one decode step."""
     cfg_j = jconfigs.ARCHS[arch].reduced()
     params_j = jinit_params(cfg_j, jax.random.PRNGKey(0))
     model = (cfg_j, tconfigs.ARCHS[arch].reduced(), params_j,
