@@ -31,7 +31,10 @@ which fails the run (non-zero exit, no result line) if it fails:
    x (1 + |g|), its counters checked; the SSD scan's backward (dx, da, db,
    dc) at zamba2's training shape, mLSTM's values and normalizer, ragged,
    short, batched, untiled and strong-decay cases at ``SSD_TOL`` x (1 +
-   |g|), each call one count, and a second call equal bit for bit;
+   |g|) and in float32 also at ``SSD_BWD_F32_KEEP`` x (1 + |g|), reading
+   the forward kernel's kept scratch, one count a call and no forward
+   launched, and a second call, which runs the forward for its scratch,
+   equal bit for bit;
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
@@ -43,7 +46,7 @@ which fails the run (non-zero exit, no result line) if it fails:
    bound), flash attention's backward at the training shape on both
    paths beside SDPA's backward (float32), the SSD rows with the
    wrapper's time per call (host included) and the passes' scratch, the
-   SSD backward at zamba2's training shape (no library call computes it);
+   SSD backward at the training shapes (no library call computes it);
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
@@ -108,7 +111,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    init's ln V + 1/2, the last below the first; per step the launches the
    layer plan gives (flash forward and backward once per attention block
    or shared-block application, all ``tf32x3``; the SSD forward and
-   backward once per Mamba-2 layer and twice per mLSTM layer; remat runs
+   backward once per Mamba-2 layer and twice per mLSTM layer, so no
+   backward runs the forward again; remat runs
    every stacked layer's forward twice); the step time, tokens per
    second, peak memory and, from one traced step, the share of the card
    time of the flash and SSD kernels, forward and backward.
@@ -153,6 +157,11 @@ FLASH_F32_KEEP = 2e-5  # flash attention's 3xTF32 path stays only this far
 # ... and its backward's: ~4x the FMA kernel's worst, 1.05e-5 x (1 + |g|),
 # which a single TF32 product would exceed
 FLASH_BWD_F32_KEEP = 4e-5
+# The SSD backward's 3xTF32 stays only this far inside, x (1 + |g|), per
+# gradient: ~4x the worst of the FMA kernel it replaced over
+# SSD_BWD_CASES (dx 1.47e-4, db 2.64e-4, dc 2.12e-4); da, whose per-token
+# sums cancel (1.22e-3 at the strong decays), ~2x, inside SSD_TOL
+SSD_BWD_F32_KEEP = {"dx": 6e-4, "da": 2.5e-3, "db": 1.1e-3, "dc": 8.5e-4}
 # the unit whose peak prices each flash path's products in its bound
 FLASH_UNIT = {"wgmma": "bfloat16", "tf32x3": "3xtf32", "fma": "float32"}
 
@@ -707,40 +716,62 @@ def time_ssd(report: dict) -> list[dict]:
     return rows
 
 
-def _ssd_bwd_work(b, s, h, d, n, dtype):
+def _ssd_bwd_work(b, s, h, d, n, dtype, kept: bool):
     """(flops by kind, bytes) the SSD scan's backward needs at the chunk
-    length L.  Per chunk of l tokens, over its l (l + 1) / 2 live (t, u)
-    pairs: C . B^T once per batch and the decay of each pair per (batch,
-    head), FMAs; per (batch, head) the four pair products G^T dy, M = dy
-    x^T, M B and M^T C, and five l x D x N products (the forward's and
-    the dual's local states, which the backward must recompute, and the
-    carries B R, dy h^T and x R^T), priced at 3xTF32's rate: the least
-    time at float32's accuracy (the kernel runs them all on FMAs,
-    ``fma_bound_ms``).  x, a, b, c, y and dy read once; dx, da, db and dc
-    written once."""
-    from repro_torch.kernels.ssd_scan import CHUNK
+    length L, with C . B^T, Acum and h_c ``kept`` from the forward's
+    scratch, or else computed again.  Per chunk of l tokens, over its l (l
+    + 1) / 2 live (t, u) pairs: the decay of each pair per (batch, head)
+    and, computed again, C . B^T per batch, FMAs; per (batch, head) the
+    four pair products G^T dy, M = dy x^T, M B and M^T C, and the l x D x
+    N products: the dual's local states and the carries B R, dy h^T and x
+    R^T, and computed again the forward's local states, priced at
+    3xTF32's rate: the least time at float32's accuracy (``fma_bound_ms``
+    prices them at the FMA peak).  x, a, b, c, y and dy read once, and the
+    kept scratch (float32); dx, da, db and dc written once."""
+    from repro_torch.kernels.ssd_scan import CHUNK, scratch_floats
     fma = mma = 0
     for t0 in range(0, s, CHUNK):
         ln = min(CHUNK, s - t0)
         pairs = ln * (ln + 1) // 2
-        fma += b * 2 * pairs * n + b * h * pairs
-        mma += b * h * (4 * pairs * d + 4 * pairs * n + 10 * ln * d * n)
+        fma += b * h * pairs + (0 if kept else b * 2 * pairs * n)
+        mma += b * h * (4 * pairs * d + 4 * pairs * n
+                        + (8 if kept else 10) * ln * d * n)
     nbytes = (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n) * (
         dtype.itemsize)
+    if kept:
+        nbytes += 4 * scratch_floats(b, s, h, d, n)
     return {"float32": fma, "3xtf32": mma}, nbytes
 
 
+def _ssd_bwd_bound(b, s, h, d, n, dtype) -> dict:
+    """The SSD backward's bound: the least time of the gradient, the
+    smaller of its two ways' (``_ssd_bwd_work``: C . B^T, Acum and h_c
+    kept, which the kernel reads, or computed again).  Both ways' bounds,
+    and the smaller's ms, bytes or operations, way and FMA-priced
+    bound."""
+    ways = {}
+    for way in ("kept", "recompute"):
+        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, dtype, way == "kept")
+        ways[way] = (*_bound(flops, nbytes), flops, nbytes)
+    way = min(ways, key=lambda k: ways[k][0])
+    ms, by, flops, nbytes = ways[way]
+    return {"bound_ms": ms, "bound_by": by, "bound_way": way,
+            "bound_ms_by_way": {k: v[0] for k, v in ways.items()},
+            "fma_bound_ms": _bound({"float32": sum(flops.values())},
+                                   nbytes)[0]}
+
+
 def _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed):
-    """x, a, b, c, the forward kernel's output y and a random dy."""
+    """(x, a, b, c, the forward kernel's output y, a random dy) and the
+    forward's kept scratch (``ssd_scan_keep``)."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan_keep
     x, a, bm, cm = _ssd_inputs(b, s, h, d, n, dtype, decay, seed)
-    with torch.no_grad():
-        y = ssd_scan(x, a, bm, cm)
+    y, saved = ssd_scan_keep(x, a, bm, cm)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed + 1000)
     dy = torch.randn(y.shape, generator=g, device=DEVICE).to(dtype)
-    return x, a, bm, cm, y, dy
+    return (x, a, bm, cm, y, dy), saved
 
 
 # (b, s, h, d, n, decay) of the backward at phase 8's training shapes:
@@ -765,39 +796,51 @@ SSD_BWD_CASES = [
 
 
 def check_ssd_bwd(report: dict) -> dict:
-    """The backward kernel (dx, da, db, dc) against its plain version on
-    the card, every case in both dtypes, at ``SSD_TOL`` x (1 + |g|); each
-    call moves the backward's counter by one; two calls on one input agree
-    bit for bit (no atomics).  Returns the largest error in each dtype at
-    zamba2's training shape."""
+    """The backward kernel (dx, da, db, dc), reading the forward kernel's
+    kept scratch as training runs it, against its plain version on the
+    card, every case in both dtypes, at ``SSD_TOL`` x (1 + |g|) and in
+    float32 also at ``SSD_BWD_F32_KEEP`` x (1 + |g|); each call moves the
+    backward's counter by one and launches no forward; two calls on one
+    input agree bit for bit (no atomics), the second without the kept
+    scratch (it runs the forward first).  Returns the largest error in
+    each dtype at zamba2's training shape."""
     import torch
-    from repro_torch.kernels.ssd_scan import (bwd_launches, ssd_scan_bwd,
+    from repro_torch.kernels.ssd_scan import (bwd_launches, launches,
+                                              ssd_scan_bwd,
                                               ssd_scan_bwd_plain)
     worst = {}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for i, (b, s, h, d, n, decay) in enumerate(SSD_BWD_CASES):
-            ins = _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed=300 + i)
-            before = bwd_launches.count
-            got = ssd_scan_bwd(*ins)
+            ins, saved = _ssd_bwd_inputs(b, s, h, d, n, dtype, decay,
+                                         seed=300 + i)
+            before = (bwd_launches.count, launches.count)
+            got = ssd_scan_bwd(*ins, saved=saved)
             torch.cuda.synchronize()
-            launched = bwd_launches.count - before
+            launched = [bwd_launches.count - before[0],
+                        launches.count - before[1]]
+            del saved
             want = ssd_scan_bwd_plain(*ins)
             row = {"dtype": name, "shape": [b, s, h, d, n], "decay": decay,
-                   "tol": SSD_TOL[name], "launches": launched}
-            ok = launched == 1
+                   "tol": SSD_TOL[name], "launches": launched[0],
+                   "forward_launches": launched[1]}
+            ok = launched == [1, 0]
             for gname, g, w, like in zip(("dx", "da", "db", "dc"), got, want,
                                          ins):
                 err = (g.float() - w.float()).abs()
                 limit = SSD_TOL[name] * (1.0 + w.float().abs())
+                rel = float((err / (1.0 + w.float().abs())).max())
                 ok = (ok and g.dtype == dtype and g.shape == like.shape
                       and bool(torch.isfinite(g).all())
-                      and bool((err <= limit).all()))
+                      and bool((err <= limit).all())
+                      and (name != "float32"
+                           or rel <= SSD_BWD_F32_KEEP[gname]))
                 row[f"{gname}_max_abs_err"] = float(err.max())
-                row[f"{gname}_max_rel_err"] = float(
-                    (err / (1.0 + w.float().abs())).max())
+                row[f"{gname}_max_rel_err"] = rel
                 row[f"{gname}_max_abs"] = float(w.float().abs().max())
+            if name == "float32":
+                row["keep"] = SSD_BWD_F32_KEEP
             row["ok"] = ok
             rows.append(row)
             print(f"[check] ssd_scan_bwd {row}", flush=True)
@@ -807,47 +850,51 @@ def check_ssd_bwd(report: dict) -> dict:
                 worst[name] = max(row[f"{g}_max_abs_err"]
                                   for g in ("dx", "da", "db", "dc"))
             del ins, got, want
-    again = _ssd_bwd_inputs(3, 200, 2, 48, 100, torch.float32, "mlstm", 399)
-    first, second = ssd_scan_bwd(*again), ssd_scan_bwd(*again)
+    again, saved = _ssd_bwd_inputs(3, 200, 2, 48, 100, torch.float32,
+                                   "mlstm", 399)
+    first = ssd_scan_bwd(*again, saved=saved)
+    second = ssd_scan_bwd(*again)
     torch.cuda.synchronize()
     _require(all(torch.equal(u, v) for u, v in zip(first, second)),
-             "the SSD backward repeats bit for bit")
+             "the SSD backward repeats bit for bit, also when it runs the "
+             "forward for its scratch")
     report["ssd_scan_bwd_checks"] = rows
     return worst
 
 
 def time_ssd_bwd(report: dict) -> dict:
-    """The backward kernel, its plain version and the bound
-    (``_ssd_bwd_work``) at each of ``SSD_BWD_TRAIN``'s shapes, float32;
-    no PyTorch call computes the scan's gradient, so library_ms is null.
-    Also the wrapper's time per call, host included (``call_ms``), and the
-    passes' scratch.  The row of zamba2's shape, with the others under
-    their names."""
+    """The backward kernel, reading the forward kernel's kept scratch as
+    training runs it, its plain version on the same inputs and the bound
+    (``_ssd_bwd_bound``) at each of ``SSD_BWD_TRAIN``'s shapes, float32.
+    No PyTorch call computes the scan's gradient, so library_ms is null.
+    Also the wrapper's time per call, host included (``call_ms``), the
+    backward's own scratch, the kept forward scratch it reads, and the
+    work it does (``gflop``, ``mbytes``, ``tflops``).  The row of zamba2's
+    shape, with the others under their names."""
     import torch
     from repro_torch.kernels.ssd_scan import (bwd_scratch_floats,
-                                              ssd_scan_bwd,
+                                              scratch_floats, ssd_scan_bwd,
                                               ssd_scan_bwd_plain)
     rows = {}
     for label, (b, s, h, d, n, decay) in SSD_BWD_TRAIN.items():
-        ins = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay, seed=399)
-        ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10)
-        call_ms = _time_ms(lambda: ssd_scan_bwd(*ins), iters=10,
-                           run_ahead=False)
-        plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins), iters=2,
-                            warmup=1, run_ahead=False)
-        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32)
-        bound_ms, bound_by = _bound(flops, nbytes)
+        ins, saved = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay,
+                                     seed=399)
+        ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved), iters=10)
+        call_ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved),
+                           iters=10, run_ahead=False)
+        plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins, saved=saved),
+                            iters=2, warmup=1, run_ahead=False)
+        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32, True)
         rows[label] = {
             "case": f"{label}_train", "dtype": "float32",
             "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "fma_bound_ms": _bound({"float32": sum(flops.values())},
-                                   nbytes)[0],
+            **_ssd_bwd_bound(b, s, h, d, n, torch.float32),
             "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
+            "kept_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
             "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
             "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
-        del ins
+        del ins, saved
         torch.cuda.empty_cache()
     row = rows.pop("zamba2")
     row.update(rows)
@@ -1805,7 +1852,8 @@ def _step_launches(cfg, remat: bool = False) -> dict:
     """Kernel launches of one train step, from the layer plan: one flash
     forward and backward per attention block or shared-block application,
     all on ``tf32x3``; one SSD forward and backward per Mamba-2 layer, two
-    per mLSTM layer.  With remat every stacked layer runs its forward again
+    per mLSTM layer (so no backward runs the forward again: it reads the
+    forward's kept scratch).  With remat every stacked layer runs its forward again
     in the backward (the hybrid's shared block is not rematerialised)."""
     per = _launches_per_prefill(cfg)
     from repro_torch.models import layer_plan
@@ -1887,12 +1935,13 @@ def train_reduced_vs_cpu(run: dict) -> dict:
 # the kernels of a traced step, by the names their sources give them
 FLASH_BWD_KERNELS = ("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv",
                      "bwd_dq")
-SSD_BWD_KERNELS = ("ssd_bwd_", "ssd_state_pass<true")
-SSD_FWD_KERNELS = ("ssd_chunk_out",)
-# the forward's passes 1 to 3, which the backward launches again on the
-# same inputs to recompute h_c: half of their time is the backward's
-SSD_SHARED_KERNELS = ("ssd_chunk_cb", "ssd_chunk_state",
-                      "ssd_state_pass<false")
+# the SSD backward's kernels (it reads the forward's kept scratch and
+# launches none of the forward's passes 1 to 3): the dual's pass 2 (DUAL)
+# and reversed pass 3, and its own passes 4 to 7
+SSD_BWD_KERNELS = ("ssd_bwd_", "ssd_state_pass<true",
+                   "ssd_chunk_state<true", "ssd_chunk_state_narrow<true")
+SSD_FWD_KERNELS = ("ssd_chunk_out", "ssd_chunk_cb", "ssd_chunk_state<false",
+                   "ssd_chunk_state_narrow<false", "ssd_state_pass<false")
 
 
 def _require_losses(cfg, losses: list[float]) -> float:
@@ -1937,12 +1986,11 @@ def _traced_step(run_step, per_step: dict) -> dict:
               "kernels": sum(ev.count for ev in kernels),
               "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total
                                  / 1e3 for ev in top}}
-    shared_ms = share(SSD_SHARED_KERNELS) / 2
-    for name, names, extra in (("flash_bwd", FLASH_BWD_KERNELS, 0.0),
-                               ("flash_fwd", ("flash_tf32x3",), 0.0),
-                               ("ssd_bwd", SSD_BWD_KERNELS, shared_ms),
-                               ("ssd_fwd", SSD_FWD_KERNELS, shared_ms)):
-        traced[f"{name}_ms"] = share(names) + extra
+    for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
+                        ("flash_fwd", ("flash_tf32x3",)),
+                        ("ssd_bwd", SSD_BWD_KERNELS),
+                        ("ssd_fwd", SSD_FWD_KERNELS)):
+        traced[f"{name}_ms"] = share(names)
         traced[f"{name}_share"] = traced[f"{name}_ms"] / card_ms
     if per_step["flash_attention"]:
         _require(traced["flash_bwd_ms"] > 0 and traced["flash_fwd_ms"] > 0
@@ -2418,6 +2466,7 @@ def main() -> int:
                                   "autodiff of src/repro/kernels/ref.py:105 "
                                   "ssd_ref")
     ssd_bwd_row["fma_bound_ms"] = ssd_bwd_timing["fma_bound_ms"]
+    ssd_bwd_row["bound_ms_by_way"] = ssd_bwd_timing["bound_ms_by_way"]
     ssd_bwd_row["launches_per_step"] = {
         key: out["launches_per_step"]["ssd_scan_bwd"]
         for key, out in trained.items()
@@ -2425,7 +2474,8 @@ def main() -> int:
     ssd_bwd_row["bfloat16_max_abs_err"] = ssd_bwd_err["bfloat16"]
     for label in ("mlstm_values", "mlstm_normalizer"):
         ssd_bwd_row[label] = {key: ssd_bwd_timing[label][key] for key in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_ms_by_way")}
     kernels = [
         flash_row,
         bwd_row,

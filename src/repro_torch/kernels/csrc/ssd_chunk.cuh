@@ -1,7 +1,8 @@
 // Passes 1 to 3 of the Mamba-2 SSD chunked scan, shared by the forward
 // (csrc/ssd_scan.cu) and its backward (csrc/ssd_scan_bwd.cu): C . B^T and
-// Acum per chunk, the chunks' local end states s_c, and the states passed
-// along the chunks, forward (h_c) or, for the backward's dual, in reverse.
+// Acum per chunk, the chunks' local end states (the forward's s_c, or
+// under DUAL the backward's r_c), and the states passed along the chunks,
+// forward (h_c) or, for the backward's dual, in reverse.
 // csrc/ssd_scan.cu's head comment gives the design.  Included by one .cu
 // at a time; everything here has internal linkage.
 #pragma once
@@ -10,8 +11,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -96,14 +95,18 @@ using hopper::split_tf32;
 // a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32 (the low parts'
 // product is below float32's rounding), which keeps float32's accuracy.
 // A's element (row r, k) is at A[r * a_rs + k * a_ks]; B's (k, column c)
-// at B[k * ldb + c].  Fragment layouts of m16n8k8 (lane = 4 g + q): A
+// at B[k * b_ks + c * b_cs].  Bank-conflict free where a row-major
+// operand (stride 1 along k for A, along c for B) has its other stride at
+// 4 (A) or 8 (B) floats past a multiple of 32, and the other way round
+// for a transposed one: LDS and LDK below.  Fragment layouts of m16n8k8 (lane = 4 g + q): A
 // rows g, g + 8 and columns q, q + 4; B rows q, q + 4 and column g; C row
 // g (c0, c1) and g + 8 (c2, c3), columns 2 q and 2 q + 1.
 __device__ __forceinline__ void mma_3xtf32(float (&acc)[2][4][4],
                                            const float* __restrict__ A,
                                            int a_rs, int a_ks,
                                            const float* __restrict__ B,
-                                           int ldb, int r0, int c0) {
+                                           int b_ks, int b_cs, int r0,
+                                           int c0) {
   const int lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
 #pragma unroll 2
   for (int k = 0; k < TILE; k += 8) {
@@ -118,9 +121,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[2][4][4],
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
-      const float* b = B + (k + q) * ldb + c0 + 8 * ni + g;
+      const float* b = B + (k + q) * b_ks + (c0 + 8 * ni + g) * b_cs;
       split_tf32(b[0], bhi[ni][0], blo[ni][0]);
-      split_tf32(b[4 * ldb], bhi[ni][1], blo[ni][1]);
+      split_tf32(b[4 * b_ks], bhi[ni][1], blo[ni][1]);
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -238,25 +241,37 @@ ssd_chunk_cb(const T* __restrict__ a, const T* __restrict__ bm,
       out[(r0 + ty + 16 * i) * L + tx + 16 * j] = acc[i][j];
 }
 
-// -- pass 2: each chunk's local end state s_c, stored [N, D] ---------------
+// -- pass 2: each chunk's local end state, stored [N, D] -------------------
 
-// per (batch, chunk, head, D-tile, N-tile): one K tile (the chunk's tokens)
+// per (batch, chunk, head, D-tile, N-tile): one K tile (the chunk's tokens).
+// The forward's s_c = (x * exp(A_tot - Acum))^T B, every chunk but the
+// last (no chunk reads its end state).  DUAL, the backward's dual: x is
+// dy, bm is c, and r_c = (dy * exp(Acum))^T C, every chunk but the first
+// (no chunk reads its carry).
+template <bool DUAL>
+__device__ __forceinline__ bool state_skipped(int ci, int nc) {
+  return DUAL ? ci == 0 : ci == nc - 1;
+}
+template <bool DUAL>
+__device__ __forceinline__ float state_weight(const float* ac, int u) {
+  return DUAL ? expf(ac[u]) : expf(ac[L - 1] - ac[u]);
+}
 
-template <typename T, bool ASYNC, int DT>
+template <bool DUAL, typename T, bool ASYNC, int DT>
 __global__ void __launch_bounds__(Wide<DT>::NT, 512 / Wide<DT>::NT)
 ssd_chunk_state(const T* __restrict__ x, const T* __restrict__ bm,
                 const float* __restrict__ acum, float* __restrict__ states,
                 int s_len, int n_heads, int d_len, int n_len, int nc) {
   using W = Wide<DT>;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                  // [L][LDX]  x * exp(A_tot - Acum)
+  float* xs = smem;                  // [L][LDX]  x, weighted by row
   float* bs = xs + L * W::LDX;       // [L][LDK]  b tile
-  float* ws = bs + L * LDK;          // [L]       exp(A_tot - Acum)
+  float* ws = bs + L * LDK;          // [L]       the rows' weights
   const int d_tiles = (d_len + DT - 1) / DT;
   const int d0 = (blockIdx.x % d_tiles) * DT;
   const int n0 = (blockIdx.x / d_tiles) * TILE, h = blockIdx.y;
   const int b = blockIdx.z / nc, ci = blockIdx.z % nc;
-  if (ci == nc - 1) return;  // no chunk reads the last one's end state
+  if (state_skipped<DUAL>(ci, nc)) return;
   const int t0 = ci * L, len = min(L, s_len - t0);
   const int tid = threadIdx.x, warp = tid / 32;
   const size_t xrow = (size_t)n_heads * d_len;
@@ -269,7 +284,7 @@ ssd_chunk_state(const T* __restrict__ x, const T* __restrict__ bm,
                                bm + ((size_t)b * s_len + t0) * n_len + n0,
                                n_len, len, n_len - n0);
   commit<ASYNC>();
-  if (tid < L) ws[tid] = expf(ac[L - 1] - ac[tid]);
+  if (tid < L) ws[tid] = state_weight<DUAL>(ac, tid);
   wait_async<ASYNC, 0>();
   __syncthreads();
   for (int i = tid; i < L * DT; i += W::NT)  // weight x's rows
@@ -279,7 +294,7 @@ ssd_chunk_state(const T* __restrict__ x, const T* __restrict__ bm,
   // s[n][d] = sum_u b[u][n] xw[u][d]: A = b^T, read K-major from [u][n]
   const int r0 = 32 * (warp % 2), c0 = 32 * (warp / 2);
   float acc[2][4][4] = {};
-  mma_3xtf32(acc, bs, 1, LDK, xs, W::LDX, r0, c0);
+  mma_3xtf32(acc, bs, 1, LDK, xs, W::LDX, 1, r0, c0);
 
   const int lane = tid % 32, g = lane / 4, q = lane % 4;
   float* out = states + (((size_t)b * nc + ci) * n_heads + h) *
@@ -307,8 +322,8 @@ ssd_chunk_state(const T* __restrict__ x, const T* __restrict__ bm,
 }
 
 // narrow pass 2 (D < NARROW_D): one column d of the state a block, one
-// state row n a thread
-template <typename T>
+// state row n a thread; DUAL as in the wide pass
+template <bool DUAL, typename T>
 __global__ void __launch_bounds__(NTH_NARROW2)
 ssd_chunk_state_narrow(const T* __restrict__ x, const T* __restrict__ bm,
                        const float* __restrict__ acum,
@@ -319,14 +334,14 @@ ssd_chunk_state_narrow(const T* __restrict__ x, const T* __restrict__ bm,
   const int d = blockIdx.x / n_tiles;
   const int n = (blockIdx.x % n_tiles) * NTH_NARROW2 + threadIdx.x;
   const int h = blockIdx.y, b = blockIdx.z / nc, ci = blockIdx.z % nc;
-  if (ci == nc - 1) return;  // no chunk reads the last one's end state
+  if (state_skipped<DUAL>(ci, nc)) return;
   const int t0 = ci * L, len = min(L, s_len - t0);
   const float* ac = acum + (((size_t)b * nc + ci) * n_heads + h) * L;
   if (threadIdx.x < L) {
     const int u = threadIdx.x;
     xw[u] = u < len ? to_f32(x[(((size_t)b * s_len + t0 + u) * n_heads + h) *
                                    d_len + d]) *
-                          expf(ac[L - 1] - ac[u])
+                          state_weight<DUAL>(ac, u)
                     : 0.f;
   }
   __syncthreads();
@@ -453,6 +468,42 @@ int load_route(const float* x, const float* b, const float* c, int d_len,
   return bc ? 1 : 0;
 }
 
+// Pass 2 into states [B, nc, H, N, D] with state_tile's D-tile dt: the
+// forward's local states from (x, b), or under DUAL the dual's from
+// (dy, c).  ASYNC as load_route's 2 for those two inputs.
+template <bool DUAL, typename T, bool ASYNC>
+cudaError_t local_states(const T* x, const T* b, const float* acum,
+                         float* states, int bsz, int s_len, int n_heads,
+                         int d_len, int n_len, int dt, cudaStream_t stream) {
+  const int nc = (s_len + L - 1) / L;
+  cudaError_t err;
+  if (dt == 128 || dt == 64) {
+    const int n_tiles = (n_len + TILE - 1) / TILE;
+    const dim3 grid((d_len + dt - 1) / dt * n_tiles, n_heads, bsz * nc);
+    if (dt == 128) {
+      if ((err = allow_smem(ssd_chunk_state<DUAL, T, ASYNC, 128>,
+                            smem_state<128>())))
+        return err;
+      ssd_chunk_state<DUAL, T, ASYNC, 128>
+          <<<grid, Wide<128>::NT, smem_state<128>(), stream>>>(
+              x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
+    } else {
+      if ((err = allow_smem(ssd_chunk_state<DUAL, T, ASYNC, 64>,
+                            smem_state<64>())))
+        return err;
+      ssd_chunk_state<DUAL, T, ASYNC, 64>
+          <<<grid, Wide<64>::NT, smem_state<64>(), stream>>>(
+              x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
+    }
+  } else {
+    const int n_tiles = (n_len + NTH_NARROW2 - 1) / NTH_NARROW2;
+    ssd_chunk_state_narrow<DUAL, T>
+        <<<dim3(n_tiles * d_len, n_heads, bsz * nc), NTH_NARROW2, 0,
+           stream>>>(x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
+  }
+  return cudaGetLastError();
+}
+
 // Passes 1 to 3 into the scratch (16-byte aligned): C . B^T [B, nc, L, L],
 // Acum [B, nc, H, L], then the states [B, nc, H, N, D], h_c in slot c.
 // dt: state_tile's D-tile.  ASYNC_BC and ASYNC as load_route's 1 and 2.
@@ -468,55 +519,13 @@ cudaError_t chunk_states(const T* x, const T* a, const T* b, const T* c,
   if ((err = allow_smem(ssd_chunk_cb<T, ASYNC_BC>, kSmemCb))) return err;
   ssd_chunk_cb<T, ASYNC_BC><<<dim3(nc, bsz, 2), NTH, kSmemCb, stream>>>(
       a, b, c, cb, acum, s_len, n_heads, n_len, nc);
-  if ((err = cudaGetLastError())) return err;
-
-  if (dt == 128 || dt == 64) {
-    const int n_tiles = (n_len + TILE - 1) / TILE;
-    const dim3 grid((d_len + dt - 1) / dt * n_tiles, n_heads, bsz * nc);
-    if (dt == 128) {
-      if ((err = allow_smem(ssd_chunk_state<T, ASYNC, 128>,
-                            smem_state<128>())))
-        return err;
-      ssd_chunk_state<T, ASYNC, 128>
-          <<<grid, Wide<128>::NT, smem_state<128>(), stream>>>(
-              x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
-    } else {
-      if ((err = allow_smem(ssd_chunk_state<T, ASYNC, 64>,
-                            smem_state<64>())))
-        return err;
-      ssd_chunk_state<T, ASYNC, 64>
-          <<<grid, Wide<64>::NT, smem_state<64>(), stream>>>(
-              x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
-    }
-  } else {
-    const int n_tiles = (n_len + NTH_NARROW2 - 1) / NTH_NARROW2;
-    ssd_chunk_state_narrow<T>
-        <<<dim3(n_tiles * d_len, n_heads, bsz * nc), NTH_NARROW2, 0,
-           stream>>>(x, b, acum, states, s_len, n_heads, d_len, n_len, nc);
-  }
-  if ((err = cudaGetLastError())) return err;
+  if ((err = cudaGetLastError()) ||
+      (err = local_states<false, T, ASYNC>(x, b, acum, states, bsz, s_len,
+                                           n_heads, d_len, n_len, dt,
+                                           stream)))
+    return err;
   return pass_states<false>(acum, states, bsz, n_heads, (size_t)n_len * d_len,
                             nc, stream);
-}
-
-// chunk_states on the route that load_route picks for these inputs
-// (bfloat16: plain loads), with state_tile's D-tile.
-template <typename T>
-cudaError_t chunk_states(const T* x, const T* a, const T* b, const T* c,
-                         float* scratch, int bsz, int s_len, int n_heads,
-                         int d_len, int n_len, cudaStream_t stream) {
-  const int dt = state_tile(d_len, n_heads, bsz, (s_len + L - 1) / L);
-  if constexpr (std::is_same<T, float>::value) {
-    const int route = load_route(x, b, c, d_len, n_len);
-    if (route == 2)
-      return chunk_states<T, true, true>(x, a, b, c, scratch, bsz, s_len,
-                                         n_heads, d_len, n_len, dt, stream);
-    if (route == 1)
-      return chunk_states<T, true, false>(x, a, b, c, scratch, bsz, s_len,
-                                          n_heads, d_len, n_len, dt, stream);
-  }
-  return chunk_states<T, false, false>(x, a, b, c, scratch, bsz, s_len,
-                                       n_heads, d_len, n_len, dt, stream);
 }
 
 }  // namespace

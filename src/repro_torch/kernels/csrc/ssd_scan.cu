@@ -43,7 +43,9 @@
 //      ever taken;
 //   4. per (batch, chunk, head, D-tile): y from C . B^T, x and h_c.
 // Passes 1 to 3 live in csrc/ssd_chunk.cuh: the backward
-// (csrc/ssd_scan_bwd.cu) launches the same kernels to recompute h_c.
+// (csrc/ssd_scan_bwd.cu) reads their scratch, kept from the forward when a
+// gradient is asked for, and runs its dual's local states through pass 2's
+// kernel.
 // Only pass 3 walks the chunks, and it is elementwise over D * N with the
 // loads of 8 chunks in flight, so the grids fill the card (pass 4 at
 // S = 1024: 512 blocks at zamba2, 384 at mLSTM's values, 256 at its
@@ -147,7 +149,7 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
     float* lo = ring + (k & 1) * STAGE;
     const float* hi = lo + L * LDS;
     if (k < nk) {  // carry += C . h_c^T over this N tile
-      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, r0, c0);
+      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, 1, r0, c0);
     } else {
       // the carry's factor exp(Acum_t); then G: select the causal
       // triangle, then decay (the select comes first: above the diagonal
@@ -169,7 +171,7 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
         *g = u <= t ? *g * expf(as[t] - as[u]) : 0.f;
       }
       __syncthreads();
-      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, r0, c0);
+      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, 1, r0, c0);
     }
     __syncthreads();  // the stage is consumed before it is loaded again
   }

@@ -19,13 +19,20 @@
 //   db = M^T C + E (x R_c^T)             (one head's part)
 //   R_{c-1} = exp(A_tot,c) R_c + r_c,  r_c = (dy * exp(Acum))^T C.
 //
-// Passes, launched in order on the caller's stream by one C call:
-//   1-3. the forward's passes 1 to 3 (csrc/ssd_chunk.cuh, the same kernels
-//      csrc/ssd_scan.cu launches): C . B^T and Acum per chunk, the local
-//      end states s_c (3xTF32 mma.sync for D >= 16), and h_c passed
-//      forward along the chunks; then the dual's local states r_c per
-//      (batch, chunk, head, N-tile, D-tile), and R_c passed backward by
-//      the same state pass run in reverse;
+// The forward's scratch.  C . B^T [B, nc, L, L], Acum [B, nc, H, L] and
+// h_c [B, nc, H, N, D], float32 (also for bfloat16 inputs), as the
+// forward's passes 1 to 3 leave them: the forward kernel's own scratch,
+// which SSDScan keeps for the backward when a gradient is asked for
+// (ssd_scan.py's ssd_scan_bwd runs the forward to get it when no caller
+// kept one).  The backward reads it and launches none of those passes.
+//
+// Passes, launched in order on the caller's stream by one C call (4 to 7
+// numbered after the forward's 1 to 3, whose scratch they read):
+//   the dual: its local states r_c through the forward's pass-2
+//      kernel under DUAL (ssd_chunk_state<true, ...>: dy and c in place of
+//      x and b, rows weighted by exp(Acum_t), chunk 0 skipped; 3xTF32
+//      mma.sync for D >= 16, its narrow sibling below), and R_c passed
+//      backward by the forward's state pass run in reverse;
 //   4. per (batch, chunk, head): M (over D-tiles, kept in registers), dx
 //      and each token's dy . y - x . dx, summed over D in tile order;
 //   5. per (batch, chunk, head, N-tile): one head's db and dc;
@@ -33,21 +40,44 @@
 //   7. per (batch, head): da, the reverse cumulative sum of pass 4's terms
 //      over S, a warp a (batch, head).
 // Every sum has one fixed order and no pass uses atomics, so a result
-// repeats bit for bit.  The backward's own products (the dual's local
-// states and passes 4 and 5) are float32 FMAs through 64 x 64 shared
-// tiles (a block of 256 threads, each a 4 x 4 patch; rows of 65 floats, so
-// column reads are free of bank conflicts); bfloat16 inputs are converted
-// on load, all sums are float32.
+// repeats bit for bit.  Every product of passes 4 and 5 (B R_c, G^T dy and
+// M = dy x^T; dy h_c^T, x R_c^T, M B and M^T C) runs on the tensor cores
+// as mma.sync m16n8k8 in 3xTF32 (ssd_chunk.cuh's mma_3xtf32: each float32
+// operand split into a TF32 high and low part, three products summed in
+// float32), so float32's accuracy holds where da cancels dy . y against
+// x . dx; a block of 4 warps computes 64 x 64 tiles over K tiles of 64,
+// each warp 32 x 32.  Where a row is scaled (E_u, exp(Acum_t)) the
+// product is scaled after it, in registers, as the plain version does.
+// float32 tiles whose rows sit on 16-byte boundaries (D and N multiples
+// of 4, aligned pointers) arrive by cp.async, in two groups a step so
+// that the first product starts while the second's tiles still load, and
+// the forward's scratch always does; bfloat16 inputs are converted on
+// load.  Pass 4 keeps four tiles of 64 x 72 floats (G; dy; b, then x;
+// R_c, then y: x and y load while G^T dy runs) and pass 5 four (dy, h_c,
+// x, R_c, then M twice, b, c): 75.0 and 74.2 KB, so an SM holds 3 blocks
+// of either (12 warps).  Shared tiles are padded (rows of 68 floats where
+// a fragment reads along a row, 72 where it reads down a column) so that
+// fragment reads are free of bank conflicts, but for dy's reads as M's A
+// operand (two-way).
 //
-// Bound.  At zamba2's heads (H 32, D 128, N 64), B 2 x S 2048, the function
-// needs ~14 GFLOP of products (the intra-chunk pairs of G^T dy, M, M B and
-// M^T C; the carries; the local states it must recompute) against ~270 MB
-// of inputs and gradients: on 3xTF32 tensor cores the operations and the
-// bytes each take ~0.08 ms; on FMAs the operations ~0.21 ms.  This design
-// is the simple one: its own products on FMAs through shared tiles, the
-// two state sets, M and the per-head db and dc through device memory.
-// Moving passes 4 and 5 onto 3xTF32 mma.sync, as the forward's products
-// are, and fusing the recomputed forward passes, are left for later.
+// Bound.  At zamba2's heads (H 32, D 128, N 64), B 2 x S 2048, reading
+// the kept scratch the function needs ~11.9 GFLOP of products (the
+// intra-chunk pairs of G^T dy, M, M B and M^T C; the dual's local states;
+// the carries B R_c, dy h_c^T and x R_c^T) against ~342 MB of inputs,
+// gradients and the kept scratch (69 MB): ~0.102 ms of bytes, ~0.072 ms
+// of operations on 3xTF32 tensor cores.  Computing C . B^T and h_c again
+// instead needs no kept bytes but two more l x D x N products a chunk:
+// ~0.085 ms of operations, the smaller of the two and the bound
+// chip_smoke.py reports.  The kernel takes the kept route all the same:
+// what it saves is the forward's passes, not bytes at the bound.  What
+// still holds the kernel back is memory traffic the
+// design adds: the dual's states (written, passed in place, read by
+// passes 4 and 5), M and the per-head db and dc go through device memory,
+// and passes 4 and 5 both read dy, x and R_c, ~1 GB in all at zamba2's
+// shape; fusing passes 4 and 5 where one N-tile covers N would drop M and
+// the second reads.  Besides, each warp splits every fragment it reads
+// into its TF32 pair again, and D below 64 (mLSTM's normalizer, D 1) pays
+// for 64-wide tiles.
 //
 // Above the diagonal exp(Acum_t - Acum_u) overflows (mLSTM's log-decay
 // reaches -13.8 a token), so the triangle is selected before the
@@ -59,202 +89,188 @@
 
 namespace {
 
-// The backward's own passes run on FMAs through TILE x TILE shared tiles
-// (ssd_chunk.cuh's TILE, 64), a block of NTH = 256 threads, each a 4 x 4
-// patch of the output.
-constexpr int LDT = TILE + 1;      // row stride of a shared tile, in floats
-constexpr int FTILE = TILE * LDT;  // floats of a shared tile
+constexpr int NTB = 128;          // threads of a pass-4 or pass-5 block
+constexpr int FT = TILE * LDK;    // floats of a shared tile (rows <= LDK)
 
-// A [TILE, TILE] tile of src (row stride ld) into shared dst: rows >= rows
-// and columns >= cols read as zeros; row r is multiplied by scale[r] if
-// given.
-template <typename S>
-__device__ __forceinline__ void load_ftile(float* __restrict__ dst,
-                                           const S* __restrict__ src,
-                                           size_t ld, int rows, int cols,
-                                           const float* scale = nullptr) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < TILE * TILE; i += NTH) {
-    const int r = i / TILE, q = i % TILE;
-    float v = r < rows && q < cols ? to_f32(src[(size_t)r * ld + q]) : 0.f;
-    dst[r * LDT + q] = scale ? v * scale[r] : v;
-  }
-}
-
-// acc[i][j] += sum_k A(ty + 16 i, k) B(k, tx + 16 j) over the TILE values of k,
-// with A(r, k) = A[r * ars + k * aks] and B(k, c) = B[k * bks + c * bcs]:
-// the strides read either operand transposed.
-__device__ __forceinline__ void fma_tile(float (&acc)[4][4],
-                                         const float* __restrict__ A, int ars,
-                                         int aks, const float* __restrict__ B,
-                                         int bks, int bcs) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int k = 0; k < TILE; ++k) {
-    float av[4], bv[4];
+// this warp's 32 x 32 accumulator rows r0 + 16 mi + g + 8 hf scaled by w
+__device__ __forceinline__ void scale_rows(float (&acc)[2][4][4],
+                                           const float* __restrict__ w,
+                                           int r0) {
+  const int g = (threadIdx.x % 32) / 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * ars + k * aks];
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = B[k * bks + (tx + 16 * j) * bcs];
+    for (int hf = 0; hf < 2; ++hf) {
+      const float s = w[r0 + 16 * mi + g + 8 * hf];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// -- the dual's local states r_c, stored [N, D] ------------------------------
-
-// r_c[n][d] = sum_t exp(Acum_t) dy_t[d] c_t[n] per (batch, chunk, head,
-// N-tile, D-tile), every chunk but the first (no chunk reads its carry)
-template <typename S>
-__global__ void __launch_bounds__(NTH)
-ssd_bwd_dual_local(const S* __restrict__ dy, const S* __restrict__ cm,
-                   const float* __restrict__ acum, float* __restrict__ states,
-                   int s_len, int n_heads, int d_len, int n_len, int nc) {
-  __shared__ float ks[FTILE], vs[FTILE], w[L];
-  const int d_tiles = (d_len + TILE - 1) / TILE;
-  const int d0 = (blockIdx.x % d_tiles) * TILE;
-  const int n0 = (blockIdx.x / d_tiles) * TILE;
-  const int h = blockIdx.y, b = blockIdx.z / nc, ci = blockIdx.z % nc;
-  if (ci == 0) return;
-  const int t0 = ci * L, len = min(L, s_len - t0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t row0 = (size_t)b * s_len + t0, xrow = (size_t)n_heads * d_len;
-  const float* ac = acum + (((size_t)b * nc + ci) * n_heads + h) * L;
-  if (threadIdx.x < L) w[threadIdx.x] = expf(ac[threadIdx.x]);
-  __syncthreads();
-  load_ftile(vs, dy + row0 * xrow + (size_t)h * d_len + d0, xrow, len,
-             d_len - d0, w);
-  load_ftile(ks, cm + row0 * n_len + n0, n_len, len, n_len - n0);
-  __syncthreads();
-  float acc[4][4] = {};
-  fma_tile(acc, ks, 1, LDT, vs, LDT, 1);  // (n, d) += c[t][n] w_t dy[t][d]
-  float* out = states + (((size_t)b * nc + ci) * n_heads + h) *
-                            ((size_t)n_len * d_len);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + tx + 16 * j;
-      if (n < n_len && d < d_len) out[(size_t)n * d_len + d] = acc[i][j];
+      for (int ni = 0; ni < 4; ++ni) {
+        acc[mi][ni][2 * hf] *= s;
+        acc[mi][ni][2 * hf + 1] *= s;
+      }
     }
-  }
 }
 
 // -- pass 4: M, dx and the da terms per (batch, chunk, head) -----------------
 
-constexpr size_t kSmemDx = sizeof(float) * (5 * (size_t)FTILE + 3 * L);
+constexpr size_t kSmemDx = sizeof(float) * (4 * (size_t)FT + 5 * L);
 
-template <typename S>
-__global__ void __launch_bounds__(NTH)
+template <typename S, bool ASYNC_BC, bool ASYNC_X>
+__global__ void __launch_bounds__(NTB, 3)
 ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
            const S* __restrict__ y, const S* __restrict__ dy,
            const float* __restrict__ cb, const float* __restrict__ acum,
            const float* __restrict__ gstates, S* __restrict__ dx,
            float* __restrict__ mout, float* __restrict__ qout, int s_len,
            int n_heads, int d_len, int n_len, int nc) {
-  extern __shared__ float smem[];
-  float* gs = smem;              // G [t][u]
-  float* dys = gs + FTILE;        // dy [t][d]
-  float* xs = dys + FTILE;        // x [u][d]
-  float* bs = xs + FTILE;         // E_u b [u][n]
-  float* rs = bs + FTILE;         // R_c [n][d]
-  float* as = rs + FTILE;         // Acum
-  float* ew = as + L;            // E = exp(A_tot - Acum)
-  float* q = ew + L;             // dy . y - x . dx, summed over D
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;              // G [t][u] (LDK), read K-major
+  float* dys = gs + FT;          // dy [t][d] (LDK)
+  float* bxs = dys + FT;         // b [u][n], then x [u][d] (LDS)
+  float* rs = bxs + FT;          // R_c [n][d], then y [u][d] (LDK)
+  float* as = rs + FT;           // [L] Acum
+  float* ew = as + L;            // [L] E = exp(A_tot - Acum)
+  float* qp = ew + L;            // [2][L] the da terms of each column half
+  float* q = qp + 2 * L;         // [L] dy . y - x . dx, summed over D
   const int h = blockIdx.x, b = blockIdx.y / nc, ci = blockIdx.y % nc;
   const int t0 = ci * L, len = min(L, s_len - t0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int r0 = 32 * (warp % 2), c0 = 32 * (warp / 2);  // this warp's block
   const size_t base = ((size_t)b * nc + ci) * n_heads + h;
   const size_t xrow = (size_t)n_heads * d_len;
   const size_t xoff = ((size_t)b * s_len + t0) * xrow + (size_t)h * d_len;
   const S* bb = bm + ((size_t)b * s_len + t0) * n_len;
   const float* rc = gstates + base * n_len * d_len;
+
+  load_tile<float, true, L, L>(gs, LDK, cb + ((size_t)b * nc + ci) * L * L,
+                               L, L, L);
+  hopper::cp_async_commit();
   if (tid < L) {
     as[tid] = acum[base * L + tid];
     ew[tid] = expf(acum[base * L + L - 1] - acum[base * L + tid]);
     q[tid] = 0.f;
   }
+  hopper::cp_async_wait<0>();
   __syncthreads();
-  const float* cbc = cb + ((size_t)b * nc + ci) * L * L;
-  for (int i = tid; i < L * L; i += NTH) {  // select, then decay
+  for (int i = tid; i < L * L; i += NTB) {  // select, then decay
     const int t = i / L, u = i % L;
-    gs[t * LDT + u] = u <= t ? cbc[i] * expf(as[t] - as[u]) : 0.f;
+    float* p = &gs[t * LDK + u];
+    *p = u <= t ? *p * expf(as[t] - as[u]) : 0.f;
   }
 
-  float m[4][4] = {};
+  float m[2][4][4] = {};
   for (int d0 = 0; d0 < d_len; d0 += TILE) {
-    const int dc = d_len - d0;
-    load_ftile(dys, dy + xoff + d0, xrow, len, dc);
-    load_ftile(xs, x + xoff + d0, xrow, len, dc);
-    __syncthreads();
-    fma_tile(m, dys, LDT, 1, xs, 1, LDT);  // M(t, u) += dy[t][d] x[u][d]
-    float acc[4][4] = {};
-    fma_tile(acc, gs, 1, LDT, dys, LDT, 1);  // dx(u, d) += G[t][u] dy[t][d]
+    float acc[2][4][4] = {};
     for (int n0 = 0; n0 < n_len; n0 += TILE) {
-      load_ftile(bs, bb + n0, n_len, len, n_len - n0, ew);
-      load_ftile(rs, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0, dc);
-      __syncthreads();
-      fma_tile(acc, bs, LDT, 1, rs, LDT, 1);  // dx(u, d) += E_u b[u][n] R[n][d]
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int u = ty + 16 * i;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = tx + 16 * j;
-        if (u < len && d < dc) {
-          const size_t at = xoff + (size_t)u * xrow + d0 + d;
-          store(&dx[at], acc[i][j]);
-          part += dys[u * LDT + d] * to_f32(y[at]) -
-                  xs[u * LDT + d] * acc[i][j];
-        }
+      __syncthreads();  // the last tiles are consumed
+      load_tile<S, ASYNC_BC, L, TILE>(bxs, LDS, bb + n0, n_len, len,
+                                      n_len - n0);
+      load_tile<float, ASYNC_X, TILE, TILE>(
+          rs, LDK, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0,
+          d_len - d0);
+      hopper::cp_async_commit();
+      if (n0 == 0) {  // dy goes on loading while B R_c runs
+        load_tile<S, ASYNC_X, L, TILE>(dys, LDK, dy + xoff + d0, xrow, len,
+                                       d_len - d0);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (tx == 0) q[u] += part;  // row u belongs to this (ty, i) alone
+      __syncthreads();
+      mma_3xtf32(acc, bxs, LDS, 1, rs, LDK, 1, r0, c0);  // (u, d) += B R_c
     }
-    __syncthreads();  // dy and x are consumed before the next D-tile
+    __syncthreads();  // b and R_c are consumed: x and y load in their place
+    load_tile<S, ASYNC_X, L, TILE>(bxs, LDS, x + xoff + d0, xrow, len,
+                                   d_len - d0);
+    load_tile<S, ASYNC_X, L, TILE>(rs, LDK, y + xoff + d0, xrow, len,
+                                   d_len - d0);
+    hopper::cp_async_commit();
+    scale_rows(acc, ew, r0);                           // E_u (B R_c)
+    hopper::cp_async_wait<1>();                        // dy
+    __syncthreads();
+    mma_3xtf32(acc, gs, 1, LDK, dys, LDK, 1, r0, c0);  // + G^T dy
+    hopper::cp_async_wait<0>();                        // x and y
+    __syncthreads();
+    mma_3xtf32(m, dys, LDK, 1, bxs, 1, LDS, r0, c0);   // M(t, u) += dy x^T
+
+    // dx, and each row's dy . y - x . dx over this tile's columns: a
+    // thread's 8 columns in order, its 4 lanes by shuffles, then the two
+    // column halves, left first
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int u = r0 + 16 * mi + g + 8 * hf;
+        float part = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int d = c0 + 8 * ni + 2 * qd;
+          if (u >= len || d0 + d >= d_len) continue;
+          const size_t at = xoff + (size_t)u * xrow + d0 + d;
+          const float* v = &acc[mi][ni][2 * hf];
+          if constexpr (ASYNC_X)  // float, D a multiple of 4: both in
+            *reinterpret_cast<float2*>(&dx[at]) = make_float2(v[0], v[1]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (!ASYNC_X) {
+              if (d0 + d + e >= d_len) break;
+              store(&dx[at + e], v[e]);
+            }
+            part += dys[u * LDK + d + e] * rs[u * LDK + d + e] -
+                    bxs[u * LDS + d + e] * v[e];
+          }
+        }
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        if (qd == 0) qp[(warp / 2) * L + u] = part;
+      }
+    __syncthreads();
+    if (tid < L) q[tid] += qp[tid] + qp[L + tid];
   }
   float* mo = mout + base * L * L;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = ty + 16 * i, u = tx + 16 * j;
-      mo[t * L + u] = u <= t ? m[i][j] * expf(as[t] - as[u]) : 0.f;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t = r0 + 16 * mi + g + 8 * hf;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int u = c0 + 8 * ni + 2 * qd;
+        *reinterpret_cast<float2*>(&mo[t * L + u]) = make_float2(
+            u <= t ? m[mi][ni][2 * hf] * expf(as[t] - as[u]) : 0.f,
+            u + 1 <= t ? m[mi][ni][2 * hf + 1] * expf(as[t] - as[u + 1])
+                       : 0.f);
+      }
     }
   if (tid < L) qout[base * L + tid] = q[tid];
 }
 
 // -- pass 5: one head's db and dc per (batch, chunk, head, N-tile) -----------
 
-constexpr size_t kSmemDbDc = sizeof(float) * (4 * (size_t)FTILE + 2 * L);
+constexpr size_t kSmemDbDc = sizeof(float) * (4 * (size_t)FT + 2 * L);
 
-template <typename S>
-__global__ void __launch_bounds__(NTH)
+template <typename S, bool ASYNC_BC, bool ASYNC_X>
+__global__ void __launch_bounds__(NTB, 3)
 ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
              const S* __restrict__ cm, const S* __restrict__ dy,
              const float* __restrict__ acum, const float* __restrict__ hstates,
              const float* __restrict__ gstates, const float* __restrict__ mm,
              float* __restrict__ dbp, float* __restrict__ dcp, int s_len,
              int n_heads, int d_len, int n_len, int nc) {
-  extern __shared__ float smem[];
-  float* t0s = smem;            // M, then exp(Acum_t) dy [t][d]
-  float* t1s = t0s + FTILE;      // b [u][n], then h_c [n][d]
-  float* t2s = t1s + FTILE;      // c [t][n], then E_u x [u][d]
-  float* t3s = t2s + FTILE;      // R_c [n][d]
-  float* et = t3s + FTILE;       // exp(Acum)
-  float* ew = et + L;           // E = exp(A_tot - Acum)
+  extern __shared__ __align__(16) float smem[];
+  float* t0s = smem;             // dy [t][d] (LDS), then M [t][u] (LDS)
+  float* t1s = t0s + FT;         // h_c [n][d] (LDS), then M [t][u] (LDK)
+  float* t2s = t1s + FT;         // x [u][d] (LDS), then b [u][n] (LDK)
+  float* t3s = t2s + FT;         // R_c [n][d] (LDS), then c [t][n] (LDK)
+  float* et = t3s + FT;          // [L] exp(Acum)
+  float* ew = et + L;            // [L] E = exp(A_tot - Acum)
   const int n0 = blockIdx.x * TILE, h = blockIdx.y;
   const int b = blockIdx.z / nc, ci = blockIdx.z % nc;
   const int t0 = ci * L, len = min(L, s_len - t0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int r0 = 32 * (warp % 2), c0 = 32 * (warp / 2);
   const size_t base = ((size_t)b * nc + ci) * n_heads + h;
   const size_t xrow = (size_t)n_heads * d_len;
   const size_t xoff = ((size_t)b * s_len + t0) * xrow + (size_t)h * d_len;
@@ -265,38 +281,72 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
     et[tid] = expf(acum[base * L + tid]);
     ew[tid] = expf(acum[base * L + L - 1] - acum[base * L + tid]);
   }
-  load_ftile(t0s, mm + base * L * L, L, L, L);
-  load_ftile(t1s, bm + brow, n_len, len, nn);
-  load_ftile(t2s, cm + brow, n_len, len, nn);
-  __syncthreads();
-  float dc[4][4] = {}, db[4][4] = {};
-  fma_tile(dc, t0s, LDT, 1, t1s, LDT, 1);  // dc(t, n) += M[t][u] b[u][n]
-  fma_tile(db, t0s, 1, LDT, t2s, LDT, 1);  // db(u, n) += M[t][u] c[t][n]
+  float dc[2][4][4] = {}, db[2][4][4] = {};
   for (int d0 = 0; d0 < d_len; d0 += TILE) {
     const int dcols = d_len - d0;
     __syncthreads();  // the last tiles are consumed
-    load_ftile(t0s, dy + xoff + d0, xrow, len, dcols, et);
-    load_ftile(t1s, hstates + soff + d0, d_len, nn, dcols);
-    load_ftile(t2s, x + xoff + d0, xrow, len, dcols, ew);
-    load_ftile(t3s, gstates + soff + d0, d_len, nn, dcols);
+    load_tile<S, ASYNC_X, L, TILE>(t0s, LDS, dy + xoff + d0, xrow, len,
+                                   dcols);
+    load_tile<float, ASYNC_X, TILE, TILE>(t1s, LDS, hstates + soff + d0,
+                                          d_len, nn, dcols);
+    hopper::cp_async_commit();
+    load_tile<S, ASYNC_X, L, TILE>(t2s, LDS, x + xoff + d0, xrow, len,
+                                   dcols);
+    load_tile<float, ASYNC_X, TILE, TILE>(t3s, LDS, gstates + soff + d0,
+                                          d_len, nn, dcols);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // dy and h_c; x and R_c go on loading
     __syncthreads();
-    fma_tile(dc, t0s, LDT, 1, t1s, 1, LDT);  // dc(t, n) += e_t dy[t][d] h[n][d]
-    fma_tile(db, t2s, LDT, 1, t3s, 1, LDT);  // db(u, n) += E_u x[u][d] R[n][d]
+    mma_3xtf32(dc, t0s, LDS, 1, t1s, 1, LDS, r0, c0);  // (t, n) += dy h_c^T
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    mma_3xtf32(db, t2s, LDS, 1, t3s, 1, LDS, r0, c0);  // (u, n) += x R_c^T
   }
+  __syncthreads();  // the D-tiles are consumed
+  const float* mb = mm + base * L * L;
+  load_tile<float, true, L, L>(t0s, LDS, mb, L, L, L);
+  load_tile<S, ASYNC_BC, L, TILE>(t2s, LDK, bm + brow, n_len, len, nn);
+  hopper::cp_async_commit();
+  load_tile<float, true, L, L>(t1s, LDK, mb, L, L, L);
+  load_tile<S, ASYNC_BC, L, TILE>(t3s, LDK, cm + brow, n_len, len, nn);
+  hopper::cp_async_commit();
+  scale_rows(dc, et, r0);  // exp(Acum_t) (dy h_c^T)
+  scale_rows(db, ew, r0);  // E_u (x R_c^T)
+  hopper::cp_async_wait<1>();  // M and b
+  __syncthreads();
+  mma_3xtf32(dc, t0s, LDS, 1, t2s, LDK, 1, r0, c0);  // + M B
+  hopper::cp_async_wait<0>();  // M again and c
+  __syncthreads();
+  mma_3xtf32(db, t1s, 1, LDK, t3s, LDK, 1, r0, c0);  // + M^T C
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = ty + 16 * i;
-    if (t >= len) continue;
-    const size_t row = (((size_t)b * s_len + t0 + t) * n_heads + h) * n_len;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < n_len) {
-        dcp[row + n] = dc[i][j];
-        dbp[row + n] = db[i][j];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t = r0 + 16 * mi + g + 8 * hf;
+      if (t >= len) continue;
+      const size_t row = (((size_t)b * s_len + t0 + t) * n_heads + h) * n_len;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = n0 + c0 + 8 * ni + 2 * qd;
+        const float* vc = &dc[mi][ni][2 * hf];
+        const float* vb = &db[mi][ni][2 * hf];
+        if (ASYNC_BC) {  // N a multiple of 4: both columns in or out
+          if (n < n_len) {
+            *reinterpret_cast<float2*>(&dcp[row + n]) = make_float2(vc[0],
+                                                                     vc[1]);
+            *reinterpret_cast<float2*>(&dbp[row + n]) = make_float2(vb[0],
+                                                                     vb[1]);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < n_len) {
+              dcp[row + n + e] = vc[e];
+              dbp[row + n + e] = vb[e];
+            }
+        }
       }
     }
-  }
 }
 
 // -- pass 6: db and dc summed over the heads, in head order ------------------
@@ -347,46 +397,47 @@ ssd_bwd_da(const float* __restrict__ q, S* __restrict__ da, int bsz, int s_len,
 
 // -- launch -------------------------------------------------------------------
 
-template <typename S>
-int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
-           const S* dy, S* dx, S* da, S* db, S* dc, float* scratch, int bsz,
-           int s_len, int n_heads, int d_len, int n_len,
+// ASYNC_BC: b and c tiles by cp.async; ASYNC_X: also x, y, dy and the
+// state tiles (load_route's 1 and 2, with y and dy aligned as x).
+template <typename S, bool ASYNC_BC, bool ASYNC_X>
+int launch(const S* x, const S* b, const S* c, const S* y, const S* dy,
+           S* dx, S* da, S* db, S* dc, const float* fwd, float* scratch,
+           int bsz, int s_len, int n_heads, int d_len, int n_len,
            cudaStream_t stream) {
   const int nc = (s_len + L - 1) / L;
   const size_t chunks = (size_t)bsz * nc;
   const size_t elems = (size_t)n_len * d_len;
-  // C . B^T, Acum and h_c first, as the forward's scratch lays them out
-  float* cb = scratch;                                   // [B, nc, L, L]
-  float* acum = cb + chunks * L * L;                     // [B, nc, H, L]
-  float* hs = acum + chunks * n_heads * L;               // [B, nc, H, N, D]
-  float* gs = hs + chunks * n_heads * elems;             // [B, nc, H, N, D]
-  float* mm = gs + chunks * n_heads * elems;             // [B, nc, H, L, L]
+  // the forward's scratch: C . B^T, Acum, h_c
+  const float* cb = fwd;                                 // [B, nc, L, L]
+  const float* acum = cb + chunks * L * L;               // [B, nc, H, L]
+  const float* hs = acum + chunks * n_heads * L;         // [B, nc, H, N, D]
+  // the backward's own (each part on 16 bytes: M and q are whole chunks)
+  float* mm = scratch;                                   // [B, nc, H, L, L]
   float* q = mm + chunks * n_heads * L * L;              // [B, nc, H, L]
-  float* dbp = q + chunks * n_heads * L;                 // [B, S, H, N]
+  float* gs = q + chunks * n_heads * L;                  // [B, nc, H, N, D]
+  float* dbp = gs + chunks * n_heads * elems;            // [B, S, H, N]
   float* dcp = dbp + (size_t)bsz * s_len * n_heads * n_len;  // [B, S, H, N]
-  const int d_tiles = (d_len + TILE - 1) / TILE;
   const int n_tiles = (n_len + TILE - 1) / TILE;
   cudaError_t err;
-  if ((err = allow_smem(ssd_bwd_dx<S>, kSmemDx)) ||
-      (err = allow_smem(ssd_bwd_dbdc<S>, kSmemDbDc)))
+  if ((err = allow_smem(ssd_bwd_dx<S, ASYNC_BC, ASYNC_X>, kSmemDx)) ||
+      (err = allow_smem(ssd_bwd_dbdc<S, ASYNC_BC, ASYNC_X>, kSmemDbDc)))
     return (int)err;
 
-  // passes 1 to 3: the forward's kernels (csrc/ssd_chunk.cuh)
-  if ((err = chunk_states(x, a, b, c, scratch, bsz, s_len, n_heads, d_len,
-                          n_len, stream)))
-    return (int)err;
-  ssd_bwd_dual_local<S>
-      <<<dim3(d_tiles * n_tiles, n_heads, (unsigned)chunks), NTH, 0,
-         stream>>>(dy, c, acum, gs, s_len, n_heads, d_len, n_len, nc);
-  if ((err = cudaGetLastError()) ||
+  const int dt = state_tile(d_len, n_heads, bsz, nc);
+  if ((err = local_states<true, S, ASYNC_X>(dy, c, acum, gs, bsz, s_len,
+                                            n_heads, d_len, n_len, dt,
+                                            stream)) ||
       (err = pass_states<true>(acum, gs, bsz, n_heads, elems, nc, stream)))
     return (int)err;
-  ssd_bwd_dx<S><<<dim3(n_heads, (unsigned)chunks), NTH, kSmemDx, stream>>>(
-      x, b, y, dy, cb, acum, gs, dx, mm, q, s_len, n_heads, d_len, n_len, nc);
+  ssd_bwd_dx<S, ASYNC_BC, ASYNC_X>
+      <<<dim3(n_heads, (unsigned)chunks), NTB, kSmemDx, stream>>>(
+          x, b, y, dy, cb, acum, gs, dx, mm, q, s_len, n_heads, d_len, n_len,
+          nc);
   if ((err = cudaGetLastError())) return (int)err;
-  ssd_bwd_dbdc<S><<<dim3(n_tiles, n_heads, (unsigned)chunks), NTH, kSmemDbDc,
-                stream>>>(x, b, c, dy, acum, hs, gs, mm, dbp, dcp, s_len,
-                          n_heads, d_len, n_len, nc);
+  ssd_bwd_dbdc<S, ASYNC_BC, ASYNC_X>
+      <<<dim3(n_tiles, n_heads, (unsigned)chunks), NTB, kSmemDbDc, stream>>>(
+          x, b, c, dy, acum, hs, gs, mm, dbp, dcp, s_len, n_heads, d_len,
+          n_len, nc);
   if ((err = cudaGetLastError())) return (int)err;
   const size_t rows = (size_t)bsz * s_len;
   ssd_bwd_heads<S><<<(unsigned)((rows * n_len + NTH - 1) / NTH), NTH, 0,
@@ -398,48 +449,68 @@ int launch(const S* x, const S* a, const S* b, const S* c, const S* y,
   return (int)cudaGetLastError();
 }
 
-// Floats of scratch the passes use: C . B^T, Acum, the forward's and the
-// dual's chunk states, M, the da terms, then db's and dc's per-head parts.
+// Floats of the forward's scratch: C . B^T, Acum, h_c.
+long long fwd_need(int bsz, int s_len, int n_heads, int d_len, int n_len) {
+  const long long nc = (s_len + L - 1) / L, chunks = (long long)bsz * nc;
+  return chunks * ((long long)L * L + (long long)n_heads * L +
+                   (long long)n_heads * n_len * d_len);
+}
+
+// Floats of the backward's own scratch: M, the da terms, the dual's chunk
+// states, then db's and dc's per-head parts.
 long long scratch_need(int bsz, int s_len, int n_heads, int d_len,
                        int n_len) {
   const long long nc = (s_len + L - 1) / L, chunks = (long long)bsz * nc;
-  return chunks * ((long long)L * L + 2LL * n_heads * L +
-                   2LL * n_heads * n_len * d_len + (long long)n_heads * L * L) +
+  return chunks * n_heads * ((long long)n_len * d_len + (long long)L * L + L) +
          2LL * bsz * s_len * n_heads * n_len;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for all of x, a, b, c, y, dy and the
-// gradients dx, da, db, dc (contiguous, the shapes of x, a, b, c).  scratch:
-// n_scratch floats, at least scratch_need(...) (the wrapper's
-// bwd_scratch_floats), 16-byte aligned; its contents on entry are never
-// read.  Returns cudaGetLastError() after the last launch (0 on success).
-// Without a launch: -2 when H or B * ceil(S / 64) exceed a grid dimension
-// (65535), and cudaErrorInvalidValue for an unsupported dtype or too small
-// a scratch.
-extern "C" int repro_ssd_scan_bwd(const void* x, const void* a, const void* b,
-                                  const void* c, const void* y,
-                                  const void* dy, void* dx, void* da,
-                                  void* db, void* dc, void* scratch,
-                                  long long n_scratch, int dtype, int bsz,
-                                  int s_len, int n_heads, int d_len,
-                                  int n_len, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, for all of x, b, c, y, dy and the
+// gradients dx, da, db, dc (contiguous, the shapes of x, a, b, c).  fwd:
+// n_fwd floats, at least fwd_need(...) (the wrapper's scratch_floats),
+// 16-byte aligned: the forward kernel's scratch on these inputs, read
+// only.  scratch: n_scratch floats, at least scratch_need(...) (the
+// wrapper's bwd_scratch_floats), 16-byte aligned; its contents on entry
+// are never read.  Returns cudaGetLastError() after the last launch (0 on
+// success).  Without a launch: -2 when H or B * ceil(S / 64) exceed a
+// grid dimension (65535), and cudaErrorInvalidValue for an unsupported
+// dtype or too small a buffer.
+extern "C" int repro_ssd_scan_bwd(const void* x, const void* b, const void* c,
+                                  const void* y, const void* dy, void* dx,
+                                  void* da, void* db, void* dc,
+                                  const void* fwd, long long n_fwd,
+                                  void* scratch, long long n_scratch,
+                                  int dtype, int bsz, int s_len, int n_heads,
+                                  int d_len, int n_len, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long nc = (s_len + L - 1) / L;
   if (n_heads > 65535 || (long long)bsz * nc > 65535) return kGridTooLarge;
-  if (n_scratch < scratch_need(bsz, s_len, n_heads, d_len, n_len) ||
+  if (n_fwd < fwd_need(bsz, s_len, n_heads, d_len, n_len) ||
+      !aligned16(fwd) ||
+      n_scratch < scratch_need(bsz, s_len, n_heads, d_len, n_len) ||
       !aligned16(scratch))
     return (int)cudaErrorInvalidValue;
+  const float* fw = static_cast<const float*>(fwd);
   float* sc = static_cast<float*>(scratch);
-#define REPRO_SSD_BWD(S)                                                     \
-  launch<S>(static_cast<const S*>(x), static_cast<const S*>(a),              \
-            static_cast<const S*>(b), static_cast<const S*>(c),              \
-            static_cast<const S*>(y), static_cast<const S*>(dy),             \
-            static_cast<S*>(dx), static_cast<S*>(da), static_cast<S*>(db),   \
-            static_cast<S*>(dc), sc, bsz, s_len, n_heads, d_len, n_len, st)
-  if (dtype == 0) return REPRO_SSD_BWD(float);
-  if (dtype == 1) return REPRO_SSD_BWD(__nv_bfloat16);
+#define REPRO_SSD_BWD(S, BC, X)                                              \
+  launch<S, BC, X>(static_cast<const S*>(x), static_cast<const S*>(b),       \
+                   static_cast<const S*>(c), static_cast<const S*>(y),       \
+                   static_cast<const S*>(dy), static_cast<S*>(dx),           \
+                   static_cast<S*>(da), static_cast<S*>(db),                 \
+                   static_cast<S*>(dc), fw, sc, bsz, s_len, n_heads, d_len,  \
+                   n_len, st)
+  if (dtype == 0) {
+    int route = load_route(static_cast<const float*>(x),
+                           static_cast<const float*>(b),
+                           static_cast<const float*>(c), d_len, n_len);
+    if (route == 2 && !(aligned16(dy) && aligned16(y))) route = 1;
+    if (route == 2) return REPRO_SSD_BWD(float, true, true);
+    if (route == 1) return REPRO_SSD_BWD(float, true, false);
+    return REPRO_SSD_BWD(float, false, false);
+  }
+  if (dtype == 1) return REPRO_SSD_BWD(__nv_bfloat16, false, false);
 #undef REPRO_SSD_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -41,12 +41,15 @@ not of speed.
 
 The gradient.  When grad mode is on and an input requires grad,
 :func:`ssd_scan` goes through :class:`SSDScan`, a
-``torch.autograd.Function`` that saves x, a, b and c (made contiguous)
-and y.  Its backward launches ``csrc/ssd_scan_bwd.cu`` for CUDA tensors
-(float32 or bfloat16, any S, D and N; seven passes, the first three the
-forward's own kernels from ``csrc/ssd_chunk.cuh`` recomputing h_c; one C
-call, one count in ``bwd_launches``) and takes :func:`ssd_scan_bwd_plain`
-for CPU ones.
+``torch.autograd.Function`` that saves x, a, b and c (made contiguous), y
+and the forward's float32 scratch (C . B^T, Acum and h_c, "kept": the
+forward kernel's own bits, or on the CPU the plain version's, laid out
+alike; :func:`ssd_scan_keep`).  Its backward launches
+``csrc/ssd_scan_bwd.cu`` for CUDA tensors (float32 or bfloat16, any S, D
+and N; one C call, one count in ``bwd_launches``), which reads that
+scratch and launches none of the forward's passes, and takes
+:func:`ssd_scan_bwd_plain` for CPU ones.  :func:`ssd_scan_bwd` called
+without ``saved`` runs the forward first to get it.
 With g_u the dual state (the loss's gradient at h_u),
 ``sum_{t >= u} exp(Acum_t - Acum_u) dy_t (x) c_t``:
 
@@ -106,45 +109,80 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor) -> torch.Tensor:
+             c: torch.Tensor, keep: bool = False):
+    """y, or with ``keep`` (y, the forward's scratch)."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, a, b, c)
-    return _launch(x, a, b, c)
+        y, saved = _plain_forward(x, a, b, c, keep)
+        return (y, saved) if keep else y
+    return _launch(x, a, b, c, keep)
+
+
+def ssd_scan_keep(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan's output y and the forward's float32 scratch, kept for
+    :func:`ssd_scan_bwd`'s ``saved``: C . B^T ``[B, nc, L, L]``, Acum
+    ``[B, nc, H, L]`` and h_c ``[B, nc, H, N, D]``, flat, one after the
+    other (``scratch_floats`` of them).  The kernel's own scratch on the
+    card, the plain version's on the CPU."""
+    _check(x, a, b, c)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SSD scan for device {x.device}")
+    return _forward(x, a, b, c, True)
 
 
 class SSDScan(torch.autograd.Function):
     """The scan with the kernels' forward and backward on the card and
-    their plain versions on the CPU (the module doc says which)."""
+    their plain versions on the CPU (the module doc says which); the
+    forward's scratch is kept for the backward."""
 
     @staticmethod
     def forward(ctx, x, a, b, c):
         x, a, b, c = (t.contiguous() for t in (x, a, b, c))
-        y = _forward(x, a, b, c)
-        ctx.save_for_backward(x, a, b, c, y)
+        y, saved = _forward(x, a, b, c, True)
+        ctx.save_for_backward(x, a, b, c, y, saved)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return ssd_scan_bwd(*ctx.saved_tensors, dy)
+        *ins, saved = ctx.saved_tensors
+        return ssd_scan_bwd(*ins, dy, saved=saved)
 
 
 def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                 c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
+                 c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                 saved: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, ...]:
     """(dx, da, db, dc) of the scan from its inputs, its output ``y`` and
     the output's gradient ``dy``, in the inputs' dtype: the backward kernel
-    for CUDA tensors, its plain version for CPU ones."""
+    for CUDA tensors, its plain version for CPU ones.  ``saved``: the
+    forward's scratch on these inputs (:func:`ssd_scan_keep`); without
+    it, the forward runs first to give it."""
     _check(x, a, b, c)
     for name, t in (("output", y), ("output gradient", dy)):
         if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
                              f"{t.device} does not fit x {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}")
-    if x.device.type == "cpu":
-        return ssd_scan_bwd_plain(x, a, b, c, y, dy)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no SSD scan backward for device {x.device}")
-    return _launch_bwd(*(t.contiguous() for t in (x, a, b, c, y, dy)))
+    if saved is None:
+        saved = _forward(x, a, b, c, True)[1]
+    _check_saved(x, b.shape[2], saved)
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, a, b, c, y, dy, saved)
+    return _launch_bwd(*(t.contiguous() for t in (x, a, b, c, y, dy)),
+                       saved)
+
+
+def _check_saved(x: torch.Tensor, n: int, saved: torch.Tensor) -> None:
+    want = scratch_floats(*x.shape, n)
+    if (saved.dtype != torch.float32 or saved.device != x.device
+            or saved.ndim != 1 or saved.numel() < want
+            or not saved.is_contiguous()):
+        raise ValueError(f"saved {tuple(saved.shape)} {saved.dtype} on "
+                         f"{saved.device} is not the forward's scratch of x "
+                         f"{tuple(x.shape)}, N={n} ({want} contiguous "
+                         f"float32 on {x.device})")
 
 
 def _lib() -> ctypes.CDLL:
@@ -189,7 +227,7 @@ def _kernel_check(x: torch.Tensor, n: int) -> None:
 
 
 def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
+            c: torch.Tensor, keep: bool = False):
     bsz, s, h, d = x.shape
     n = b.shape[2]
     _kernel_check(x, n)
@@ -207,7 +245,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if err:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {err}")
     launches.add()
-    return y
+    return (y, scratch) if keep else y
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -217,22 +255,23 @@ def _bwd_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 11 + [ctypes.c_longlong] + [i] * 6 + [p]
+        fn.argtypes = ([p] * 10 + [ctypes.c_longlong, p, ctypes.c_longlong]
+                       + [i] * 6 + [p])
     return lib
 
 
 def bwd_scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
-    """Floats of scratch the backward's passes use: C . B^T, Acum, the
-    forward's and the dual's chunk states, M, the da terms, and db's and
-    dc's per-head parts."""
+    """Floats of the backward's own scratch: M, the da terms, the dual's
+    chunk states, and db's and dc's per-head parts (the forward's kept
+    scratch comes beside it)."""
     nc = -(-s // CHUNK)
-    return (bsz * nc * (CHUNK * CHUNK + 2 * h * CHUNK + 2 * h * n * d
-                        + h * CHUNK * CHUNK) + 2 * bsz * s * h * n)
+    return (bsz * nc * h * (CHUNK * CHUNK + CHUNK + n * d)
+            + 2 * bsz * s * h * n)
 
 
 def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
-                ) -> tuple[torch.Tensor, ...]:
+                c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                saved: torch.Tensor) -> tuple[torch.Tensor, ...]:
     bsz, s, h, d = x.shape
     n = b.shape[2]
     _kernel_check(x, n)
@@ -243,8 +282,8 @@ def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan_bwd(
-            *(t.data_ptr() for t in (x, a, b, c, y, dy, *grads)),
-            scratch.data_ptr(), n_scratch, _DTYPE_CODE[x.dtype], bsz, s, h,
+            *(t.data_ptr() for t in (x, b, c, y, dy, *grads)),
+            saved.data_ptr(), saved.numel(), scratch.data_ptr(), n_scratch, _DTYPE_CODE[x.dtype], bsz, s, h,
             d, n, stream)
     if err:
         raise RuntimeError(f"SSD scan backward kernel launch failed: CUDA "
@@ -253,25 +292,30 @@ def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return grads
 
 
-def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                   c: torch.Tensor) -> torch.Tensor:
-    """The kernel's four passes in torch, in float32."""
-    _check(x, a, b, c)
+def _chunker(bsz: int, s: int):
+    """zero-pads S of a [B, S, ...] tensor to whole chunks, in float32,
+    then [B, nc, L, ...]"""
+    nc = -(-s // CHUNK)
+
+    def chunks(t, *tail):
+        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, nc * CHUNK - s))
+        return t.reshape(bsz, nc, CHUNK, *tail)
+    return chunks
+
+
+def _plain_forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, keep: bool = True):
+    """(y, the forward's scratch laid out as the kernel's; None without
+    ``keep``)."""
     bsz, s, h, d = x.shape
     n = b.shape[2]
     nc = -(-s // CHUNK)
-    pad = nc * CHUNK - s
-
-    def chunks(t, *tail):          # zero-pad S, then [B, nc, L, ...]
-        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
-        return t.reshape(bsz, nc, CHUNK, *tail)
-
-    xc, ac = chunks(x, h, d), chunks(a, h)
-    bc, cc = chunks(b, n), chunks(c, n)
+    chunks = _chunker(bsz, s)
+    xc, bc, cc = chunks(x, h, d), chunks(b, n), chunks(c, n)
 
     # pass 1: C . B^T once per (batch, chunk) for all heads; Acum
     cb = torch.einsum("bctn,bcun->bctu", cc, bc)             # [B,nc,L,L]
-    acum = torch.cumsum(ac, dim=2)                           # [B,nc,L,H]
+    acum = torch.cumsum(chunks(a, h), dim=2)                 # [B,nc,L,H]
     a_tot = acum[:, :, -1]                                   # [B,nc,H]
 
     # pass 2: each chunk's local end state, [N, D] per (batch, chunk, head)
@@ -294,51 +338,64 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.einsum("bctu,bctuh,bcuhd->bcthd", cb, decay, xc)
     y = y + torch.exp(acum)[..., None] * torch.einsum(
         "bctn,bchnd->bcthd", cc, hs)
-    return y.reshape(bsz, nc * CHUNK, h, d)[:, :s].to(x.dtype)
+    y = y.reshape(bsz, nc * CHUNK, h, d)[:, :s].to(x.dtype)
+    if not keep:
+        return y, None
+    return y, torch.cat([cb.flatten(), acum.transpose(2, 3).flatten(),
+                         hs.flatten()])
+
+
+def _unpack_saved(saved: torch.Tensor, bsz: int, nc: int, h: int, n: int,
+                  d: int):
+    """C . B^T, Acum ``[B, nc, L, H]`` (contiguous, as the plain forward
+    computes it) and h_c from the forward's scratch."""
+    k1 = bsz * nc * CHUNK * CHUNK
+    k2 = k1 + bsz * nc * h * CHUNK
+    cb = saved[:k1].view(bsz, nc, CHUNK, CHUNK)
+    acum = saved[k1:k2].view(bsz, nc, h, CHUNK).transpose(2, 3).contiguous()
+    hs = saved[k2:k2 + bsz * nc * h * n * d].view(bsz, nc, h, n, d)
+    return cb, acum, hs
+
+
+def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """The kernel's four passes in torch, in float32."""
+    _check(x, a, b, c)
+    return _plain_forward(x, a, b, c, keep=False)[0]
 
 
 def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                       c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor
+                       c: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+                       saved: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, ...]:
-    """The backward kernel's seven passes in torch, in float32: (dx, da,
-    db, dc) in the inputs' dtype.  Per chunk, G = tril(exp(Acum_t -
-    Acum_u) C_t . B_u), M = tril(exp(Acum_t - Acum_u) dy_t . x_u) and E =
-    exp(A_tot - Acum_u); h_c and R_c are the forward's and the dual's chunk
-    carries (the module doc gives the identities)."""
+    """The backward kernel's passes in torch, in float32: (dx, da, db, dc)
+    in the inputs' dtype.  Per chunk, G = tril(exp(Acum_t - Acum_u) C_t .
+    B_u), M = tril(exp(Acum_t - Acum_u) dy_t . x_u) and E = exp(A_tot -
+    Acum_u); h_c and R_c are the forward's and the dual's chunk carries
+    (the module doc gives the identities).  C . B^T, Acum and h_c come
+    from ``saved`` (the forward's scratch, :func:`ssd_scan_keep`), or
+    without it from the plain forward run first."""
     _check(x, a, b, c)
     bsz, s, h, d = x.shape
     n = b.shape[2]
     nc = -(-s // CHUNK)
-    pad = nc * CHUNK - s
-
-    def chunks(t, *tail):          # zero-pad S, then [B, nc, L, ...]
-        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
-        return t.reshape(bsz, nc, CHUNK, *tail)
-
+    chunks = _chunker(bsz, s)
     xc, yc, dyc = chunks(x, h, d), chunks(y, h, d), chunks(dy, h, d)
-    ac, bc, cc = chunks(a, h), chunks(b, n), chunks(c, n)
-
-    # pass 1: C . B^T once per (batch, chunk); Acum
-    cb = torch.einsum("bctn,bcun->bctu", cc, bc)             # [B,nc,L,L]
-    acum = torch.cumsum(ac, dim=2)                           # [B,nc,L,H]
+    bc, cc = chunks(b, n), chunks(c, n)
+    if saved is None:
+        saved = _plain_forward(x, a, b, c)[1]
+    cb, acum, hs = _unpack_saved(saved, bsz, nc, h, n, d)
     a_tot = acum[:, :, -1]                                   # [B,nc,H]
     ew = torch.exp(a_tot[:, :, None] - acum)                 # E, [B,nc,L,H]
 
-    # pass 2: the forward's local end states and the dual's, [N, D] each
-    local = torch.einsum("bcun,bcuh,bcuhd->bchnd", bc, ew, xc)
+    # the dual: its local states, [N, D] each, and R_c passed backward
     dual = torch.einsum("bctn,bcth,bcthd->bchnd", cc, torch.exp(acum), dyc)
-
-    # pass 3: h_c passed forward along the chunks, R_c backward
-    hs, gs = [None] * nc, [None] * nc
+    gs = [None] * nc
     run = torch.zeros((bsz, h, n, d), device=x.device)
-    for ci in range(nc):
-        hs[ci] = run
-        run = torch.exp(a_tot[:, ci])[..., None, None] * run + local[:, ci]
-    run = torch.zeros_like(run)
     for ci in reversed(range(nc)):
         gs[ci] = run
         run = torch.exp(a_tot[:, ci])[..., None, None] * run + dual[:, ci]
-    hs, gs = torch.stack(hs, dim=1), torch.stack(gs, dim=1)  # [B,nc,H,N,D]
+    gs = torch.stack(gs, dim=1)                              # [B,nc,H,N,D]
 
     # pass 4: M, dx and each token's dy . y - x . dx (select, then decay)
     live = torch.ones(CHUNK, CHUNK, dtype=torch.bool,

@@ -312,20 +312,30 @@ def _ssd_bwd_inputs(card, b, s, h, d, n, dtype, strong):
 @pytest.mark.parametrize("b,s,h,d,n,strong", SSD_BWD_CASES)
 def test_ssd_bwd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n,
                                       strong):
-    """dx, da, db and dc of the backward kernel against its plain version,
-    at the SSD tolerance x (1 + |g|); one call, one launch."""
+    """dx, da, db and dc of the backward kernel, reading the forward
+    kernel's kept scratch (``ssd_scan_keep``, as training runs it),
+    against its plain version at the SSD tolerance x (1 + |g|), float32
+    also at ``chip_smoke.SSD_BWD_F32_KEEP`` x (1 + |g|); one call, one
+    launch, and no forward launched by the backward."""
     ins = _ssd_bwd_inputs(card, b, s, h, d, n, dtype, strong)
-    before = ssd_scan.bwd_launches.count
-    got = ssd_scan.ssd_scan_bwd(*ins)
+    y, saved = ssd_scan.ssd_scan_keep(*ins[:4])
+    assert torch.equal(y, ins[4])
+    assert saved.numel() == ssd_scan.scratch_floats(b, s, h, d, n)
+    before = (ssd_scan.launches.count, ssd_scan.bwd_launches.count)
+    got = ssd_scan.ssd_scan_bwd(*ins, saved=saved)
     torch.cuda.synchronize()
-    assert ssd_scan.bwd_launches.count == before + 1
+    assert (ssd_scan.launches.count, ssd_scan.bwd_launches.count) == (
+        before[0], before[1] + 1)
     want = ssd_scan.ssd_scan_bwd_plain(*ins)
-    for g, w, like in zip(got, want, ins):
+    for name, g, w, like in zip(("dx", "da", "db", "dc"), got, want, ins):
         assert g.dtype == dtype and g.shape == like.shape
         assert torch.isfinite(g).all()
         err = (g.float() - w.float()).abs()
         assert bool((err <= tol * (1.0 + w.float().abs())).all()), float(
             err.max())
+        if dtype == torch.float32:
+            rel = float((err / (1.0 + w.float().abs())).max())
+            assert rel <= SSD_BWD_F32_KEEP[name], (name, rel)
 
 
 def test_ssd_bwd_kernel_repeats_bit_for_bit(card):
@@ -341,9 +351,14 @@ def test_ssd_bwd_kernel_repeats_bit_for_bit(card):
 
 def test_ssd_bwd_reads_no_stale_scratch(card):
     """The backward's scratch is ``torch.empty``: a block of NaNs freed
-    just before the call is handed out again, and no NaN comes through."""
+    just before the call is handed out again (the forward's scratch, which
+    a backward without ``saved`` runs the forward to fill, and the
+    backward's own, one after the other), and no NaN comes through.  Kept
+    scratch at the head of a larger buffer whose tail is NaN: the backward
+    reads only its used part, and gives the same bits."""
     shapes = (1, 300, 4, 64, 64)
-    poison = torch.full((ssd_scan.bwd_scratch_floats(*shapes),),
+    fwd = ssd_scan.scratch_floats(*shapes)
+    poison = torch.full((fwd + ssd_scan.bwd_scratch_floats(*shapes),),
                         float("nan"), device=card)
     del poison
     ins = _ssd_bwd_inputs(card, *shapes, torch.float32, False)
@@ -352,6 +367,16 @@ def test_ssd_bwd_reads_no_stale_scratch(card):
     want = ssd_scan.ssd_scan_bwd_plain(*ins)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=3e-3, atol=3e-3)
+    _, saved = ssd_scan.ssd_scan_keep(*ins[:4])
+    padded = torch.full((fwd + 4096,), float("nan"), device=card)
+    padded[:fwd] = saved
+    poison = torch.full((ssd_scan.bwd_scratch_floats(*shapes),),
+                        float("nan"), device=card)
+    del poison, saved
+    kept = ssd_scan.ssd_scan_bwd(*ins, saved=padded)
+    torch.cuda.synchronize()
+    for g, u in zip(kept, got):
+        assert torch.equal(g, u)
 
 
 def test_ssd_gradients_flow_through_the_kernels(card):
@@ -711,8 +736,9 @@ def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
     plain versions): the loss at rel 1e-5, each leaf at ``grad_tol`` x its
     largest magnitude (``tests/test_torch_train.py``'s tolerances); one
     SSD forward and one backward launch per scan of the layer plan (a
-    Mamba-2 layer one, an mLSTM layer two), one flash forward and backward
-    per shared-block application."""
+    Mamba-2 layer one, an mLSTM layer two: no backward runs the forward
+    again, it reads the kept scratch), one flash forward and backward per
+    shared-block application."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, layer_plan
     from repro_torch.optim.adamw import leaves
@@ -750,9 +776,13 @@ def _chip_smoke():
     return module
 
 
+_SMOKE = _chip_smoke()
 # the reduced bfloat16 models' card-against-CPU limit on the median over
 # tokens of each token's rel, where chip_smoke.py grounds it
-BF16_REDUCED_TOL = _chip_smoke().BF16_REDUCED_TOL
+BF16_REDUCED_TOL = _SMOKE.BF16_REDUCED_TOL
+# the float32 error of the SSD backward, x (1 + |g|), per gradient, under
+# which its 3xTF32 products are kept, grounded there too
+SSD_BWD_F32_KEEP = _SMOKE.SSD_BWD_F32_KEEP
 
 
 def _prefixed(cfg, device, seed=5):

@@ -1,11 +1,12 @@
 """The SSD scan's backward on the CPU, against the JAX package's gradient:
 ``jax.vjp`` of ``repro.kernels.ref.ssd_ref`` (the JAX package has no
 Pallas backward; its training gradient is autodiff of that sequential
-scan).  The port's plain backward walks the backward kernel's passes (C .
-B^T and Acum per chunk; the forward's and the dual's local states; h_c
-passed forward and R_c backward along the chunks; M, dx and the da terms;
-each head's db and dc; the sums over heads; da's reverse cumulative sum),
-so these tests hold the kernel's algorithm; the kernel itself is held to
+scan).  The port's plain backward walks the backward kernel's passes (it
+reads C . B^T, Acum and h_c from the forward's kept scratch, laid out as
+the kernel's; the dual's local states and R_c passed backward along the
+chunks; M, dx and the da terms; each head's db and dc; the sums over
+heads; da's reverse cumulative sum), so these tests hold the kernel's
+algorithm; the kernel itself is held to
 the plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -88,17 +90,38 @@ def test_plain_backward_matches_jax_vjp(b, s, h, d, n, decay):
     _assert_close([t.numpy() for t in got], want)
 
 
+def _count_forwards(monkeypatch) -> list:
+    """Records each call of the scan's forward (its ``keep`` flag)."""
+    kept = []
+    fwd = ssd_scan._forward
+
+    def spy(*args):
+        kept.append(len(args) > 4 and args[4])
+        return fwd(*args)
+
+    monkeypatch.setattr(ssd_scan, "_forward", spy)
+    return kept
+
+
 @pytest.mark.parametrize("b,s,h,d,n,decay", CASES)
-def test_autograd_through_the_scan_matches_jax_vjp(b, s, h, d, n, decay):
+def test_autograd_through_the_scan_matches_jax_vjp(b, s, h, d, n, decay,
+                                                   monkeypatch):
     """``ops.ssd_scan`` under autograd (``SSDScan``: the plain forward,
-    then the plain backward) against ``jax.vjp(ssd_ref)``, and against
-    torch autograd through the plain forward's own operations."""
+    which keeps its scratch, then the plain backward, which reads it)
+    against ``jax.vjp(ssd_ref)``, and against torch autograd through the
+    plain forward's own operations.  The forward runs once, keeping its
+    scratch: the backward runs none of its own."""
+    forwards = _count_forwards(monkeypatch)
     x, a, bm, cm, dy = _inputs(b, s, h, d, n, decay, seed=1)
     _, want = _jax_grads(x, a, bm, cm, dy)
     leaves = [t.requires_grad_() for t in _torch(x, a, bm, cm)]
     out = ops.ssd_scan(*leaves)
     assert isinstance(out.grad_fn, ssd_scan.SSDScan._backward_cls)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 6 and saved[5].numel() == ssd_scan.scratch_floats(
+        b, s, h, d, n)
     got = torch.autograd.grad(out, leaves, torch.from_numpy(dy))
+    assert forwards == [True]                     # the kept scratch
     _assert_close([t.numpy() for t in got], want)
     twins = [t.detach().clone().requires_grad_() for t in leaves]
     direct = torch.autograd.grad(ssd_scan.ssd_scan_plain(*twins), twins,
@@ -149,6 +172,67 @@ def test_no_graph_and_nothing_saved_without_a_gradient(monkeypatch):
         assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
 
 
+@pytest.mark.parametrize("b,s,h,d,n,decay", CASES)
+def test_kept_scratch_is_laid_out_as_the_kernels(b, s, h, d, n, decay):
+    """The forward that keeps its scratch gives ``ssd_scan_plain``'s y,
+    and the scratch is what the backward kernel reads: C . B^T ``[B, nc,
+    L, L]``, Acum ``[B, nc, H, L]`` and h_c ``[B, nc, H, N, D]`` (the
+    state at each chunk's start, here from the sequential recurrence), a
+    ragged chunk zero-padded.  The backward given it gives the bits of
+    the backward that runs the forward itself."""
+    x, a, bm, cm, dy = _torch(*_inputs(b, s, h, d, n, decay, seed=5))
+    y, saved = ssd_scan.ssd_scan_keep(x, a, bm, cm)
+    assert torch.equal(y, ssd_scan.ssd_scan_plain(x, a, bm, cm))
+    assert saved.dtype == torch.float32 and saved.shape == (
+        ssd_scan.scratch_floats(b, s, h, d, n),)
+    ln = ssd_scan.CHUNK
+    nc = -(-s // ln)
+    pad = nc * ln - s
+    k1, k2 = b * nc * ln * ln, b * nc * (ln * ln + h * ln)
+    bp, cp = (F.pad(t, (0, 0, 0, pad)).view(b, nc, ln, n) for t in (bm, cm))
+    torch.testing.assert_close(saved[:k1].view(b, nc, ln, ln),
+                               torch.einsum("bctn,bcun->bctu", cp, bp),
+                               rtol=1e-5, atol=1e-5)
+    acum = F.pad(a, (0, 0, 0, pad)).view(b, nc, ln, h).cumsum(2)
+    torch.testing.assert_close(saved[k1:k2].view(b, nc, h, ln),
+                               acum.transpose(2, 3), rtol=1e-5, atol=1e-5)
+    hs = saved[k2:].view(b, nc, h, n, d)
+    state = torch.zeros(b, h, n, d)
+    for t in range(s):
+        if t % ln == 0:
+            torch.testing.assert_close(hs[:, t // ln], state, rtol=1e-4,
+                                       atol=1e-4)
+        state = (torch.exp(a[:, t])[..., None, None] * state
+                 + bm[:, t, None, :, None] * x[:, t, :, None, :])
+    kept = ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy, saved=saved)
+    for u, v in zip(kept, ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy)):
+        assert torch.equal(u, v)
+
+
+def test_no_grad_forward_keeps_nothing(monkeypatch):
+    """A forward with no gradient asked (``no_grad``, ``inference_mode``,
+    or no input that requires grad) asks the plain forward for no scratch,
+    and its output carries no graph that could hold one."""
+    asked = []
+    plain = ssd_scan._plain_forward
+
+    def spy(*args):
+        asked.append(args[4] if len(args) > 4 else True)
+        return plain(*args)
+
+    monkeypatch.setattr(ssd_scan, "_plain_forward", spy)
+    x, a, bm, cm = _torch(*_inputs(1, 70, 2, 8, 8, "mild", seed=7)[:4])
+    assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+    x.requires_grad_()
+    with torch.no_grad():
+        assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+    with torch.inference_mode():
+        assert ops.ssd_scan(x, a, bm, cm).grad_fn is None
+    assert asked == [False, False, False]
+    out = ops.ssd_scan(x, a, bm, cm)      # a gradient asked: kept
+    assert asked[-1] is True and out.grad_fn is not None
+
+
 def test_backward_refuses_what_does_not_fit():
     x, a, bm, cm, dy = _torch(*_inputs(1, 70, 2, 8, 8, "mild", seed=4))
     y = ssd_scan.ssd_scan_plain(x, a, bm, cm)
@@ -158,6 +242,10 @@ def test_backward_refuses_what_does_not_fit():
         ssd_scan.ssd_scan_bwd(x, a, bm, cm, y.double(), dy)
     with pytest.raises(ValueError):                  # b and c differ
         ssd_scan.ssd_scan_bwd(x, a, bm, cm[..., :4], y, dy)
+    _, saved = ssd_scan.ssd_scan_keep(x, a, bm, cm)
+    for bad in (saved[:-1], saved.double(), saved.view(1, -1)):
+        with pytest.raises(ValueError):              # not the kept scratch
+            ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy, saved=bad)
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
@@ -165,7 +253,10 @@ def test_remat_runs_the_forward_twice_and_the_backward_once(arch,
                                                             monkeypatch):
     """``forward(..., remat=True)`` runs each scan's forward again in the
     backward (``torch.utils.checkpoint``) and its backward once; remat's
-    gradients equal the plain step's bit for bit."""
+    gradients equal the plain step's bit for bit.  Every backward reads
+    the kept scratch and runs no forward of its own: under remat the first
+    forward runs without grad and keeps nothing, and the forward run again
+    keeps its scratch."""
     calls = {"forward": 0, "backward": 0}
     fwd, bwd = ssd_scan._forward, ssd_scan.ssd_scan_bwd_plain
 

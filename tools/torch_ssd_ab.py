@@ -16,9 +16,11 @@ around ``--iters`` calls after a spin kernel holds the stream; with
 ``--bwd``, the backward kernel instead (``ssd_scan_bwd``) at
 ``chip_smoke.py``'s training shapes (``SSD_BWD_TRAIN``): zamba2's heads at
 B 2 x S 2048, the mLSTM values and normalizer at B 32 (8 x 4 heads
-folded) x S 512.  Prints one JSON object (label, source, the card's name
-and power limit, ms by shape) and appends it to
-``chiprun_out/ssd_ab.jsonl``.
+folded) x S 512, as training calls it: reading the forward's kept
+scratch (``ssd_scan_keep``), route "kept", or in a tree that keeps none
+computing C . B^T, Acum and h_c again, route "recompute".  Prints one
+JSON object (label, source, the card's name and power limit, ms by shape
+and the route timed) and appends it to ``chiprun_out/ssd_ab.jsonl``.
 """
 from __future__ import annotations
 
@@ -36,17 +38,30 @@ CASES = {"zamba2": (1, 32, 128, 64, "mild"),
          "mlstm_normalizer": (4, 1, 1, 384, "mlstm")}
 
 
-def _call(cs, ssd_scan, bwd, b, s, h, d, n, decay):
-    """A call of the forward (or, with ``bwd``, the backward) kernel on
-    ``chip_smoke.py``'s inputs of these shapes."""
+def _route(ssd_scan, bwd) -> str:
+    if not bwd:
+        return "forward"
+    return "kept" if hasattr(ssd_scan, "ssd_scan_keep") else "recompute"
+
+
+def _call(cs, ssd_scan, route, b, s, h, d, n, decay):
+    """A call of the forward kernel (``route`` "forward") or of the
+    backward on that route, on ``chip_smoke.py``'s inputs of these
+    shapes (the backward's dy drawn as ``chip_smoke._ssd_bwd_inputs``
+    draws it)."""
     import torch
-    if bwd:
-        ins = cs._ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay,
-                                 seed=99)
-        return lambda: ssd_scan.ssd_scan_bwd(*ins)
     x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, torch.float32, decay,
                                   seed=99)
-    return lambda: ssd_scan.ssd_scan(x, a, bm, cm)
+    if route == "forward":
+        return lambda: ssd_scan.ssd_scan(x, a, bm, cm)
+    with torch.no_grad():
+        y = ssd_scan.ssd_scan(x, a, bm, cm)
+    g = torch.Generator(device=cs.DEVICE)
+    g.manual_seed(99 + 1000)
+    dy = torch.randn(y.shape, generator=g, device=cs.DEVICE)
+    kept = ({"saved": ssd_scan.ssd_scan_keep(x, a, bm, cm)[1]}
+            if route == "kept" else {})
+    return lambda: ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy, **kept)
 
 
 def _passes_us(fn, calls=10) -> dict:
@@ -97,11 +112,12 @@ def main() -> int:
                  for s in (256, 1024, 4096)
                  for label, (b, h, d, n, decay) in CASES.items()}
     rows = []
+    route = _route(ssd_scan, args.bwd)
     for label, spec in cases.items():
-        ms = cs._time_ms(_call(cs, ssd_scan, args.bwd, *spec),
-                         iters=args.iters)
+        ms = cs._time_ms(_call(cs, ssd_scan, route, *spec), iters=args.iters)
         rows.append({"case": label.split("@")[0], "shape": list(spec[:5]),
-                     "ms": ms})
+                     "route": route, "ms": ms})
+        torch.cuda.empty_cache()
     out = {"label": args.label, "source": ssd_scan.__file__,
            "nvidia_smi": cs._smi(), "bwd": args.bwd, "rows": rows}
     if args.profile:
@@ -109,7 +125,7 @@ def main() -> int:
               {label: (b, 1024, h, d, n, decay)
                for label, (b, h, d, n, decay) in CASES.items()})
         out["passes_us"] = {
-            label: _passes_us(_call(cs, ssd_scan, args.bwd, *spec))
+            label: _passes_us(_call(cs, ssd_scan, route, *spec))
             for label, spec in at.items()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
