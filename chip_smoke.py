@@ -123,7 +123,20 @@ which fails the run (non-zero exit, no result line) if it fails:
    reduced model card against CPU with a prefix, then 8 steps (losses
    finite, the first near ln V + 1/2, the last below the first; 48 flash
    forward and 48 backward launches a step, all ``tf32x3``), the peak
-   memory, the step time, text tokens per second and one traced step.
+   memory, the step time, text tokens per second and one traced step;
+9. dry-run and placement: (a) the port's dry-run (``launch/dryrun.py``)
+   of every arch x shape at full width and depth on the meta device, its
+   leaves DTensors on both production meshes over a fake process group,
+   but xlstm-125m's ``train_4k`` and ``prefill_32k`` (``DRYRUN_LEFT_OUT``);
+   no cell may fail; (b) its host-mesh cell of phase 8's granite-8b x 8
+   (float32, B 2 x S 2048, remat) against the same step on the card: the
+   predicted argument bytes within 1% of what the card allocates for
+   them, the predicted peak beside the measured one, the counted flops
+   beside 6 N tokens; (c) the node DAG once more under DAM-C with a
+   queue penalty and ``placement_backend="torch"`` (the score on the
+   card), held to phase 5's checks, its score calls counted and timed,
+   and 10,000 seeded draws scored on the card held to numpy (1 float32
+   ulp of its float32 evaluation, 2 of its float64, the same argmin).
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
 carry their bfloat16 numbers under ``"bfloat16"``; the backwards' launches
@@ -145,11 +158,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# dense peaks of the H100 SXM data sheet at 700 W
-H100_BYTES_PER_S = 3.35e12               # HBM3
-H100_PEAK_FLOPS = {"float32": 67e12,     # float32 outside the tensor cores
-                   "bfloat16": 989e12,   # tensor cores
-                   "3xtf32": 495e12 / 3}  # TF32 tensor cores, 3 products each
+# the kernels' work from their shapes and the H100's dense peaks: one copy,
+# which the kernels' meta path (the dry-run) reads too
+from repro_torch.kernels.work import (H100_BYTES_PER_S, attention_bwd_work,  # noqa: E402
+                                      attention_work, bound, ssd_bwd_work,
+                                      ssd_work)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 3e-3, "bfloat16": 2e-2}
 SSD_F32_KEEP = 3e-4    # the SSD kernel's 3xTF32 stays only this far inside
@@ -248,29 +261,6 @@ def _time_ms(fn, iters: int, warmup: int = 2, run_ahead: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def _attention_work(b, hq, hkv, s, t, d, dtype, causal=True):
-    """(flops, bytes) the attention function needs on these shapes: 4*D
-    flops per live (query, key) pair; q, k, v read once, o written once."""
-    if causal:                       # row i sees keys 0 .. i + T - S
-        pairs = s * (t - s) + s * (s + 1) // 2
-    else:
-        pairs = s * t
-    flops = 4 * b * hq * d * pairs
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * t * d) * dtype.itemsize
-    return flops, nbytes
-
-
-def _bound(flops: dict, nbytes):
-    """The least time the card could take: the longest of the bytes at the
-    memory rate and, for each key of H100_PEAK_FLOPS in ``flops``, its
-    operations at that peak (the kinds run on separate units).  Returns
-    (ms, "operations" or "bytes")."""
-    t_ops = max(f / H100_PEAK_FLOPS[kind] for kind, f in flops.items())
-    t_bytes = nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def _qkv(b, hq, hkv, s, t, d, dtype, seed):
@@ -387,9 +377,9 @@ def time_flash(report: dict) -> list[dict]:
                                 iters=3, warmup=1, run_ahead=False)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), iters=20)
-            flops, nbytes = _attention_work(1, hq, hkv, s, s, d, dtype)
+            flops, nbytes = attention_work(1, hq, hkv, s, s, d, dtype)
             path = flash_path(q, k, v)
-            bound_ms, bound_by = _bound({FLASH_UNIT[path]: flops}, nbytes)
+            bound_ms, bound_by = bound({FLASH_UNIT[path]: flops}, nbytes)
             # the wrapper's time per call, host included: at these sizes
             # its Python and launch cost can exceed the kernel's
             call_ms = _time_ms(lambda: flash_attention(q, k, v), iters=20,
@@ -405,7 +395,7 @@ def time_flash(report: dict) -> list[dict]:
                 _require(flash_path(q_off, k, v) == "fma", "fma timing path")
                 row["fma_ms"] = _time_ms(lambda: flash_attention(q_off, k, v),
                                          iters=20)
-                row["fma_bound_ms"] = _bound({"float32": flops}, nbytes)[0]
+                row["fma_bound_ms"] = bound({"float32": flops}, nbytes)[0]
             rows.append(row)
             print(f"[time] flash_attention {row}", flush=True)
     report["flash_attention_timing"] = rows
@@ -431,16 +421,6 @@ FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (1, 8, 2, 33, 97, 128, True),
     (1, 16, 4, 200, 200, 64, True, True),
 ]
-
-
-def _attention_bwd_work(b, hq, hkv, s, t, d, dtype, causal=True):
-    """(flops, bytes) of attention's backward: the 5 products of its live
-    (query, key) pairs that the function needs (Q K^T, dO V^T, P^T dO,
-    dS^T Q, dS K), 2 D flops a pair each; q, k, v, o and dO read once, dq,
-    dk and dv written once."""
-    flops, _ = _attention_work(b, hq, hkv, s, t, d, dtype, causal)
-    nbytes = (4 * b * hq * s * d + 4 * b * hkv * t * d) * dtype.itemsize
-    return 5 * flops // 2, nbytes
 
 
 def _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed):
@@ -556,9 +536,9 @@ def time_flash_bwd(report: dict) -> dict:
     ms = {name: statistics.median(r) for name, r in rounds.items()}
     plain_ms = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do),
                         iters=1, warmup=1, run_ahead=False)
-    flops, nbytes = _attention_bwd_work(b, hq, hkv, s, t, d, dtype)
-    bound_ms, bound_by = _bound({"3xtf32": flops}, nbytes)
-    fma_bound_ms = _bound({"float32": flops}, nbytes)[0]
+    flops, nbytes = attention_bwd_work(b, hq, hkv, s, t, d, dtype)
+    bound_ms, bound_by = bound({"3xtf32": flops}, nbytes)
+    fma_bound_ms = bound({"float32": flops}, nbytes)[0]
     paths = {path: {"ms": ms[path], "ms_rounds": rounds[path],
                     "tflops": flops / (ms[path] * 1e-3) / 1e12,
                     "bound_ms": bound, "bound_share": bound / ms[path]}
@@ -578,28 +558,6 @@ def time_flash_bwd(report: dict) -> dict:
     torch.cuda.empty_cache()
     report["flash_attention_bwd_timing"] = row
     return row
-
-
-def _ssd_work(b, s, h, d, n, dtype, narrow_d):
-    """(flops by kind, bytes) the SSD scan needs at the kernel's chunk
-    length L.  Per chunk of l tokens, over the l (l + 1) / 2 live (t, u)
-    pairs of the causal triangle: C . B^T once per batch (b and c are
-    shared by the heads) and the decay of each pair per (batch, head),
-    float32 FMAs; per (batch, head) G @ x, and C . h^T and the state
-    update over l x D x N each, in 3xTF32 on the tensor cores where the
-    kernel puts them there (D >= ``narrow_d``), else FMAs.  x, a, b, c
-    read once, y written once."""
-    from repro_torch.kernels.ssd_scan import CHUNK
-    fma = mma = 0
-    for t0 in range(0, s, CHUNK):
-        ln = min(CHUNK, s - t0)
-        pairs = ln * (ln + 1) // 2
-        fma += b * 2 * pairs * n + b * h * pairs
-        mma += b * h * (2 * pairs * d + 4 * ln * d * n)
-    flops = ({"float32": fma, "3xtf32": mma} if d >= narrow_d
-             else {"float32": fma + mma})
-    nbytes = (2 * b * s * h * d + b * s * h + 2 * b * s * n) * dtype.itemsize
-    return flops, nbytes
 
 
 def _ssd_inputs(b, s, h, d, n, dtype, decay, seed):
@@ -677,14 +635,18 @@ def check_ssd(report: dict) -> float:
 
 def time_ssd(report: dict) -> list[dict]:
     """Kernel, plain version and the bound (the products the kernel runs in
-    3xTF32 at that rate, ``_ssd_work``) at the served shapes, float32
+    3xTF32 at that rate, ``work.ssd_work``) at the served shapes, float32
     (no single PyTorch call computes the scan: library_ms is null), with
     the wrapper's time per call, host included (``call_ms``), and the
     passes' scratch (``scratch_mb``, the design's cost, not in the
     bound)."""
     import torch
-    from repro_torch.kernels.ssd_scan import (narrow_d, scratch_floats,
-                                              ssd_scan, ssd_scan_plain)
+    from repro_torch.kernels.ssd_scan import (NARROW_D, narrow_d,
+                                              scratch_floats, ssd_scan,
+                                              ssd_scan_plain)
+    _require(narrow_d() == NARROW_D,
+             f"the built SSD kernel's NARROW_D {narrow_d()} is the meta "
+             f"path's {NARROW_D}")
     rows = []
     for s in (256, 1024):
         for label, (b, h, d, n, decay) in (
@@ -698,9 +660,9 @@ def time_ssd(report: dict) -> list[dict]:
                                 iters=3, warmup=1, run_ahead=False)
             call_ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20,
                                run_ahead=False)
-            flops, nbytes = _ssd_work(b, s, h, d, n, torch.float32,
-                                      narrow_d())
-            bound_ms, bound_by = _bound(flops, nbytes)
+            flops, nbytes = ssd_work(b, s, h, d, n, torch.float32,
+                                     narrow_d())
+            bound_ms, bound_by = bound(flops, nbytes)
             row = {"case": label, "dtype": "float32", "shape": [b, s, h, d, n],
                    "ms": ms, "call_ms": call_ms,
                    "scratch_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
@@ -716,48 +678,21 @@ def time_ssd(report: dict) -> list[dict]:
     return rows
 
 
-def _ssd_bwd_work(b, s, h, d, n, dtype, kept: bool):
-    """(flops by kind, bytes) the SSD scan's backward needs at the chunk
-    length L, with C . B^T, Acum and h_c ``kept`` from the forward's
-    scratch, or else computed again.  Per chunk of l tokens, over its l (l
-    + 1) / 2 live (t, u) pairs: the decay of each pair per (batch, head)
-    and, computed again, C . B^T per batch, FMAs; per (batch, head) the
-    four pair products G^T dy, M = dy x^T, M B and M^T C, and the l x D x
-    N products: the dual's local states and the carries B R, dy h^T and x
-    R^T, and computed again the forward's local states, priced at
-    3xTF32's rate: the least time at float32's accuracy (``fma_bound_ms``
-    prices them at the FMA peak).  x, a, b, c, y and dy read once, and the
-    kept scratch (float32); dx, da, db and dc written once."""
-    from repro_torch.kernels.ssd_scan import CHUNK, scratch_floats
-    fma = mma = 0
-    for t0 in range(0, s, CHUNK):
-        ln = min(CHUNK, s - t0)
-        pairs = ln * (ln + 1) // 2
-        fma += b * h * pairs + (0 if kept else b * 2 * pairs * n)
-        mma += b * h * (4 * pairs * d + 4 * pairs * n
-                        + (8 if kept else 10) * ln * d * n)
-    nbytes = (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n) * (
-        dtype.itemsize)
-    if kept:
-        nbytes += 4 * scratch_floats(b, s, h, d, n)
-    return {"float32": fma, "3xtf32": mma}, nbytes
-
-
 def _ssd_bwd_bound(b, s, h, d, n, dtype) -> dict:
     """The SSD backward's bound: the least time of the gradient, the
-    smaller of its two ways' (``_ssd_bwd_work``: C . B^T, Acum and h_c
+    smaller of its two ways' (``work.ssd_bwd_work``: C . B^T, Acum and h_c
     kept, which the kernel reads, or computed again).  Both ways' bounds,
     and the smaller's ms, bytes or operations, way and FMA-priced
     bound."""
     ways = {}
     for way in ("kept", "recompute"):
-        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, dtype, way == "kept")
-        ways[way] = (*_bound(flops, nbytes), flops, nbytes)
+        flops, nbytes = ssd_bwd_work(b, s, h, d, n, dtype, way == "kept")
+        ways[way] = (*bound(flops, nbytes), flops, nbytes)
     way = min(ways, key=lambda k: ways[k][0])
     ms, by, flops, nbytes = ways[way]
     return {"bound_ms": ms, "bound_by": by, "bound_way": way,
             "bound_ms_by_way": {k: v[0] for k, v in ways.items()},
-            "fma_bound_ms": _bound({"float32": sum(flops.values())},
+            "fma_bound_ms": bound({"float32": sum(flops.values())},
                                    nbytes)[0]}
 
 
@@ -884,7 +819,7 @@ def time_ssd_bwd(report: dict) -> dict:
                            iters=10, run_ahead=False)
         plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins, saved=saved),
                             iters=2, warmup=1, run_ahead=False)
-        flops, nbytes = _ssd_bwd_work(b, s, h, d, n, torch.float32, True)
+        flops, nbytes = ssd_bwd_work(b, s, h, d, n, torch.float32, True)
         rows[label] = {
             "case": f"{label}_train", "dtype": "float32",
             "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
@@ -1079,7 +1014,7 @@ def _timing_row(kernel, plain, library, flops, nbytes, dtype_name, *,
     ms = _time_ms(kernel, iters=iters)
     plain_ms = _time_ms(plain, iters=plain_iters, warmup=1, run_ahead=False)
     lib_ms = _time_ms(library, iters=iters)
-    bound_ms, bound_by = _bound({dtype_name: flops}, nbytes)
+    bound_ms, bound_by = bound({dtype_name: flops}, nbytes)
     return {"dtype": dtype_name, **extra, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "kernel_over_bound": ms / bound_ms}
@@ -1196,10 +1131,11 @@ def node_work(kind: str, inputs):
 
 
 def run_node_dag(tiles: dict, device, *, slowdown=SLOW_PLACE, seed=0,
-                 timeout: float = 300.0):
+                 timeout: float = 300.0, sched=None):
     """``mixed_dag`` of the matmul, copy and stencil types (96 tasks, 4 a
     layer, the first of each layer HIGH) on the port's threaded runtime:
-    ``tpu_pod_slices(2, 2)`` under DAM-C, with ``slowdown`` injected.
+    ``tpu_pod_slices(2, 2)`` under DAM-C (or the scheduler ``sched``), with
+    ``slowdown`` injected.
     Every task's payload runs its kernel on the type's inputs and, on the
     card, returns when the card has finished (so the PTT learns card
     time).  Returns (metrics, scheduler, {kind: [output of each task]},
@@ -1225,7 +1161,8 @@ def run_node_dag(tiles: dict, device, *, slowdown=SLOW_PLACE, seed=0,
             done.synchronize()
         outputs[kind].append(out)
 
-    sched = make_scheduler("DAM-C", tpu_pod_slices(2, 2), seed=seed)
+    if sched is None:
+        sched = make_scheduler("DAM-C", tpu_pod_slices(2, 2), seed=seed)
     dag = mixed_dag(list(types.values()), parallelism=NODE_PARALLELISM,
                     total_tasks=NODE_TASKS)
     for task in dag.all_tasks():
@@ -1234,11 +1171,13 @@ def run_node_dag(tiles: dict, device, *, slowdown=SLOW_PLACE, seed=0,
     return metrics, sched, outputs, inputs, kind_of
 
 
-def node_dag(report: dict) -> dict:
-    """The node path on the card: a warm-up run of the DAG (it fills the
-    allocator's cache with the outputs' blocks), then the counted run with
-    the launch counts set to 0 just before it and read just after."""
-    import statistics
+def _counted_node_run(sched=None) -> dict:
+    """One run of the node DAG on the card (under ``sched``, if given),
+    the launch counts set to 0 just before it and read just after, held to
+    the node path's checks: every task commits, each kernel's launches
+    equal its tasks (the stencil's 4 a task), every matmul takes the
+    pipelined float32 kernel, the outputs of a type are equal and agree
+    with the plain version.  Returns the run's pieces by name."""
     import torch
     from repro_torch.kernels import copy, matmul, stencil
     from repro_torch.kernels.copy import copy_plain
@@ -1247,17 +1186,11 @@ def node_dag(report: dict) -> dict:
     counters = {"matmul": matmul.launches, "copy": copy.launches,
                 "stencil": stencil.launches}
     mm_paths = matmul.path_launches
-    warm, *_ = run_node_dag(NODE_TILES, DEVICE)
-    _require(warm.n_tasks == NODE_TASKS and not warm.errors,
-             f"warm-up node DAG: {warm.n_tasks} tasks, {warm.errors}")
-    del warm, _
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     for c in (*counters.values(), *mm_paths.values()):
         c.reset()
     t0 = time.perf_counter()
-    metrics, sched, outputs, inputs, kind_of = run_node_dag(NODE_TILES, DEVICE)
+    metrics, sched, outputs, inputs, kind_of = run_node_dag(
+        NODE_TILES, DEVICE, sched=sched)
     wall = time.perf_counter() - t0
     n_launch = {name: c.count for name, c in counters.items()}
     n_mm_path = {path: c.count for path, c in mm_paths.items()}
@@ -1292,6 +1225,29 @@ def node_dag(report: dict) -> dict:
     for kind, (ok, err) in agree.items():
         _require(ok, f"node DAG {kind} output against the plain version: "
                      f"max abs err {err}")
+    return {"metrics": metrics, "sched": sched, "outputs": outputs,
+            "inputs": inputs, "kind_of": kind_of, "wall": wall,
+            "launches": n_launch, "mm_paths": n_mm_path, "agree": agree,
+            "tasks_by_type": n_tasks}
+
+
+def node_dag(report: dict) -> dict:
+    """The node path on the card: a warm-up run of the DAG (it fills the
+    allocator's cache with the outputs' blocks), then the counted run
+    (``_counted_node_run``)."""
+    import statistics
+    import torch
+    warm, *_ = run_node_dag(NODE_TILES, DEVICE)
+    _require(warm.n_tasks == NODE_TASKS and not warm.errors,
+             f"warm-up node DAG: {warm.n_tasks} tasks, {warm.errors}")
+    del warm, _
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    run = _counted_node_run()
+    metrics, sched, kind_of = run["metrics"], run["sched"], run["kind_of"]
+    n_tasks, n_launch, agree = (run["tasks_by_type"], run["launches"],
+                                run["agree"])
 
     def unslowed(r):
         return not any(c in SLOW_PLACE for c in range(r.leader,
@@ -1310,7 +1266,7 @@ def node_dag(report: dict) -> dict:
         "parallelism": NODE_PARALLELISM, "scheduler": "DAM-C",
         "slowdown": {str(k): v for k, v in SLOW_PLACE.items()},
         "committed": metrics.n_tasks, "tasks_by_type": n_tasks,
-        "makespan_s": metrics.makespan, "wall_with_inputs_s": wall,
+        "makespan_s": metrics.makespan, "wall_with_inputs_s": run["wall"],
         "tasks_per_s": metrics.throughput,
         "median_task_ms_unslowed": median_ms,
         "high_share_on_slowed_place": (sum(not unslowed(r) for r in high)
@@ -1318,12 +1274,12 @@ def node_dag(report: dict) -> dict:
         "high_placement": metrics.priority_placement(),
         "placement_counts": metrics.placement_counts(),
         "ptt_ms": ptt, "launches": n_launch,
-        "matmul_launches_by_path": n_mm_path,
+        "matmul_launches_by_path": run["mm_paths"],
         "plain_agreement_max_abs_err": {k: v[1] for k, v in agree.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"[node_dag] {out}", flush=True)
-    del outputs, inputs
+    del run
     torch.cuda.empty_cache()
     report["node_dag"] = out
     return out
@@ -2291,6 +2247,230 @@ def train(report: dict) -> dict:
     return trained
 
 
+# -- phase 9: dry-run and placement -----------------------------------------------
+# (a) The dry-run's meta sweep in this process: every arch x shape on both
+# production meshes, but xlstm-125m's train_4k and prefill_32k, which run
+# its sLSTM loop once a token on the meta device too (4096 and 32768 steps
+# x 3 layers, each op a meta kernel written in Python): 247-508 s a cell
+# on the CPU (PERF.md), past this phase's share of the run;
+# ``python -m repro_torch.launch.dryrun --all --mesh both`` runs them.
+DRYRUN_MESHES = ("single", "multi")
+DRYRUN_LEFT_OUT = {("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")}
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+# (b) phase 8's first training run, as a host-mesh cell: the argument bytes
+# the dry-run predicts are held to what the card allocates for them
+GROUND = {"arch": "granite-8b", "layers": 8, "batch": 2, "seq": 2048}
+GROUND_ARG_TOL = 0.01
+# (c) the torch placement score: the node DAG under a queue penalty, and
+# seeded draws of (PTT values, loads) scored on the card
+SCORE_PENALTY = 0.05
+SCORE_DRAWS = 10_000
+
+
+def dryrun_sweep() -> dict:
+    """Phase 9 (a): ``dryrun.run_cell`` for every mesh of ``DRYRUN_MESHES``
+    (fake process group, meta device) x arch x shape, but
+    ``DRYRUN_LEFT_OUT``; no cell may fail."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(arch, shape, mesh, DRYRUN_OUT)
+            for mesh in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES
+            if (arch, shape) not in DRYRUN_LEFT_OUT]
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("OK", "SKIPPED", "FAIL")}
+    out = {"counts": counts, "seconds": time.perf_counter() - t0,
+           "left_out": sorted(DRYRUN_LEFT_OUT),
+           "cells": {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
+               k: r.get(k) for k in ("status", "seconds", "params_counted",
+                                     "fits_hbm", "error")}
+               for r in recs}}
+    print(f"[dryrun] sweep: {counts['OK']} OK, {counts['SKIPPED']} skipped, "
+          f"{counts['FAIL']} failed of {len(recs)} cells in "
+          f"{out['seconds']:.1f} s", flush=True)
+    _require(counts["FAIL"] == 0, "dry-run cells failed: " + ", ".join(
+        k for k, v in out["cells"].items() if v["status"] == "FAIL"))
+    return out
+
+
+def dryrun_grounding() -> dict:
+    """Phase 9 (b): the host-mesh dry-run cell of ``GROUND`` (float32, B x
+    S, one microbatch, remat, the dry-run's step) against the same step on
+    the card: the predicted argument bytes (params, AdamW state, batch)
+    within ``GROUND_ARG_TOL`` of what ``memory_allocated`` grows by when
+    they are built; the predicted peak (arguments + the step's
+    temporaries) beside ``max_memory_allocated``'s growth over the step;
+    the counted flops beside 6 N tokens."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = dataclasses.replace(get_config(GROUND["arch"]),
+                              n_layers=GROUND["layers"])
+    shape = InputShape("train_b2_s2048", "train", GROUND["seq"],
+                       GROUND["batch"])
+    rec = dryrun.run_cell(cfg.name, shape.name, "host", DRYRUN_OUT, cfg=cfg,
+                          shape=shape, mesh=make_host_mesh(), n_micro=1)
+    _require(rec["status"] == "OK", f"host dry-run cell: {rec.get('error')}")
+    pred_args = sum(rec["argument_bytes_per_device"].values())
+    pred_peak = pred_args + rec["memory"]["temp_bytes_per_device"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    opt_state = init_opt_state(params)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (shape.global_batch,
+                                             shape.seq_len),
+                              generator=g, device=DEVICE, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    micro_grad, update = dryrun.make_accum_train_step(cfg, AdamWConfig(),
+                                                      n_micro=1)
+    t0 = time.perf_counter()
+    gsum, loss = micro_grad(params, batch, None)
+    update(params, opt_state, gsum)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(loss)
+    del params, opt_state, batch, gsum
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"cell": f"{cfg.name} x {cfg.n_layers} layers, float32, B "
+                   f"{shape.global_batch} x S {shape.seq_len}, remat",
+           "predicted_args_bytes": pred_args, "allocated_args_bytes": args,
+           "args_rel_err": abs(args - pred_args) / pred_args,
+           "predicted_peak_bytes": pred_peak, "measured_peak_bytes": peak,
+           "peak_ratio": pred_peak / peak,
+           "counted_flops": rec["work"]["flops"],
+           "model_flops_6nt": rec["roofline"]["model_flops"],
+           "counted_over_6nt": rec["work"]["flops"]
+           / rec["roofline"]["model_flops"],
+           "kernels": rec["work"]["parts"]["micro"]["kernels"],
+           "step_s": step_s, "loss": loss,
+           "dryrun_s": rec["seconds"]}
+    print(f"[dryrun] grounding {out['cell']}: arguments predicted "
+          f"{pred_args / 1e9:.4f} GB, allocated {args / 1e9:.4f} GB (rel "
+          f"{out['args_rel_err']:.2e}); peak predicted {pred_peak / 1e9:.2f} "
+          f"GB, measured {peak / 1e9:.2f} GB (ratio {out['peak_ratio']:.3f});"
+          f" flops counted {out['counted_flops']:.4e}, 6 N tokens "
+          f"{out['model_flops_6nt']:.4e} ({out['counted_over_6nt']:.3f}x); "
+          f"step {step_s:.2f} s", flush=True)
+    _require(out["args_rel_err"] <= GROUND_ARG_TOL,
+             f"predicted argument bytes {pred_args} against {args} "
+             f"allocated")
+    _require(math.isfinite(loss), f"grounding step's loss {loss}")
+    return out
+
+
+def _ulps(a, b):
+    """Distance in float32 ulps of float32 arrays of one sign."""
+    import numpy as np
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+def placement_on_card() -> dict:
+    """Phase 9 (c): the node DAG once more under DAM-C with
+    ``queue_penalty=SCORE_PENALTY``, ``track_load`` and
+    ``placement_backend="torch"`` (the score on the card), held to the node
+    path's checks (``_counted_node_run``), with the hook's calls counted
+    and timed; then ``SCORE_DRAWS`` seeded draws of (PTT values, loads,
+    penalty) scored on the card against numpy: within 1 float32 ulp of its
+    float32 evaluation of the inputs rounded to float32 (as the hook takes
+    them), within 2 of its float64 scores rounded (no float32 evaluation
+    holds 1 there: the inputs are rounded first), and where the two lowest
+    float32 scores lie more than 2 ulps apart, the same argmin."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_scheduler, tpu_pod_slices
+    sched = make_scheduler("DAM-C", tpu_pod_slices(2, 2), seed=0,
+                           queue_penalty=SCORE_PENALTY, track_load=True,
+                           placement_backend="torch")
+    hook = sched.score_fn
+    calls = []
+
+    def timed(vals, load, penalty):
+        t0 = time.perf_counter()
+        score = hook(vals, load, penalty)
+        calls.append((load is not None, time.perf_counter() - t0))
+        return score
+
+    sched.score_fn = timed
+    run = _counted_node_run(sched)
+    on_card = [dt for loaded, dt in calls if loaded]
+    _require(on_card, "no placement search scored a load on the card")
+    node = {"committed": run["metrics"].n_tasks,
+            "makespan_s": run["metrics"].makespan,
+            "launches": run["launches"], "score_calls": len(calls),
+            "score_calls_on_card": len(on_card),
+            "score_us_per_call": 1e6 * sum(on_card) / len(on_card),
+            "plain_agreement_max_abs_err": {
+                k: v[1] for k, v in run["agree"].items()}}
+    del run
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    worst = {"float32": 0, "float64": 0}
+    at = {"float32": [0, 0], "float64": [0, 0, 0]}
+    argmin_checked = argmin_same = 0
+    t0 = time.perf_counter()
+    for _ in range(SCORE_DRAWS):
+        n = int(rng.integers(2, 65))
+        vals = rng.exponential(1e-3, n)
+        load = rng.exponential(5e-3, n)
+        penalty = float(rng.uniform(0.0, 1.0))
+        got = hook(vals, load, penalty)
+        want = {"float32": (vals.astype(np.float32) + np.float32(penalty)
+                            * load.astype(np.float32)),
+                "float64": (vals + penalty * load).astype(np.float32)}
+        for k, w in want.items():
+            u = _ulps(got, w)
+            worst[k] = max(worst[k], int(u.max()))
+            for i in range(len(at[k])):
+                at[k][i] += int((u == i).sum())
+        lo = np.argsort(want["float32"], kind="stable")[:2]
+        if _ulps(want["float32"][lo[1:]], want["float32"][lo[:1]])[0] > 2:
+            argmin_checked += 1
+            argmin_same += int(np.argmin(got) == lo[0])
+    draws_s = time.perf_counter() - t0
+    out = {"node_dag": node, "draws": SCORE_DRAWS,
+           "worst_ulps": worst, "elements_at_ulps": at,
+           "argmin_checked": argmin_checked, "argmin_same": argmin_same,
+           "draw_us_per_call": 1e6 * draws_s / SCORE_DRAWS}
+    print(f"[placement] torch score on the card: node DAG {node['committed']}"
+          f" tasks committed, {node['score_calls_on_card']} of "
+          f"{node['score_calls']} score calls on the card, "
+          f"{node['score_us_per_call']:.1f} us a call; {SCORE_DRAWS} draws: "
+          f"worst {worst} ulps, argmin same {argmin_same} of "
+          f"{argmin_checked}, {out['draw_us_per_call']:.1f} us a call",
+          flush=True)
+    _require(worst["float32"] <= 1 and worst["float64"] <= 2,
+             f"card scores off numpy's by {worst} ulps")
+    _require(argmin_same == argmin_checked,
+             f"argmin differs on {argmin_checked - argmin_same} draws")
+    return out
+
+
+def dryrun_and_placement(report: dict) -> dict:
+    """Phase 9: (a) the meta sweep, (b) the grounding on the card, (c) the
+    torch placement score on the card."""
+    out = {"sweep": dryrun_sweep(), "grounding": dryrun_grounding(),
+           "placement": placement_on_card()}
+    report["dryrun_placement"] = out
+    return out
+
+
 def _rel_by_token(got, want) -> list[float]:
     """``_rel`` of each token's logits (the last axis) apart."""
     got, want = got.double().cpu(), want.double().cpu()
@@ -2379,6 +2559,9 @@ def main() -> int:
     trained = train(report)
     for key, out in trained.items():
         phase_s[key] = out["phase_s"]
+    mark[0] = time.perf_counter()
+    dryrun_and_placement(report)
+    lap("dryrun_placement")
     report["phase_s"] = phase_s
     report["total_s"] = time.perf_counter() - t_run
     print(f"[time] {report['total_s']:.1f} s in all; by phase "

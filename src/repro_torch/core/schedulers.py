@@ -357,10 +357,13 @@ def make_scheduler(name: str, topology: Topology, *, seed: int = 0,
         score_fn = None
     elif placement_backend == "jax":
         raise ValueError("placement_backend='jax' needs the JAX package; "
-                         "the torch placement hook is not ported yet")
+                         "its counterpart here is placement_backend='torch'")
+    elif placement_backend == "torch":
+        from .placement_torch import make_score_fn
+        score_fn = make_score_fn()
     else:
         raise ValueError(f"unknown placement_backend {placement_backend!r} "
-                         "(expected 'numpy' or 'jax')")
+                         "(expected 'numpy' or 'torch')")
     n = name.upper()
     common = dict(topology=topology, ptt=bank, rng=rng,
                   tiebreak_rng=tiebreak_rng, revisit_eps=ptt_revisit,

@@ -60,6 +60,13 @@ kernels that would take the inputs (``BWD_SCHEDULE``).  The TPU kernel has
 no backward; this one computes what the JAX package's autodiff of
 ``attention_ref`` computes.  Under ``torch.no_grad()`` or
 ``torch.inference_mode()`` the forward launches as it always did.
+
+On the meta device (a dry-run's abstract step) the forward and the
+backward compute nothing: they return tensors of the outputs' shapes and
+dtypes and report the work a launch would do (``work.attention_work``,
+``work.attention_bwd_work``, the flops and bytes ``chip_smoke.py`` prices
+in the bound) through ``work.report``.  Any device but the CPU, CUDA and
+meta raises.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ import ctypes
 
 import torch
 
+from . import work
 from .common import LaunchCounter
 
 BQ = 64     # query rows per tile (BQ, x3::BQ, fa::BQ in the .cu)
@@ -132,7 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     _check(q, k, v, causal)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no flash attention for device {q.device}")
     return FlashAttention.apply(q, k, v, causal,
                                 q.shape[3] ** -0.5 if scale is None
@@ -149,7 +157,8 @@ class FlashAttention(torch.autograd.Function):
             o = flash_attention_plain(q, k, v, causal=causal, scale=scale)
         else:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            o = _launch(q, k, v, causal, scale)
+            o = (_meta(q, k, v, causal) if q.device.type == "meta"
+                 else _launch(q, k, v, causal, scale))
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v, o)
         ctx.causal, ctx.scale = causal, scale
@@ -175,8 +184,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          scale=scale)
-    return _launch_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                       o.contiguous(), do.contiguous(), causal, scale)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"no flash attention backward for device "
+                         f"{q.device}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if q.device.type == "meta":
+        return _meta_bwd(q, k, v, causal)
+    return _launch_bwd(q, k, v, o, do, causal, scale)
 
 
 _ENTRY = {"wgmma": "repro_flash_attention_wgmma",
@@ -232,6 +246,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     launches.add()
     path_launches[path].add()
     return o
+
+
+def _meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          causal: bool) -> torch.Tensor:
+    """The forward on the meta device: the output's shape and dtype, and
+    the kernel's work reported (``work.report``) in place of a launch."""
+    b, hq, s, d = q.shape
+    flops, nbytes = work.attention_work(b, hq, k.shape[1], s, k.shape[2], d,
+                                        q.dtype, causal)
+    # the kind of unit of the aligned path's products: wgmma or tf32x3
+    unit = "bfloat16" if q.dtype == torch.bfloat16 else "3xtf32"
+    work.report("flash_attention", {unit: flops}, nbytes)
+    return torch.empty_like(q)
+
+
+def _meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> tuple[torch.Tensor, ...]:
+    """The backward on the meta device: (dq, dk, dv) and, while the call
+    lasts, the log-sum-exp and Delta scratch the kernels allocate; the
+    work reported in place of a launch (float32 on the aligned path,
+    ``tf32x3``; bfloat16 on ``fma``)."""
+    b, hq, s, d = q.shape
+    flops, nbytes = work.attention_bwd_work(b, hq, k.shape[1], s, k.shape[2],
+                                            d, q.dtype, causal)
+    grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    x3 = q.dtype == torch.float32
+    rows = -(-s // BWD_PAD) * BWD_PAD if x3 else s
+    scratch = torch.empty((2, b, hq, rows), dtype=torch.float32,
+                          device=q.device)
+    work.report("flash_attention_bwd", {"3xtf32" if x3 else "float32": flops},
+                nbytes)
+    del scratch
+    return grads
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

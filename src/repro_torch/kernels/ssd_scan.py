@@ -65,6 +65,14 @@ of ``ssd_ref`` computes.  Under ``torch.no_grad()`` or
 ``torch.inference_mode()``, or with no input that requires grad, the
 forward launches as it always did, outside the Function, and saves
 nothing.
+
+On the meta device (a dry-run's abstract step) the forward, the kept
+scratch and the backward compute nothing: they return tensors of the
+shapes and dtypes the kernels give (the scratch too, so that ``SSDScan``
+saves what its backward reads) and report the work a launch would do
+(``work.ssd_work``, ``work.ssd_bwd_work`` with the scratch kept, the flops
+and bytes ``chip_smoke.py`` prices in the bound) through ``work.report``.
+Any device but the CPU, CUDA and meta raises.
 """
 from __future__ import annotations
 
@@ -73,9 +81,15 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import work
 from .common import LaunchCounter
 
 CHUNK = 64     # tokens per chunk (L in csrc/ssd_scan.cu)
+# D below which passes 2 and 4 run as FMAs (NARROW_D in csrc/ssd_chunk.cuh,
+# which :func:`narrow_d` reads from the built kernel); the meta path prices
+# the products by it
+NARROW_D = 16
+_DEVICES = ("cpu", "cuda", "meta")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
@@ -101,7 +115,7 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     _check(x, a, b, c)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _DEVICES:
         raise ValueError(f"no SSD scan for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         return SSDScan.apply(x, a, b, c)
@@ -114,7 +128,23 @@ def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         y, saved = _plain_forward(x, a, b, c, keep)
         return (y, saved) if keep else y
+    if x.device.type == "meta":       # with the copies _launch makes
+        x, a, b, c = (t.contiguous() for t in (x, a, b, c))
+        return _meta_forward(x, b.shape[2], keep)
     return _launch(x, a, b, c, keep)
+
+
+def _meta_forward(x: torch.Tensor, n: int, keep: bool):
+    """The forward on the meta device: y, with ``keep`` also the scratch
+    the kernel keeps; its work reported in place of a launch."""
+    bsz, s, h, d = x.shape
+    flops, nbytes = work.ssd_work(bsz, s, h, d, n, x.dtype, NARROW_D)
+    work.report("ssd_scan", flops, nbytes)
+    y = torch.empty_like(x)
+    if not keep:
+        return y
+    return y, torch.empty(scratch_floats(bsz, s, h, d, n),
+                          dtype=torch.float32, device=x.device)
 
 
 def ssd_scan_keep(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -125,7 +155,7 @@ def ssd_scan_keep(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     other (``scratch_floats`` of them).  The kernel's own scratch on the
     card, the plain version's on the CPU."""
     _check(x, a, b, c)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _DEVICES:
         raise ValueError(f"no SSD scan for device {x.device}")
     return _forward(x, a, b, c, True)
 
@@ -163,15 +193,17 @@ def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
                              f"{t.device} does not fit x {tuple(x.shape)} "
                              f"{x.dtype} on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _DEVICES:
         raise ValueError(f"no SSD scan backward for device {x.device}")
     if saved is None:
         saved = _forward(x, a, b, c, True)[1]
     _check_saved(x, b.shape[2], saved)
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, a, b, c, y, dy, saved)
-    return _launch_bwd(*(t.contiguous() for t in (x, a, b, c, y, dy)),
-                       saved)
+    ins = tuple(t.contiguous() for t in (x, a, b, c, y, dy))
+    if x.device.type == "meta":
+        return _meta_bwd(*ins[:4])
+    return _launch_bwd(*ins, saved)
 
 
 def _check_saved(x: torch.Tensor, n: int, saved: torch.Tensor) -> None:
@@ -267,6 +299,22 @@ def bwd_scratch_floats(bsz: int, s: int, h: int, d: int, n: int) -> int:
     nc = -(-s // CHUNK)
     return (bsz * nc * h * (CHUNK * CHUNK + CHUNK + n * d)
             + 2 * bsz * s * h * n)
+
+
+def _meta_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The backward on the meta device: (dx, da, db, dc) and, while the
+    call lasts, the kernel's own scratch; its work (the scratch kept)
+    reported in place of a launch."""
+    bsz, s, h, d = x.shape
+    n = b.shape[2]
+    flops, nbytes = work.ssd_bwd_work(bsz, s, h, d, n, x.dtype, kept=True)
+    grads = tuple(torch.empty_like(t) for t in (x, a, b, c))
+    scratch = torch.empty(bwd_scratch_floats(bsz, s, h, d, n),
+                          dtype=torch.float32, device=x.device)
+    work.report("ssd_scan_bwd", flops, nbytes)
+    del scratch
+    return grads
 
 
 def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -1,0 +1,128 @@
+"""The work of the hand-written kernels, from their shapes: the flops (by
+the kind of unit that runs them) and the bytes each function needs, and the
+least time an H100 could take for them.
+
+One copy read by two callers: ``chip_smoke.py`` prices each kernel's bound
+with it, and on the meta device the wrappers of flash attention and the
+SSD scan report it (:func:`report`) to whatever counts the work of a step
+(``launch/op_analysis.py``), since a kernel is no aten op that a counter of
+the op stream could price.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+# dense peaks of the H100 SXM data sheet at 700 W
+H100_BYTES_PER_S = 3.35e12               # HBM3
+H100_HBM_BYTES = 80e9
+H100_PEAK_FLOPS = {"float32": 67e12,     # float32 outside the tensor cores
+                   "bfloat16": 989e12,   # tensor cores
+                   "3xtf32": 495e12 / 3}  # TF32 tensor cores, 3 products each
+
+
+def bound(flops: dict, nbytes) -> tuple[float, str]:
+    """The least time the card could take: the longest of the bytes at the
+    memory rate and, for each key of H100_PEAK_FLOPS in ``flops``, its
+    operations at that peak (the kinds run on separate units).  Returns
+    (ms, "operations" or "bytes")."""
+    t_ops = max(f / H100_PEAK_FLOPS[kind] for kind, f in flops.items())
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attention_work(b, hq, hkv, s, t, d, dtype, causal=True):
+    """(flops, bytes) the attention function needs on these shapes: 4*D
+    flops per live (query, key) pair; q, k, v read once, o written once."""
+    if causal:                       # row i sees keys 0 .. i + T - S
+        pairs = s * (t - s) + s * (s + 1) // 2
+    else:
+        pairs = s * t
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * t * d) * dtype.itemsize
+    return flops, nbytes
+
+
+def attention_bwd_work(b, hq, hkv, s, t, d, dtype, causal=True):
+    """(flops, bytes) of attention's backward: the 5 products of its live
+    (query, key) pairs that the function needs (Q K^T, dO V^T, P^T dO,
+    dS^T Q, dS K), 2 D flops a pair each; q, k, v, o and dO read once, dq,
+    dk and dv written once."""
+    flops, _ = attention_work(b, hq, hkv, s, t, d, dtype, causal)
+    nbytes = (4 * b * hq * s * d + 4 * b * hkv * t * d) * dtype.itemsize
+    return 5 * flops // 2, nbytes
+
+
+def ssd_work(b, s, h, d, n, dtype, narrow_d):
+    """(flops by kind, bytes) the SSD scan needs at the kernel's chunk
+    length L.  Per chunk of l tokens, over the l (l + 1) / 2 live (t, u)
+    pairs of the causal triangle: C . B^T once per batch (b and c are
+    shared by the heads) and the decay of each pair per (batch, head),
+    float32 FMAs; per (batch, head) G @ x, and C . h^T and the state
+    update over l x D x N each, in 3xTF32 on the tensor cores where the
+    kernel puts them there (D >= ``narrow_d``), else FMAs.  x, a, b, c
+    read once, y written once."""
+    from .ssd_scan import CHUNK
+    fma = mma = 0
+    for t0 in range(0, s, CHUNK):
+        ln = min(CHUNK, s - t0)
+        pairs = ln * (ln + 1) // 2
+        fma += b * 2 * pairs * n + b * h * pairs
+        mma += b * h * (2 * pairs * d + 4 * ln * d * n)
+    flops = ({"float32": fma, "3xtf32": mma} if d >= narrow_d
+             else {"float32": fma + mma})
+    nbytes = (2 * b * s * h * d + b * s * h + 2 * b * s * n) * dtype.itemsize
+    return flops, nbytes
+
+
+def ssd_bwd_work(b, s, h, d, n, dtype, kept: bool):
+    """(flops by kind, bytes) the SSD scan's backward needs at the chunk
+    length L, with C . B^T, Acum and h_c ``kept`` from the forward's
+    scratch, or else computed again.  Per chunk of l tokens, over its l (l
+    + 1) / 2 live (t, u) pairs: the decay of each pair per (batch, head)
+    and, computed again, C . B^T per batch, FMAs; per (batch, head) the
+    four pair products G^T dy, M = dy x^T, M B and M^T C, and the l x D x
+    N products: the dual's local states and the carries B R, dy h^T and x
+    R^T, and computed again the forward's local states, priced at
+    3xTF32's rate: the least time at float32's accuracy (``fma_bound_ms``
+    prices them at the FMA peak).  x, a, b, c, y and dy read once, and the
+    kept scratch (float32); dx, da, db and dc written once."""
+    from .ssd_scan import CHUNK, scratch_floats
+    fma = mma = 0
+    for t0 in range(0, s, CHUNK):
+        ln = min(CHUNK, s - t0)
+        pairs = ln * (ln + 1) // 2
+        fma += b * h * pairs + (0 if kept else b * 2 * pairs * n)
+        mma += b * h * (4 * pairs * d + 4 * pairs * n
+                        + (8 if kept else 10) * ln * d * n)
+    nbytes = (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n) * (
+        dtype.itemsize)
+    if kept:
+        nbytes += 4 * scratch_floats(b, s, h, d, n)
+    return {"float32": fma, "3xtf32": mma}, nbytes
+
+
+# -- the meta path's report -----------------------------------------------------
+
+_SINKS: list[list] = []
+
+
+@contextlib.contextmanager
+def collect() -> Iterator[list]:
+    """Within the block, every :func:`report` appends ``(kernel, flops by
+    kind, bytes)`` to the list this yields."""
+    sink: list = []
+    _SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _SINKS.remove(sink)
+
+
+def report(kernel: str, flops: dict, nbytes: int) -> None:
+    """One kernel call's work, as the meta path of its wrapper reports it
+    in place of a launch."""
+    for sink in _SINKS:
+        sink.append((kernel, dict(flops), int(nbytes)))
+

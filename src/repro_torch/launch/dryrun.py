@@ -1,0 +1,338 @@
+"""Dry-run: every (arch x shape x mesh) cell at full width and depth on the
+meta device, its shardings made real as DTensors, its work counted (port of
+``repro/launch/dryrun.py``).
+
+Per cell this driver:
+  1. builds the params, the AdamW state, the batch (``train_batch_specs``)
+     and the decode state (``init_decode_state``; its tokens from
+     ``decode_specs``) on the meta device: shapes and dtypes, no memory;
+  2. distributes every leaf as a DTensor on the mesh with the placements
+     of ``parallel/sharding.py``'s specs — the counterpart of the
+     reference's lower + compile: a spec that is no valid placement fails
+     the cell — and sums each device's argument bytes from the local
+     shards;
+  3. runs the step once on the meta device under ``op_analysis.analyze``
+     (one microbatch of a train step, whose flops and bytes count
+     ``n_micro`` times, then the AdamW update once): the flops, the bytes
+     and the peak of the temporaries, the kernels' work through their meta
+     path;
+  4. computes the roofline terms at the H100 SXM's dense peaks (989
+     TFLOP/s bfloat16, 3.35 TB/s, 80 GB a device; ``kernels/work.py``)
+     and writes one JSON record per cell.
+
+The step's work divides over the devices as the specs split it: per device
+is the whole over the device count (data, tensor and expert parallelism
+split every matmul and the batch; what a device does twice is not seen
+here).  The collectives the specs imply are not counted yet: ``collectives``
+is null with the reason.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --all [--mesh both] [--skip-existing]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..configs import (ARCHS, SHAPES, InputShape, ModelConfig, decode_specs,
+                       shape_applicable, train_batch_specs)
+from ..kernels import work
+from ..models import init_decode_state, init_params
+from ..optim import AdamWConfig, apply_updates, init_opt_state
+from ..optim.adamw import leaves, tree_map
+from ..parallel import (axis_sizes, batch_specs, decode_state_specs,
+                        distribute, dp_axes, opt_moment_specs, param_specs)
+from ..train import make_decode_step, make_grad_step, make_prefill_step
+from .mesh import make_host_mesh, make_production_mesh
+from .op_analysis import analyze
+
+PEAK_FLOPS = work.H100_PEAK_FLOPS["bfloat16"]
+HBM_BW = work.H100_BYTES_PER_S
+HBM_PER_DEVICE = work.H100_HBM_BYTES
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "chiprun_out" / "dryrun_torch"
+
+FSDP_BYTES_THRESHOLD = 2.5e9   # bf16 params per device above this -> FSDP
+COLLECTIVES_REASON = ("not counted yet: the collectives the specs imply "
+                      "(ROADMAP, Queue 1)")
+
+
+def n_micro_for(mesh) -> int:
+    """Grad-accum microbatches per train step: keep one sequence per DP
+    shard per microbatch (batch 256: 16 micro on single pod, 8 on multi)."""
+    sizes = axis_sizes(mesh)
+    dp = 1
+    for a in dp_axes(mesh):
+        dp *= sizes[a]
+    return max(1, 256 // dp)
+
+
+def make_accum_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                          n_micro: int, remat: bool = True):
+    """The reference's grad-accumulation train step, eager: the gradient of
+    each of ``n_micro`` microbatches summed into a float32 buffer (the
+    first microbatch's gradient itself where it is float32), divided by
+    ``n_micro`` in place, then one AdamW update.  Returns ``(micro_grad,
+    update)``: ``micro_grad(params, micro, gsum)`` gives the running sum
+    (``gsum`` None for the first) and the loss; ``update(params, opt_state,
+    gsum)`` gives (params, opt_state, info)."""
+    grad_step = make_grad_step(cfg, remat=remat)
+
+    def micro_grad(params, micro, gsum):
+        grads, metrics = grad_step(params, micro)
+        loss = metrics["total_loss"]
+        if gsum is None:
+            return tree_map(lambda g: g.to(torch.float32), grads), loss
+        for acc, g in zip(leaves(gsum), leaves(grads)):
+            acc.add_(g)
+        return gsum, loss
+
+    def update(params, opt_state, gsum):
+        if n_micro > 1:
+            for g in leaves(gsum):
+                g.div_(n_micro)
+        return apply_updates(params, gsum, opt_state, opt_cfg)
+
+    return micro_grad, update
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell's abstract arguments, their specs and its kind."""
+    cfg: ModelConfig
+    kind: str
+    args: dict          # name -> tree of meta tensors (the step's inputs)
+    specs: dict         # name -> spec tree
+    outs: dict          # name -> (tree, spec tree) of the step's outputs
+    n_micro: int
+    fsdp: bool
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def build_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
+               n_micro: int | None = None) -> Cell:
+    """The cell's trees on the meta device.  TP shards params over
+    "model"; where bf16 params per device still exceed the threshold (the
+    70B VLM, the 30B MoEs) FSDP adds "data", and the config takes
+    ``seq_parallel`` as the reference's launcher sets it."""
+    per_dev_param_bytes = cfg.n_params * 2 / axis_sizes(mesh)["model"]
+    use_fsdp = per_dev_param_bytes > FSDP_BYTES_THRESHOLD
+    cfg = dataclasses.replace(cfg, seq_parallel=use_fsdp)
+    params = init_params(cfg, device="meta")
+    args = {"params": params}
+    specs = {"params": param_specs(params, mesh, fsdp=use_fsdp)}
+    outs = {}
+    if shape.kind == "train":
+        opt = init_opt_state(params)
+        moments = opt_moment_specs(params, mesh)
+        args["opt_state"] = opt
+        specs["opt_state"] = {"m": moments, "v": moments, "step": ()}
+        if "master" in opt:
+            specs["opt_state"]["master"] = moments
+        batch = train_batch_specs(cfg, shape)
+        n_micro = n_micro or n_micro_for(mesh)
+    elif shape.kind == "prefill":
+        batch = train_batch_specs(cfg, shape)
+        del batch["labels"]
+        state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+        outs["state"] = (state, decode_state_specs(state, mesh))
+    else:
+        state = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+        args["state"] = state
+        specs["state"] = decode_state_specs(state, mesh)
+        batch = decode_specs(cfg, shape)
+    args["batch"] = batch
+    specs["batch"] = batch_specs(batch, mesh)
+    return Cell(cfg, shape.kind, args, specs, outs, n_micro or 1, use_fsdp)
+
+
+def analyze_cell(cell: Cell, shape: InputShape) -> dict:
+    """The step's work, whole: ``op_analysis`` of one microbatch of a train
+    step (its flops and bytes ``n_micro`` times) and of the update once;
+    of the prefill or the decode step once.  ``peak_bytes``: the most the
+    step holds beyond its arguments."""
+    cfg, a = cell.cfg, cell.args
+    if cell.kind == "train":
+        micro_grad, update = make_accum_train_step(
+            cfg, AdamWConfig(), n_micro=cell.n_micro)
+        size = shape.global_batch // cell.n_micro
+        micro = {k: v[:size] for k, v in a["batch"].items()}
+        held = {}
+
+        def one_micro():
+            held["gsum"], _ = micro_grad(a["params"], micro, None)
+
+        g = analyze(one_micro)
+        u = analyze(update, a["params"], a["opt_state"], held["gsum"])
+        gsum_bytes = _nbytes(held["gsum"])
+        return {"flops": cell.n_micro * g["flops"] + u["flops"],
+                "bytes": cell.n_micro * g["bytes"] + u["bytes"],
+                "peak_bytes": max(g["peak_bytes"],
+                                  gsum_bytes + u["peak_bytes"]),
+                "micro": g, "update": u}
+    with torch.no_grad():
+        if cell.kind == "prefill":
+            step = make_prefill_step(cfg, max_len=shape.seq_len)
+            return analyze(step, a["params"], a["batch"])
+        step = make_decode_step(cfg)
+        return analyze(step, a["params"], a["state"], a["batch"]["tokens"])
+
+
+def _local_bytes(dtree) -> int:
+    return sum(t.to_local().numel() * t.element_size()
+               for t in leaves(dtree))
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
+             skip_existing: bool = False, *, cfg: ModelConfig | None = None,
+             shape: InputShape | None = None, mesh=None,
+             n_micro: int | None = None) -> dict:
+    """One cell: ``ARCHS[arch]`` in bfloat16 at ``SHAPES[shape_name]`` on
+    the ``mesh_kind`` mesh (single, multi, host), or the ``cfg``,
+    ``shape`` and ``mesh`` given.  Writes and returns its record; a FAIL
+    record keeps its traceback."""
+    tag = f"{arch}__{shape_name}__{mesh_kind}"
+    path = Path(out_dir) / f"{tag}.json"
+    if skip_existing and path.exists():
+        return json.loads(path.read_text())
+    cfg_full = ARCHS[arch] if cfg is None else cfg
+    shape = SHAPES[shape_name] if shape is None else shape
+    ok, reason = shape_applicable(cfg_full, shape)
+    record: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_kind}
+    if not ok:
+        record.update(status="SKIPPED", reason=reason)
+        _write(path, record)
+        print(f"[dryrun] {tag}: SKIPPED ({reason.split(':')[0]})")
+        return record
+    t0 = time.perf_counter()
+    try:
+        if mesh is None:
+            mesh = (make_host_mesh() if mesh_kind == "host" else
+                    make_production_mesh(multi_pod=mesh_kind == "multi"))
+        n_dev = mesh.size()
+        base = (dataclasses.replace(cfg_full, dtype="bfloat16") if cfg is None
+                else cfg_full)
+        cell = build_cell(base, shape, mesh, n_micro=n_micro)
+        dist = {name: distribute(tree, cell.specs[name], mesh)
+                for name, tree in cell.args.items()}
+        out_dist = {name: distribute(tree, spec, mesh)
+                    for name, (tree, spec) in cell.outs.items()}
+        args_local = {name: _local_bytes(t) for name, t in dist.items()}
+        args_whole = {name: _nbytes(t) for name, t in cell.args.items()}
+        outs_local = {name: _local_bytes(t) for name, t in out_dist.items()}
+        del dist, out_dist
+        t_build = time.perf_counter() - t0
+        wk = analyze_cell(cell, shape)
+        t_analyze = time.perf_counter() - t0 - t_build
+
+        flops_dev = wk["flops"] / n_dev
+        bytes_dev = wk["bytes"] / n_dev
+        compute_s = flops_dev / PEAK_FLOPS
+        memory_s = bytes_dev / HBM_BW
+        tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                       else 1)
+        model_flops = (6 if shape.kind == "train" else 2) * (
+            cfg_full.n_active_params * tokens)
+        args_b = sum(args_local.values())
+        temp_b = wk["peak_bytes"] / n_dev
+        fits = args_b + temp_b <= HBM_PER_DEVICE
+        record.update(
+            status="OK", n_devices=n_dev,
+            mesh_shape=axis_sizes(mesh), device="meta",
+            build_s=t_build, analyze_s=t_analyze,
+            n_micro=cell.n_micro, fsdp=cell.fsdp,
+            params_counted=sum(t.numel() for t in leaves(cell.args["params"])),
+            params_analytic=cfg_full.n_params,
+            argument_bytes_per_device=args_local,
+            argument_bytes_whole=args_whole,
+            output_bytes_per_device=outs_local,
+            memory={"argument_bytes_per_device": args_b,
+                    "temp_bytes_whole": wk["peak_bytes"],
+                    "temp_bytes_per_device": temp_b,
+                    "per_device_bytes": args_b + temp_b},
+            fits_hbm=bool(fits),
+            work={"flops": wk["flops"], "bytes": wk["bytes"],
+                  "peak_bytes": wk["peak_bytes"],
+                  "flops_per_device": flops_dev,
+                  "bytes_per_device": bytes_dev,
+                  "parts": {k: v for k, v in wk.items()
+                            if k not in ("flops", "bytes", "peak_bytes")}},
+            collectives=None, collectives_reason=COLLECTIVES_REASON,
+            roofline={
+                "compute_s": compute_s, "memory_s": memory_s,
+                "dominant": "compute" if compute_s >= memory_s else "memory",
+                "model_flops": float(model_flops),
+                "flops_per_device": flops_dev,
+                "useful_flops_ratio": float(model_flops / max(wk["flops"],
+                                                              1.0)),
+                "peaks": {"flops": PEAK_FLOPS, "bytes_per_s": HBM_BW,
+                          "hbm_bytes": HBM_PER_DEVICE,
+                          "card": "H100 SXM data sheet, dense"},
+            },
+        )
+        print(f"[dryrun] {tag}: OK devices={n_dev} "
+              f"per-dev={int((args_b + temp_b) / 2 ** 20)}MiB fits={fits} "
+              f"compute={compute_s * 1e3:.1f}ms mem={memory_s * 1e3:.1f}ms "
+              f"(build {t_build:.1f}s analyze {t_analyze:.1f}s)", flush=True)
+    except Exception as e:  # record failures — they are bugs to fix
+        record.update(status="FAIL", error=f"{type(e).__name__}: {e}",
+                      traceback=traceback.format_exc()[-4000:])
+        print(f"[dryrun] {tag}: FAIL {type(e).__name__}: {e}", flush=True)
+    record["seconds"] = time.perf_counter() - t0
+    _write(path, record)
+    return record
+
+
+def _write(path: Path, record: dict) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(record, indent=1, default=str))
+
+
+def sweep(archs, shapes, meshes, out_dir, skip_existing=False) -> list[dict]:
+    """``run_cell`` over every (mesh, arch, shape); prints the counts."""
+    t0 = time.perf_counter()
+    results = [run_cell(arch, shape, mesh_kind, out_dir, skip_existing)
+               for mesh_kind in meshes for arch in archs for shape in shapes]
+    counts = {s: sum(r["status"] == s for r in results)
+              for s in ("OK", "SKIPPED", "FAIL")}
+    print(f"[dryrun] done: {counts['OK']} OK, {counts['SKIPPED']} skipped, "
+          f"{counts['FAIL']} FAILED of {len(results)} cells in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both", "host"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--out", default=str(OUT_DIR))
+    args = ap.parse_args()
+
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    archs = list(ARCHS) if args.arch is None else [args.arch]
+    shapes = list(SHAPES) if args.shape is None else [args.shape]
+    if not args.all and (args.arch is None or args.shape is None):
+        ap.error("pass --arch and --shape, or --all")
+    results = sweep(archs, shapes, meshes, args.out, args.skip_existing)
+    if any(r["status"] == "FAIL" for r in results):
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

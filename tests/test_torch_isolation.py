@@ -23,7 +23,7 @@ COPIED = (
     + [f"core/{n}.py" for n in (
         "places", "task", "ptt", "queues", "schedulers", "lifecycle",
         "metrics", "dag", "interference", "faults", "preemption", "shards",
-        "runtime")]
+        "runtime", "simulator", "multirun")]
     + ["serve/batching.py", "serve/overload.py"]
     + ["data/__init__.py", "data/pipeline.py"]
     + [f"runtime/{n}.py" for n in ("__init__", "elastic", "ft")]
@@ -33,11 +33,22 @@ COPIED = (
 EDITS = {
     "core/schedulers.py": [(
         '        from .placement_jax import make_score_fn\n'
-        '        score_fn = make_score_fn()\n',
+        '        score_fn = make_score_fn()\n'
+        '    else:\n'
+        '        raise ValueError(f"unknown placement_backend '
+        '{placement_backend!r} "\n'
+        '                         "(expected \'numpy\' or \'jax\')")\n',
         '        raise ValueError("placement_backend=\'jax\' needs the JAX '
         'package; "\n'
-        '                         "the torch placement hook is not ported '
-        'yet")\n',
+        '                         "its counterpart here is '
+        'placement_backend=\'torch\'")\n'
+        '    elif placement_backend == "torch":\n'
+        '        from .placement_torch import make_score_fn\n'
+        '        score_fn = make_score_fn()\n'
+        '    else:\n'
+        '        raise ValueError(f"unknown placement_backend '
+        '{placement_backend!r} "\n'
+        '                         "(expected \'numpy\' or \'torch\')")\n',
     )],
 }
 

@@ -27,7 +27,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ssd_scan import ssd_scan_pallas
-from repro_torch.kernels import ops, ref, ssd_scan
+from repro_torch.kernels import ops, ref, ssd_scan, work
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_path, launches)
@@ -348,22 +348,23 @@ def _chip_smoke():
     (4, 1024, 1, 1, 384, "bytes"),          # the mLSTM normalizer
 ])
 def test_ssd_bound_prices_each_product_at_its_unit(b, s, h, d, n, by):
-    """``chip_smoke.py``'s SSD bound: the products that the kernel runs in
+    """The SSD bound ``chip_smoke.py`` prices (``kernels/work.py``): the
+    products that the kernel runs in
     3xTF32 (D at or above its narrow threshold, 16) at a third of TF32's
     peak, the rest at the float32 FMA peak; the kinds add up to the same
     flops whichever path, and the bound is the longest of bytes and each
     kind's operations."""
-    cs = _chip_smoke()
-    wide, nbytes = cs._ssd_work(b, s, h, d, n, torch.float32, 16)
-    fma, nbytes_fma = cs._ssd_work(b, s, h, d, n, torch.float32, d + 1)
+    assert ssd_scan.NARROW_D == 16     # what the meta path prices by
+    wide, nbytes = work.ssd_work(b, s, h, d, n, torch.float32, 16)
+    fma, nbytes_fma = work.ssd_work(b, s, h, d, n, torch.float32, d + 1)
     assert set(fma) == {"float32"} and nbytes == nbytes_fma
     assert sum(wide.values()) == fma["float32"]
     assert set(wide) == ({"float32", "3xtf32"} if d >= 16 else {"float32"})
-    ms, bound_by = cs._bound(wide, nbytes)
-    times = [nbytes / 3.35e12] + [f / cs.H100_PEAK_FLOPS[k]
+    ms, bound_by = work.bound(wide, nbytes)
+    times = [nbytes / 3.35e12] + [f / work.H100_PEAK_FLOPS[k]
                                   for k, f in wide.items()]
     assert bound_by == by and ms == pytest.approx(max(times) * 1e3)
-    assert cs.H100_PEAK_FLOPS["3xtf32"] == pytest.approx(495e12 / 3)
+    assert work.H100_PEAK_FLOPS["3xtf32"] == pytest.approx(495e12 / 3)
 
 
 @pytest.mark.parametrize("path,unit,peak", [
@@ -378,10 +379,10 @@ def test_flash_bound_prices_each_path_at_its_unit(path, unit, peak):
     the bfloat16 tensor-core peak; bound by operations in each."""
     cs = _chip_smoke()
     dtype = torch.bfloat16 if path == "wgmma" else torch.float32
-    flops, nbytes = cs._attention_work(1, 32, 8, 1024, 1024, 128, dtype)
+    flops, nbytes = work.attention_work(1, 32, 8, 1024, 1024, 128, dtype)
     assert flops == 4 * 32 * 128 * (1024 * 1025 // 2)
     assert cs.FLASH_UNIT[path] == unit
-    ms, bound_by = cs._bound({cs.FLASH_UNIT[path]: flops}, nbytes)
+    ms, bound_by = work.bound({cs.FLASH_UNIT[path]: flops}, nbytes)
     assert bound_by == "operations"
     assert ms == pytest.approx(flops / peak * 1e3)
     assert ms == pytest.approx({"tf32x3": 0.0521, "fma": 0.1283,
