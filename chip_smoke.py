@@ -128,19 +128,38 @@ which fails the run (non-zero exit, no result line) if it fails:
    of every arch x shape at full width and depth on the meta device, its
    leaves DTensors on both production meshes over a fake process group,
    but xlstm-125m's ``train_4k`` and ``prefill_32k`` (``DRYRUN_LEFT_OUT``);
-   no cell may fail; (b) its host-mesh cell of phase 8's granite-8b x 8
-   (float32, B 2 x S 2048, remat) against the same step on the card: the
+   no cell may fail, every OK cell carries its collectives
+   (``launch/collectives.py``), every ``train_4k`` cell a gradient
+   reduction over the DP axes, and the count of cells each roofline term
+   (compute, memory, collective) dominates is printed; (b) its host-mesh
+   cell of phase 8's granite-8b x 8 (float32, B 2 x S 2048, remat)
+   against the same step on the card: the
    predicted argument bytes within 1% of what the card allocates for
    them, the predicted peak beside the measured one, the counted flops
    beside 6 N tokens; (c) the node DAG once more under DAM-C with a
    queue penalty and ``placement_backend="torch"`` (the score on the
    card), held to phase 5's checks, its score calls counted and timed,
    and 10,000 seeded draws scored on the card held to numpy (1 float32
-   ulp of its float32 evaluation, 2 of its float64, the same argmin).
+   ulp of its float32 evaluation, 2 of its float64, the same argmin);
+10. the twins of ``examples/`` (``repro_torch/examples``) on the card,
+   each with the launch counts set to 0 just before it and read just
+   after: the quickstart (reduced qwen2.5-14b, 20 steps, a greedy
+   generation; losses finite, the last below the first; flash forward and
+   backward launches as the layer plan gives them, its step with remat;
+   each generated token's logits finite, not constant, and against a
+   forward at the next position under rel 5e-3),
+   serve_lm (reduced
+   stablelm-3b under RWS and DAM-P, place 0 slowed 4x; 10 of 10 requests
+   each; one flash launch per attention block a prefill) and train_lm at
+   full-width xlstm-125m with its own seq 256 x batch 4, cut to
+   ``TRAIN_LM_STEPS`` of its 300 steps: the resumed steps' losses equal an
+   uninterrupted run's bit for bit, the SSD forward and backward launches
+   are the plan's, and the step time is printed beside the card's name and
+   power limit.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
 carry their bfloat16 numbers under ``"bfloat16"``; the backwards' launches
-are phase 8's), then the
+are phases 8 and 10's), then the
 ``nvidia-smi`` line, then, last,
 ``{"ok": true, "device": {...}}``.  The details (every case's error, every
 timing shape, the compiler's register report) go to
@@ -2279,18 +2298,46 @@ def dryrun_sweep() -> dict:
             if (arch, shape) not in DRYRUN_LEFT_OUT]
     counts = {k: sum(r["status"] == k for r in recs)
               for k in ("OK", "SKIPPED", "FAIL")}
+    ok = [r for r in recs if r["status"] == "OK"]
+    dominant = {term: sum(r["roofline"]["dominant"] == term for r in ok)
+                for term in ("compute", "memory", "collective")}
     out = {"counts": counts, "seconds": time.perf_counter() - t0,
-           "left_out": sorted(DRYRUN_LEFT_OUT),
+           "left_out": sorted(DRYRUN_LEFT_OUT), "dominant": dominant,
            "cells": {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
                k: r.get(k) for k in ("status", "seconds", "params_counted",
                                      "fits_hbm", "error")}
                for r in recs}}
+    for r in ok:
+        cell = out["cells"][f"{r['arch']}__{r['shape']}__{r['mesh']}"]
+        coll = r["collectives"]
+        cell.update(dominant=r["roofline"]["dominant"],
+                    collective_s=r["roofline"]["collective_s"],
+                    collective_bytes=None if coll is None else coll["bytes"],
+                    dp_grad_bytes=None if coll is None
+                    else _dp_grad_bytes(coll))
     print(f"[dryrun] sweep: {counts['OK']} OK, {counts['SKIPPED']} skipped, "
           f"{counts['FAIL']} failed of {len(recs)} cells in "
-          f"{out['seconds']:.1f} s", flush=True)
+          f"{out['seconds']:.1f} s; the dominant roofline term: "
+          f"{dominant}", flush=True)
     _require(counts["FAIL"] == 0, "dry-run cells failed: " + ", ".join(
         k for k, v in out["cells"].items() if v["status"] == "FAIL"))
+    _require(all(r["collectives"] is not None for r in ok),
+             "OK dry-run cells without collectives")
+    no_dp = [k for k, v in out["cells"].items() if v.get("dp_grad_bytes")
+             is not None and "__train_4k__" in k and not v["dp_grad_bytes"]]
+    _require(not no_dp, f"train cells with no DP gradient reduction: {no_dp}")
     return out
+
+
+def _dp_grad_bytes(coll: dict) -> int:
+    """The bytes of a cell's gradient reductions over the DP axes (the
+    update's, and FSDP's reduce-scatters in the backward), all-reduce
+    2x."""
+    return sum((2 if e["kind"] == "all-reduce" else 1) * e["bytes_each"]
+               * e["count"] for e in coll["entries"]
+               if e["kind"] in ("all-reduce", "reduce-scatter")
+               and ({"pod", "data"} & set([e["axis"]] if isinstance(
+                   e["axis"], str) else e["axis"])))
 
 
 def dryrun_grounding() -> dict:
@@ -2471,6 +2518,158 @@ def dryrun_and_placement(report: dict) -> dict:
     return out
 
 
+# -- phase 10: the examples' twins on the card ------------------------------------
+# ``python -m repro_torch.examples.<name>`` through each twin's ``main``:
+# the quickstart (reduced qwen2.5-14b, 20 steps and a greedy generation)
+# and serve_lm (reduced stablelm-3b, RWS and DAM-P, place 0 slowed 4x) as
+# they are; train_lm at full-width xlstm-125m with its own seq 256 x batch
+# 4, cut from 300 steps to TRAIN_LM_STEPS (the cut this phase makes), beside
+# an uninterrupted run of the same steps.
+TRAIN_LM_STEPS = 20
+TRAIN_LM_CKPT = TRAIN_CKPT_DIR / "train_lm"
+
+
+def _twin_quickstart(counters) -> dict:
+    """The quickstart: losses finite and the last below the first; flash
+    attention forward twice per attention block a step (its step is
+    ``make_train_step``'s default, which rematerialises, as the
+    reference's) and once per block in the generation's prefill, backward
+    once per block a step.  The generation's logits, finite and not
+    constant, against a forward of the prompt and the generated tokens on
+    the trained weights at the next position, each under rel 5e-3, the
+    model tolerance (its ids alone are the stream's most frequent token)."""
+    import torch
+    from repro_torch.examples import quickstart
+    from repro_torch.models import forward
+    _reset(counters)
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    seconds = time.perf_counter() - t0
+    got = _counts(counters)
+    toks = torch.cat([q["prompt"], torch.as_tensor(
+        [q["generated"][:-1]], dtype=q["prompt"].dtype,
+        device=q["prompt"].device)], dim=1)
+    with torch.no_grad():
+        full, _ = forward(q["params"], q["cfg"], toks)
+    n = q["prompt"].shape[1]
+    rels = []
+    for i, step in enumerate(q["logits"]):
+        _require(bool(torch.isfinite(step).all())
+                 and bool(step.max() > step.min()),
+                 f"quickstart logits of step {i}: finite, not constant")
+        rels.append(_rel(step, full[:, n - 1 + i]))
+    _require(max(rels) < 5e-3,
+             f"quickstart generation against forward: rel {rels}")
+    per_step = _step_launches(q["cfg"], remat=True)
+    want = {"flash_attention": quickstart.STEPS * per_step["flash_attention"]
+            + _launches_per_prefill(q["cfg"])["flash_attention"],
+            "flash_attention_bwd": quickstart.STEPS
+            * per_step["flash_attention_bwd"]}
+    losses = q["losses"]
+    _require(all(math.isfinite(x) for x in losses)
+             and losses[-1] < losses[0], f"quickstart losses {losses}")
+    _require(all(got[k] == v for k, v in want.items()),
+             f"quickstart launches {got} against the plan's {want}")
+    return {"losses": losses, "generated": q["generated"],
+            "logits_rel_max": max(rels), "launches": got, "plan": want,
+            "seconds": seconds}
+
+
+def _twin_serve_lm(counters) -> dict:
+    """serve_lm: 10 of 10 requests complete under each scheduler; flash
+    attention once per attention block a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_lm
+    _reset(counters)
+    t0 = time.perf_counter()
+    res = serve_lm.main([])
+    seconds = time.perf_counter() - t0
+    got = _counts(counters)
+    prefills = sum(r["prefills"] for r in res.values())
+    want = prefills * _launches_per_prefill(
+        get_config("stablelm-3b").reduced())["flash_attention"]
+    _require(all(r["stats"]["completed"] == serve_lm.REQUESTS
+                 for r in res.values()), "serve_lm requests incomplete")
+    _require(got["flash_attention"] == want,
+             f"serve_lm flash launches {got['flash_attention']} against "
+             f"{prefills} prefills' {want}")
+    return {sched: {"completed": r["stats"]["completed"],
+                    "ttft_ms_mean": r["stats"]["ttft_ms_mean"],
+                    "ttft_ms_p95": r["stats"]["ttft_ms_p95"],
+                    "prefills_on_slow": r["prefills_on_slow"]}
+            for sched, r in res.items()} | {
+        "launches": got, "plan": {"flash_attention": want},
+        "seconds": seconds}
+
+
+def _twin_train_lm(counters, smi: str) -> dict:
+    """train_lm at full-width xlstm-125m (seq 256 x batch 4), cut to
+    ``TRAIN_LM_STEPS``: its crash and resume, then an uninterrupted run of
+    the same steps, whose losses the resumed steps equal bit for bit; the
+    SSD forward and backward once per Mamba-2 layer and twice per mLSTM
+    layer a step; the step time beside the card's name and power limit.
+    Both runs start from the same seed, so their first halves are equal
+    too."""
+    import shutil
+    import statistics
+    from repro_torch.examples import train_lm
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    _reset(counters)
+    t0 = time.perf_counter()
+    t = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-dir",
+                       str(TRAIN_LM_CKPT / "resume")])
+    seconds = time.perf_counter() - t0
+    got = _counts(counters)
+    per = _step_launches(t["cfg"])
+    want = {k: TRAIN_LM_STEPS * per[k] for k in ("ssd_scan", "ssd_scan_bwd")}
+    straight = train_lm.make_trainer(
+        t["cfg"], t["steps"], t["steps"], t["seq"], t["batch"],
+        str(TRAIN_LM_CKPT / "straight"), DEVICE, 2 * t["steps"])
+    hist = straight.run()
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    crashed = [h["loss"] for h in t["first"] + t["resumed"]]
+    uninterrupted = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in (t["first"] + t["resumed"])[1:]]
+    step_ms = 1e3 * statistics.median(walls)
+    tokens = t["seq"] * t["batch"]
+    out = {"cut": f"steps {TRAIN_LM_STEPS} of the original's 300",
+           "seq": t["seq"], "batch": t["batch"],
+           "resumed_at": t["resumed_at"], "events": t["events"],
+           "losses": crashed, "losses_uninterrupted": uninterrupted,
+           "launches": got, "plan": want, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "card": smi,
+           "seconds": seconds}
+    print(f"[examples] train_lm xlstm-125m (seq {t['seq']} x batch "
+          f"{t['batch']}, {TRAIN_LM_STEPS} steps, resumed at "
+          f"{t['resumed_at']}): step {step_ms:.1f} ms median, "
+          f"{out['tokens_per_s']:.0f} tokens/s on {smi}", flush=True)
+    _require(crashed == uninterrupted,      # the resumed steps among them
+             f"train_lm losses {crashed} against {uninterrupted}")
+    _require(all(math.isfinite(x) for x in crashed), "train_lm losses")
+    _require(all(got[k] == v for k, v in want.items()),
+             f"train_lm launches {got} against the plan's {want}")
+    return out
+
+
+def examples_on_card(report: dict, smi: str) -> dict:
+    """Phase 10: the twins of ``examples/`` on the card, each with the launch
+    counts set to 0 just before it and read just after."""
+    counters = _train_counters()
+    out = {"quickstart": _twin_quickstart(counters),
+           "serve_lm": _twin_serve_lm(counters),
+           "train_lm": _twin_train_lm(counters, smi)}
+    q, s = out["quickstart"], out["serve_lm"]
+    print(f"[examples] quickstart: loss {q['losses'][0]:.4f} -> "
+          f"{q['losses'][-1]:.4f}, generation against forward rel "
+          f"{q['logits_rel_max']:.3g}, "
+          f"flash {q['launches']['flash_attention']}"
+          f" forward / {q['launches']['flash_attention_bwd']} backward "
+          f"launches; serve_lm: 10 of 10 under RWS and DAM-P, "
+          f"{s['launches']['flash_attention']} flash launches", flush=True)
+    report["examples"] = out
+    return out
+
+
 def _rel_by_token(got, want) -> list[float]:
     """``_rel`` of each token's logits (the last axis) apart."""
     got, want = got.double().cpu(), want.double().cpu()
@@ -2562,6 +2761,8 @@ def main() -> int:
     mark[0] = time.perf_counter()
     dryrun_and_placement(report)
     lap("dryrun_placement")
+    examples = examples_on_card(report, smi)
+    lap("examples")
     report["phase_s"] = phase_s
     report["total_s"] = time.perf_counter() - t_run
     print(f"[time] {report['total_s']:.1f} s in all; by phase "
@@ -2601,6 +2802,11 @@ def main() -> int:
     def node_by(name):
         return {"node_dag": node["launches"][name]}
 
+    def examples_by(name):
+        return {f"examples:{twin}": out["launches"][name]
+                for twin, out in examples.items()
+                if out["launches"].get(name)}
+
     def flash_at(dtype, heads=(32, 8, 1024)):  # granite-8b's, S = 1024
         return next(r for r in flash_timing if r["dtype"] == dtype
                     and r["shape"][1:4] == list(heads))
@@ -2609,7 +2815,8 @@ def main() -> int:
                            flash_err["float32"],
                            "src/repro/kernels/flash_attention.py:79",
                            {**served_by("flash_attention"),
-                            **trained_by("flash_attention")},
+                            **trained_by("flash_attention"),
+                            **examples_by("flash_attention")},
                            flash_at("bfloat16"), flash_err["bfloat16"])
     flash_row["fma_ms"] = flash_at("float32")["fma_ms"]
     flash_row["fma_bound_ms"] = flash_at("float32")["fma_bound_ms"]
@@ -2625,25 +2832,31 @@ def main() -> int:
         for path in served[0]["flash_launches_by_path"]}
     flash_row["launches_by_kernel_path"]["tf32x3"] += sum(
         trained_by("tf32x3").values())
+    ex_x3 = sum(examples_by("tf32x3").values())   # the twins run float32
+    flash_row["launches_by_kernel_path"]["tf32x3"] += ex_x3
+    flash_row["launches_by_kernel_path"]["fma"] += sum(
+        examples_by("flash_attention").values()) - ex_x3
     bwd_row = kernel_row("flash_attention_bwd", flash_bwd_timing,
                          flash_bwd_err["float32"],
                          "src/repro/kernels/flash_attention.py:79",
-                         trained_by("flash_attention_bwd"))
+                         {**trained_by("flash_attention_bwd"),
+                          **examples_by("flash_attention_bwd")})
     bwd_row["gradient_of"] = ("flash_attention_pallas, which has no Pallas "
                               "backward: the JAX package's gradient is "
                               "autodiff of src/repro/kernels/ref.py:31 "
                               "attention_ref")
     bwd_row["fma_ms"] = flash_bwd_timing["fma_ms"]
     bwd_row["fma_bound_ms"] = flash_bwd_timing["fma_bound_ms"]
-    bwd_x3 = sum(trained_by("bwd_tf32x3").values())
+    bwd_x3 = sum({**trained_by("bwd_tf32x3"),
+                  **examples_by("bwd_tf32x3")}.values())
     bwd_row["launches_by_kernel_path"] = {
-        "tf32x3": bwd_x3,
-        "fma": sum(trained_by("flash_attention_bwd").values()) - bwd_x3}
+        "tf32x3": bwd_x3, "fma": bwd_row["launches"] - bwd_x3}
     bwd_row["bfloat16_max_abs_err"] = flash_bwd_err["bfloat16"]
     ssd_bwd_row = kernel_row("ssd_scan_bwd", ssd_bwd_timing,
                              ssd_bwd_err["float32"],
                              "src/repro/kernels/ssd_scan.py:68",
-                             trained_by("ssd_scan_bwd"))
+                             {**trained_by("ssd_scan_bwd"),
+                              **examples_by("ssd_scan_bwd")})
     ssd_bwd_row["gradient_of"] = ("ssd_scan_pallas, which has no Pallas "
                                   "backward: the JAX package's gradient is "
                                   "autodiff of src/repro/kernels/ref.py:105 "
@@ -2666,7 +2879,8 @@ def main() -> int:
                    next(r for r in ssd_timing if r["case"] == "zamba2"
                         and r["shape"][1] == 1024),
                    ssd_err, "src/repro/kernels/ssd_scan.py:68",
-                   {**served_by("ssd_scan"), **trained_by("ssd_scan")}),
+                   {**served_by("ssd_scan"), **trained_by("ssd_scan"),
+                    **examples_by("ssd_scan")}),
         ssd_bwd_row,
         kernel_row("matmul",
                    next(r for r in matmul_timing if r["dtype"] == "float32"),

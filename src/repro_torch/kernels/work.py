@@ -19,6 +19,13 @@ H100_HBM_BYTES = 80e9
 H100_PEAK_FLOPS = {"float32": 67e12,     # float32 outside the tensor cores
                    "bfloat16": 989e12,   # tensor cores
                    "3xtf32": 495e12 / 3}  # TF32 tensor cores, 3 products each
+# The network a collective crosses: one 400 Gb/s NDR InfiniBand NIC per H100
+# of an HGX node, 50e9 bytes/s a device.  One rate for every mesh axis: the
+# production meshes put 16 consecutive ranks on "model" and 256 or 512 in
+# all, so every axis spans more than one node's 8-card NVLink domain and its
+# ring runs at the NIC's rate; NVLink 4's 450 GB/s a direction would
+# understate the time.  (The counterpart of the reference's one ICI_BW.)
+H100_NET_BYTES_PER_S = 50e9
 
 
 def bound(flops: dict, nbytes) -> tuple[float, str]:

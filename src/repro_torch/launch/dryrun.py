@@ -16,15 +16,21 @@ Per cell this driver:
      ``n_micro`` times, then the AdamW update once): the flops, the bytes
      and the peak of the temporaries, the kernels' work through their meta
      path;
-  4. computes the roofline terms at the H100 SXM's dense peaks (989
-     TFLOP/s bfloat16, 3.35 TB/s, 80 GB a device; ``kernels/work.py``)
-     and writes one JSON record per cell.
+  4. counts the collectives the specs imply, per device
+     (``launch/collectives.py``: TP, the vocab-sharded embedding and head,
+     EP, DP with ZeRO-1, FSDP, SP decode, the sLSTM recurrence), in the
+     reference's record (result bytes by kind, all-reduce 2x, call
+     counts);
+  5. computes the three roofline terms at the H100 SXM's dense peaks (989
+     TFLOP/s bfloat16, 3.35 TB/s, 80 GB a device) and one 400 Gb/s NIC a
+     device (50 GB/s; ``kernels/work.py``), takes the largest as
+     ``dominant``, and writes one JSON record per cell.
 
-The step's work divides over the devices as the specs split it: per device
-is the whole over the device count (data, tensor and expert parallelism
-split every matmul and the batch; what a device does twice is not seen
-here).  The collectives the specs imply are not counted yet: ``collectives``
-is null with the reason.
+The step's flops and bytes divide over the devices evenly: per device is
+the whole over the device count (data, tensor and expert parallelism split
+every matmul and the batch; what a device does twice is not seen here:
+the step runs on global meta tensors, not on DTensors).  The collectives
+are each device's own.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k --mesh single
@@ -50,18 +56,18 @@ from ..optim.adamw import leaves, tree_map
 from ..parallel import (axis_sizes, batch_specs, decode_state_specs,
                         distribute, dp_axes, opt_moment_specs, param_specs)
 from ..train import make_decode_step, make_grad_step, make_prefill_step
+from .collectives import step_collectives
 from .mesh import make_host_mesh, make_production_mesh
 from .op_analysis import analyze
 
 PEAK_FLOPS = work.H100_PEAK_FLOPS["bfloat16"]
 HBM_BW = work.H100_BYTES_PER_S
 HBM_PER_DEVICE = work.H100_HBM_BYTES
+NET_BW = work.H100_NET_BYTES_PER_S
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "chiprun_out" / "dryrun_torch"
 
 FSDP_BYTES_THRESHOLD = 2.5e9   # bf16 params per device above this -> FSDP
-COLLECTIVES_REASON = ("not counted yet: the collectives the specs imply "
-                      "(ROADMAP, Queue 1)")
 
 
 def n_micro_for(mesh) -> int:
@@ -190,6 +196,28 @@ def analyze_cell(cell: Cell, shape: InputShape) -> dict:
         return analyze(step, a["params"], a["state"], a["batch"]["tokens"])
 
 
+def count_collectives(cell: Cell, shape: InputShape, mesh) -> dict:
+    """``collectives.step_collectives`` of the cell: a train step's
+    ``n_micro`` microbatches and its update, or the prefill or decode step
+    once."""
+    cfg, a = cell.cfg, cell.args
+    kw = {}
+    if cell.kind == "train":
+        batch = shape.global_batch // cell.n_micro
+        kw["opt_specs"] = cell.specs["opt_state"]["m"]
+    else:
+        batch = shape.global_batch
+    if cell.kind == "decode":
+        seq, kw["decode_specs"] = 1, cell.specs["state"]
+    else:
+        seq = shape.seq_len
+        if cell.kind == "prefill":
+            kw["decode_specs"] = cell.outs["state"][1]
+    return step_collectives(cfg, cell.kind, a["params"],
+                            cell.specs["params"], mesh, batch=batch,
+                            seq=seq, n_micro=cell.n_micro, **kw)
+
+
 def _local_bytes(dtree) -> int:
     return sum(t.to_local().numel() * t.element_size()
                for t in leaves(dtree))
@@ -235,12 +263,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
         del dist, out_dist
         t_build = time.perf_counter() - t0
         wk = analyze_cell(cell, shape)
+        coll = count_collectives(cell, shape, mesh)
         t_analyze = time.perf_counter() - t0 - t_build
 
         flops_dev = wk["flops"] / n_dev
         bytes_dev = wk["bytes"] / n_dev
         compute_s = flops_dev / PEAK_FLOPS
         memory_s = bytes_dev / HBM_BW
+        coll_s = coll["bytes"]["total"] / NET_BW
+        dominant = max((("compute", compute_s), ("memory", memory_s),
+                        ("collective", coll_s)), key=lambda kv: kv[1])[0]
         tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                        else 1)
         model_flops = (6 if shape.kind == "train" else 2) * (
@@ -269,22 +301,25 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
                   "bytes_per_device": bytes_dev,
                   "parts": {k: v for k, v in wk.items()
                             if k not in ("flops", "bytes", "peak_bytes")}},
-            collectives=None, collectives_reason=COLLECTIVES_REASON,
+            collectives=coll,
             roofline={
                 "compute_s": compute_s, "memory_s": memory_s,
-                "dominant": "compute" if compute_s >= memory_s else "memory",
+                "collective_s": coll_s, "dominant": dominant,
                 "model_flops": float(model_flops),
                 "flops_per_device": flops_dev,
                 "useful_flops_ratio": float(model_flops / max(wk["flops"],
                                                               1.0)),
                 "peaks": {"flops": PEAK_FLOPS, "bytes_per_s": HBM_BW,
                           "hbm_bytes": HBM_PER_DEVICE,
-                          "card": "H100 SXM data sheet, dense"},
+                          "net_bytes_per_s": NET_BW,
+                          "card": "H100 SXM data sheet, dense",
+                          "net": "one 400 Gb/s NDR NIC a device"},
             },
         )
         print(f"[dryrun] {tag}: OK devices={n_dev} "
               f"per-dev={int((args_b + temp_b) / 2 ** 20)}MiB fits={fits} "
               f"compute={compute_s * 1e3:.1f}ms mem={memory_s * 1e3:.1f}ms "
+              f"coll={coll_s * 1e3:.1f}ms dom={dominant} "
               f"(build {t_build:.1f}s analyze {t_analyze:.1f}s)", flush=True)
     except Exception as e:  # record failures — they are bugs to fix
         record.update(status="FAIL", error=f"{type(e).__name__}: {e}",

@@ -65,6 +65,27 @@ def init_moe(d_model: int, n_experts: int, expert_ff: int,
     return p
 
 
+def group_capacity(sg: int, top_k: int, n_experts: int,
+                   capacity_factor: float) -> int:
+    """Slots an expert has in a group of ``sg`` tokens."""
+    return max(1, int(capacity_factor * sg * top_k / n_experts))
+
+
+def dispatch_plan(n_tokens: int, top_k: int, n_experts: int,
+                  capacity_factor: float, group_size: int = 2048
+                  ) -> tuple[int, int, bool, int]:
+    """How ``moe_block`` lays out ``n_tokens``: (groups, tokens a group,
+    whether it runs the pairs form, rows a group dispatches to the
+    experts: every expert's capacity slots, or one a (token, k) pair)."""
+    sg = min(group_size, n_tokens)
+    if n_tokens % sg:
+        sg = n_tokens           # degenerate small case: one group
+    if sg * top_k < n_experts:
+        return n_tokens // sg, sg, True, sg * top_k
+    cap = group_capacity(sg, top_k, n_experts, capacity_factor)
+    return n_tokens // sg, sg, False, n_experts * min(cap, sg)
+
+
 def route(params: dict, xg: torch.Tensor, top_k: int,
           capacity_factor: float, with_aux: bool = True):
     """Routing of the groups ``xg`` [G, S_g, d]: (expert_idx [G,S_g,K],
@@ -91,7 +112,7 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
         ce = oh.sum(-1).float().mean(dim=0) / (sg * top_k)
         aux = n_experts * torch.sum(me * ce)
 
-    capacity = max(1, int(capacity_factor * sg * top_k / n_experts))
+    capacity = group_capacity(sg, top_k, n_experts, capacity_factor)
     # the place of each (s, k) in its expert's queue: the running count of
     # that expert over the flattened (s, k) order
     pos = (oh.cumsum(-1) - 1).gather(1, flat).reshape(n_groups, sg, top_k)
@@ -153,14 +174,12 @@ def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
     without ``with_aux``: prefill and decode skip its reductions)."""
     bsz, s, d = x.shape
     n_experts = params["router"].shape[-1]
-    n_tokens = bsz * s
-    sg = min(group_size, n_tokens)
-    if n_tokens % sg:
-        sg = n_tokens           # degenerate small case: one group
-    xg = x.reshape(n_tokens // sg, sg, d)
+    groups, sg, pairs, _ = dispatch_plan(bsz * s, top_k, n_experts,
+                                         capacity_factor, group_size)
+    xg = x.reshape(groups, sg, d)
     expert_idx, gates, pos, keep, capacity, aux = route(
         params, xg, top_k, capacity_factor, with_aux)
-    if sg * top_k < n_experts:
+    if pairs:
         out = _experts_by_pair(params, xg, expert_idx)
     else:
         out = _experts_by_slot(params, xg, expert_idx, pos, keep, capacity)

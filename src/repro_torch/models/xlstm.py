@@ -47,6 +47,17 @@ def init_mlstm(d_model: int, n_heads: int, proj_factor: float = 2.0, *,
     }
 
 
+def _fold_heads(t: torch.Tensor) -> torch.Tensor:
+    """[B,S,H,...] -> [B*H,S,...]: one scan "batch" per head."""
+    t = t.movedim(2, 1)
+    return t.reshape((t.shape[0] * t.shape[1],) + t.shape[2:])
+
+
+def _unfold_heads(t: torch.Tensor, bsz: int, n_heads: int) -> torch.Tensor:
+    """A scan's output [B*H,S,1,D] -> [B,S,H,D]."""
+    return t.reshape(bsz, n_heads, t.shape[1], -1).transpose(1, 2)
+
+
 def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
                 return_state: bool = False):
     """Parallel path: the forget gate is the decay (a = log f), the input
@@ -69,16 +80,13 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
     a = torch.log(f_gate + 1e-6)
     xv = v * i_gate[..., None]                            # [B,S,H,D]
 
-    def fold(t):  # [B,S,H,...] -> [B*H,S,...]: one scan "batch" per head
-        t = t.movedim(2, 1)
-        return t.reshape((bsz * n_heads,) + t.shape[2:])
-
-    af, kf, qf = fold(a)[..., None], fold(k), fold(q)
-    y = ops.ssd_scan(fold(xv)[:, :, None, :], af, kf, qf)  # [B*H,S,1,D]
-    y = y.reshape(bsz, n_heads, s, head_dim).transpose(1, 2)
+    af, kf, qf = _fold_heads(a)[..., None], _fold_heads(k), _fold_heads(q)
+    y = ops.ssd_scan(_fold_heads(xv)[:, :, None, :], af, kf, qf)
+    y = _unfold_heads(y, bsz, n_heads)                    # [B,S,H,D]
     # normalizer n_t . q_t as a D = 1 scan over the input gate
-    den = ops.ssd_scan(fold(i_gate[..., None])[:, :, None, :], af, kf, qf)
-    den = den.reshape(bsz, n_heads, s, 1).transpose(1, 2)  # [B,S,H,1]
+    den = ops.ssd_scan(_fold_heads(i_gate[..., None])[:, :, None, :],
+                       af, kf, qf)
+    den = _unfold_heads(den, bsz, n_heads)                # [B,S,H,1]
     y = y / torch.clamp(den.abs(), min=1.0)
     h = y.reshape(bsz, s, d_inner)
     h = rms_norm(h, params["norm_h"]) * F.silu(gate)

@@ -53,7 +53,7 @@ def test_reduced_dryrun_on_16_fake_devices(arch, fake_group, tmp_path):
     """The counterpart of the reference's test of the same name: a train
     step (B 8 x S 32) and a decode step (B 8, T 64) of the reduced config
     in bfloat16, every leaf a DTensor on a fake (4, 4) mesh, counted on the
-    meta device."""
+    meta device, with its collectives and the roofline's three terms."""
     cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="bfloat16")
     mesh = make_mesh((4, 4), ("data", "model"))
     shapes = {"train": InputShape("train_s32", "train", 32, 8),
@@ -66,7 +66,16 @@ def test_reduced_dryrun_on_16_fake_devices(arch, fake_group, tmp_path):
         assert rec["status"] == "OK", rec.get("traceback")
         assert rec["n_devices"] == 16 and rec["fits_hbm"]
         assert rec["work"]["flops"] > 0 and rec["work"]["peak_bytes"] > 0
-        assert rec["collectives"] is None and rec["collectives_reason"]
+        coll = rec["collectives"]
+        assert set(coll) >= {"bytes", "counts", "entries"}
+        assert coll["bytes"]["total"] == sum(
+            v for k, v in coll["bytes"].items() if k != "total") > 0
+        roof = rec["roofline"]
+        assert roof["collective_s"] == pytest.approx(
+            coll["bytes"]["total"] / roof["peaks"]["net_bytes_per_s"])
+        assert roof["dominant"] == max(
+            ("compute", "memory", "collective"),
+            key=lambda k: roof[f"{k}_s"])
         local = sum(rec["argument_bytes_per_device"].values())
         whole = sum(rec["argument_bytes_whole"].values())
         assert whole / 16 <= local < whole

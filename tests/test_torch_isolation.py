@@ -100,6 +100,14 @@ def test_static_scan_covers_the_training_modules():
         assert rel in scanned, rel
 
 
+def test_static_scan_covers_the_examples():
+    """The twins of ``examples/`` are in the scan below."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for name in ("quickstart", "serve_lm", "train_lm", "dvfs_sim",
+                 "heat_distributed", "interference_sim", "kmeans"):
+        assert f"examples/{name}.py" in scanned, name
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
                          sorted(ROOT.glob("tools/torch_*.py")) +
                          [ROOT / "chip_smoke.py"],

@@ -140,3 +140,118 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         TEngine(tconfigs.ARCHS["granite-8b"].reduced(), ttopo(1, 1))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# -- the reference's serving scenarios (tests/test_serve.py), on the port ------
+
+@pytest.fixture(scope="module")
+def engine_cfg():
+    return tconfigs.ARCHS["xlstm-125m"].reduced()
+
+
+def test_deadline_admission_rejects_hopeless_requests(engine_cfg):
+    """``tests/test_serve.py``'s test of the same name on the port's engine:
+    a deadline below even the PTT-best-case estimate is refused at
+    admission, finalizes at once with ``rejected``, runs nothing, and
+    leaves the admitted request alone."""
+    eng = TEngine(engine_cfg, ttopo(2, 2), scheduler="DAM-C", max_len=48,
+                  device="cpu")
+    rng = np.random.default_rng(2)
+    ok = eng.submit(rng.integers(0, engine_cfg.vocab, 16), max_new_tokens=2)
+    doomed = [eng.submit(rng.integers(0, engine_cfg.vocab, 16),
+                         max_new_tokens=4, deadline_s=1e-5)
+              for _ in range(3)]
+    for r in doomed:
+        assert r.rejected and r.t_done == r.t_submit
+        assert not r.out_tokens
+    eng.run(timeout=300)
+    stats = eng.latency_stats()
+    assert stats["completed"] == 1 and stats["rejected"] == 3
+    assert stats["deadline_miss"] == 3
+    assert len(ok.out_tokens) == 2
+
+
+def test_deadline_shedding_truncates_decode_chain(engine_cfg):
+    """``tests/test_serve.py``'s test of the same name on the port's engine:
+    requests admitted under a 20 ms deadline that passes mid-chain shed
+    their queued decode work and finalize truncated, not empty."""
+    eng = TEngine(engine_cfg, ttopo(2, 2), scheduler="DAM-C", max_len=48,
+                  device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [eng.submit(rng.integers(0, engine_cfg.vocab, 16),
+                       max_new_tokens=6, deadline_s=0.02) for _ in range(3)]
+    eng.run(timeout=300)
+    stats = eng.latency_stats()
+    assert stats["rejected"] == 0
+    assert stats["shed"] == 3
+    for r in reqs:
+        assert r.shed and r.t_done > 0
+        assert 1 <= len(r.out_tokens) < 6
+
+
+def test_forced_overload_backpressure_and_brownout():
+    """``tests/test_serve.py``'s test of the same name on the port's engine
+    (synthetic payloads, ~4x past the fleet's capacity): the bounded queue
+    rejects with ``backpressure``, the brownout ladder reaches its shed
+    rung, every intervention lands in its cause's counter, and the
+    transition log is a contiguous walk from rung 0."""
+    eng = TEngine(None, ttopo(2, 2), scheduler="DAM-C", max_pending=24,
+                  brownout=TBrownout(enter=(0.02, 0.05, 0.10),
+                                     exit=(0.01, 0.02, 0.05)),
+                  prefill_s=20e-3, decode_s=5e-3)
+    prompts = [np.zeros(8, np.int32)] * 80
+    m = eng.run_open_loop(prompts, rate_rps=400.0, max_new_tokens=5,
+                          timeout=120)
+    assert not m.errors
+    s = eng.latency_stats()
+    assert s["completed"] + s["rejected"] == 80
+    assert s["rejected_backpressure"] > 0
+    assert s["rejected"] == s["rejected_backpressure"]
+    assert s["rejected_deadline"] == 0
+    assert s["shed_deadline"] == 0
+    assert s["brownout_max_rung"] >= 2
+    assert s["shed_brownout"] + s["tokens_clamped"] > 0
+    assert s["shed"] == s["shed_brownout"]
+    prev = 0
+    for _t, frm, to in m.brownout_transitions:
+        assert frm == prev and to != frm
+        prev = to
+    assert s["brownout_transitions"] == len(m.brownout_transitions) > 0
+
+
+def test_warm_start_priming_is_engine_level():
+    """``tests/test_serve.py``'s test of the same name on the port's engine:
+    ``warm_start`` primes every place's PTT entry for a request's prefill
+    type before it is placed; an explicit ``prime`` then primes nothing."""
+    from repro_torch.core import TaskType
+    topo = ttopo(2, 2)
+    eng = TEngine(None, topo, scheduler="DAM-C")
+    eng.submit(np.zeros(8, np.int32), max_new_tokens=2)
+    tbl = eng.sched.ptt.for_type("prefill_16")
+    assert all(tbl.get(p) > 0.0 for p in topo.places())
+    kinds = {p.kind for p in topo.partitions}
+    assert eng.prime(TaskType("prefill_16",
+                              serial_time={k: 1e-3 for k in kinds})) == 0
+    eng.run(timeout=60)
+
+
+def test_open_loop_poisson_arrival(engine_cfg):
+    """``tests/test_serve.py``'s test of the same name on the port's engine:
+    seeded Poisson arrivals while the runtime runs; the per-request
+    latency percentiles in ``RunMetrics`` and the engine's stats."""
+    eng = TEngine(engine_cfg, ttopo(2, 2), scheduler="DAM-C", max_len=48,
+                  device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, engine_cfg.vocab, 12) for _ in range(3)]
+    m = eng.run_open_loop(prompts, rate_rps=20.0, max_new_tokens=2,
+                          timeout=300)
+    assert m.n_tasks >= 3
+    stats = m.request_latency_stats()
+    assert stats["completed"] == 3
+    for key in ("ttft_ms", "e2e_ms"):
+        for p in ("mean", "p50", "p95", "p99"):
+            assert stats[key][p] > 0
+        assert stats[key]["p50"] <= stats[key]["p99"]
+    es = eng.latency_stats()
+    assert es["completed"] == 3
+    assert es["ttft_ms_p50"] <= es["ttft_ms_p99"]
