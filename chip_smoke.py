@@ -34,7 +34,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    |g|) and in float32 also at ``SSD_BWD_F32_KEEP`` x (1 + |g|), reading
    the forward kernel's kept scratch, one count a call and no forward
    launched, and a second call, which runs the forward for its scratch,
-   equal bit for bit;
+   equal bit for bit; the sLSTM scan's forward (hs, the last carry, the
+   kept carry) and backward (dgx, dr, the initial carry's gradient) at
+   ``SLSTM_CASES`` (xlstm-125m's prefill, training and decode shapes, a
+   ragged S, d off the warp's 32, a random carry) at ``TOL`` x (1 + |v|),
+   one count a call each;
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
@@ -46,7 +50,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    bound), flash attention's backward at the training shape on both
    paths beside SDPA's backward (float32), the SSD rows with the
    wrapper's time per call (host included) and the passes' scratch, the
-   SSD backward at the training shapes (no library call computes it);
+   SSD backward at the training shapes (no library call computes it); the
+   sLSTM scan at the prefill shape and, with its backward, at the training
+   shape, each beside the plain loop (no library call computes it);
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
@@ -68,7 +74,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    each model's run and read just after, and must equal the counts that
    the model's ``layer_plan`` gives per prefill (flash attention once per
    attention or MoE block or shared-block application, the SSD scan once
-   per Mamba-2 layer and twice per mLSTM layer) times the prefills, and
+   per Mamba-2 layer and twice per mLSTM layer, the sLSTM scan once per
+   sLSTM layer) times the prefills, plus the sLSTM scan once per sLSTM
+   layer a decode step, and
    every flash launch takes its dtype's path (float32 ``tf32x3``,
    bfloat16 ``wgmma``);
 7. check what came out, for each model: every request finished with its
@@ -94,13 +102,13 @@ which fails the run (non-zero exit, no result line) if it fails:
    grounded in the reference's own drift (``tools/moe_bf16_drift.py``):
    a routing flip moves one token's logits by 0.2-0.9 in the reference
    itself, and its drift grows with depth.
-   For xlstm-125m it also times one 1024-token prefill and the sLSTM loop
+   For xlstm-125m it also times one 1024-token prefill and its sLSTM blocks
    inside it; for a bfloat16 model, the card time of one decode step
    (``torch.profiler``) against the bytes of the weights it must read;
 8. train, one model after the other (``TRAIN_RUNS``): granite-8b at full
    width cut to 8 layers (2.15 B parameters, B 2 x S 2048), zamba2-1.2b
    at full width and depth (B 2 x S 2048) and xlstm-125m at full width
-   and depth (B 8 x S 512: its sLSTM loop runs once a token), all float32.
+   and depth (B 2 x S 2048), all float32.
    Each: the reduced model on the card against the CPU path (loss rel
    1e-5, gradient leaves at 1e-4, the hybrid's at 3e-3, of each leaf's
    largest; 3 AdamW steps' losses rel 1e-4), then through the port's
@@ -112,10 +120,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    layer plan gives (flash forward and backward once per attention block
    or shared-block application, all ``tf32x3``; the SSD forward and
    backward once per Mamba-2 layer and twice per mLSTM layer, so no
-   backward runs the forward again; remat runs
+   backward runs the forward again; the sLSTM scan forward and backward
+   once per sLSTM layer; remat runs
    every stacked layer's forward twice); the step time, tokens per
    second, peak memory and, from one traced step, the share of the card
-   time of the flash and SSD kernels, forward and backward.
+   time of the flash, SSD and sLSTM kernels, forward and backward.
    Then (``TRAIN_PREFIXED``) musicgen-large at full width and depth with
    its frontend prefix, float32, B 2 x (P 64 + 1984 text tokens) as
    ``train_batch_specs`` lays them out, through ``make_train_step`` (the
@@ -127,8 +136,7 @@ which fails the run (non-zero exit, no result line) if it fails:
 9. dry-run and placement: (a) the port's dry-run (``launch/dryrun.py``)
    of every arch x shape at full width and depth on the meta device, its
    leaves DTensors on both production meshes over a fake process group,
-   but xlstm-125m's ``train_4k`` and ``prefill_32k`` (``DRYRUN_LEFT_OUT``);
-   no cell may fail, every OK cell carries its collectives
+   all 80 cells; no cell may fail, every OK cell carries its collectives
    (``launch/collectives.py``), every ``train_4k`` cell a gradient
    reduction over the DP axes, and the count of cells each roofline term
    (compute, memory, collective) dominates is printed; (b) its host-mesh
@@ -153,8 +161,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    each; one flash launch per attention block a prefill) and train_lm at
    full-width xlstm-125m with its own seq 256 x batch 4, cut to
    ``TRAIN_LM_STEPS`` of its 300 steps: the resumed steps' losses equal an
-   uninterrupted run's bit for bit, the SSD forward and backward launches
-   are the plan's, and the step time is printed beside the card's name and
+   uninterrupted run's bit for bit, the SSD and sLSTM forward and backward
+   launches are the plan's, and the step time is printed beside the card's name and
    power limit.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
@@ -180,8 +188,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # the kernels' work from their shapes and the H100's dense peaks: one copy,
 # which the kernels' meta path (the dry-run) reads too
 from repro_torch.kernels.work import (H100_BYTES_PER_S, attention_bwd_work,  # noqa: E402
-                                      attention_work, bound, ssd_bwd_work,
-                                      ssd_work)
+                                      attention_work, bound, slstm_bwd_work,
+                                      slstm_work, ssd_bwd_work, ssd_work)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 3e-3, "bfloat16": 2e-2}
 SSD_F32_KEEP = 3e-4    # the SSD kernel's 3xTF32 stays only this far inside
@@ -729,12 +737,12 @@ def _ssd_bwd_inputs(b, s, h, d, n, dtype, decay, seed):
 
 
 # (b, s, h, d, n, decay) of the backward at phase 8's training shapes:
-# zamba2's heads at B 2 x S 2048, and xlstm's B 8 x S 512 with its 4 mLSTM
-# heads folded into the batch (``mlstm_block``): the values (B 32, D = N =
+# zamba2's heads at B 2 x S 2048, and xlstm's B 2 x S 2048 with its 4 mLSTM
+# heads folded into the batch (``mlstm_block``): the values (B 8, D = N =
 # 384) and the normalizer (D 1)
 SSD_BWD_TRAIN = {"zamba2": (2, 2048, 32, 128, 64, "mild"),
-                 "mlstm_values": (32, 512, 1, 384, 384, "mlstm"),
-                 "mlstm_normalizer": (32, 512, 1, 1, 384, "mlstm")}
+                 "mlstm_values": (8, 2048, 1, 384, 384, "mlstm"),
+                 "mlstm_normalizer": (8, 2048, 1, 1, 384, "mlstm")}
 # the training shapes, then a ragged S, S shorter than one chunk, B > 1
 # with D and N that the tiles do not divide, and strong decays down to
 # log 1e-6
@@ -855,6 +863,186 @@ def time_ssd_bwd(report: dict) -> dict:
     print(f"[time] ssd_scan_bwd {row}", flush=True)
     report["ssd_scan_bwd_timing"] = row
     return row
+
+
+def _slstm_inputs(b, s, d, dtype, carry, seed):
+    """gx, r and a carry on the card: gx ~ N(0, 1) (a unit-RMS hidden
+    state's gate inputs), r ~ N(0, 0.1^2) (``init_slstm``'s scale); the
+    carry zero (a prefill's) or random (a decode's: h N(0, 1/4), c N(0, 1),
+    n |N(0, 1)| + 1, m N(0, 1))."""
+    import torch
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)
+    gx, r = rn(b, s, 4, d), rn(4, d) * 0.1
+    if carry == "zero":
+        cs = [torch.zeros(b, d, device=DEVICE) for _ in range(4)]
+    else:
+        cs = [rn(b, d) * 0.5, rn(b, d), rn(b, d).abs() + 1.0, rn(b, d)]
+    return gx.to(dtype), r.to(dtype), tuple(t.to(dtype) for t in cs)
+
+
+# (b, s, d) of the sLSTM recurrence at xlstm-125m's d 768: a 1024-token
+# prefill, phase 8's training shape (B 2 x S 2048) and a decode step
+SLSTM_PREFILL, SLSTM_TRAIN = (1, 1024, 768), (2, 2048, 768)
+# (b, s, d, carry): the main paths' shapes, then B > 1 at S = 1, a ragged S
+# with d off the warp's 32, a longer ragged S, a short S with B = 3
+SLSTM_CASES = [
+    (*SLSTM_PREFILL, "zero"),
+    (*SLSTM_TRAIN, "zero"),
+    (1, 1, 768, "random"),
+    (8, 1, 768, "random"),
+    (3, 37, 100, "random"),
+    (1, 300, 48, "random"),
+    (3, 13, 33, "zero"),
+]
+
+
+def check_slstm(report: dict) -> dict:
+    """The sLSTM forward kernel (hs, the last carry, and, as training runs
+    it, hs again beside the kept carry the backward reads; ``keep_equal``
+    says whether the two runs' hs and last carry agree bit for bit) and
+    backward kernel (dgx, dr, the initial carry's
+    gradient, from random dhs and last-carry gradients, on the kernel's
+    own hs and kept carry) against their plain versions on the card, every
+    case of ``SLSTM_CASES`` in both dtypes, at ``TOL`` x (1 + |v|), one
+    count a call each.  Returns the largest error of each direction in
+    each dtype over the cases."""
+    import torch
+    from repro_torch.kernels.slstm_scan import (bwd_launches, launches,
+                                                slstm_scan, slstm_scan_bwd,
+                                                slstm_scan_bwd_plain,
+                                                slstm_scan_keep,
+                                                slstm_scan_plain)
+    worst, rows = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for i, (b, s, d, carry_kind) in enumerate(SLSTM_CASES):
+            gx, r, carry = _slstm_inputs(b, s, d, dtype, carry_kind, 500 + i)
+            before = (launches.count, bwd_launches.count)
+            with torch.no_grad():
+                hs0, last0 = slstm_scan(gx, r, carry)
+            hs, last, kept = slstm_scan_keep(gx, r, carry)
+            g = torch.Generator(device=DEVICE)
+            g.manual_seed(600 + i)
+            dhs = torch.randn(hs.shape, generator=g, device=DEVICE).to(dtype)
+            dlast = tuple(torch.randn(t.shape, generator=g,
+                                      device=DEVICE).to(dtype) for t in last)
+            grads = slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
+            torch.cuda.synchronize()
+            launched = [launches.count - before[0],
+                        bwd_launches.count - before[1]]
+            want_hs, want_last, want_kept = slstm_scan_plain(gx, r, carry,
+                                                             keep=True)
+            want = slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast)
+            row = {"dtype": name, "shape": [b, s, d], "carry": carry_kind,
+                   "tol": TOL[name], "launches": launched,
+                   "keep_equal": torch.equal(hs0, hs) and all(
+                       torch.equal(u, v) for u, v in zip(last0, last))}
+            ok = launched == [2, 1]
+            fwd = [("hs", hs0, want_hs), ("hs_kept", hs, want_hs),
+                   ("kept", kept, want_kept),
+                   *((f"last_{k}", u, v)
+                     for k, u, v in zip("hcnm", last, want_last))]
+            bwd = [("dgx", grads[0], want[0]), ("dr", grads[1], want[1]),
+                   *((f"d{k}0", u, v)
+                     for k, u, v in zip("hcnm", grads[2], want[2]))]
+            for part, pairs in (("fwd", fwd), ("bwd", bwd)):
+                errs = []
+                for label, got, ref in pairs:
+                    good, err = _close(got, ref, TOL[name])
+                    ok = ok and good
+                    errs.append(err)
+                    row[f"{label}_max_abs_err"] = err
+                    row[f"{label}_max_abs"] = float(ref.float().abs().max())
+                key = f"{part}_{name}"
+                worst[key] = max(worst.get(key, 0.0), *errs)
+            row["ok"] = ok
+            rows.append(row)
+            print(f"[check] slstm_scan {row}", flush=True)
+            _require(ok, f"sLSTM kernels against their plain versions: {row}")
+            del gx, r, carry, hs, last, kept, grads, want
+    report["slstm_scan_checks"] = rows
+    return worst
+
+
+def _slstm_bwd_bound(b, s, d, dtype) -> dict:
+    """The sLSTM backward's bound: the least time of the gradient, the
+    smaller of its two ways' (``work.slstm_bwd_work``: hs and the carry
+    kept by the forward, which the kernel reads, or computed again), and
+    both ways' bounds."""
+    ways = {way: bound(*slstm_bwd_work(b, s, d, dtype, way == "kept"))
+            for way in ("kept", "recompute")}
+    way = min(ways, key=lambda k: ways[k][0])
+    return {"bound_ms": ways[way][0], "bound_by": ways[way][1],
+            "bound_way": way,
+            "bound_ms_by_way": {k: v[0] for k, v in ways.items()}}
+
+
+def time_slstm(report: dict) -> dict:
+    """The forward kernel at the prefill shape (serving: nothing kept) and
+    at the training shape (the carry kept for the backward), and the
+    backward kernel at the training shape, float32, each beside its plain
+    version on the same inputs, its bound and the wrapper's time per call,
+    host included (``call_ms``).  The forward's bound is the function's
+    bytes (``work.slstm_work``), the kept carry's apart (``kept_mbytes``;
+    ``bound_ms_with_kept`` counts them too); the backward's the smaller of
+    its two ways' (``_slstm_bwd_bound``).  ``ns_per_step`` is the kernel's
+    time over S, the pace of its serial chain.  No PyTorch call computes
+    the recurrence, so library_ms is null."""
+    import torch
+    from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_bwd,
+                                                slstm_scan_bwd_plain,
+                                                slstm_scan_keep,
+                                                slstm_scan_plain)
+    rows = {}
+    for label, (b, s, d) in (("prefill", SLSTM_PREFILL),
+                             ("train", SLSTM_TRAIN)):
+        keep = label == "train"
+        gx, r, carry = _slstm_inputs(b, s, d, torch.float32, "zero", 700)
+        if keep:
+            fwd = lambda: slstm_scan_keep(gx, r, carry)
+            plain = lambda: slstm_scan_plain(gx, r, carry, keep=True)
+        else:
+            fwd = lambda: slstm_scan(gx, r, carry)
+            plain = lambda: slstm_scan_plain(gx, r, carry)
+        with torch.no_grad():
+            ms = _time_ms(fwd, iters=20)
+            call_ms = _time_ms(fwd, iters=20, run_ahead=False)
+            plain_ms = _time_ms(plain, iters=1, warmup=1, run_ahead=False)
+        flops, nbytes = slstm_work(b, s, d, torch.float32, False)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[label] = {"case": label, "dtype": "float32", "shape": [b, s, d],
+                       "kept": keep, "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "mbytes": nbytes / 1e6,
+                       "ns_per_step": ms * 1e6 / s}
+        if keep:
+            _, kept_bytes = slstm_work(b, s, d, torch.float32, True)
+            rows[label]["kept_mbytes"] = (kept_bytes - nbytes) / 1e6
+            rows[label]["bound_ms_with_kept"] = bound(
+                flops, kept_bytes)[0]
+            hs, last, kept = slstm_scan_keep(gx, r, carry)
+            g = torch.Generator(device=DEVICE)
+            g.manual_seed(701)
+            dhs = torch.randn(hs.shape, generator=g, device=DEVICE)
+            dlast = tuple(torch.zeros_like(t) for t in last)
+            ins = (gx, r, carry, hs, kept, dhs, dlast)
+            ms = _time_ms(lambda: slstm_scan_bwd(*ins), iters=20)
+            call_ms = _time_ms(lambda: slstm_scan_bwd(*ins), iters=20,
+                               run_ahead=False)
+            plain_ms = _time_ms(lambda: slstm_scan_bwd_plain(*ins), iters=1,
+                                warmup=1, run_ahead=False)
+            rows["bwd"] = {"case": "train_bwd", "dtype": "float32",
+                           "shape": [b, s, d], "ms": ms, "call_ms": call_ms,
+                           "plain_ms": plain_ms, "library_ms": None,
+                           **_slstm_bwd_bound(b, s, d, torch.float32),
+                           "ns_per_step": ms * 1e6 / s}
+    for row in rows.values():
+        print(f"[time] slstm_scan {row}", flush=True)
+    report["slstm_scan_timing"] = rows
+    return rows
 
 
 def _randn(shape, dtype, seed):
@@ -1310,7 +1498,17 @@ def _launches_per_prefill(cfg) -> dict:
     plan = layer_plan(cfg)
     return {"flash_attention": sum(k in ("attn", "attn_moe", "shared_attn")
                                    for k in plan),
-            "ssd_scan": plan.count("mamba2") + 2 * plan.count("mlstm")}
+            "ssd_scan": plan.count("mamba2") + 2 * plan.count("mlstm"),
+            "slstm_scan": plan.count("slstm")}
+
+
+def _launches_per_decode(cfg) -> dict:
+    """Kernel launches one decode step makes: the sLSTM scan once per sLSTM
+    layer (S = 1 from the request's carry); attention, Mamba-2 and mLSTM
+    decode in plain torch, as the reference's."""
+    from repro_torch.models import layer_plan
+    return {"flash_attention": 0, "ssd_scan": 0,
+            "slstm_scan": layer_plan(cfg).count("slstm")}
 
 
 def serve(report: dict, cfg) -> dict:
@@ -1319,12 +1517,13 @@ def serve(report: dict, cfg) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import tpu_pod_slices
-    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels import flash_attention, slstm_scan, ssd_scan
     from repro_torch.models import prefill
     from repro_torch.serve import ServingEngine
 
     counters = {"flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+                "ssd_scan": ssd_scan.launches,
+                "slstm_scan": slstm_scan.launches}
     flash_paths = flash_attention.path_launches
 
     max_len = max(PROMPT_LENS) + NEW_TOKENS
@@ -1365,11 +1564,15 @@ def serve(report: dict, cfg) -> dict:
                  and all(0 <= t < cfg.vocab for t in r.out_tokens),
                  f"request {r.rid} tokens {r.out_tokens}")
     _require(n_prefill == len(prompts), f"{n_prefill} prefills")
+    n_decode = sum(len(r.out_tokens) - 1 for r in reqs)
     per_prefill = _launches_per_prefill(cfg)
+    per_decode = _launches_per_decode(cfg)
     for name, n in per_prefill.items():
-        _require(n_launch[name] == n * n_prefill,
+        want = n * n_prefill + per_decode[name] * n_decode
+        _require(n_launch[name] == want,
                  f"{cfg.name}: {name} launched {n_launch[name]} times for "
-                 f"{n_prefill} prefills of {n} launches each")
+                 f"{n_prefill} prefills of {n} launches each and {n_decode} "
+                 f"decode steps of {per_decode[name]}")
     path = SERVED_FLASH_PATH[cfg.dtype]
     _require(n_flash_path[path] == n_launch["flash_attention"],
              f"{cfg.name}: flash launches by path {n_flash_path}: every "
@@ -1386,6 +1589,7 @@ def serve(report: dict, cfg) -> dict:
         "wall_s": wall, "launches": n_launch,
         "flash_launches_by_path": n_flash_path,
         "launches_per_prefill": per_prefill, "prefills": n_prefill,
+        "launches_per_decode": per_decode, "decode_steps": n_decode,
         "ttft_ms_p50": stats["ttft_ms_p50"],
         "ttft_ms_p99": stats["ttft_ms_p99"],
         "e2e_ms_p99": stats["e2e_ms_p99"],
@@ -1567,7 +1771,8 @@ def slstm_share(params, cfg, prompt) -> dict:
     """One prefill of ``prompt`` on one thread, and the sLSTM blocks of the
     model run alone on a hidden state of the same shape, in turns, 3 times
     each after a warm-up: the share of the prefill's wall time (medians)
-    that the sLSTM Python loop takes."""
+    that the sLSTM blocks take (their projections and the sLSTM scan
+    kernel, one launch a block)."""
     import statistics
     import torch
     from repro_torch.models import layer_plan, prefill
@@ -1761,9 +1966,7 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
 # float32, the reference's dtype.  granite-8b at full width is cut in depth
 # only (36 -> 8 layers): 2.15 B parameters, whose params, gradients and two
 # AdamW moments take 34.4 GB (all 36 layers would take 132 GB).  zamba2-1.2b
-# and xlstm-125m run at full width and depth.  xlstm's 3 sLSTM layers are a
-# Python loop over the tokens that autograd runs through, so it trains at
-# S 512 (B 8, the same 4096 tokens a step).
+# and xlstm-125m run at full width and depth, all at B 2 x S 2048.
 #
 # Two warm-up steps are far too few for granite's width (Adam moves every
 # weight by about lr at once): at lr 3e-4 the loss rose from 11.1 to 23.2 by
@@ -1776,7 +1979,7 @@ TRAIN_RUNS = (
      "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
     {"arch": "zamba2-1.2b", "layers": None, "batch": 2, "seq": 2048,
      "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
-    {"arch": "xlstm-125m", "layers": None, "batch": 8, "seq": 512,
+    {"arch": "xlstm-125m", "layers": None, "batch": 2, "seq": 2048,
      "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
 )
 # musicgen-large with its frontend prefix, at full width and depth: B 2 x
@@ -1805,13 +2008,15 @@ def _tree_rel(got, want) -> float:
 
 
 def _train_counters():
-    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.kernels import flash_attention, slstm_scan, ssd_scan
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "tf32x3": flash_attention.path_launches["tf32x3"],
             "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"],
             "ssd_scan": ssd_scan.launches,
-            "ssd_scan_bwd": ssd_scan.bwd_launches}
+            "ssd_scan_bwd": ssd_scan.bwd_launches,
+            "slstm_scan": slstm_scan.launches,
+            "slstm_scan_bwd": slstm_scan.bwd_launches}
 
 
 def _reset(counters) -> None:
@@ -1828,18 +2033,20 @@ def _step_launches(cfg, remat: bool = False) -> dict:
     forward and backward per attention block or shared-block application,
     all on ``tf32x3``; one SSD forward and backward per Mamba-2 layer, two
     per mLSTM layer (so no backward runs the forward again: it reads the
-    forward's kept scratch).  With remat every stacked layer runs its forward again
-    in the backward (the hybrid's shared block is not rematerialised)."""
+    forward's kept scratch); one sLSTM scan forward and backward per sLSTM
+    layer.  With remat every stacked layer runs its forward again in the
+    backward (the hybrid's shared block is not rematerialised)."""
     per = _launches_per_prefill(cfg)
     from repro_torch.models import layer_plan
     again = sum(k in ("attn", "attn_moe") for k in layer_plan(cfg)) if (
         remat) else 0
     fwd = per["flash_attention"] + again
-    ssd = per["ssd_scan"]
+    ssd, sl = per["ssd_scan"], per["slstm_scan"]
     return {"flash_attention": fwd, "flash_attention_bwd":
             per["flash_attention"], "tf32x3": fwd,
             "bwd_tf32x3": per["flash_attention"],
-            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd}
+            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
+            "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
 
 
 def train_reduced_vs_cpu(run: dict) -> dict:
@@ -1917,6 +2124,7 @@ SSD_BWD_KERNELS = ("ssd_bwd_", "ssd_state_pass<true",
                    "ssd_chunk_state<true", "ssd_chunk_state_narrow<true")
 SSD_FWD_KERNELS = ("ssd_chunk_out", "ssd_chunk_cb", "ssd_chunk_state<false",
                    "ssd_chunk_state_narrow<false", "ssd_state_pass<false")
+SLSTM_FWD_KERNELS, SLSTM_BWD_KERNELS = ("slstm_scan_fwd",), ("slstm_scan_bwd",)
 
 
 def _require_losses(cfg, losses: list[float]) -> float:
@@ -1937,7 +2145,8 @@ def _require_losses(cfg, losses: list[float]) -> float:
 def _traced_step(run_step, per_step: dict) -> dict:
     """``run_step()`` (one train step) under ``torch.profiler``: the card
     time of its kernels, their count, the longest 8, and the time and share
-    of the card time of the flash and SSD kernels, forward and backward;
+    of the card time of the flash, SSD and sLSTM kernels, forward and
+    backward;
     each kernel that ``per_step`` launches must show, the flash backward's
     all on ``tf32x3``."""
     import torch
@@ -1964,7 +2173,9 @@ def _traced_step(run_step, per_step: dict) -> dict:
     for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
                         ("flash_fwd", ("flash_tf32x3",)),
                         ("ssd_bwd", SSD_BWD_KERNELS),
-                        ("ssd_fwd", SSD_FWD_KERNELS)):
+                        ("ssd_fwd", SSD_FWD_KERNELS),
+                        ("slstm_bwd", SLSTM_BWD_KERNELS),
+                        ("slstm_fwd", SLSTM_FWD_KERNELS)):
         traced[f"{name}_ms"] = share(names)
         traced[f"{name}_share"] = traced[f"{name}_ms"] / card_ms
     if per_step["flash_attention"]:
@@ -1976,6 +2187,9 @@ def _traced_step(run_step, per_step: dict) -> dict:
     if per_step["ssd_scan"]:
         _require(traced["ssd_bwd_ms"] > 0 and traced["ssd_fwd_ms"] > 0,
                  f"the traced step's SSD kernels: {traced}")
+    if per_step["slstm_scan"]:
+        _require(traced["slstm_bwd_ms"] > 0 and traced["slstm_fwd_ms"] > 0,
+                 f"the traced step's sLSTM kernels: {traced}")
     return traced
 
 
@@ -2123,7 +2337,9 @@ def train_one(run: dict) -> dict:
           f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
           f"peak {out['peak_mem_gb']:.2f} GB; of a step's card time flash "
           f"backward {100 * traced['flash_bwd_share']:.1f}%, SSD backward "
-          f"{100 * traced['ssd_bwd_share']:.1f}%; resume from step {ckpt} "
+          f"{100 * traced['ssd_bwd_share']:.1f}%, sLSTM forward and backward "
+          f"{100 * (traced['slstm_fwd_share'] + traced['slstm_bwd_share']):.1f}"
+          f"%; resume from step {ckpt} "
           f"bit for bit; {out['phase_s']:.0f} s", flush=True)
     return out
 
@@ -2268,13 +2484,8 @@ def train(report: dict) -> dict:
 
 # -- phase 9: dry-run and placement -----------------------------------------------
 # (a) The dry-run's meta sweep in this process: every arch x shape on both
-# production meshes, but xlstm-125m's train_4k and prefill_32k, which run
-# its sLSTM loop once a token on the meta device too (4096 and 32768 steps
-# x 3 layers, each op a meta kernel written in Python): 247-508 s a cell
-# on the CPU (PERF.md), past this phase's share of the run;
-# ``python -m repro_torch.launch.dryrun --all --mesh both`` runs them.
+# production meshes (80 cells).
 DRYRUN_MESHES = ("single", "multi")
-DRYRUN_LEFT_OUT = {("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")}
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
 # (b) phase 8's first training run, as a host-mesh cell: the argument bytes
 # the dry-run predicts are held to what the card allocates for them
@@ -2288,21 +2499,19 @@ SCORE_DRAWS = 10_000
 
 def dryrun_sweep() -> dict:
     """Phase 9 (a): ``dryrun.run_cell`` for every mesh of ``DRYRUN_MESHES``
-    (fake process group, meta device) x arch x shape, but
-    ``DRYRUN_LEFT_OUT``; no cell may fail."""
+    (fake process group, meta device) x arch x shape; no cell may fail."""
     from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     recs = [dryrun.run_cell(arch, shape, mesh, DRYRUN_OUT)
-            for mesh in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES
-            if (arch, shape) not in DRYRUN_LEFT_OUT]
+            for mesh in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES]
     counts = {k: sum(r["status"] == k for r in recs)
               for k in ("OK", "SKIPPED", "FAIL")}
     ok = [r for r in recs if r["status"] == "OK"]
     dominant = {term: sum(r["roofline"]["dominant"] == term for r in ok)
                 for term in ("compute", "memory", "collective")}
     out = {"counts": counts, "seconds": time.perf_counter() - t0,
-           "left_out": sorted(DRYRUN_LEFT_OUT), "dominant": dominant,
+           "dominant": dominant,
            "cells": {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
                k: r.get(k) for k in ("status", "seconds", "params_counted",
                                      "fits_hbm", "error")}
@@ -2607,7 +2816,7 @@ def _twin_train_lm(counters, smi: str) -> dict:
     ``TRAIN_LM_STEPS``: its crash and resume, then an uninterrupted run of
     the same steps, whose losses the resumed steps equal bit for bit; the
     SSD forward and backward once per Mamba-2 layer and twice per mLSTM
-    layer a step; the step time beside the card's name and power limit.
+    layer a step, the sLSTM scan's once per sLSTM layer; the step time beside the card's name and power limit.
     Both runs start from the same seed, so their first halves are equal
     too."""
     import shutil
@@ -2621,7 +2830,9 @@ def _twin_train_lm(counters, smi: str) -> dict:
     seconds = time.perf_counter() - t0
     got = _counts(counters)
     per = _step_launches(t["cfg"])
-    want = {k: TRAIN_LM_STEPS * per[k] for k in ("ssd_scan", "ssd_scan_bwd")}
+    want = {k: TRAIN_LM_STEPS * per[k] for k in ("ssd_scan", "ssd_scan_bwd",
+                                                 "slstm_scan",
+                                                 "slstm_scan_bwd")}
     straight = train_lm.make_trainer(
         t["cfg"], t["steps"], t["steps"], t["seq"], t["batch"],
         str(TRAIN_LM_CKPT / "straight"), DEVICE, 2 * t["steps"])
@@ -2735,6 +2946,7 @@ def main() -> int:
     flash_bwd_err = check_flash_bwd(report)
     ssd_err = check_ssd(report)
     ssd_bwd_err = check_ssd_bwd(report)
+    slstm_err = check_slstm(report)
     matmul_err = check_matmul(report)
     copy_err = check_copy(report)
     stencil_err = check_stencil(report)
@@ -2743,6 +2955,7 @@ def main() -> int:
     flash_bwd_timing = time_flash_bwd(report)
     ssd_timing = time_ssd(report)
     ssd_bwd_timing = time_ssd_bwd(report)
+    slstm_timing = time_slstm(report)
     matmul_timing = time_matmul(report)
     copy_timing = time_copy(report)
     stencil_timing = time_stencil(report)
@@ -2872,6 +3085,29 @@ def main() -> int:
         ssd_bwd_row[label] = {key: ssd_bwd_timing[label][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_by_way")}
+    slstm_rows = []
+    for name, timing, err in (
+            ("slstm_scan", slstm_timing["prefill"], slstm_err["fwd_float32"]),
+            ("slstm_scan_bwd", slstm_timing["bwd"],
+             slstm_err["bwd_float32"])):
+        served_n = served_by(name) if name == "slstm_scan" else {}
+        row = kernel_row(name, timing, err, "src/repro/models/xlstm.py:176",
+                         {**served_n, **trained_by(name),
+                          **examples_by(name)})
+        row["replaces_tpu_kernel"] = (
+            "none: the reference runs sLSTM as one jax.lax.scan of its "
+            "_slstm_cell" + ("" if name == "slstm_scan" else
+                             ", differentiated by autodiff"))
+        row["ns_per_step"] = timing["ns_per_step"]
+        row["call_ms"] = timing["call_ms"]
+        row["bfloat16_max_abs_err"] = slstm_err[
+            ("fwd" if name == "slstm_scan" else "bwd") + "_bfloat16"]
+        slstm_rows.append(row)
+    slstm_rows[0]["train_kept"] = {k: slstm_timing["train"][k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "kept_mbytes",
+        "bound_ms_with_kept", "ns_per_step")}
+    slstm_rows[1]["bound_way"] = slstm_timing["bwd"]["bound_way"]
+    slstm_rows[1]["bound_ms_by_way"] = slstm_timing["bwd"]["bound_ms_by_way"]
     kernels = [
         flash_row,
         bwd_row,
@@ -2882,6 +3118,7 @@ def main() -> int:
                    {**served_by("ssd_scan"), **trained_by("ssd_scan"),
                     **examples_by("ssd_scan")}),
         ssd_bwd_row,
+        *slstm_rows,
         kernel_row("matmul",
                    next(r for r in matmul_timing if r["dtype"] == "float32"),
                    matmul_err["float32"], "src/repro/kernels/matmul.py:39",

@@ -32,8 +32,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd would need a gradient through a CUDA kernel
     that has no backward.
 
-    Flash attention and the SSD scan have one (``FlashAttention``,
-    ``SSDScan``); the matmul, copy and stencil kernels have none (nor have
+    Flash attention, the SSD scan and the sLSTM scan have one
+    (``FlashAttention``, ``SSDScan``, ``SLSTMScan``); the matmul, copy and stencil kernels have none (nor have
     the TPU kernels they replace: no custom VJP), so their output would
     carry no ``grad_fn`` and the gradient would be lost without a word.
     Run them under ``torch.no_grad()`` or ``torch.inference_mode()``; on

@@ -1,8 +1,8 @@
 """Public ops that the model and the task runtime's payloads call (port of
 ``repro/kernels/ops.py``).
 
-``matmul``, ``copy``, ``stencil``, ``flash_attention`` and ``ssd_scan`` go
-to their CUDA kernels for every CUDA tensor, whatever its shape: each
+``matmul``, ``copy``, ``stencil``, ``flash_attention``, ``ssd_scan`` and
+``slstm_scan`` go to their CUDA kernels for every CUDA tensor, whatever its shape: each
 kernel masks a ragged edge itself, so there is no shape gate and no quiet
 fallback (the reference gave shapes off its (8, 128) tiling to its jnp
 oracles; here those are the kernels' work too).  Each raises on a dtype or
@@ -21,6 +21,7 @@ from . import matmul as _matmul
 from .copy import copy
 from .flash_attention import flash_attention
 from .ref import decode_attention_ref, matmul_ref
+from .slstm_scan import slstm_scan
 from .ssd_scan import ssd_scan
 from .stencil import stencil
 
@@ -38,4 +39,4 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 __all__ = ["copy", "decode_attention", "flash_attention", "matmul",
-           "ssd_scan", "stencil"]
+           "slstm_scan", "ssd_scan", "stencil"]

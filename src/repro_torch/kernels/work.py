@@ -3,8 +3,8 @@ the kind of unit that runs them) and the bytes each function needs, and the
 least time an H100 could take for them.
 
 One copy read by two callers: ``chip_smoke.py`` prices each kernel's bound
-with it, and on the meta device the wrappers of flash attention and the
-SSD scan report it (:func:`report`) to whatever counts the work of a step
+with it, and on the meta device the wrappers of flash attention, the SSD
+scan and the sLSTM scan report it (:func:`report`) to whatever counts the work of a step
 (``launch/op_analysis.py``), since a kernel is no aten op that a counter of
 the op stream could price.
 """
@@ -18,7 +18,11 @@ H100_BYTES_PER_S = 3.35e12               # HBM3
 H100_HBM_BYTES = 80e9
 H100_PEAK_FLOPS = {"float32": 67e12,     # float32 outside the tensor cores
                    "bfloat16": 989e12,   # tensor cores
-                   "3xtf32": 495e12 / 3}  # TF32 tensor cores, 3 products each
+                   "3xtf32": 495e12 / 3,  # TF32 tensor cores, 3 products each
+                   # the special function units (exp2, reciprocal, ...): 16
+                   # a clock an SM (CUDA guide, compute capability 9.0), at
+                   # the 1.98 GHz at which 132 SMs give float32's 67e12
+                   "sfu": 132 * 16 * 1.98e9}
 # The network a collective crosses: one 400 Gb/s NDR InfiniBand NIC per H100
 # of an HGX node, 50e9 bytes/s a device.  One rate for every mesh axis: the
 # production meshes put 16 consecutive ranks on "model" and 256 or 512 in
@@ -108,6 +112,44 @@ def ssd_bwd_work(b, s, h, d, n, dtype, kept: bool):
     if kept:
         nbytes += 4 * scratch_floats(b, s, h, d, n)
     return {"float32": fma, "3xtf32": mma}, nbytes
+
+
+def slstm_work(b, s, d, dtype, keep: bool):
+    """(flops by kind, bytes) of the sLSTM recurrence's forward over B x S
+    steps of d units.  Per (b, t, unit) 20 float32 flops (the four
+    pre-activations' FMAs, the stabilizer's add and max, the exponents'
+    subtractions, c' and n', |n'| max 1, o c') and 6 special-function
+    operations (three exps, tanh, two reciprocals: sigmoid's and the
+    division).  gx read once, r and the carry read once, hs and the last
+    carry written once: the function's bytes.  With ``keep`` also the
+    carry after every step (c, n, m), which the kernel writes for its
+    backward: its own traffic, which the meta path reports, but no byte
+    the function needs, so a bound prices ``keep=False``."""
+    steps = b * s * d
+    nbytes = (4 * steps + 4 * d + 8 * b * d + steps
+              + (3 * steps if keep else 0)) * dtype.itemsize
+    return {"float32": 20 * steps, "sfu": 6 * steps}, nbytes
+
+
+def slstm_bwd_work(b, s, d, dtype, kept: bool):
+    """(flops by kind, bytes) of the recurrence's backward, with hs and the
+    carry after every step (c, n, m) ``kept`` by the forward, which the
+    kernel reads, or else computed again from the initial carry (the
+    forward's carry at a checkpoint every few hundred steps, a negligible
+    read, each segment's forward run again on gx read once and held on
+    chip).  Per (b, t, unit) either way the forward's step again (20
+    flops, 6 special-function operations: the kernel too computes a step's
+    gates again from the carry it started from) and its reverse (~40
+    flops: the gradients of h', c', n', the exps and the max, the four
+    pre-activations' and dr's terms, and the carried dh; one more
+    reciprocal).  gx and dhs read once, r, the initial carry and the last
+    carry's gradient read once, and with ``kept`` hs and the kept carry;
+    dgx, dr and the initial carry's gradient written once."""
+    steps = b * s * d
+    nbytes = (4 * steps + steps + 4 * d + 8 * b * d
+              + 4 * steps + 4 * d + 4 * b * d
+              + (4 * steps if kept else 0)) * dtype.itemsize
+    return {"float32": 60 * steps, "sfu": 7 * steps}, nbytes
 
 
 # -- the meta path's report -----------------------------------------------------

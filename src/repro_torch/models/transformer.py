@@ -45,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from .attention import (attention_block, attention_decode, init_attention,
                         init_kv_cache)
 from .layers import ffn, init_ffn, init_linear, rms_norm
@@ -160,12 +161,13 @@ def _init_block(cfg: ModelConfig, kind: str, stack: tuple[int, ...],
     raise ValueError(kind)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random weights with the reference's init scales, drawn on ``device``
     from a seeded ``torch.Generator`` (none on the meta device, where the
-    tree has shapes only)."""
+    tree has shapes only).  ``None`` is the card, and raises without one
+    (``device.resolve_device``): pass ``device="cpu"`` for the CPU."""
     plan = layer_plan(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)

@@ -8,10 +8,11 @@ CUDA kernel on the card), heads folded into the batch; the normalizer
 n_t q_t is a second, D = 1 scan over the input gate, so prefill and decode
 agree to numerical precision.
 
-sLSTM keeps per-unit scalar state with exponential gating and runs as a
-torch loop over the sequence (the reference's ``lax.scan``).  The input
+sLSTM keeps per-unit scalar state with exponential gating.  The input
 half of its four gate pre-activations is one product per gate over the
-whole sequence, ahead of the loop; the loop does the recurrent half.
+whole sequence; the recurrent half is ``ops.slstm_scan`` (the CUDA kernel
+on the card, forward and backward; the reference's ``lax.scan``), which
+prefill, decode (S = 1, the request's carry) and training share.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.slstm_scan import slstm_cell
 from .layers import init_linear, rms_norm
 
 
@@ -166,19 +168,10 @@ def _gate_inputs(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _slstm_cell(params: dict, carry: tuple, gx: torch.Tensor) -> tuple:
-    """One sLSTM step with exponential gating and the stabilizer state m.
-    ``gx`` [B, 4, d] is the input half of the gate pre-activations."""
-    h_prev, c_prev, n_prev, m_prev = carry
-    pre_i, pre_f, pre_z, pre_o = (gx + params["r_gates"] * h_prev[:, None, :]
-                                  ).unbind(-2)
-    f_m = pre_f + m_prev
-    m_new = torch.maximum(f_m, pre_i)                     # stabilizer
-    i_g = torch.exp(pre_i - m_new)
-    f_g = torch.exp(f_m - m_new)
-    c_new = f_g * c_prev + i_g * torch.tanh(pre_z)
-    n_new = f_g * n_prev + i_g
-    h_new = torch.sigmoid(pre_o) * c_new / torch.clamp(n_new.abs(), min=1.0)
-    return h_new, c_new, n_new, m_new
+    """One sLSTM step with exponential gating and the stabilizer state m
+    (``slstm_scan.slstm_cell``, the kernel's arithmetic).  ``gx`` [B, 4, d]
+    is the input half of the gate pre-activations."""
+    return slstm_cell(gx, params["r_gates"], carry)
 
 
 def _slstm_out(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -190,15 +183,12 @@ def _slstm_out(params: dict, h: torch.Tensor) -> torch.Tensor:
 
 def slstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
                 return_state: bool = False):
-    bsz, s, d = x.shape
-    gx = _gate_inputs(params, x)                          # [B,S,4,d]
+    bsz, _, d = x.shape
     carry = tuple(torch.zeros((bsz, d), dtype=x.dtype, device=x.device)
                   for _ in range(4))
-    hs = []
-    for t in range(s):
-        carry = _slstm_cell(params, carry, gx[:, t])
-        hs.append(carry[0])
-    out = _slstm_out(params, torch.stack(hs, dim=1))
+    hs, carry = ops.slstm_scan(_gate_inputs(params, x), params["r_gates"],
+                               carry)
+    out = _slstm_out(params, hs)
     if not return_state:
         return out
     return out, dict(zip(("h", "c", "n", "m"), carry))
@@ -207,9 +197,9 @@ def slstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
 def slstm_decode(params: dict, x: torch.Tensor, state: dict, *,
                  n_heads: int) -> tuple[torch.Tensor, dict]:
     carry = (state["h"], state["c"], state["n"], state["m"])
-    new = _slstm_cell(params, carry, _gate_inputs(params, x[:, 0]))
-    out = _slstm_out(params, new[0])[:, None, :]
-    return out, dict(zip(("h", "c", "n", "m"), new))
+    hs, new = ops.slstm_scan(_gate_inputs(params, x), params["r_gates"],
+                             carry)
+    return _slstm_out(params, hs), dict(zip(("h", "c", "n", "m"), new))
 
 
 def init_slstm_state(batch: int, d_model: int, dtype=torch.float32,

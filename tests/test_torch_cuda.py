@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.bridge import to_torch
-from repro_torch.kernels import copy, matmul, ops, ref, ssd_scan, stencil
+from repro_torch.kernels import (copy, matmul, ops, ref, slstm_scan,
+                                 ssd_scan, stencil)
 from repro_torch.models import init_moe, moe_block
 from repro_torch.models.layers import init_linear
 from repro_torch.kernels.flash_attention import (bwd_launches,
@@ -401,6 +402,79 @@ FLASH_BWD_F32_KEEP = 4e-5   # the float32 error under which the 3xTF32
                             # backward is kept (a 1xTF32 slip exceeds it)
 
 
+def _slstm_inputs(card, b, s, d, dtype, random_carry, seed=0):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=card)
+    gx, r = rn(b, s, 4, d), rn(4, d) * 0.1
+    carry = ([rn(b, d) * 0.5, rn(b, d), rn(b, d).abs() + 1.0, rn(b, d)]
+             if random_carry else [torch.zeros(b, d, device=card)] * 4)
+    return gx.to(dtype), r.to(dtype), tuple(t.to(dtype) for t in carry)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,d,random_carry", [
+    (1, 1024, 768, False),     # xlstm-125m's prefill
+    (2, 2048, 768, False),     # its training shape
+    (1, 1, 768, True),         # a decode step
+    (3, 37, 100, True),        # ragged S, d off the warp's 32
+    (2, 9, 33, False),
+])
+def test_slstm_kernels_match_plain(card, dtype, tol, b, s, d, random_carry):
+    """The sLSTM forward kernel (hs, the last carry, the kept carry) and
+    backward kernel (dgx, dr, the initial carry's gradient, on the
+    kernel's own hs and kept carry) against their plain versions at tol x
+    (1 + |v|); one launch a call each."""
+    gx, r, carry = _slstm_inputs(card, b, s, d, dtype, random_carry, s + d)
+    fwd, bwd = slstm_scan.launches.count, slstm_scan.bwd_launches.count
+    hs, last, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+    dhs = torch.randn_like(hs.float()).to(dtype)
+    dlast = tuple(torch.randn_like(t.float()).to(dtype) for t in last)
+    grads = slstm_scan.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
+    torch.cuda.synchronize()
+    assert (slstm_scan.launches.count - fwd,
+            slstm_scan.bwd_launches.count - bwd) == (1, 1)
+    want_hs, want_last, want_kept = slstm_scan.slstm_scan_plain(
+        gx, r, carry, keep=True)
+    want = slstm_scan.slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs,
+                                           dlast)
+    for got, ref_ in [(hs, want_hs), (kept, want_kept),
+                      *zip(last, want_last), (grads[0], want[0]),
+                      (grads[1], want[1]), *zip(grads[2], want[2])]:
+        assert got.dtype == ref_.dtype and got.shape == ref_.shape
+        err = (got.float() - ref_.float()).abs()
+        assert bool((err <= tol * (1 + ref_.float().abs())).all())
+
+
+def test_slstm_kernel_refuses_what_it_does_not_take(card):
+    gx, r, carry = _slstm_inputs(card, 1, 4, 32, torch.float32, True)
+    with pytest.raises(ValueError):
+        ops.slstm_scan(gx.half(), r.half(), tuple(t.half() for t in carry))
+    with pytest.raises(ValueError):
+        ops.slstm_scan(gx[:, :0], r, carry)
+    with pytest.raises(ValueError):
+        ops.slstm_scan(gx, r.cpu(), carry)
+
+
+def test_slstm_gradients_flow_through_the_kernels(card):
+    """Autograd through ``ops.slstm_scan`` on the card launches the forward
+    (keeping the carry) and the backward once each, and gives the plain
+    path's gradients on the CPU at 2e-4 x (1 + |g|)."""
+    gx, r, carry = _slstm_inputs(card, 2, 50, 64, torch.float32, True)
+    ins = [t.detach().requires_grad_() for t in (gx, r, *carry)]
+    cpu = [t.detach().cpu().requires_grad_() for t in ins]
+    fwd, bwd = slstm_scan.launches.count, slstm_scan.bwd_launches.count
+    for xs in (ins, cpu):
+        hs, last = ops.slstm_scan(xs[0], xs[1], tuple(xs[2:]))
+        (hs.sum() + last[1].sum()).backward()
+    assert (slstm_scan.launches.count - fwd,
+            slstm_scan.bwd_launches.count - bwd) == (1, 1)
+    for got, want in zip(ins, cpu):
+        err = (got.grad.cpu() - want.grad).abs()
+        assert bool((err <= 2e-4 * (1 + want.grad.abs())).all())
+
+
 def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
     q, k, v = _qkv(card, b, hq, hkv, s, t, d, dtype)
     with torch.no_grad():
@@ -710,7 +784,7 @@ def test_grad_step_on_the_card_matches_the_cpu_path(card):
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import make_grad_step
     cfg = get_config("granite-8b").reduced()
-    cpu = init_params(cfg, seed=3)
+    cpu = init_params(cfg, seed=3, device="cpu")
     gpu = to_torch(cpu, card)
     step = make_grad_step(cfg, remat=False)
     want, met_want = step(cpu, _train_batch(cfg.vocab, "cpu"))
@@ -738,7 +812,8 @@ def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
     SSD forward and one backward launch per scan of the layer plan (a
     Mamba-2 layer one, an mLSTM layer two: no backward runs the forward
     again, it reads the kept scratch), one flash forward and backward per
-    shared-block application."""
+    shared-block application, one sLSTM scan forward and backward per
+    sLSTM layer."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, layer_plan
     from repro_torch.optim.adamw import leaves
@@ -747,19 +822,21 @@ def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
     plan = layer_plan(cfg)
     scans = plan.count("mamba2") + 2 * plan.count("mlstm")
     attn = plan.count("shared_attn")
-    cpu = init_params(cfg, seed=3)
+    sl = plan.count("slstm")
+    cpu = init_params(cfg, seed=3, device="cpu")
     gpu = to_torch(cpu, card)
     step = make_grad_step(cfg, remat=False)
     want, met_want = step(cpu, _train_batch(cfg.vocab, "cpu"))
-    before = (ssd_scan.launches.count, ssd_scan.bwd_launches.count,
-              launches.count, bwd_launches.count)
+    counters = (ssd_scan.launches, ssd_scan.bwd_launches, launches,
+                bwd_launches, slstm_scan.launches, slstm_scan.bwd_launches)
+    before = tuple(c.count for c in counters)
     got, met = step(gpu, _train_batch(cfg.vocab, card))
     torch.cuda.synchronize()
-    after = (ssd_scan.launches.count, ssd_scan.bwd_launches.count,
-             launches.count, bwd_launches.count)
-    assert scans > 0
+    after = tuple(c.count for c in counters)
+    assert scans > 0 and (sl > 0) == (arch == "xlstm-125m")
     assert tuple(x - y for x, y in zip(after, before)) == (scans, scans,
-                                                            attn, attn)
+                                                            attn, attn,
+                                                            sl, sl)
     assert float(met["loss"]) == pytest.approx(float(met_want["loss"]),
                                                rel=1e-5)
     for g, w in zip(leaves(got), leaves(want)):
@@ -811,7 +888,7 @@ def test_prefixed_model_on_the_card_matches_the_cpu_path(card, arch, dtype,
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.optim.adamw import tree_map
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
-    cpu = init_params(cfg, seed=4)
+    cpu = init_params(cfg, seed=4, device="cpu")
     gpu = tree_map(lambda t: t.to(card), cpu)
     outs = []
     with torch.inference_mode():
@@ -854,7 +931,7 @@ def test_prefixed_model_trains_on_the_card(card, arch):
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import make_grad_step
     cfg = get_config(arch).reduced()
-    cpu = init_params(cfg, seed=3)
+    cpu = init_params(cfg, seed=3, device="cpu")
     gpu = to_torch(cpu, card)
     step = make_grad_step(cfg, remat=False)
     want, met_want = step(cpu, _prefixed(cfg, "cpu"))

@@ -286,7 +286,7 @@ def test_a_float32_prefix_is_cast_to_the_model_dtype():
     bfloat16 decode state."""
     cfg = dataclasses.replace(tconfigs.ARCHS["internvl2-76b"].reduced(),
                               dtype="bfloat16")
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     toks, front = (torch.from_numpy(a) for a in _inputs(cfg, s=12))
     a, _ = forward(params, cfg, toks, front)
     b, _ = forward(params, cfg, toks, front.to(torch.bfloat16))
@@ -395,7 +395,7 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
     n = sum(t.numel() for t in leaves(tree))
     assert abs(n / 29.48e9 - 1) < 1e-3 and abs(2 * n / 58.96e9 - 1) < 1e-3
     assert cs._launches_per_prefill(cfg) == {"flash_attention": 32,
-                                             "ssd_scan": 0}
+                                             "ssd_scan": 0, "slstm_scan": 0}
     assert (64, 8, 128) in cs.SERVED_LAYOUTS["bfloat16"]
     stack = tree["stacks"]["attn"]
     read = sum(t.numel() for t in leaves(stack["attn"]))
@@ -409,7 +409,7 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
     for remat, fwd in ((False, 48), (True, 96)):
         want = {"flash_attention": fwd, "flash_attention_bwd": 48,
                 "tf32x3": fwd, "bwd_tf32x3": 48, "ssd_scan": 0,
-                "ssd_scan_bwd": 0}
+                "ssd_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
         assert cs._step_launches(music, remat) == want
 
 

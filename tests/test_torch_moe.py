@@ -367,7 +367,8 @@ def test_chip_smoke_counts_one_flash_launch_per_moe_block():
     for arch in ARCHS:
         cfg = dataclasses.replace(tconfigs.ARCHS[arch], dtype="bfloat16")
         assert cs._launches_per_prefill(cfg) == {"flash_attention": 48,
-                                                 "ssd_scan": 0}
+                                                 "ssd_scan": 0,
+                                                 "slstm_scan": 0}
         # attention, router and shared expert whole, top_k of E experts
         tree = init_params(cfg, device="meta")
         moe = tree["stacks"]["attn_moe"]["moe"]

@@ -273,7 +273,7 @@ def test_remat_runs_the_forward_twice_and_the_backward_once(arch,
     cfg = get_config(arch).reduced()
     plan = layer_plan(cfg)
     scans = plan.count("mamba2") + 2 * plan.count("mlstm")
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     flat = [p.requires_grad_() for p in _leaves(params)]
     tokens = torch.randint(0, cfg.vocab, (2, 40),
                            generator=torch.Generator().manual_seed(0))

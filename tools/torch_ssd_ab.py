@@ -15,8 +15,8 @@ around ``--iters`` calls after a spin kernel holds the stream; with
 ``--profile``, also each pass's card time from ``torch.profiler``.  With
 ``--bwd``, the backward kernel instead (``ssd_scan_bwd``) at
 ``chip_smoke.py``'s training shapes (``SSD_BWD_TRAIN``): zamba2's heads at
-B 2 x S 2048, the mLSTM values and normalizer at B 32 (8 x 4 heads
-folded) x S 512, as training calls it: reading the forward's kept
+B 2 x S 2048, the mLSTM values and normalizer at B 8 (2 x 4 heads
+folded) x S 2048, as training calls it: reading the forward's kept
 scratch (``ssd_scan_keep``), route "kept", or in a tree that keeps none
 computing C . B^T, Acum and h_c again, route "recompute".  Prints one
 JSON object (label, source, the card's name and power limit, ms by shape
