@@ -24,14 +24,17 @@
 // exactly the one each step started from.
 //
 // Design.  Since r is per unit, every (b, unit) is an independent scalar
-// recurrence over t: one thread each, a warp on 32 neighbouring units, so
-// each load of gx[b, t, k, :] and each store of hs[b, t, :] is one
-// coalesced 128-byte line a warp; no shared memory and no communication
-// between threads.  gx does not depend on the carry, so the thread keeps
-// the next AHEAD steps' four values in registers, loaded AHEAD steps
-// before they are needed, and the serial chain never waits on memory.
-// Blocks are one warp, so a small B x d spreads over as many SMs as it
-// has warps (prefill: B 1 x d 768 is 24 warps).
+// recurrence over t, a serial chain that no parallelism shortens.  A block
+// owns 32 units of one batch row and two warps.  The chain warp, a lane a
+// unit, runs the steps and nothing else: per step four shared-memory loads
+// of gx, the cell (slstm::cell: five ex2/rcp on the special-function unit,
+// no division) and one 16-byte shared store of (h, c, n, m).  The copy
+// warp moves gx into a ring of NS chunks of TC steps by 16-byte cp.async,
+// NS - 2 chunks ahead, and writes the chain's staged outputs of the chunk
+// before to hs (and kept) with coalesced stores; the two meet once a chunk
+// at a block barrier.  The 16-byte copies need d * sizeof(T) a multiple of
+// 16 and gx on a 16-byte boundary: the wrapper pads d with zero units
+// (kernels/slstm_scan.py) and copies a gx that lies off a boundary.
 //
 // Bound.  The function's bytes: gx read once (4 B S d), hs written once
 // (B S d) and the carries.  The prefill's [1, 1024, 4, 768] float32 moves
@@ -39,113 +42,206 @@
 // 19 us, beside which the kept carry (3 B S d, ~38 MB, 11 us), this
 // kernel's choice for its backward, is no byte the function needs and
 // stays out of the bound.  The kernel is held instead by its chain of S
-// dependent steps: a step's critical path (the FMA into pre_f, the add of
-// m, the max, two exps, the FMAs into c' and n', |n'| max 1, the
-// division, the rounding) is ~150 cycles, so ~0.08 ms at S 1024 and
-// ~0.16 ms at S 2048 at 1.98 GHz, whatever B x d up to the ~17k threads
-// the card can run in step (132 SMs x 4 schedulers x 32).  Measured
-// (chip_smoke.py on an H100 80GB HBM3 at 700 W): 0.23 ms at the prefill
-// (224 ns a step) and 1.04 ms at training's shape with the carry kept
-// (510 ns a step), 3-7x the estimate: a lone warp issues each step's
-// ~150-200 instructions (accurate expf and tanhf, two IEEE divisions,
-// the loads and stores) one at a time, so issue, not the critical path
-// alone, likely sets the pace.  The chain, not bytes, is
-// what a faster design would attack (several units' chains interleaved a
-// thread; fewer instructions a step).
+// dependent steps: pre_f's FMA, the add of m, the two differences and
+// their min, the scale, ex2 and its correction, the select, the FMA into n',
+// |n'| max 1, the product with 1 + eo, rcp and its Newton step, the
+// product into h': ~14 dependent instructions, two on the special-function
+// unit, of the 62 the chain's warp issues a step.  Measured
+// (tools/torch_slstm_ab.py, an H100 80GB HBM3 at 700 W): 0.065 ms at the
+// prefill and 0.127 ms at training's shape with the carry kept, 62-64 ns
+// a step at every shape, in L2 or not, where the first single-warp kernel
+// took 0.23 and 1.04 ms (220-510 ns a step: each step waited on its own
+// prefetched loads, from L2 or from DRAM).  The chain's latency sets the
+// pace.
+#include "hopper.cuh"
 #include "slstm_cell.cuh"
 
 namespace {
 
-using slstm::AHEAD;
-using slstm::THREADS;
+namespace blk {
+constexpr int UNITS = 32;   // units a block: a lane each
+constexpr int TC = 32;      // steps a chunk
+constexpr int NS = 4;       // stages of the gx ring
+constexpr int THREADS = 64; // the chain warp, the copy warp
 
 template <typename T>
-__device__ __forceinline__ void load_gates(float g[4], const T* p, int d) {
+__host__ __device__ constexpr size_t ring_bytes() {
+  return (size_t)NS * TC * 4 * UNITS * sizeof(T);
+}
+// the ring, then two chunks of staged outputs (h, c, n, m), the carry
+// staged whether it is kept or not
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ring_bytes<T>() + 2 * (size_t)TC * UNITS * 16;
+}
+
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 0;" ::: "memory");
+}
+}  // namespace blk
+
+template <typename T, bool KEEP>
+__global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_fwd(
+    const T* __restrict__ gx, const T* __restrict__ r,
+    const T* __restrict__ h0, const T* __restrict__ c0,
+    const T* __restrict__ n0, const T* __restrict__ m0, T* __restrict__ hs,
+    T* __restrict__ h_out, T* __restrict__ c_out, T* __restrict__ n_out,
+    T* __restrict__ m_out, T* __restrict__ kept, int s, int d) {
+  using namespace blk;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* ring = reinterpret_cast<T*>(smem);          // [NS][TC][4][UNITS]
+  float4* outs = reinterpret_cast<float4*>(smem + ring_bytes<T>());
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int u0 = blockIdx.x * UNITS, u = u0 + lane;
+  const bool live = u < d;
+  const size_t b = blockIdx.y;
+  const int nc = (s + TC - 1) / TC;   // chunk c holds t = c*TC + j, j < TC
+
+  if (warp == 0) {
+    // the chain
+    float rk[4] = {0.f, 0.f, 0.f, 0.f}, h = 0.f, c = 0.f, n = 0.f, m = 0.f;
+    if (live) {
+      const size_t row = b * d + u;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) g[k] = slstm::to_f32(p[(size_t)k * d]);
+      for (int k = 0; k < 4; ++k) rk[k] = slstm::to_f32(r[(size_t)k * d + u]);
+      h = slstm::to_f32(h0[row]);
+      c = slstm::to_f32(c0[row]);
+      n = slstm::to_f32(n0[row]);
+      m = slstm::to_f32(m0[row]);
+    }
+    block_sync();                                 // chunk 0 is in
+    for (int p = 0; p <= nc; ++p) {
+      if (p < nc) {
+        const T* gb = ring + (size_t)(p % NS) * TC * 4 * UNITS + lane;
+        float4* ob = outs + (size_t)(p & 1) * TC * UNITS + lane;
+        auto load = [&](int j, float g[4]) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) g[k] = slstm::to_f32(gb[(j * 4 + k) * UNITS]);
+        };
+        auto step = [&](int j, const float g[4]) {
+          const slstm::Step st = slstm::cell(g, rk, h, c, n, m);
+          h = slstm::round_to<T>(st.h);
+          c = slstm::round_to<T>(st.c);
+          n = slstm::round_to<T>(st.n);
+          m = slstm::round_to<T>(st.m);
+          ob[j * UNITS] = make_float4(h, c, n, m);
+        };
+        const int nt = min(TC, s - p * TC);
+        if (nt == TC) {
+          float g[4], gn[4];
+          load(0, g);
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            if (j + 1 < TC) load(j + 1, gn);
+            step(j, g);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) g[k] = gn[k];
+          }
+        } else {
+          for (int j = 0; j < nt; ++j) {
+            float g[4];
+            load(j, g);
+            step(j, g);
+          }
+        }
+      }
+      block_sync();
+    }
+    if (live) {
+      const size_t row = b * d + u;
+      h_out[row] = slstm::from_f32<T>(h);
+      c_out[row] = slstm::from_f32<T>(c);
+      n_out[row] = slstm::from_f32<T>(n);
+      m_out[row] = slstm::from_f32<T>(m);
+    }
+    return;
+  }
+
+  // the copy warp.  Chunk c's gx into ring stage c % NS, 16 bytes a copy,
+  // zeros where t or the unit is out of range; one commit group a call.
+  auto issue = [&](int c) {
+    if (c < nc) {
+      constexpr int EPC = 16 / (int)sizeof(T), CPR = UNITS / EPC;
+      constexpr int TOTAL = TC * 4 * CPR;
+      T* stage = ring + (size_t)(c % NS) * TC * 4 * UNITS;
+      for (int i = lane; i < TOTAL; i += 32) {
+        const int q = i % CPR, row = i / CPR;             // row = 4 j + k
+        const int t = c * TC + row / 4, unit = u0 + q * EPC;
+        const bool ok = t < s && unit < d;
+        const T* src = gx;
+        if (ok) src = gx + ((b * s + t) * 4 + (row % 4)) * d + unit;
+        hopper::cp_async16(stage + row * UNITS + q * EPC, src, ok ? 16 : 0);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+  // chunk c's staged outputs to hs (and kept), a lane a unit
+  auto store = [&](int c) {
+    if (!live) return;
+    const float4* ob = outs + (size_t)(c & 1) * TC * UNITS + lane;
+    const int nt = min(TC, s - c * TC);
+    for (int j = 0; j < nt; ++j) {
+      const size_t bt = b * s + (size_t)c * TC + j;
+      const float4 v = ob[j * UNITS];
+      hs[bt * d + u] = slstm::from_f32<T>(v.x);
+      if (KEEP) {
+        T* kt = kept + bt * 3 * d + u;
+        kt[0] = slstm::from_f32<T>(v.y);
+        kt[d] = slstm::from_f32<T>(v.z);
+        kt[2 * (size_t)d] = slstm::from_f32<T>(v.w);
+      }
+    }
+  };
+
+  for (int c = 0; c < NS - 1; ++c) issue(c);
+  hopper::cp_async_wait<NS - 2>();
+  block_sync();
+  for (int p = 0; p <= nc; ++p) {
+    issue(p + NS - 1);              // into chunk p - 1's stage, read in p - 1
+    if (p >= 1) store(p - 1);
+    hopper::cp_async_wait<NS - 2>();   // chunk p + 1 is in
+    block_sync();
+  }
+  hopper::cp_async_wait<0>();
 }
 
 template <typename T, bool KEEP>
-__global__ void __launch_bounds__(THREADS)
-    slstm_scan_fwd(const T* __restrict__ gx, const T* __restrict__ r,
-                   const T* __restrict__ h0, const T* __restrict__ c0,
-                   const T* __restrict__ n0, const T* __restrict__ m0,
-                   T* __restrict__ hs, T* __restrict__ h_out,
-                   T* __restrict__ c_out, T* __restrict__ n_out,
-                   T* __restrict__ m_out, T* __restrict__ kept, int s,
-                   int d) {
-  const int u = blockIdx.x * THREADS + threadIdx.x;
-  if (u >= d) return;
-  const size_t row = (size_t)blockIdx.y * d + u;
-  float rk[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) rk[k] = slstm::to_f32(r[(size_t)k * d + u]);
-  float h = slstm::to_f32(h0[row]), c = slstm::to_f32(c0[row]);
-  float n = slstm::to_f32(n0[row]), m = slstm::to_f32(m0[row]);
-  const size_t step = 4 * (size_t)d;                 // gx's stride in t
-  const T* g = gx + (size_t)blockIdx.y * s * step + u;
-  T* hb = hs + (size_t)blockIdx.y * s * d + u;
-  T* kb = kept + (KEEP ? (size_t)blockIdx.y * s * 3 * d + u : 0);
-
-  float ahead[AHEAD][4];
-#pragma unroll
-  for (int k = 0; k < AHEAD; ++k)
-    if (k < s) load_gates(ahead[k], g + k * step, d);
-  for (int t0 = 0; t0 < s; t0 += AHEAD) {
-#pragma unroll
-    for (int k = 0; k < AHEAD; ++k) {
-      const int t = t0 + k;
-      if (t < s) {
-        float gt[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) gt[j] = ahead[k][j];
-        if (t + AHEAD < s) load_gates(ahead[k], g + (t + AHEAD) * step, d);
-        const slstm::Step st = slstm::cell(gt, rk, h, c, n, m);
-        h = slstm::round_to<T>(st.h);
-        c = slstm::round_to<T>(st.c);
-        n = slstm::round_to<T>(st.n);
-        m = slstm::round_to<T>(st.m);
-        hb[(size_t)t * d] = slstm::from_f32<T>(h);
-        if (KEEP) {
-          T* kt = kb + (size_t)t * 3 * d;
-          kt[0] = slstm::from_f32<T>(c);
-          kt[d] = slstm::from_f32<T>(n);
-          kt[2 * (size_t)d] = slstm::from_f32<T>(m);
-        }
-      }
-    }
-  }
-  h_out[row] = slstm::from_f32<T>(h);
-  c_out[row] = slstm::from_f32<T>(c);
-  n_out[row] = slstm::from_f32<T>(n);
-  m_out[row] = slstm::from_f32<T>(m);
+int launch_kernel(const void* gx, const void* r, const void* const carry[4],
+                  void* hs, void* const out[4], void* kept, int b, int s,
+                  int d, cudaStream_t stream) {
+  if (d * sizeof(T) % 16) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = blk::smem_bytes<T>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      slstm_scan_fwd<T, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto o = [](void* p) { return static_cast<T*>(p); };
+  const dim3 grid((d + blk::UNITS - 1) / blk::UNITS, b);
+  slstm_scan_fwd<T, KEEP><<<grid, blk::THREADS, smem, stream>>>(
+      in(gx), in(r), in(carry[0]), in(carry[1]), in(carry[2]), in(carry[3]),
+      o(hs), o(out[0]), o(out[1]), o(out[2]), o(out[3]), o(kept), s, d);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* gx, const void* r, const void* const carry[4],
            void* hs, void* const out[4], void* kept, int b, int s, int d,
            cudaStream_t stream) {
-  const dim3 grid((d + THREADS - 1) / THREADS, b);
-  auto in = [](const void* p) { return static_cast<const T*>(p); };
-  auto o = [](void* p) { return static_cast<T*>(p); };
   if (kept)
-    slstm_scan_fwd<T, true><<<grid, THREADS, 0, stream>>>(
-        in(gx), in(r), in(carry[0]), in(carry[1]), in(carry[2]),
-        in(carry[3]), o(hs), o(out[0]), o(out[1]), o(out[2]), o(out[3]),
-        o(kept), s, d);
-  else
-    slstm_scan_fwd<T, false><<<grid, THREADS, 0, stream>>>(
-        in(gx), in(r), in(carry[0]), in(carry[1]), in(carry[2]),
-        in(carry[3]), o(hs), o(out[0]), o(out[1]), o(out[2]), o(out[3]),
-        nullptr, s, d);
-  return (int)cudaGetLastError();
+    return launch_kernel<T, true>(gx, r, carry, hs, out, kept, b, s, d,
+                                  stream);
+  return launch_kernel<T, false>(gx, r, carry, hs, out, nullptr, b, s, d,
+                                 stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  carry: h, c, n, m in; out: the same after
-// the last step; kept: [B, S, 3, d] or null (serving keeps nothing).
-// Returns cudaGetLastError() after the launch (0 when it was accepted).
+// dtype: 0 float32, 1 bfloat16; d * sizeof(T) a multiple of 16 (else
+// cudaErrorInvalidValue) and gx on a 16-byte boundary.  carry: h, c, n, m
+// in; out: the same after the last step; kept: [B, S, 3, d] or null
+// (serving keeps nothing).  Returns cudaGetLastError() after the launch (0
+// when it was accepted).
 extern "C" int repro_slstm_scan(const void* gx, const void* r,
                                 const void* h0, const void* c0,
                                 const void* n0, const void* m0, void* hs,

@@ -27,12 +27,26 @@ When grad mode is on and an input requires grad it goes through
 every step, ``[B, S, 3, d]`` in the inputs' dtype, and whose backward
 launches the backward kernel (one count in ``bwd_launches``) for CUDA
 tensors and takes :func:`slstm_scan_bwd_plain` for CPU ones: the kernel's
-reverse recurrence, step by step in torch.  The backward gives dgx, dr
-(the kernel's per-row float32 parts summed over B here) and the initial
-carry's gradient.  Where the forward has a tie, at ``max(pre_f + m,
+reverse recurrence, step by step in torch and in float64.  The backward
+gives dgx, dr (the kernel's per-row float32 parts summed over B here) and
+the initial carry's gradient.  Where the forward has a tie, at ``max(pre_f + m,
 pre_i)`` or at ``max(|n'|, 1)``, each side takes half the gradient, as
 JAX's ``lax.max`` rule gives (``torch.clamp`` would give it all to n');
 the kernel's source note says where the tie occurs and what it reaches.
+
+Both kernels keep the chain on one warp and the loads, stores and
+(backward) every step's coefficients on others; their source notes give
+the design.  Their 16-byte copies need a row of d elements to be a whole
+number of 16 bytes (d % 4 == 0 in float32, d % 8 == 0 in bfloat16; every
+model's d): for another d the wrapper pads every input with zero units up
+to :func:`padded_width` and slices the outputs back.  The units are
+independent and a zero unit stays finite (its gradient zero), so the
+padding changes no value of the others.  The copies also need the copied
+tensors on a 16-byte boundary: a contiguous input that lies off one (a
+view at an odd offset) is copied to a fresh tensor first.  A failed build
+or launch raises.  :func:`slstm_scan_bwd_linear` is the backward as the
+kernel computes it, in torch: every step's coefficients at once, then the
+linear chain, then the gate gradients.
 
 On the meta device (a dry-run's abstract step) the forward and the
 backward compute nothing: they return tensors of the shapes and dtypes the
@@ -60,6 +74,25 @@ _CARRY = ("h", "c", "n", "m")
 
 launches = LaunchCounter()
 bwd_launches = LaunchCounter()
+
+
+def padded_width(d: int, dtype: torch.dtype) -> int:
+    """The width the kernels run d units of ``dtype`` (float32 or
+    bfloat16) at: d rounded up to a whole number of 16 bytes."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"no sLSTM kernel for {dtype}")
+    per = 16 // dtype.itemsize
+    return -(-d // per) * per
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last dim padded with zeros to ``width``."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy when it lies off a 16-byte boundary."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _wide(dtype: torch.dtype) -> torch.dtype:
@@ -269,13 +302,19 @@ def slstm_scan_bwd(gx: torch.Tensor, r: torch.Tensor, carry: tuple,
 
 def slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast):
     """The backward kernel's reverse recurrence in torch, a step at a time
-    and in float32 (float64 for float64 inputs): each step's forward values
+    and in float64 whatever the inputs' dtype: each step's forward values
     computed again (:func:`_step`) from the carry it started from (hs and
     ``kept`` at t - 1, ``carry`` at t = 0), then the gradients of its
-    inputs (JAX's tie rule: half to each side)."""
+    inputs (JAX's tie rule: half to each side); the results rounded to the
+    inputs' dtype.  Given the kept carry the gradient is a fixed function
+    of these inputs, and float64 computes it to well under a float32 ulp:
+    the same recurrence in float32 (sequentially, as the first kernel did)
+    is off by up to 4e-4 of (1 + |dr|) at S 1024-2048, its rounding carried
+    along the reverse chain and summed into dr (PERF.md, row 6)."""
     bsz, s, _, d = gx.shape
-    wide = _wide(gx.dtype)
-    rf = r.to(wide)
+    dtype, wide = gx.dtype, torch.float64
+    gx, r, hs, kept, dhs = (t.to(wide) for t in (gx, r, hs, kept, dhs))
+    carry = tuple(t.to(wide) for t in carry)
     dh, dc, dn, dm = (t.to(wide) for t in dlast)
     dgx = torch.empty((bsz, s, 4, d), dtype=wide, device=gx.device)
     dr = torch.zeros((4, d), dtype=wide, device=gx.device)
@@ -307,10 +346,82 @@ def slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast):
                             d_o * st.o * (1 - st.o)], dim=1)   # [B, 4, d]
         dgx[:, t] = dpre
         dr += (dpre * h[:, None, :]).sum(0)
-        dh = (dpre * rf).sum(1)
+        dh = (dpre * r).sum(1)
         dc, dn, dm = dc * st.fg, dn * st.fg, dfm
-    return (dgx.to(gx.dtype), dr.to(r.dtype),
-            tuple(t.to(gx.dtype) for t in (dh, dc, dn, dm)))
+    return (dgx.to(dtype), dr.to(dtype),
+            tuple(t.to(dtype) for t in (dh, dc, dn, dm)))
+
+
+def _coefficients(st: Step, r: torch.Tensor, c: torch.Tensor,
+                  n: torch.Tensor, dy: torch.Tensor) -> dict:
+    """A step's backward as the linear map ``csrc/slstm_cell.cuh``'s
+    ``slstm::coef`` writes it, elementwise over any shape: rows of
+    coefficients on (x, dc, dn, dm), x = dh + dy, for the input carry's
+    gradient (``a`` dh, ``b`` dm, and dc = ``cx`` x + ``fg`` dc, dn = ``nx``
+    x + ``fg`` dn) and the gate gradients (``b`` pre_f, whose first three
+    entries negated and ``1 - b[3]`` are pre_i's, ``z_x``, ``z_c`` pre_z,
+    ``o_x`` pre_o).  ``r`` broadcasts as ``[4, 1, ..., d]``; c and n are
+    the carry the step started from."""
+    iv = 1.0 / st.den
+    an = st.n.abs()
+    w = torch.where(an > 1, 1.0, torch.where(an == 1, 0.5, 0.0))
+    a1 = iv * st.o                                  # dc~ = dc + a1 x
+    a2 = -(st.o * st.c) * iv * iv * w * torch.sign(st.n)   # dn~ = dn + a2 x
+    az = st.ig * (1 + st.z) * (1 - st.z)
+    pi = (st.ig * (st.z * a1 + a2), st.ig * st.z, st.ig)
+    fm = (st.fg * (c * a1 + n * a2), st.fg * c, st.fg * n)
+    sf = torch.where(st.fm > st.pre_i, 1.0,
+                     torch.where(st.pre_i > st.fm, 0.0, 0.5))
+    si = 1 - sf
+    b = [si * f - sf * p for f, p in zip(fm, pi)] + [sf]
+    o_x = iv * st.c * st.o * (1 - st.o)
+    z_x = az * a1
+    rf = r[1] - r[0]                         # pre_i's row is -b's, + si dm
+    a = [rf * b[0] + r[2] * z_x + r[3] * o_x, rf * b[1] + r[2] * az,
+         rf * b[2], r[0] * si + r[1] * sf]
+    return {"a": a, "b": b, "cx": st.fg * a1, "nx": st.fg * a2,
+            "fg": st.fg, "o_x": o_x, "z_x": z_x, "z_c": az, "dy": dy}
+
+
+def slstm_scan_bwd_linear(gx, r, carry, hs, kept, dhs, dlast):
+    """The backward as its kernel computes it, in torch and in float32
+    (float64 for float64 inputs): every step's forward values
+    and coefficients (:func:`_coefficients`) at once from the carry it
+    started from; then the serial chain, which maps the carried gradient
+    (dh, dc, dn, dm) of a step's output carry to its input carry's by those
+    coefficients alone; then every step's gate gradients from the carried
+    gradient each step saw.  The same (dgx, dr, the initial carry's
+    gradient) as :func:`slstm_scan_bwd_plain`."""
+    bsz, s, _, d = gx.shape
+    wide = _wide(gx.dtype)
+    starts = [torch.cat([carry[0][:, None], hs[:, :-1]], 1)]
+    starts += [torch.cat([carry[k + 1][:, None], kept[:, :-1, k]], 1)
+               for k in range(3)]                          # each [B, S, d]
+    st = _step(gx.reshape(bsz * s, 4, d), r,
+               tuple(v.reshape(bsz * s, d) for v in starts))
+    st = Step(*(v.reshape(bsz, s, d) for v in st))
+    h, c, n = (v.to(wide) for v in starts[:3])
+    co = _coefficients(st, r.to(wide)[:, None, None, :], c, n,
+                       dhs.to(wide))
+    g = [t.to(wide) for t in dlast]
+    seen = torch.empty((4, bsz, s, d), dtype=wide, device=gx.device)
+    for t in reversed(range(s)):
+        for k in range(4):
+            seen[k, :, t] = g[k]
+        u = (g[0] + co["dy"][:, t], g[1], g[2], g[3])
+        g = [sum(a[:, t] * v for a, v in zip(co["a"], u)),
+             co["cx"][:, t] * u[0] + co["fg"][:, t] * u[1],
+             co["nx"][:, t] * u[0] + co["fg"][:, t] * u[2],
+             sum(b[:, t] * v for b, v in zip(co["b"], u))]
+    x, dc, dn, dm = seen[0] + co["dy"], seen[1], seen[2], seen[3]
+    b = co["b"]
+    lin = b[0] * x + b[1] * dc + b[2] * dn
+    dpre = torch.stack([(1 - b[3]) * dm - lin, lin + b[3] * dm,
+                        co["z_x"] * x + co["z_c"] * dc, co["o_x"] * x],
+                       dim=2)                               # [B, S, 4, d]
+    dr = (dpre * h[:, :, None, :]).sum((0, 1))
+    return (dpre.to(gx.dtype), dr.to(r.dtype),
+            tuple(t.to(gx.dtype) for t in g))
 
 
 def _lib() -> ctypes.CDLL:
@@ -326,6 +437,14 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(gx, r, carry, keep: bool):
     bsz, s, _, d = gx.shape
+    width = padded_width(d, gx.dtype)
+    if width != d:
+        hs, last, kept = _launch(_pad(gx, width), _pad(r, width),
+                                 tuple(_pad(t, width) for t in carry), keep)
+        return (hs[..., :d].contiguous(),
+                tuple(t[:, :d].contiguous() for t in last),
+                kept[..., :d].contiguous() if keep else None)
+    gx = _aligned(gx)
     hs = torch.empty((bsz, s, d), dtype=gx.dtype, device=gx.device)
     last = tuple(torch.empty_like(t) for t in carry)
     kept = (torch.empty((bsz, s, 3, d), dtype=gx.dtype, device=gx.device)
@@ -358,6 +477,16 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def _launch_bwd(gx, r, carry, hs, kept, dhs, dlast):
     bsz, s, _, d = gx.shape
+    width = padded_width(d, gx.dtype)
+    if width != d:
+        dgx, dr, dcarry = _launch_bwd(
+            *(_pad(t, width) for t in (gx, r)),
+            tuple(_pad(t, width) for t in carry),
+            *(_pad(t, width) for t in (hs, kept, dhs)),
+            tuple(_pad(t, width) for t in dlast))
+        return (dgx[..., :d].contiguous(), dr[:, :d].contiguous(),
+                tuple(t[:, :d].contiguous() for t in dcarry))
+    gx, hs, kept, dhs = (_aligned(t) for t in (gx, hs, kept, dhs))
     dgx = torch.empty_like(gx)
     dcarry = tuple(torch.empty_like(t) for t in carry)
     dr_rows = torch.empty((bsz, 4, d), dtype=torch.float32, device=gx.device)
@@ -369,7 +498,7 @@ def _launch_bwd(gx, r, carry, hs, kept, dhs, dlast):
                                      dgx, dr_rows, *dcarry)),
             _DTYPE_CODE[gx.dtype], bsz, s, d, stream)
     if err:
-        raise RuntimeError(f"sLSTM scan backward kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"sLSTM scan backward kernel launch failed: "
+                           f"CUDA error {err}")
     bwd_launches.add()
     return dgx, dr_rows.sum(0).to(r.dtype), dcarry

@@ -400,6 +400,8 @@ def test_ssd_gradients_flow_through_the_kernels(card):
 
 FLASH_BWD_F32_KEEP = 4e-5   # the float32 error under which the 3xTF32
                             # backward is kept (a 1xTF32 slip exceeds it)
+# the sLSTM kernels' float32 keep-limits, x (1 + |v|): chip_smoke.py's
+SLSTM_F32_KEEP = {"fwd": 4.5e-5, "bwd": 1.2e-4}
 
 
 def _slstm_inputs(card, b, s, d, dtype, random_carry, seed=0):
@@ -425,26 +427,62 @@ def test_slstm_kernels_match_plain(card, dtype, tol, b, s, d, random_carry):
     """The sLSTM forward kernel (hs, the last carry, the kept carry) and
     backward kernel (dgx, dr, the initial carry's gradient, on the
     kernel's own hs and kept carry) against their plain versions at tol x
-    (1 + |v|); one launch a call each."""
+    (1 + |v|), in float32 also at ``SLSTM_F32_KEEP`` (as ``chip_smoke.py``
+    holds it; the plain backward computes in float64); one launch a call
+    each (a d off 16 bytes through the wrapper's zero padding)."""
     gx, r, carry = _slstm_inputs(card, b, s, d, dtype, random_carry, s + d)
-    fwd, bwd = slstm_scan.launches.count, slstm_scan.bwd_launches.count
+    counts = lambda: (slstm_scan.launches.count,
+                      slstm_scan.bwd_launches.count)
+    before = counts()
     hs, last, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
     dhs = torch.randn_like(hs.float()).to(dtype)
     dlast = tuple(torch.randn_like(t.float()).to(dtype) for t in last)
     grads = slstm_scan.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
     torch.cuda.synchronize()
-    assert (slstm_scan.launches.count - fwd,
-            slstm_scan.bwd_launches.count - bwd) == (1, 1)
+    assert tuple(a - b_ for a, b_ in zip(counts(), before)) == (1, 1)
     want_hs, want_last, want_kept = slstm_scan.slstm_scan_plain(
         gx, r, carry, keep=True)
     want = slstm_scan.slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs,
                                            dlast)
-    for got, ref_ in [(hs, want_hs), (kept, want_kept),
-                      *zip(last, want_last), (grads[0], want[0]),
-                      (grads[1], want[1]), *zip(grads[2], want[2])]:
-        assert got.dtype == ref_.dtype and got.shape == ref_.shape
-        err = (got.float() - ref_.float()).abs()
-        assert bool((err <= tol * (1 + ref_.float().abs())).all())
+    fwd = [(hs, want_hs), (kept, want_kept), *zip(last, want_last)]
+    bwd = [(grads[0], want[0]), (grads[1], want[1]),
+           *zip(grads[2], want[2])]
+    for part, pairs in (("fwd", fwd), ("bwd", bwd)):
+        for got, ref_ in pairs:
+            assert got.dtype == ref_.dtype and got.shape == ref_.shape
+            err = (got.float() - ref_.float()).abs() / (
+                1 + ref_.float().abs())
+            assert float(err.max()) <= tol
+            if dtype == torch.float32:
+                assert float(err.max()) <= SLSTM_F32_KEEP[part], part
+
+
+def test_slstm_kernels_take_an_input_off_16_bytes(card):
+    """A contiguous gx (and dhs) that lies off a 16-byte boundary: the
+    wrapper copies it first, and both kernels give what they give on an
+    aligned copy, bit for bit."""
+    b, s, d = 1, 40, 64
+    gx, r, carry = _slstm_inputs(card, b, s, d, torch.float32, True, 9)
+    base = torch.empty(gx.numel() + 1, device=card)
+    off = base[1:].view(gx.shape)
+    off.copy_(gx)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    n = slstm_scan.launches.count + slstm_scan.bwd_launches.count
+    hs, last, kept = slstm_scan.slstm_scan_keep(off, r, carry)
+    want_hs, want_last, want_kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+    dhs = torch.randn(b, s, d, device=card)
+    dlast = tuple(torch.randn(b, d, device=card) for _ in range(4))
+    dbase = torch.empty(dhs.numel() + 1, device=card)
+    doff = dbase[1:].view(dhs.shape)
+    doff.copy_(dhs)
+    got = slstm_scan.slstm_scan_bwd(off, r, carry, hs, kept, doff, dlast)
+    ref_ = slstm_scan.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
+    torch.cuda.synchronize()
+    assert slstm_scan.launches.count + slstm_scan.bwd_launches.count - n == 4
+    assert torch.equal(hs, want_hs) and torch.equal(kept, want_kept)
+    assert all(torch.equal(u, v) for u, v in zip(last, want_last))
+    for u, v in zip((got[0], got[1], *got[2]), (ref_[0], ref_[1], *ref_[2])):
+        assert torch.equal(u, v)
 
 
 def test_slstm_kernel_refuses_what_it_does_not_take(card):

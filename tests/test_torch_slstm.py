@@ -6,9 +6,12 @@ The port runs the recurrence through ``ops.slstm_scan``, whose CPU path
 is the plain versions of the CUDA kernels (``csrc/slstm_scan.cu``,
 ``csrc/slstm_scan_bwd.cu``): ``slstm_scan_plain``, the loop a step at a
 time, and, under autograd, ``SLSTMScan`` with ``slstm_scan_bwd_plain``,
-the backward kernel's reverse recurrence.  So these tests hold the
-kernels' algorithms; the kernels themselves are held to the plain
-versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+the backward kernel's reverse recurrence (in float64).  Beside it,
+``slstm_scan_bwd_linear`` computes the backward in its kernel's order
+(every step's coefficients, then the linear chain).  So these tests hold
+the kernels' algorithms and the wrapper's zero padding; the kernels
+themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerances: the forward at ``tests/test_torch_ssm_models.py``'s 2e-4
 (rtol and atol); gradients at 1e-4 of each leaf's largest magnitude
@@ -127,6 +130,21 @@ def test_block_gradients_match_jax_vjp(s, d):
     CPU backward is ``slstm_scan_bwd_plain``) against ``jax.vjp`` of the
     reference's, for x and every parameter leaf, at 1e-4 of each leaf's
     largest magnitude."""
+    _block_gradients_match_jax_vjp(s, d)
+
+
+@pytest.mark.parametrize("s", [1, 17, 64])
+@pytest.mark.parametrize("d", [32, 48])
+def test_linear_backward_matches_jax_vjp(s, d, monkeypatch):
+    """The same with ``SLSTMScan``'s CPU backward replaced by
+    ``slstm_scan_bwd_linear``, the kernel's coefficients, linear
+    chain and gate gradients: against ``jax.vjp`` at the same limit."""
+    monkeypatch.setattr(slstm_scan, "slstm_scan_bwd_plain",
+                        slstm_scan.slstm_scan_bwd_linear)
+    _block_gradients_match_jax_vjp(s, d)
+
+
+def _block_gradients_match_jax_vjp(s, d):
     p_j = jxlstm.init_slstm(jax.random.PRNGKey(3 * d + s), d, 2)
     x, dy = _x((2, s, d), 40 + s), _x((2, s, d), 50 + s)
     y_j, vjp = jax.vjp(lambda p, xx: jxlstm.slstm_block(p, xx, n_heads=2),
@@ -201,10 +219,8 @@ def test_zero_carry_tie_gives_half_to_n():
     """At the first step from a zero carry with pre_i > pre_f, n' = 1: the
     initial carry's dn is the half JAX's rule gives, against the whole
     that ``torch.clamp``'s gradient would pass."""
-    gx = torch.tensor([[[[1.0], [0.0], [0.5], [0.2]]]], dtype=torch.float64)
-    r = torch.zeros(4, 1, dtype=torch.float64)
-    carry = [torch.zeros(1, 1, dtype=torch.float64, requires_grad=True)
-             for _ in range(4)]
+    gx, r, carry = _tie_inputs()
+    carry = [t.requires_grad_() for t in carry]
     hs, _ = slstm_scan.slstm_scan(gx, r, carry)
     hs.sum().backward()
     fg = np.exp(0.0 - 1.0)                         # exp(fm - m'), m' = 1
@@ -212,6 +228,132 @@ def test_zero_carry_tie_gives_half_to_n():
     o = 1 / (1 + np.exp(-0.2))
     # dh'/dn' = -o c / n'^2 = -o c at n' = 1, half of it; dn = dn' * fg
     assert float(carry[2].grad) == pytest.approx(-0.5 * o * c * fg)
+
+
+def _tie_inputs():
+    """``test_zero_carry_tie_gives_half_to_n``'s input: one unit, one step
+    from a zero carry with pre_i > pre_f (n' = 1 exactly)."""
+    gx = torch.tensor([[[[1.0], [0.0], [0.5], [0.2]]]], dtype=torch.float64)
+    return gx, torch.zeros(4, 1, dtype=torch.float64), [
+        torch.zeros(1, 1, dtype=torch.float64) for _ in range(4)]
+
+
+@pytest.mark.parametrize("case", ["tie", "zero-2x9x5", "random-2x9x5",
+                                  "zero-1x1x3", "random-3x16x4",
+                                  "zero-3x33x2", "random-1x40x6"])
+def test_linear_backward_equals_the_sequential_in_float64(case):
+    """``slstm_scan_bwd_linear`` (every step's coefficients at once, then
+    the linear chain, then the gate gradients: the kernel's order)
+    against ``slstm_scan_bwd_plain`` (the reverse recurrence a step at a
+    time) in float64 on dense random gradients: dgx step for step, dr and
+    the initial carry's gradient equal to 1e-12, the ties included (a zero
+    carry's first step, where n' = 1 exactly wherever pre_i >= pre_f)."""
+    if case == "tie":
+        gx, r, carry = _tie_inputs()
+    else:
+        kind, shape = case.split("-")
+        b, s, d = map(int, shape.split("x"))
+        gx, r, *carry = (t.detach() for t in _f64_inputs(b, s, d, kind, 5))
+    b, s, _, d = gx.shape
+    hs, _, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+    g = torch.Generator().manual_seed(11)
+    dhs = torch.randn(b, s, d, generator=g, dtype=torch.float64)
+    dlast = [torch.randn(b, d, generator=g, dtype=torch.float64)
+             for _ in range(4)]
+    want = slstm_scan.slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs,
+                                           dlast)
+    got = slstm_scan.slstm_scan_bwd_linear(gx, r, carry, hs, kept, dhs,
+                                           dlast)
+    assert got[0].dtype == got[1].dtype == torch.float64
+    for u, v in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        torch.testing.assert_close(u, v, rtol=1e-12, atol=1e-12)
+
+
+def test_plain_backward_computes_in_float64():
+    """``slstm_scan_bwd_plain`` on float32 inputs is its float64 result
+    rounded to float32, bit for bit: the reference the float32 kernels
+    are held to (the same recurrence run in float32 is itself off by up to
+    4e-4 of (1 + |dr|) at S 1024)."""
+    b, s, d = 2, 23, 6
+    gx, r, *carry = (t.detach().float() for t in _f64_inputs(b, s, d,
+                                                             "random", 8))
+    hs, _, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+    g = torch.Generator().manual_seed(9)
+    dhs = torch.randn(b, s, d, generator=g)
+    dlast = [torch.randn(b, d, generator=g) for _ in range(4)]
+    got = slstm_scan.slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast)
+    f64 = lambda ts: [t.double() for t in ts]
+    want = slstm_scan.slstm_scan_bwd_plain(*f64((gx, r)), f64(carry),
+                                           *f64((hs, kept, dhs)), f64(dlast))
+    for u, v in zip((got[0], got[1], *got[2]), (want[0], want[1], *want[2])):
+        assert u.dtype == torch.float32 and torch.equal(u, v.float())
+
+
+def test_padded_width_is_a_pure_function_of_the_shape():
+    """``padded_width`` leaves every main-path width as it is (xlstm-125m's
+    d 768 and its reduced d, float32 and bfloat16: a whole number of 16
+    bytes, so the kernels run them unpadded) and rounds the others up to
+    16 bytes (``chip_smoke.SLSTM_CASES``' d 33 in either dtype and d 100 in
+    bfloat16); no kernel for float64.  A contiguous tensor off a 16-byte
+    boundary is copied before the kernels' 16-byte loads."""
+    import chip_smoke as cs
+    width = slstm_scan.padded_width
+    full = tconfigs.ARCHS["xlstm-125m"]
+    for d in (full.d_model, full.reduced().d_model, cs.SLSTM_PREFILL[2],
+              cs.SLSTM_TRAIN[2]):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert width(d, dtype) == d
+    want = {(33, torch.float32): 36, (33, torch.bfloat16): 40,
+            (100, torch.bfloat16): 104}
+    for _, _, d, _ in cs.SLSTM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert width(d, dtype) == want.get((d, dtype), d), (d, dtype)
+    with pytest.raises(ValueError):
+        width(768, torch.float64)
+    off = torch.zeros(20)[1:]
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    fixed = slstm_scan._aligned(off)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, off)
+    whole = torch.zeros(20)
+    assert slstm_scan._aligned(whole) is whole
+
+
+@pytest.mark.parametrize("d,dtype", [(33, torch.float32),
+                                     (33, torch.bfloat16),
+                                     (100, torch.bfloat16)])
+def test_zero_padded_units_change_no_other(d, dtype):
+    """The wrapper's padding for a d off 16 bytes, on the plain versions in
+    float64: units of zeros (gx, r, carry, dhs, the last carry's gradient)
+    beside d random ones up to ``padded_width`` leave every output of the
+    d units as it is without them (hs, the last and kept carry, dgx, dr,
+    the initial carry's gradient), stay finite in the pad, and get zero
+    gradients there."""
+    width = slstm_scan.padded_width(d, dtype)
+    b, s = 2, 13
+    gx, r, *carry = (t.detach() for t in _f64_inputs(b, s, d, "random", 4))
+    g = torch.Generator().manual_seed(12)
+    dhs = torch.randn(b, s, d, generator=g, dtype=torch.float64)
+    dlast = [torch.randn(b, d, generator=g, dtype=torch.float64)
+             for _ in range(4)]
+    pad = lambda ts: [slstm_scan._pad(t, width) for t in ts]
+
+    def run(gx, r, carry, dhs, dlast):
+        hs, last, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+        return (hs, *last, kept, *_flat_bwd(slstm_scan.slstm_scan_bwd_plain(
+            gx, r, carry, hs, kept, dhs, dlast)))
+
+    want = run(gx, r, carry, dhs, dlast)
+    got = run(*pad((gx, r)), pad(carry), *pad((dhs,)), pad(dlast))
+    for u, v in zip(got, want):
+        assert u.shape[-1] == width and bool(torch.isfinite(u).all())
+        torch.testing.assert_close(u[..., :d], v, rtol=1e-12, atol=1e-12)
+    for u in got[6:]:                                  # the gradients
+        assert not bool(u[..., d:].any())
+
+
+def _flat_bwd(grads):
+    """(dgx, dr, dh0, dc0, dn0, dm0) of a backward's result."""
+    return (grads[0], grads[1], *grads[2])
 
 
 def test_autograd_runs_the_plain_backward_once(monkeypatch):
