@@ -51,7 +51,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    internvl2-76b's heads), each row naming its path (float32 flash rows also time
    the FMA kernel on the same values off a 16-byte boundary and give its
    bound), flash attention's backward at the training shape on both
-   paths beside SDPA's backward (float32), the SSD rows with the
+   paths beside SDPA's backward (float32), and in bfloat16 on the ``fma``
+   kernels a bfloat16 train step takes beside SDPA's bfloat16 backward, the
+   SSD rows with the
    wrapper's time per call (host included) and the passes' scratch, the
    SSD backward at the training shapes (no library call computes it); the
    sLSTM scan at the prefill shape and, with its backward, at the training
@@ -109,25 +111,38 @@ which fails the run (non-zero exit, no result line) if it fails:
    inside it; for a bfloat16 model, the card time of one decode step
    (``torch.profiler``) against the bytes of the weights it must read;
 8. train, one model after the other (``TRAIN_RUNS``): granite-8b at full
-   width cut to 8 layers (2.15 B parameters, B 2 x S 2048), zamba2-1.2b
+   width cut to 4 layers (1.27 B parameters, B 2 x S 2048), zamba2-1.2b
    at full width and depth (B 2 x S 2048) and xlstm-125m at full width
-   and depth (B 2 x S 2048), all float32.
-   Each: the reduced model on the card against the CPU path (loss rel
-   1e-5, gradient leaves at 1e-4, the hybrid's at 3e-3, of each leaf's
-   largest; 3 AdamW steps' losses rel 1e-4), then through the port's
+   and depth (B 2 x S 2048), in float32; then in bfloat16 (bfloat16
+   params, a float32 master copy and moments) qwen3-moe-30b-a3b at full
+   width cut to 4 of 48 layers (3.08 B parameters, capacity factor 1.25),
+   granite-8b at 8 layers (2.15 B parameters), zamba2-1.2b and xlstm-125m
+   as above.
+   Each: the reduced model on the card against the CPU path in float32
+   (loss rel 1e-5, gradient leaves at 1e-4, the hybrid's at 3e-3, of each
+   leaf's largest; 3 AdamW steps' losses rel 1e-4), and for a bfloat16
+   run also in bfloat16 against the CPU's float32 run of the same weights
+   under the rule (``bf16_grad_limits``: the loss, the worst gradient leaf
+   but zamba2's, 3 AdamW steps' losses); an MoE model's backward at the
+   training shape repeats bit for bit under the deterministic mode
+   (``moe_bwd_determinism``); then through the port's
    ``Trainer``: 8 steps straight through with a checkpoint at step 4, a
-   fresh trainer that restores it and takes steps 5-8 with the same
-   losses bit for bit, one more gradient with and without remat (the same
-   loss and gradient norm); every loss finite, the first near a random
-   init's ln V + 1/2, the last below the first; per step the launches the
-   layer plan gives (flash forward and backward once per attention block
-   or shared-block application, all ``tf32x3``; the SSD forward and
+   fresh trainer that restores it (its state, a bfloat16 run's float32
+   master copy with it, equal to the straight run's at step 4) and takes
+   steps 5-8 with the same losses and state bit for bit, one more
+   gradient with and without remat (the same loss and gradient norm);
+   every loss finite, the first near a random init's ln V + 1/2, the last
+   below the first; per step the launches the layer plan gives (flash
+   forward and backward once per attention block or shared-block
+   application, on the dtype's paths: float32 ``tf32x3`` both ways,
+   bfloat16 ``wgmma`` forward and ``fma`` backward; the SSD forward and
    backward once per Mamba-2 layer and twice per mLSTM layer, so no
    backward runs the forward again; the sLSTM scan forward and backward
    once per sLSTM layer; remat runs
    every stacked layer's forward twice); the step time, tokens per
-   second, peak memory and, from one traced step, the share of the card
-   time of the flash, SSD and sLSTM kernels, forward and backward.
+   second, peak memory, the checkpoint's write and restore seconds and,
+   from one traced step, the share of the card time of the flash, SSD and
+   sLSTM kernels, forward and backward.
    Then (``TRAIN_PREFIXED``) musicgen-large at full width and depth with
    its frontend prefix, float32, B 2 x (P 64 + 1984 text tokens) as
    ``train_batch_specs`` lays them out, through ``make_train_step`` (the
@@ -143,8 +158,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    (``launch/collectives.py``), every ``train_4k`` cell a gradient
    reduction over the DP axes, and the count of cells each roofline term
    (compute, memory, collective) dominates is printed; (b) its host-mesh
-   cell of phase 8's granite-8b x 8 (float32, B 2 x S 2048, remat)
-   against the same step on the card: the
+   cell of granite-8b x 8 (B 2 x S 2048, remat), in float32 and in
+   bfloat16 (a float32 master copy and moments), against the same step on
+   the card: the
    predicted argument bytes within 1% of what the card allocates for
    them, the predicted peak beside the measured one, the counted flops
    beside 6 N tokens; (c) the node DAG once more under DAM-C with a
@@ -255,6 +271,62 @@ BF16_FULL_TOL = 0.2
 # (tools/dense_bf16_drift.jsonl); its decode path's structure is held in
 # float32 at DENSE_CHECK_LAYERS, where a fault shows.
 DENSE_BF16_FULL_TOL = 0.05
+# bfloat16 training is held to the exact function, the float32 run of the
+# same weights and batch: a bfloat16 loss, its gradients (each leaf's largest
+# error over its largest magnitude, worst leaf) and 3 AdamW steps' losses
+# within twice the reference's own largest bfloat16-vs-float32 drift over 8
+# seeds, per arch (tools/bf16_grad_drift.py: reduced models, B 2 x S 48; its
+# output is BF16_GRAD_DRIFT).  zamba2-1.2b is held on its loss and step
+# losses only: its reduced bfloat16 gradients carry no signal in either
+# package (the reference's own drift reaches several times a leaf's largest).
+BF16_GRAD_DRIFT = ROOT / "tools" / "bf16_grad_drift.jsonl"
+BF16_LOSS_ONLY = ("zamba2-1.2b",)
+# ... on these inputs: the batch at numpy seed 4 + seed (bf16_drift_batch),
+# then 3 AdamW steps with this optimizer on the batches of these seeds
+BF16_STEP_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10,
+                     weight_decay=0.1)
+BF16_STEP_SEEDS = (10, 11, 12)
+
+
+def bf16_drift_batch(cfg, seed: int, mask: bool = True, b: int = 2,
+                     s: int = 48) -> dict:
+    """The numpy batch the rule is grounded on: ``tests/test_torch_train.py``'s
+    ``_batch`` at numpy seed ``seed`` (tokens, labels, a loss mask), and for
+    a prefixed model a frontend [b, P, d] drawn N(0, 1) after it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if mask:
+        out["loss_mask"] = (rng.random((b, s)) > 0.2).astype(np.float32)
+    if cfg.frontend_len:
+        out["frontend"] = rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def bf16_grad_limits(rows=None) -> dict:
+    """``{arch: {"loss", "grad", "steps"}}``, each twice the largest over
+    the seeds of the reference's bfloat16 run against its float32 run
+    (``grad`` None for the archs of ``BF16_LOSS_ONLY``), from ``rows`` of
+    ``tools/bf16_grad_drift.py`` (default: those of ``BF16_GRAD_DRIFT``)."""
+    if rows is None:
+        rows = [json.loads(line) for line in
+                BF16_GRAD_DRIFT.read_text().splitlines() if line.strip()]
+    limits: dict = {}
+    for row in (r for r in rows if "arch" in r):
+        ref = row["ref_bf16_vs_f32"]
+        lim = limits.setdefault(row["arch"], {"loss": 0.0, "grad": 0.0,
+                                              "steps": 0.0})
+        lim["loss"] = max(lim["loss"], 2 * ref["loss"])
+        lim["grad"] = max(lim["grad"], 2 * ref["grad"])
+        lim["steps"] = max(lim["steps"], 2 * row["steps"]["ref_bf16_vs_f32"])
+    for arch in BF16_LOSS_ONLY:
+        if arch in limits:
+            limits[arch]["grad"] = None
+    return limits
+
+
 MOE_CHECK_CAPACITY = 16.0  # prefill + decode against forward, MoE models
 MOE_CHECK_LAYERS = 6       # ... and at full width in float32 at this depth
 DENSE_CHECK_LAYERS = 4     # the same for a bfloat16 dense model (internvl2)
@@ -537,37 +609,34 @@ def check_flash_bwd(report: dict) -> dict:
     return worst
 
 
-def time_flash_bwd(report: dict) -> dict:
-    """Both backward paths, the plain version, SDPA's backward and the
-    bound at the training shape, float32, in turns over two rounds (the
-    medians reported): ``tf32x3`` on the aligned inputs, ``fma`` on the
-    same values with q off a 16-byte boundary.  SDPA's backward (float32,
-    no TF32) is ``torch.autograd.grad`` of its output on a graph recorded
-    once and kept, so only the backward is timed.  The bound prices the 5
-    products the function needs at 3xTF32's rate, the least time at
-    float32's accuracy (``fma_bound_ms`` at the FMA peak, the units of the
-    FMA kernels); each path's ``tflops`` is those 5 products over its time
-    and ``bound_share`` its unit's bound over its time."""
+def _time_bwd_turns(dtype, seed: int, off16: bool) -> tuple:
+    """At ``FLASH_BWD_CASES[0]`` in ``dtype``: the backward kernels on
+    aligned inputs (and, with ``off16``, on the same values with q off a
+    16-byte boundary) and SDPA's backward (``torch.autograd.grad`` of its
+    output on a graph recorded once and kept, so only the backward is
+    timed), in turns over two rounds; the plain version once.  Returns
+    (each call's median ms, its rounds, the plain ms, the kernels' path on
+    the aligned inputs, the shape)."""
     import statistics
-    import torch
     import torch.nn.functional as F
+    import torch
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_bwd_path)
     b, hq, hkv, s, t, d, causal = FLASH_BWD_CASES[0]
-    dtype = torch.float32
-    q, k, v, o, do = _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed=299)
-    q_off = _off16(q)
-    _require(flash_bwd_path(q, k, v, o, do) == "tf32x3"
-             and flash_bwd_path(q_off, k, v, o, do) == "fma",
-             "backward timing paths")
+    q, k, v, o, do = _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed)
+    path = flash_bwd_path(q, k, v, o, do)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                          enable_gqa=True)
-    calls = {"tf32x3": lambda: flash_attention_bwd(q, k, v, o, do),
-             "fma": lambda: flash_attention_bwd(q_off, k, v, o, do),
-             "sdpa": lambda: torch.autograd.grad(out, leaves, do,
-                                                 retain_graph=True)}
+    calls = {path: lambda: flash_attention_bwd(q, k, v, o, do)}
+    if off16:
+        q_off = _off16(q)
+        _require(flash_bwd_path(q_off, k, v, o, do) == "fma",
+                 "backward timing paths")
+        calls["fma"] = lambda: flash_attention_bwd(q_off, k, v, o, do)
+    calls["sdpa"] = lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True)
     rounds = {name: [] for name in calls}
     for _ in range(2):
         for name, fn in calls.items():
@@ -575,7 +644,28 @@ def time_flash_bwd(report: dict) -> dict:
     ms = {name: statistics.median(r) for name, r in rounds.items()}
     plain_ms = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do),
                         iters=1, warmup=1, run_ahead=False)
-    flops, nbytes = attention_bwd_work(b, hq, hkv, s, t, d, dtype)
+    del q, k, v, o, do, leaves, out, calls
+    torch.cuda.empty_cache()
+    return ms, rounds, plain_ms, path, [b, hq, hkv, s, t, d]
+
+
+def time_flash_bwd(report: dict) -> dict:
+    """Both backward paths, the plain version, SDPA's backward and the
+    bound at the training shape, float32 (``_time_bwd_turns``):
+    ``tf32x3`` on the aligned inputs, ``fma`` on the same values with q
+    off a 16-byte boundary, SDPA's backward without TF32.  The bound
+    prices the 5 products the function needs at 3xTF32's rate, the least
+    time at float32's accuracy (``fma_bound_ms`` at the FMA peak, the
+    units of the FMA kernels); each path's ``tflops`` is those 5 products
+    over its time and ``bound_share`` its unit's bound over its time.
+    Then, under ``"bfloat16"``, the path a bfloat16 train step takes
+    (``fma``) beside SDPA's bfloat16 backward, its bound at the bfloat16
+    tensor cores' peak."""
+    import torch
+    ms, rounds, plain_ms, path, shape = _time_bwd_turns(torch.float32, 299,
+                                                        off16=True)
+    _require(path == "tf32x3", "backward timing paths")
+    flops, nbytes = attention_bwd_work(*shape, torch.float32)
     bound_ms, bound_by = bound({"3xtf32": flops}, nbytes)
     fma_bound_ms = bound({"float32": flops}, nbytes)[0]
     paths = {path: {"ms": ms[path], "ms_rounds": rounds[path],
@@ -583,9 +673,8 @@ def time_flash_bwd(report: dict) -> dict:
                     "bound_ms": bound, "bound_share": bound / ms[path]}
              for path, bound in (("tf32x3", bound_ms),
                                  ("fma", fma_bound_ms))}
-    row = {"dtype": "float32", "path": "tf32x3",
-           "shape": [b, hq, hkv, s, t, d], "ms": ms["tf32x3"],
-           "fma_ms": ms["fma"], "plain_ms": plain_ms,
+    row = {"dtype": "float32", "path": "tf32x3", "shape": shape,
+           "ms": ms["tf32x3"], "fma_ms": ms["fma"], "plain_ms": plain_ms,
            "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
            "library": "SDPA backward (autograd.grad on a kept graph)",
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -593,8 +682,23 @@ def time_flash_bwd(report: dict) -> dict:
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
            "tflops": paths["tf32x3"]["tflops"]}
     print(f"[time] flash_attention_bwd {row}", flush=True)
-    del q, k, v, o, do, q_off, leaves, out, calls
-    torch.cuda.empty_cache()
+
+    ms, rounds, plain_ms, path, shape = _time_bwd_turns(torch.bfloat16, 298,
+                                                        off16=False)
+    _require(path == "fma", f"the bfloat16 backward's timing path {path}")
+    flops, nbytes = attention_bwd_work(*shape, torch.bfloat16)
+    bound_ms, bound_by = bound({"bfloat16": flops}, nbytes)
+    row["bfloat16"] = bf16 = {
+        "dtype": "bfloat16", "path": path, "shape": shape, "ms": ms[path],
+        "ms_rounds": rounds[path], "plain_ms": plain_ms,
+        "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
+        "library": "SDPA backward (bfloat16, autograd.grad on a kept graph)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "fma_bound_ms": bound({"float32": flops}, nbytes)[0],
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "tflops": flops / (ms[path] * 1e-3) / 1e12,
+        "vs_library": ms[path] / ms["sdpa"]}
+    print(f"[time] flash_attention_bwd bfloat16 {bf16}", flush=True)
     report["flash_attention_bwd_timing"] = row
     return row
 
@@ -1995,25 +2099,46 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
 
 
 # -- phase 8: training ----------------------------------------------------------
-# One run a model, one after the other, each through the port's Trainer in
-# float32, the reference's dtype.  granite-8b at full width is cut in depth
-# only (36 -> 8 layers): 2.15 B parameters, whose params, gradients and two
-# AdamW moments take 34.4 GB (all 36 layers would take 132 GB).  zamba2-1.2b
-# and xlstm-125m run at full width and depth, all at B 2 x S 2048.
+# One run a model, one after the other, each through the port's Trainer:
+# first in float32, then in bfloat16, the dtype the dry-run prices (bfloat16
+# params, a float32 master copy and float32 moments, as the reference's
+# AdamW keeps them).  granite-8b at full width is cut in depth only (36 -> 8
+# layers): 2.15 B parameters, whose params, gradients and two AdamW moments
+# take 34.4 GB in bfloat16 (2 + 2 + 4 + 8 bytes a parameter) as in float32
+# (all 36 layers would take 132 GB).  Its float32 run is cut to 4 layers
+# (1.27 B parameters) since the bfloat16 runs joined the phase, to keep the
+# whole run near 700 s: at 8 layers it took 70.5 s of 667.5 (PERF.md), most
+# of it the checkpoint's write and restore.  zamba2-1.2b and xlstm-125m run
+# at full width and depth, all at B 2 x S 2048.  qwen3-moe-30b-a3b trains
+# in bfloat16 only (30.1 B parameters): at full width cut 48 -> 4 layers,
+# 9.4 M attention and 604 M expert parameters a layer and 0.62 B in the
+# untied embeddings, 3.08 B parameters, ~49 GB at 16 bytes each (6 layers
+# would take ~69 GB beside the activations), capacity factor 1.25.
 #
 # Two warm-up steps are far too few for granite's width (Adam moves every
 # weight by about lr at once): at lr 3e-4 the loss rose from 11.1 to 23.2 by
 # step 5 and ended at 9.7; at 3e-5 it rises to 14.8 by step 3 and ends at
-# 7.4 (PERF.md).  The SSD models take the launcher's lr, 3e-4: at 3e-5 their
-# loss hardly moves in 8 steps.  The check asks only that the last loss is
-# below the first.
+# 7.4 (PERF.md).  qwen3-moe takes granite's lr.  The SSD models take the
+# launcher's lr, 3e-4: at 3e-5 their loss hardly moves in 8 steps.  The
+# check asks only that the last loss is below the first.  A run's
+# ``grad_tol`` is its reduced model's float32 limit, card against CPU; in
+# bfloat16 the reduced model is held under the rule (bf16_grad_limits).
 TRAIN_RUNS = (
-    {"arch": "granite-8b", "layers": 8, "batch": 2, "seq": 2048,
-     "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
-    {"arch": "zamba2-1.2b", "layers": None, "batch": 2, "seq": 2048,
-     "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
-    {"arch": "xlstm-125m", "layers": None, "batch": 2, "seq": 2048,
-     "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
+    {"arch": "granite-8b", "layers": 4, "dtype": "float32", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "zamba2-1.2b", "layers": None, "dtype": "float32", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
+    {"arch": "xlstm-125m", "layers": None, "dtype": "float32", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
+    {"arch": "qwen3-moe-30b-a3b", "layers": 4, "dtype": "bfloat16",
+     "batch": 2, "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5,
+     "grad_tol": 1e-4},
+    {"arch": "granite-8b", "layers": 8, "dtype": "bfloat16", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "zamba2-1.2b", "layers": None, "dtype": "bfloat16", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
+    {"arch": "xlstm-125m", "layers": None, "dtype": "bfloat16", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
 )
 # musicgen-large with its frontend prefix, at full width and depth: B 2 x
 # (P 64 + 1984 text tokens), the 2048 positions of the others.  Its 2.42 B
@@ -2022,8 +2147,8 @@ TRAIN_RUNS = (
 # at the SSD models' 3e-4 its loss climbs through the two warm-up steps, as
 # granite's does.
 TRAIN_PREFIXED = (
-    {"arch": "musicgen-large", "layers": None, "batch": 2, "seq": 2048,
-     "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "musicgen-large", "layers": None, "dtype": "float32",
+     "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
 )
 TRAIN_WARMUP = 2
 TRAIN_CKPT_DIR = ROOT / ".train_ckpt"   # listed in .gitignore; removed after
@@ -2045,7 +2170,9 @@ def _train_counters():
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "tf32x3": flash_attention.path_launches["tf32x3"],
+            "wgmma": flash_attention.path_launches["wgmma"],
             "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"],
+            "bwd_fma": flash_attention.bwd_path_launches["fma"],
             "ssd_scan": ssd_scan.launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches,
             "slstm_scan": slstm_scan.launches,
@@ -2061,25 +2188,35 @@ def _counts(counters) -> dict:
     return {name: c.count for name, c in counters.items()}
 
 
+# the flash paths a train step's launches take, by the model's dtype: the
+# forward's and the backward's (bfloat16's backward runs the FMA kernels)
+TRAIN_FLASH_PATHS = {"float32": ("tf32x3", "bwd_tf32x3"),
+                     "bfloat16": ("wgmma", "bwd_fma")}
+
+
 def _step_launches(cfg, remat: bool = False) -> dict:
     """Kernel launches of one train step, from the layer plan: one flash
     forward and backward per attention block or shared-block application,
-    all on ``tf32x3``; one SSD forward and backward per Mamba-2 layer, two
-    per mLSTM layer (so no backward runs the forward again: it reads the
-    forward's kept scratch); one sLSTM scan forward and backward per sLSTM
-    layer.  With remat every stacked layer runs its forward again in the
-    backward (the hybrid's shared block is not rematerialised)."""
+    all on the dtype's paths (``TRAIN_FLASH_PATHS``: float32 ``tf32x3``
+    both ways, bfloat16 ``wgmma`` forward and ``fma`` backward); one SSD
+    forward and backward per Mamba-2 layer, two per mLSTM layer (so no
+    backward runs the forward again: it reads the forward's kept scratch);
+    one sLSTM scan forward and backward per sLSTM layer.  With remat every
+    stacked layer runs its forward again in the backward (the hybrid's
+    shared block is not rematerialised)."""
     per = _launches_per_prefill(cfg)
     from repro_torch.models import layer_plan
     again = sum(k in ("attn", "attn_moe") for k in layer_plan(cfg)) if (
         remat) else 0
-    fwd = per["flash_attention"] + again
+    fwd, bwd = per["flash_attention"] + again, per["flash_attention"]
     ssd, sl = per["ssd_scan"], per["slstm_scan"]
-    return {"flash_attention": fwd, "flash_attention_bwd":
-            per["flash_attention"], "tf32x3": fwd,
-            "bwd_tf32x3": per["flash_attention"],
-            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
-            "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
+    fwd_path, bwd_path = TRAIN_FLASH_PATHS[cfg.dtype]
+    out = {"flash_attention": fwd, "flash_attention_bwd": bwd,
+           "tf32x3": 0, "wgmma": 0, "bwd_tf32x3": 0, "bwd_fma": 0,
+           "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
+           "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
+    out[fwd_path], out[bwd_path] = fwd, bwd
+    return out
 
 
 def train_reduced_vs_cpu(run: dict) -> dict:
@@ -2144,12 +2281,91 @@ def train_reduced_vs_cpu(run: dict) -> dict:
     _require(out["step_loss_rel"] < 1e-4,
              f"reduced {cfg.name}'s 3 AdamW steps, card against CPU: {out}")
     print(f"[train] reduced {cfg.name} card against CPU {out}", flush=True)
+    if run["dtype"] == "bfloat16":
+        out["bfloat16"] = train_reduced_bf16_vs_cpu(run)
+    return out
+
+
+def train_reduced_bf16_vs_cpu(run: dict) -> dict:
+    """The reduced model in bfloat16 on the card against the exact
+    function, the CPU path in float32 on the same weights cast up, on the
+    inputs the rule is grounded on (``bf16_drift_batch``, ``BF16_STEP_OPT``,
+    ``BF16_STEP_SEEDS``), under the rule (``bf16_grad_limits``): the loss,
+    the worst gradient leaf (not for ``BF16_LOSS_ONLY``), and the losses of
+    3 AdamW steps (the card's with a float32 master copy and moments); the
+    grad step's launches on the bfloat16 paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import make_grad_step, make_train_step
+    cfg32 = get_config(run["arch"]).reduced()
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    limits = bf16_grad_limits()[run["arch"]]
+    params16 = init_params(cfg16, seed=2, device="cpu")
+    runs = {"cpu": (cfg32, tree_map(lambda t: t.float(), params16)),
+            DEVICE: (cfg16, _tree_to(params16, DEVICE))}
+
+    def on(batch, device):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in batch.items()}
+
+    counters = _train_counters()
+    grads = {}
+    for dev, (cfg, params) in runs.items():
+        _reset(counters)
+        g, met = make_grad_step(cfg, remat=False)(
+            params, on(bf16_drift_batch(cfg32, 4), dev))
+        grads[dev] = (g, float(met["total_loss"]))
+    want = _step_launches(cfg16)
+    _require(_counts(counters) == want,
+             f"reduced {cfg16.name}'s bfloat16 grad step launches "
+             f"{_counts(counters)}, want {want}")
+    _require(all(g.dtype == torch.bfloat16 for g in _leaves(grads[DEVICE][0])),
+             "bfloat16 gradients")
+    out = {"limits": limits,
+           "loss_rel": abs(grads[DEVICE][1] - grads["cpu"][1])
+           / abs(grads["cpu"][1]),
+           "grad_rel": _tree_rel(grads[DEVICE][0], grads["cpu"][0])}
+    del grads
+    losses = {}
+    opt = AdamWConfig(**BF16_STEP_OPT)
+    for dev, (cfg, params) in runs.items():
+        params = tree_map(lambda t: t.detach().clone(), params)
+        state = init_opt_state(params)
+        step = make_train_step(cfg, opt, remat=False)
+        losses[dev] = []
+        for seed in BF16_STEP_SEEDS:
+            params, state, met = step(params, state, on(
+                bf16_drift_batch(cfg32, seed, mask=False), dev))
+            losses[dev].append(float(met["loss"]))
+        if dev == DEVICE:
+            _require(set(state) == {"m", "v", "step", "master"}
+                     and all(t.dtype == torch.float32 for key in
+                             ("m", "v", "master")
+                             for t in _leaves(state[key])),
+                     "the bfloat16 run's float32 master copy and moments")
+    out["step_losses"] = losses
+    out["step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in
+                               zip(losses[DEVICE], losses["cpu"]))
+    ok = (out["loss_rel"] <= limits["loss"]
+          and out["step_loss_rel"] <= limits["steps"]
+          and (limits["grad"] is None or out["grad_rel"] <= limits["grad"]))
+    print(f"[train] reduced {cfg16.name} in bfloat16 on the card against "
+          f"float32 on the CPU {out}", flush=True)
+    _require(ok, f"reduced {cfg16.name} in bfloat16 under the rule: {out}")
     return out
 
 
 # the kernels of a traced step, by the names their sources give them
 FLASH_BWD_KERNELS = ("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv",
                      "bwd_dq")
+FLASH_BWD_PATH_KERNELS = {"bwd_tf32x3": ("bwd_x3_dq", "bwd_x3_dkdv"),
+                          "bwd_fma": ("bwd_prepass", "bwd_dkdv", "bwd_dq")}
+FLASH_FWD_KERNELS = {"tf32x3": ("flash_tf32x3",),
+                     "wgmma": ("flash_wgmma_bf16",)}
 # the SSD backward's kernels (it reads the forward's kept scratch and
 # launches none of the forward's passes 1 to 3): the dual's pass 2 (DUAL)
 # and reversed pass 3, and its own passes 4 to 7
@@ -2158,6 +2374,15 @@ SSD_BWD_KERNELS = ("ssd_bwd_", "ssd_state_pass<true",
 SSD_FWD_KERNELS = ("ssd_chunk_out", "ssd_chunk_cb", "ssd_chunk_state<false",
                    "ssd_chunk_state_narrow<false", "ssd_state_pass<false")
 SLSTM_FWD_KERNELS, SLSTM_BWD_KERNELS = ("slstm_scan_fwd",), ("slstm_scan_bwd",)
+# a traced step's card time by class of kernel, the first class whose names
+# a kernel's name holds: the port's kernels, cuBLAS's GEMMs, copies, then
+# PyTorch's elementwise and reduction kernels
+TRACE_CLASSES = (
+    ("flash", ("flash_", *FLASH_BWD_KERNELS)),
+    ("ssd", ("ssd_",)), ("slstm", ("slstm_",)),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("copy", ("Memcpy", "Memset", "copy_kernel")),
+    ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
 
 
 def _require_losses(cfg, losses: list[float]) -> float:
@@ -2175,13 +2400,13 @@ def _require_losses(cfg, losses: list[float]) -> float:
     return init_loss
 
 
-def _traced_step(run_step, per_step: dict) -> dict:
+def _traced_step(run_step, per_step: dict, dtype: str = "float32") -> dict:
     """``run_step()`` (one train step) under ``torch.profiler``: the card
     time of its kernels, their count, the longest 8, and the time and share
     of the card time of the flash, SSD and sLSTM kernels, forward and
     backward;
-    each kernel that ``per_step`` launches must show, the flash backward's
-    all on ``tf32x3``."""
+    each kernel that ``per_step`` launches must show, the flash kernels all
+    on the dtype's paths (``TRAIN_FLASH_PATHS``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2199,12 +2424,20 @@ def _traced_step(run_step, per_step: dict) -> dict:
                    if any(n in ev.key for n in names)) / 1e3
 
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
+    by_class: dict = {}
+    for ev in kernels:
+        kind = next((kind for kind, names in TRACE_CLASSES
+                     if any(n in ev.key for n in names)), "other")
+        by_class[kind] = by_class.get(kind, 0.0) + (
+            ev.self_device_time_total / 1e3)
     traced = {"card_ms": card_ms,
               "kernels": sum(ev.count for ev in kernels),
               "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total
-                                 / 1e3 for ev in top}}
+                                 / 1e3 for ev in top},
+              "card_ms_by_class": by_class}
+    fwd_path, bwd_path = TRAIN_FLASH_PATHS[dtype]
     for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
-                        ("flash_fwd", ("flash_tf32x3",)),
+                        ("flash_fwd", FLASH_FWD_KERNELS[fwd_path]),
                         ("ssd_bwd", SSD_BWD_KERNELS),
                         ("ssd_fwd", SSD_FWD_KERNELS),
                         ("slstm_bwd", SLSTM_BWD_KERNELS),
@@ -2213,10 +2446,10 @@ def _traced_step(run_step, per_step: dict) -> dict:
         traced[f"{name}_share"] = traced[f"{name}_ms"] / card_ms
     if per_step["flash_attention"]:
         _require(traced["flash_bwd_ms"] > 0 and traced["flash_fwd_ms"] > 0
-                 and share(("bwd_x3_dq", "bwd_x3_dkdv"))
+                 and share(FLASH_BWD_PATH_KERNELS[bwd_path])
                  == traced["flash_bwd_ms"],
                  f"the traced step's flash kernels (the backward's all "
-                 f"tf32x3): {traced}")
+                 f"{bwd_path}): {traced}")
     if per_step["ssd_scan"]:
         _require(traced["ssd_bwd_ms"] > 0 and traced["ssd_fwd_ms"] > 0,
                  f"the traced step's SSD kernels: {traced}")
@@ -2226,21 +2459,135 @@ def _traced_step(run_step, per_step: dict) -> dict:
     return traced
 
 
+_INT_OF_SIZE = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def _bits(t):
+    """``t``'s raw bits as integers of its element size."""
+    import torch
+    return t.detach().reshape(-1).view(
+        getattr(torch, _INT_OF_SIZE[t.element_size()]))
+
+
+def _fingerprint(tree) -> list[list[int]]:
+    """Each leaf's raw bits as integers, summed on the card two ways in
+    int64 (plainly, and weighted by position mod 65521, plus 1).  A change
+    of any one element changes the plain sum, so trees with the same
+    fingerprint are equal bit for bit but for changes that cancel in both
+    sums; it reads each leaf once, where a host copy of a 43 GB state to
+    compare with would not fit beside the next trainer."""
+    import torch
+    sums = []
+    for leaf in _leaves(tree):
+        flat = _bits(leaf)
+        acc = torch.zeros(2, dtype=torch.int64, device=flat.device)
+        for at in range(0, flat.numel(), 1 << 24):
+            chunk = flat[at:at + (1 << 24)].to(torch.int64)
+            pos = torch.arange(at, at + chunk.numel(), device=flat.device)
+            acc[0] += chunk.sum()
+            acc[1] += (chunk * (pos % 65521 + 1)).sum()
+        sums.append(acc)
+    return torch.stack(sums).tolist()
+
+
+def _require_state_dtypes(cfg, params, opt_state) -> None:
+    """The params in the model's dtype; float32 moments, and for bfloat16
+    params a float32 master copy (the reference's AdamW)."""
+    import torch
+    dtype = getattr(torch, cfg.dtype)
+    keys = {"m", "v", "step"} | ({"master"} if cfg.dtype != "float32"
+                                 else set())
+    _require(all(t.dtype == dtype for t in _leaves(params))
+             and set(opt_state) == keys
+             and all(t.dtype == torch.float32 for key in keys - {"step"}
+                     for t in _leaves(opt_state[key])),
+             f"{cfg.name}'s {cfg.dtype} params and float32 optimizer state "
+             f"({sorted(opt_state)})")
+
+
+def moe_bwd_determinism(cfg, batch: int, seq: int) -> dict:
+    """Whether an atomic sum of non-zero rows reaches an MoE gradient, at
+    the training shape: one full-width MoE block of ``cfg`` (in its dtype)
+    on x [batch, seq, d] drawn N(0, 1) plus a part every token shares, its
+    gradients (x, the router, the
+    experts) for a random output gradient, twice as a train step takes
+    them and once under ``torch.use_deterministic_algorithms``.  The gather
+    back from the capacity slots (``models/moe.py``) has a ``scatter_add``
+    for its backward, atomic on CUDA: every dropped (token, k) pair reads
+    slot 0, so slot 0's gradient is such a sum, exact only if the dropped
+    rows' gradients are exactly zero (their combine weight is 0).  The
+    deterministic mode sums those rows in a fixed order; the three runs
+    must agree bit for bit, with pairs dropped."""
+    import warnings
+    import torch
+    from repro_torch.models.moe import dispatch_plan, init_moe, moe_block, route
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    params = init_moe(cfg.d_model, cfg.n_experts, cfg.d_ff,
+                      cfg.moe_shared_ff, gen=gen, device=DEVICE, dtype=dtype)
+    # a part shared by every token skews the routing, as a trained model's
+    # hidden states do: experts overflow their capacity and pairs drop
+    x = (torch.randn((batch, seq, cfg.d_model), generator=gen, device=DEVICE)
+         + torch.randn(cfg.d_model, generator=gen, device=DEVICE)).to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE)
+    inputs = [x, *_leaves(params)]
+    for t in inputs:
+        t.requires_grad_(True)
+
+    def grads():
+        y, aux = moe_block(params, x, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor)
+        return torch.autograd.grad((y.float() * dy).sum() + aux, inputs)
+
+    runs = [grads(), grads()]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs.append(grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    groups, sg, _, _ = dispatch_plan(batch * seq, cfg.top_k, cfg.n_experts,
+                                     cfg.capacity_factor)
+    with torch.no_grad():
+        keep = route(params, x.reshape(groups, sg, -1), cfg.top_k,
+                     cfg.capacity_factor, with_aux=False)[3]
+    out = {"shape": [batch, seq, cfg.d_model], "dtype": cfg.dtype,
+           "pairs": keep.numel(), "dropped": int((~keep).sum()),
+           "equal_bit_for_bit": all(
+               torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a),
+                                                                _bits(c))
+               for a, b, c in zip(*runs)),
+           "nondeterministic_ops": sorted({str(w.message)[:120]
+                                           for w in caught})}
+    del params, x, dy, inputs, runs
+    torch.cuda.empty_cache()
+    print(f"[train] {cfg.name}'s MoE backward, atomics against the "
+          f"deterministic mode: {out}", flush=True)
+    _require(out["dropped"] > 0 and out["equal_bit_for_bit"],
+             f"{cfg.name}'s MoE gradients repeat bit for bit: {out}")
+    return out
+
+
 def train_one(run: dict) -> dict:
     """One model of phase 8 through the port's ``Trainer`` (its default pod
-    monitor over 2 pods fed the measured step times), float32, B x S of
-    the synthetic Zipf stream.
+    monitor over 2 pods fed the measured step times), in the run's dtype,
+    B x S of the synthetic Zipf stream.
 
     The straight run: a trainer takes steps 1 .. ckpt and checkpoints there
     (``save_async``; its run waits for the write at the end), then goes on
     to the last step with no further checkpoint.  A fresh trainer then
-    restores the checkpoint (``try_restore``: params, AdamW state, the
-    stream's skip-ahead) and takes the remaining steps, whose losses must
-    equal the straight run's.  Then one more step's gradient with and
+    restores the checkpoint (``try_restore``: params, AdamW state with a
+    bfloat16 run's float32 master copy, the stream's skip-ahead): its state
+    must equal the straight run's at the checkpoint, and after the
+    remaining steps its losses and state must equal the straight run's, bit
+    for bit (``_fingerprint``).  Then one more step's gradient with and
     without remat: the same loss and gradient norm.  The launch counts are
     set to 0 before each part and read after it, and must be
     ``_step_launches`` a step.  Last, one traced step: the card time of the
-    flash and SSD kernels, forward and backward."""
+    flash, SSD and sLSTM kernels, forward and backward.  An MoE model first
+    runs ``moe_bwd_determinism``."""
     import dataclasses
     import gc
     import shutil
@@ -2255,9 +2602,12 @@ def train_one(run: dict) -> dict:
 
     t_phase = time.perf_counter()
     out = {"reduced_vs_cpu": train_reduced_vs_cpu(run)}
-    cfg = get_config(run["arch"])
+    cfg = dataclasses.replace(get_config(run["arch"]), dtype=run["dtype"])
     if run["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    if cfg.family == "moe":
+        out["moe_bwd_determinism"] = moe_bwd_determinism(
+            cfg, run["batch"], run["seq"])
     steps, ckpt = run["steps"], run["ckpt"]
     opt = AdamWConfig(lr=run["lr"], warmup_steps=TRAIN_WARMUP,
                       total_steps=steps)
@@ -2277,10 +2627,12 @@ def train_one(run: dict) -> dict:
         torch.cuda.synchronize()
         out["init_s"] = time.perf_counter() - t0
         n_params = sum(t.numel() for t in _leaves(a.params))
+        _require_state_dtypes(cfg, a.params, a.opt_state)
         _reset(counters)
         t0 = time.perf_counter()
         a.run()                                   # steps 1 .. ckpt
         first_s = time.perf_counter() - t0
+        at_ckpt = _fingerprint(a._state_tree())
         a.tcfg = dataclasses.replace(a.tcfg, total_steps=steps,
                                      checkpoint_every=no_ckpt)
         a.run()                                   # the rest
@@ -2288,6 +2640,7 @@ def train_one(run: dict) -> dict:
         _require(n == {name: steps * k for name, k in per_step.items()},
                  f"{cfg.name}'s straight run's launches {n}: want "
                  f"{per_step} a step")
+        at_end = _fingerprint(a._state_tree())
         out["launches_straight"] = n
         out["launches_per_step"] = per_step
         straight = [r["loss"] for r in a.history]
@@ -2315,14 +2668,21 @@ def train_one(run: dict) -> dict:
                  f"restore of step {ckpt}: at step {b.step}")
         torch.cuda.synchronize()
         out["restore_s"] = time.perf_counter() - t0
+        _require_state_dtypes(cfg, b.params, b.opt_state)
+        out["restored_state_bit_for_bit"] = (
+            _fingerprint(b._state_tree()) == at_ckpt)
+        _require(out["restored_state_bit_for_bit"],
+                 f"{cfg.name}'s restored params and optimizer state against "
+                 f"the straight run's at step {ckpt}")
         b.run()
         resumed = [r["loss"] for r in b.history]
         want = straight[ckpt:]
         out["resumed_losses"] = resumed
-        out["resume_bit_for_bit"] = resumed == want
+        out["resume_bit_for_bit"] = (resumed == want and _fingerprint(
+            b._state_tree()) == at_end)
         _require(out["resume_bit_for_bit"],
-                 f"{cfg.name}'s resumed steps {resumed} against the "
-                 f"straight run's {want}")
+                 f"{cfg.name}'s resumed steps {resumed} and state against "
+                 f"the straight run's {want}")
 
         batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE)
                  for k, v in b.stream.batch_at(steps).items()}
@@ -2352,7 +2712,8 @@ def train_one(run: dict) -> dict:
         def run_step():
             b.params, b.opt_state, met = step(b.params, b.opt_state, batch)
             float(met["loss"])
-        traced = out["traced_step"] = _traced_step(run_step, per_step)
+        traced = out["traced_step"] = _traced_step(run_step, per_step,
+                                                   cfg.dtype)
         del b, batch, step
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
@@ -2368,8 +2729,11 @@ def train_one(run: dict) -> dict:
           f"{out['params_b']:.3f} B params, B {run['batch']} x S "
           f"{run['seq']}): losses {straight}; step p50 "
           f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
-          f"peak {out['peak_mem_gb']:.2f} GB; of a step's card time flash "
-          f"backward {100 * traced['flash_bwd_share']:.1f}%, SSD backward "
+          f"peak {out['peak_mem_gb']:.2f} GB; checkpoint write "
+          f"{out['checkpoint_s']:.1f} s, restore {out['restore_s']:.1f} s; "
+          f"of a step's card time ({traced['card_ms']:.1f} ms) flash "
+          f"forward {100 * traced['flash_fwd_share']:.1f}%, backward "
+          f"{100 * traced['flash_bwd_share']:.1f}%, SSD backward "
           f"{100 * traced['ssd_bwd_share']:.1f}%, sLSTM forward and backward "
           f"{100 * (traced['slstm_fwd_share'] + traced['slstm_bwd_share']):.1f}"
           f"%; resume from step {ckpt} "
@@ -2477,7 +2841,7 @@ def train_prefixed(run: dict) -> dict:
 
     def run_step():
         float(step(params, opt_state, batch)[2]["loss"])
-    traced = out["traced_step"] = _traced_step(run_step, per_step)
+    traced = out["traced_step"] = _traced_step(run_step, per_step, cfg.dtype)
     del params, opt_state, batch, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2500,17 +2864,24 @@ def train_prefixed(run: dict) -> dict:
     return out
 
 
+def _train_key(out: dict) -> str:
+    """A phase-8 run's name: ``train:<arch>x<layers>``, and ``:bfloat16``
+    after it for a bfloat16 run."""
+    key = f"train:{out['arch']}x{out['layers']}"
+    return key if out["dtype"] == "float32" else f"{key}:{out['dtype']}"
+
+
 def train(report: dict) -> dict:
     """Phase 8: ``train_one`` for each of ``TRAIN_RUNS``, then
     ``train_prefixed`` for each of ``TRAIN_PREFIXED``, one after the other.
-    Returns ``{"train:<arch>x<layers>": result}``."""
+    Returns ``{_train_key(result): result}``."""
     trained = {}
     for run in TRAIN_RUNS:
         out = train_one(run)
-        trained[f"train:{out['arch']}x{out['layers']}"] = out
+        trained[_train_key(out)] = out
     for run in TRAIN_PREFIXED:
         out = train_prefixed(run)
-        trained[f"train:{out['arch']}x{out['layers']}"] = out
+        trained[_train_key(out)] = out
     report["train"] = trained
     return trained
 
@@ -2520,8 +2891,9 @@ def train(report: dict) -> dict:
 # production meshes (80 cells).
 DRYRUN_MESHES = ("single", "multi")
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
-# (b) phase 8's first training run, as a host-mesh cell: the argument bytes
-# the dry-run predicts are held to what the card allocates for them
+# (b) granite-8b x 8, phase 8's bfloat16 run, as a host-mesh cell, in
+# float32 and bfloat16: the argument bytes the dry-run predicts are held to
+# what the card allocates for them
 GROUND = {"arch": "granite-8b", "layers": 8, "batch": 2, "seq": 2048}
 GROUND_ARG_TOL = 0.01
 # (c) the torch placement score: the node DAG under a queue penalty, and
@@ -2582,14 +2954,15 @@ def _dp_grad_bytes(coll: dict) -> int:
                    e["axis"], str) else e["axis"])))
 
 
-def dryrun_grounding() -> dict:
-    """Phase 9 (b): the host-mesh dry-run cell of ``GROUND`` (float32, B x
-    S, one microbatch, remat, the dry-run's step) against the same step on
-    the card: the predicted argument bytes (params, AdamW state, batch)
-    within ``GROUND_ARG_TOL`` of what ``memory_allocated`` grows by when
-    they are built; the predicted peak (arguments + the step's
-    temporaries) beside ``max_memory_allocated``'s growth over the step;
-    the counted flops beside 6 N tokens."""
+def dryrun_grounding(dtype: str = "float32") -> dict:
+    """Phase 9 (b): the host-mesh dry-run cell of ``GROUND`` (in ``dtype``,
+    B x S, one microbatch, remat, the dry-run's step) against the same step
+    on the card: the predicted argument bytes (params, AdamW state with a
+    bfloat16 cell's float32 master copy, batch) within ``GROUND_ARG_TOL``
+    of what ``memory_allocated`` grows by when they are built; the
+    predicted peak (arguments + the step's temporaries) beside
+    ``max_memory_allocated``'s growth over the step; the counted flops
+    beside 6 N tokens."""
     import dataclasses
     import gc
     import torch
@@ -2599,9 +2972,10 @@ def dryrun_grounding() -> dict:
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, init_opt_state
     cfg = dataclasses.replace(get_config(GROUND["arch"]),
-                              n_layers=GROUND["layers"])
-    shape = InputShape("train_b2_s2048", "train", GROUND["seq"],
-                       GROUND["batch"])
+                              n_layers=GROUND["layers"], dtype=dtype)
+    shape = InputShape("train_b2_s2048" + (
+        "" if dtype == "float32" else f"_{dtype}"), "train", GROUND["seq"],
+        GROUND["batch"])
     rec = dryrun.run_cell(cfg.name, shape.name, "host", DRYRUN_OUT, cfg=cfg,
                           shape=shape, mesh=make_host_mesh(), n_micro=1)
     _require(rec["status"] == "OK", f"host dry-run cell: {rec.get('error')}")
@@ -2635,7 +3009,7 @@ def dryrun_grounding() -> dict:
     del params, opt_state, batch, gsum
     gc.collect()
     torch.cuda.empty_cache()
-    out = {"cell": f"{cfg.name} x {cfg.n_layers} layers, float32, B "
+    out = {"cell": f"{cfg.name} x {cfg.n_layers} layers, {dtype}, B "
                    f"{shape.global_batch} x S {shape.seq_len}, remat",
            "predicted_args_bytes": pred_args, "allocated_args_bytes": args,
            "args_rel_err": abs(args - pred_args) / pred_args,
@@ -2755,6 +3129,7 @@ def dryrun_and_placement(report: dict) -> dict:
     """Phase 9: (a) the meta sweep, (b) the grounding on the card, (c) the
     torch placement score on the card."""
     out = {"sweep": dryrun_sweep(), "grounding": dryrun_grounding(),
+           "grounding_bf16": dryrun_grounding("bfloat16"),
            "placement": placement_on_card()}
     report["dryrun_placement"] = out
     return out
@@ -3076,8 +3451,9 @@ def main() -> int:
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}
-    flash_row["launches_by_kernel_path"]["tf32x3"] += sum(
-        trained_by("tf32x3").values())
+    for path in ("tf32x3", "wgmma"):
+        flash_row["launches_by_kernel_path"][path] += sum(
+            trained_by(path).values())
     ex_x3 = sum(examples_by("tf32x3").values())   # the twins run float32
     flash_row["launches_by_kernel_path"]["tf32x3"] += ex_x3
     flash_row["launches_by_kernel_path"]["fma"] += sum(
@@ -3097,7 +3473,15 @@ def main() -> int:
                   **examples_by("bwd_tf32x3")}.values())
     bwd_row["launches_by_kernel_path"] = {
         "tf32x3": bwd_x3, "fma": bwd_row["launches"] - bwd_x3}
-    bwd_row["bfloat16_max_abs_err"] = flash_bwd_err["bfloat16"]
+    bf16_bwd = flash_bwd_timing["bfloat16"]
+    bwd_row["bfloat16"] = {
+        "path": bf16_bwd["path"], "shape": bf16_bwd["shape"],
+        "max_abs_err": flash_bwd_err["bfloat16"],
+        "launches": sum(trained_by("bwd_fma").values()),
+        "ms": bf16_bwd["ms"], "plain_ms": bf16_bwd["plain_ms"],
+        "bound_ms": bf16_bwd["bound_ms"], "bound_by": bf16_bwd["bound_by"],
+        "fma_bound_ms": bf16_bwd["fma_bound_ms"],
+        "library_ms": bf16_bwd["library_ms"]}
     ssd_bwd_row = kernel_row("ssd_scan_bwd", ssd_bwd_timing,
                              ssd_bwd_err["float32"],
                              "src/repro/kernels/ssd_scan.py:68",

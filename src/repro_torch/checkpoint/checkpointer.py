@@ -18,24 +18,38 @@ A key is the path's dict keys and list indices joined by ``/``, as the
 reference flattens with ``jax.tree_util`` (which walks a dict in sorted key
 order; the npz is keyed, so the order is moot).  A bfloat16 leaf is stored
 as the reference's numpy ``bfloat16`` array is: its raw 16-bit words, as
-2-byte void (``V2``).  A leaf restores onto the template's device and
-dtype.
+2-byte void (``V2``).
+
+The npz is ``np.savez``'s file: a zip of ``<key>.npy`` members, stored
+uncompressed, each member's CRC-32 in the zip's directory.  It is written
+and read here a leaf at a time, each leaf's bytes in one call, where
+numpy's own writer copies them in 16 MB pieces twice and its reader goes
+256 KB at a time (on an H100's host, 0.6 and 0.5 GB/s for the 43 GB of
+qwen3-moe-30b-a3b x 4's bfloat16 params, float32 master copy and moments).
+A restore reads the next leaf while the last one goes to the card, checks
+each member's CRC-32 against the directory's, and writes each leaf into the
+template's own tensor (its device and dtype), so that it holds no second
+copy of the state: the ``Trainer`` restores into its live params and
+optimizer state.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import threading
-from typing import Any, Iterator, Optional
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
-from ..optim.adamw import tree_map
-
 PyTree = Any
 _SEP = "/"
+_LOCAL_HEADER = 30   # bytes of a zip local file header before its name
 
 
 def _paths(tree: PyTree, prefix: tuple = ()) -> Iterator[tuple[str, Any]]:
@@ -56,40 +70,73 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _to_torch(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def _bytes(arr: np.ndarray) -> memoryview:
+    return np.ascontiguousarray(arr).reshape(-1).view(np.uint8).data
+
+
+def _write_npz(path: str, leaves: Iterable[tuple[str, np.ndarray]]) -> int:
+    """``np.savez``'s file from ``(key, array)`` pairs, written as they
+    come; returns their number."""
+    n = 0
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in leaves:
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(arr))
+                f.write(_bytes(arr))
+            n += 1
+    return n
+
+
+def _member(fh, info: zipfile.ZipInfo) -> tuple[int, int, tuple, np.dtype]:
+    """Where one stored ``.npy`` member of the open file ``fh`` starts, the
+    length of its ``.npy`` header, and its array's shape and dtype."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{info.filename}: compressed member")
+    fh.seek(info.header_offset)
+    local = fh.read(_LOCAL_HEADER)
+    start = info.header_offset + _LOCAL_HEADER + sum(
+        struct.unpack("<HH", local[26:30]))
+    fh.seek(start)
+    version = np.lib.format.read_magic(fh)
+    shape, fortran, dtype = (np.lib.format.read_array_header_1_0(fh)
+                             if version == (1, 0) else
+                             np.lib.format.read_array_header_2_0(fh))
+    if fortran or dtype.hasobject:
+        raise ValueError(f"{info.filename}: not a C-ordered plain array")
+    return start, fh.tell() - start, shape, dtype
+
+
+def _read_leaf(fh, info: zipfile.ZipInfo) -> np.ndarray:
+    """The array of one stored ``.npy`` member of the open file ``fh``,
+    read in one call; raises if its length or CRC-32 is not the
+    directory's."""
+    start, head_len, shape, dtype = _member(fh, info)
+    fh.seek(start)
+    crc = zlib.crc32(fh.read(head_len))
+    arr = np.empty(shape, dtype)
+    body = _bytes(arr)
+    got = 0
+    while got < len(body):
+        n = fh.readinto(body[got:])
+        if not n:
+            break
+        got += n
+    crc = zlib.crc32(body, crc)
+    if got != len(body) or head_len + got != info.file_size or (
+            crc != info.CRC):
+        raise zipfile.BadZipFile(f"{info.filename}: bad length or CRC-32")
+    return arr
+
+
+@torch.no_grad()
+def _into(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # bfloat16 words
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return t.to(device=like.device, dtype=like.dtype)
-
-
-def _host(tree: PyTree) -> PyTree:
-    """A host copy of every leaf (a copy on the CPU too: the caller goes on
-    updating its tensors in place)."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
-
-
-def _flatten(tree: PyTree) -> dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in _paths(tree)}
-
-
-def _unflatten(template: PyTree, flat: dict[str, np.ndarray],
-               prefix: tuple = ()) -> PyTree:
-    if isinstance(template, dict):
-        return {k: _unflatten(v, flat, prefix + (k,))
-                for k, v in template.items()}
-    if isinstance(template, list):
-        return [_unflatten(v, flat, prefix + (i,))
-                for i, v in enumerate(template)]
-    key = _SEP.join(str(p) for p in prefix)
-    if key not in flat:
-        raise KeyError(f"checkpoint missing leaf {key!r}")
-    arr = flat[key]
-    if tuple(arr.shape) != tuple(template.shape):
-        raise ValueError(f"{key}: shape {arr.shape} != "
-                         f"{tuple(template.shape)}")
-    return _to_torch(arr, template)
+    return like.copy_(t)
 
 
 class Checkpointer:
@@ -102,15 +149,19 @@ class Checkpointer:
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree: PyTree, extra: Optional[dict] = None) -> str:
+        return self._save(step, ((key, _to_numpy(leaf))
+                                 for key, leaf in _paths(tree)), extra)
+
+    def _save(self, step: int, leaves: Iterable[tuple[str, np.ndarray]],
+              extra: Optional[dict]) -> str:
         final = os.path.join(self.dir, f"step_{step:08d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        flat = _flatten(tree)
-        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        n_leaves = _write_npz(os.path.join(tmp, "arrays.npz"), leaves)
         manifest = {"step": step, "extra": extra or {},
-                    "n_leaves": len(flat)}
+                    "n_leaves": n_leaves}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -127,11 +178,13 @@ class Checkpointer:
     def save_async(self, step: int, tree: PyTree,
                    extra: Optional[dict] = None) -> None:
         self.wait()                       # one in flight at a time
-        host_tree = _host(tree)           # snapshot before training mutates
+        # the snapshot, taken before training goes on to mutate the tree
+        leaves = [(key, _to_numpy(leaf.detach().to("cpu", copy=True)))
+                  for key, leaf in _paths(tree)]
 
         def run():
             try:
-                self.save(step, host_tree, extra)
+                self._save(step, leaves, extra)
             except BaseException as e:    # surfaced on next wait()
                 self._error = e
 
@@ -159,15 +212,36 @@ class Checkpointer:
 
     def restore(self, template: PyTree, step: Optional[int] = None
                 ) -> tuple[PyTree, dict]:
+        """(``template``, each of its tensors overwritten with the
+        checkpoint's leaf; the manifest)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         d = os.path.join(self.dir, f"step_{step:08d}")
-        with np.load(os.path.join(d, "arrays.npz")) as z:
-            flat = {k: z[k] for k in z.files}
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        return _unflatten(template, flat), manifest
+        path = os.path.join(d, "arrays.npz")
+        with zipfile.ZipFile(path) as zf:
+            infos = {i.filename: i for i in zf.infolist()}
+        targets = [(key, leaf, infos.get(key + ".npy"))
+                   for key, leaf in _paths(template)]
+        with open(path, "rb") as fh, ThreadPoolExecutor(1) as reader:
+            for key, leaf, info in targets:   # every shape before any write
+                if info is None:
+                    raise KeyError(f"checkpoint missing leaf {key!r}")
+                shape = _member(fh, info)[2]
+                if tuple(shape) != tuple(leaf.shape):
+                    raise ValueError(f"{key}: shape {shape} != "
+                                     f"{tuple(leaf.shape)}")
+            ahead = [reader.submit(_read_leaf, fh, info)
+                     for _, _, info in targets[:1]]
+            for i, (_, leaf, _) in enumerate(targets):
+                arr = ahead.pop().result()
+                if i + 1 < len(targets):   # the next leaf read meanwhile
+                    ahead.append(reader.submit(_read_leaf, fh,
+                                               targets[i + 1][2]))
+                _into(arr, leaf)
+        return template, manifest
 
     def _gc(self) -> None:
         steps = sorted(

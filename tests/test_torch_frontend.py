@@ -408,8 +408,9 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
     assert run["arch"] == "musicgen-large" and not run["layers"]
     for remat, fwd in ((False, 48), (True, 96)):
         want = {"flash_attention": fwd, "flash_attention_bwd": 48,
-                "tf32x3": fwd, "bwd_tf32x3": 48, "ssd_scan": 0,
-                "ssd_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+                "tf32x3": fwd, "wgmma": 0, "bwd_tf32x3": 48, "bwd_fma": 0,
+                "ssd_scan": 0, "ssd_scan_bwd": 0, "slstm_scan": 0,
+                "slstm_scan_bwd": 0}
         assert cs._step_launches(music, remat) == want
 
 
