@@ -24,10 +24,13 @@ which fails the run (non-zero exit, no result line) if it fails:
    flash attention: ``wgmma``, ``tf32x3``, ``fma``; among its cases
    internvl2-76b's 64 query heads over 8 at the prefixed lengths 556 and
    1280, and musicgen-large's at 364); flash attention's
-   backward (dq, dk, dv) at the training shape and at ragged, non-causal,
+   backward (dq, dk, dv) at the training shapes (granite-8b's, zamba2's
+   and qwen3-moe's) and at ragged, non-causal,
    short, GQA 1 / 4 / 8 and q-off-16-byte cases, each naming its path
    (``tf32x3`` for aligned float32, also held to ``FLASH_BWD_F32_KEEP``;
-   ``fma`` otherwise; both taken in float32), at the forward's tolerance
+   ``wgmma`` for aligned bfloat16, also held to ``FLASH_BWD_BF16_KEEP`` as
+   a whole; ``fma`` off a 16-byte boundary; each
+   dtype takes its two), at the forward's tolerance
    x (1 + |g|), its counters checked; the SSD scan's backward (dx, da, db,
    dc) at zamba2's training shape, mLSTM's values and normalizer, ragged,
    short, batched, untiled and strong-decay cases at ``SSD_TOL`` x (1 +
@@ -51,8 +54,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    internvl2-76b's heads), each row naming its path (float32 flash rows also time
    the FMA kernel on the same values off a 16-byte boundary and give its
    bound), flash attention's backward at the training shape on both
-   paths beside SDPA's backward (float32), and in bfloat16 on the ``fma``
-   kernels a bfloat16 train step takes beside SDPA's bfloat16 backward, the
+   float32 paths beside SDPA's backward, and in bfloat16 on the ``wgmma``
+   kernels a bfloat16 train step takes, at granite-8b's, qwen3-moe's and
+   zamba2's training shapes, beside the ``fma`` kernels on the same values
+   off a 16-byte boundary and SDPA's bfloat16 backward (both kernel paths
+   held to the plain version there too), the
    SSD rows with the
    wrapper's time per call (host included) and the passes' scratch, the
    SSD backward at the training shapes (no library call computes it); the
@@ -135,7 +141,7 @@ which fails the run (non-zero exit, no result line) if it fails:
    below the first; per step the launches the layer plan gives (flash
    forward and backward once per attention block or shared-block
    application, on the dtype's paths: float32 ``tf32x3`` both ways,
-   bfloat16 ``wgmma`` forward and ``fma`` backward; the SSD forward and
+   bfloat16 ``wgmma`` both ways; the SSD forward and
    backward once per Mamba-2 layer and twice per mLSTM layer, so no
    backward runs the forward again; the sLSTM scan forward and backward
    once per sLSTM layer; remat runs
@@ -216,6 +222,12 @@ FLASH_F32_KEEP = 2e-5  # flash attention's 3xTF32 path stays only this far
 # ... and its backward's: ~4x the FMA kernel's worst, 1.05e-5 x (1 + |g|),
 # which a single TF32 product would exceed
 FLASH_BWD_F32_KEEP = 4e-5
+# The bfloat16 backward on wgmma, each of dq, dk and dv as a whole beside
+# the elementwise TOL: ||g - plain|| / ||plain|| at most about twice its
+# worst over FLASH_BWD_CASES (2.72e-3; SDPA's own bfloat16 backward reads
+# up to 3.4e-3 on the same inputs; PERF.md row 1d), where P and dS rounded
+# to bfloat16 and the output's own rounding each move a term by up to 2^-9
+FLASH_BWD_BF16_KEEP = 5.5e-3
 # The SSD backward's 3xTF32 stays only this far inside, x (1 + |g|), per
 # gradient: ~4x the worst of the FMA kernel it replaced over
 # SSD_BWD_CASES (dx 1.47e-4, db 2.64e-4, dc 2.12e-4); da, whose per-token
@@ -249,7 +261,7 @@ SERVED_FLASH_PATH = {"float32": "tf32x3", "bfloat16": "wgmma"}
 # shared attention (and musicgen-large's) in float32, qwen3-moe, moonshot
 # and internvl2-76b in bfloat16
 SERVED_LAYOUTS = {"float32": {(32, 8, 128), (32, 32, 64)},
-                  "bfloat16": {(32, 4, 128), (16, 16, 128), (64, 8, 128)}}
+                  "bfloat16": {(32, 4, 64), (16, 16, 128), (64, 8, 128)}}
 # bfloat16 logits are held on the median over tokens of each token's rel
 # (a routing flip moves one token's logits by 0.2-0.9 in the reference
 # itself); tools/moe_bf16_drift.py measures the reference on the CPU.
@@ -412,8 +424,9 @@ def check_flash(report: dict) -> dict:
         (1, 16, 4, 384, 384, 64, True),         # D = 64
         (1, 32, 32, 1024, 1024, 64, True),      # zamba2's shared attention
         (1, 32, 32, 300, 300, 64, True),        # the same, ragged
-        (1, 32, 4, 1024, 1024, 128, True),      # qwen3-moe: GQA group 8
-        (1, 32, 4, 300, 300, 128, True),        # the same, ragged
+        (1, 32, 4, 1024, 1024, 64, True),       # qwen3-moe: GQA group 8
+        (1, 32, 4, 300, 300, 64, True),         # the same, ragged
+        (1, 32, 4, 1024, 1024, 128, True),      # group 8 at D 128: no model's
         (1, 16, 16, 1024, 1024, 128, True),     # moonshot
         (1, 16, 16, 300, 300, 128, True),       # the same, ragged
         (1, 64, 8, 1280, 1280, 128, True),      # internvl2: P 256 + 1024
@@ -462,7 +475,7 @@ def time_flash(report: dict) -> list[dict]:
     granite-8b's heads (Hq 32, Hkv 8, D 128) at S = 256, 512 and 1024 and
     zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64) at S = 1024, in
     both dtypes (musicgen-large's heads are zamba2's), and qwen3-moe's
-    (Hq 32, Hkv 4, D 128), moonshot's (Hq = Hkv = 16, D 128) and
+    (Hq 32, Hkv 4, D 64), moonshot's (Hq = Hkv = 16, D 128) and
     internvl2-76b's (Hq 64, Hkv 8, D 128) at S = 1024 in bfloat16, the
     dtype they are served in; each row names the kernel's path and prices its products
     at that path's unit (``FLASH_UNIT``).  A float32 row also times the
@@ -476,7 +489,7 @@ def time_flash(report: dict) -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        bf16_only = ((32, 4, 1024, 128), (16, 16, 1024, 128),
+        bf16_only = ((32, 4, 1024, 64), (16, 16, 1024, 128),
                      (64, 8, 1024, 128))
         for hq, hkv, s, d in ((32, 8, 256, 128), (32, 8, 512, 128),
                               (32, 8, 1024, 128), (32, 32, 1024, 64),
@@ -519,7 +532,8 @@ def time_flash(report: dict) -> list[dict]:
 # non-causal S > T, S shorter than one tile, GQA group 1 and 8, D 32 and 64,
 # S and T one past a 32-row step (ragged in the 16-row q steps and 32-key
 # tiles of the 3xTF32 kernels), and q off a 16-byte boundary (float32 on
-# the FMA kernels)
+# the FMA kernels); last, qwen3-moe-30b-a3b's training shape (GQA group 8
+# at D 64), after the others so that their seeds (200 + the index) stay
 FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (2, 32, 8, 2048, 2048, 128, True),
     (2, 32, 32, 2048, 2048, 64, True),
@@ -531,7 +545,16 @@ FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (1, 4, 1, 100, 356, 32, False),
     (1, 8, 2, 33, 97, 128, True),
     (1, 16, 4, 200, 200, 64, True, True),
+    (2, 32, 4, 2048, 2048, 64, True),   # qwen3-moe-30b-a3b's: group 8, D 64
 ]
+# the bfloat16 training shapes of the backward, by model: granite-8b's
+# heads, qwen3-moe-30b-a3b's (GQA group 8 at D 64) and zamba2-1.2b's
+# shared attention's (Hq = Hkv = 32, D 64), B 2, S = T = 2048, causal
+FLASH_BWD_BF16_SHAPES = (
+    ("granite-8b", (2, 32, 8, 2048, 2048, 128, True)),
+    ("qwen3-moe-30b-a3b", (2, 32, 4, 2048, 2048, 64, True)),
+    ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64, True)),
+)
 
 
 def _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed):
@@ -547,15 +570,52 @@ def _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed):
     return q, k, v, o, do
 
 
+def bwd_errors(got, want) -> dict:
+    """Each of dq, dk and dv against the plain version's: the largest
+    |g - w|, the largest |g - w| / (1 + |w|) and ||g - w|| / ||w||."""
+    import torch
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        out[name] = {
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (1.0 + w.abs())).max()),
+            "norm_rel_err": float(torch.linalg.vector_norm(g - w)
+                                  / torch.linalg.vector_norm(w))}
+    return out
+
+
+def _bwd_ok(path: str, got, want, errs: dict) -> bool:
+    """The backward of ``path`` holds: dq, dk and dv finite, of the inputs'
+    dtype and shape, inside ``TOL`` x (1 + |w|) everywhere, ``tf32x3`` also
+    inside ``FLASH_BWD_F32_KEEP`` x (1 + |w|) and ``wgmma`` inside
+    ``FLASH_BWD_BF16_KEEP`` as a whole (``errs`` from ``bwd_errors``)."""
+    import torch
+    ok = True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        tol = TOL[str(w.dtype).removeprefix("torch.")]
+        e = errs[name]
+        ok = (ok and g.dtype == w.dtype and g.shape == w.shape
+              and bool(torch.isfinite(g).all())
+              and bool(((g.float() - w.float()).abs()
+                        <= tol * (1.0 + w.float().abs())).all())
+              and (path != "tf32x3" or e["max_rel_err"] <= FLASH_BWD_F32_KEEP)
+              and (path != "wgmma"
+                   or e["norm_rel_err"] <= FLASH_BWD_BF16_KEEP))
+    return ok
+
+
 def check_flash_bwd(report: dict) -> dict:
     """The backward kernels against their plain version on the card, every
     case in both dtypes, at the forward's tolerance x (1 + |g|) on each of
-    dq, dk and dv, and float32 on ``tf32x3`` also at ``FLASH_BWD_F32_KEEP``;
-    each case names its path (``flash_bwd_path``: aligned float32 on the
-    3xTF32 kernels, bfloat16 and a q off a 16-byte boundary on the FMA
-    kernels) and checks that the total and that path's counter moved by
-    one.  Returns the largest error in each dtype at the training shapes
-    (S = T = 2048)."""
+    dq, dk and dv, float32 on ``tf32x3`` also at ``FLASH_BWD_F32_KEEP`` and
+    bfloat16 on ``wgmma`` at ``FLASH_BWD_BF16_KEEP`` (``_bwd_ok``); each
+    case names its path (``flash_bwd_path``: aligned float32 on the 3xTF32
+    kernels, aligned bfloat16 on the wgmma ones, a q off a 16-byte boundary
+    on the FMA kernels) and checks that the total and that path's counter
+    moved by one, and no other path's.  Returns the largest error in each
+    dtype at the training shapes (S = T = 2048)."""
     import torch
     from repro_torch.kernels.flash_attention import (bwd_launches,
                                                      bwd_path_launches,
@@ -573,27 +633,23 @@ def check_flash_bwd(report: dict) -> dict:
             if off:
                 q = _off16(q)
             path = flash_bwd_path(q, k, v, o, do)
-            before = (bwd_launches.count, bwd_path_launches[path].count)
+            before = (bwd_launches.count,
+                      {p: c.count for p, c in bwd_path_launches.items()})
             got = flash_attention_bwd(q, k, v, o, do, causal=causal)
             torch.cuda.synchronize()
-            launched = (bwd_launches.count - before[0],
-                        bwd_path_launches[path].count - before[1])
+            by_path = {p: c.count - before[1][p]
+                       for p, c in bwd_path_launches.items()}
             want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
             row = {"dtype": name, "path": path,
                    "shape": [b, hq, hkv, s, t, d], "causal": causal,
-                   "tol": TOL[name], "launches": launched[1]}
-            ok = launched == (1, 1)
-            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-                err = (g.float() - w.float()).abs()
-                rel = float((err / (1.0 + w.float().abs())).max())
-                ok = (ok and g.dtype == dtype and g.shape == w.shape
-                      and bool(torch.isfinite(g).all())
-                      and bool((err <= TOL[name] * (1.0 + w.float().abs())
-                                ).all())
-                      and (path != "tf32x3" or rel <= FLASH_BWD_F32_KEEP))
-                row[f"{gname}_max_abs_err"] = float(err.max())
-                row[f"{gname}_max_rel_err"] = rel
-            row["ok"] = ok
+                   "tol": TOL[name], "launches": by_path[path]}
+            errs = bwd_errors(got, want)
+            for gname, e in errs.items():
+                row.update({f"{gname}_{key}": x for key, x in e.items()})
+            row["ok"] = ok = (bwd_launches.count - before[0] == 1
+                              and by_path == {p: int(p == path)
+                                              for p in by_path}
+                              and _bwd_ok(path, got, want, errs))
             rows.append(row)
             print(f"[check] flash_attention_bwd {row}", flush=True)
             _require(ok, f"flash attention backward kernel against its plain "
@@ -603,50 +659,62 @@ def check_flash_bwd(report: dict) -> dict:
                                   *(row[f"{g}_max_abs_err"]
                                     for g in ("dq", "dk", "dv")))
             del q, k, v, o, do, got, want
-    _require({r["path"] for r in rows if r["dtype"] == "float32"}
-             == {"tf32x3", "fma"}, "float32 backward checks took both paths")
+    for name, paths in (("float32", {"tf32x3", "fma"}),
+                        ("bfloat16", {"wgmma", "fma"})):
+        _require({r["path"] for r in rows if r["dtype"] == name} == paths,
+                 f"the {name} backward checks took the paths {paths}")
     report["flash_attention_bwd_checks"] = rows
     return worst
 
 
-def _time_bwd_turns(dtype, seed: int, off16: bool) -> tuple:
-    """At ``FLASH_BWD_CASES[0]`` in ``dtype``: the backward kernels on
-    aligned inputs (and, with ``off16``, on the same values with q off a
-    16-byte boundary) and SDPA's backward (``torch.autograd.grad`` of its
+def _time_bwd_turns(dtype, seed: int, case=FLASH_BWD_CASES[0]) -> tuple:
+    """At ``case`` (b, hq, hkv, s, t, d, causal) in ``dtype``: the backward
+    kernels on aligned inputs and on the same values with q off a 16-byte
+    boundary (``fma``), and SDPA's backward (``torch.autograd.grad`` of its
     output on a graph recorded once and kept, so only the backward is
-    timed), in turns over two rounds; the plain version once.  Returns
-    (each call's median ms, its rounds, the plain ms, the kernels' path on
-    the aligned inputs, the shape)."""
+    timed), in turns over two rounds; the plain version once, and both
+    kernels' gradients held to its own (``_bwd_ok``).  Returns (each call's
+    median ms, its rounds, the plain ms, the kernels' path on the aligned
+    inputs, the shape, each kernel path's ``bwd_errors``)."""
     import statistics
     import torch.nn.functional as F
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_bwd_path)
-    b, hq, hkv, s, t, d, causal = FLASH_BWD_CASES[0]
+    b, hq, hkv, s, t, d, causal = case
     q, k, v, o, do = _bwd_inputs(b, hq, hkv, s, t, d, dtype, causal, seed)
     path = flash_bwd_path(q, k, v, o, do)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
-    calls = {path: lambda: flash_attention_bwd(q, k, v, o, do)}
-    if off16:
-        q_off = _off16(q)
-        _require(flash_bwd_path(q_off, k, v, o, do) == "fma",
-                 "backward timing paths")
-        calls["fma"] = lambda: flash_attention_bwd(q_off, k, v, o, do)
-    calls["sdpa"] = lambda: torch.autograd.grad(out, leaves, do,
-                                                retain_graph=True)
+    q_off = _off16(q)
+    _require(flash_bwd_path(q_off, k, v, o, do) == "fma",
+             "backward timing paths")
+    calls = {path: lambda: flash_attention_bwd(q, k, v, o, do,
+                                               causal=causal),
+             "fma": lambda: flash_attention_bwd(q_off, k, v, o, do,
+                                                causal=causal),
+             "sdpa": lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True)}
     rounds = {name: [] for name in calls}
     for _ in range(2):
         for name, fn in calls.items():
             rounds[name].append(_time_ms(fn, iters=5))
     ms = {name: statistics.median(r) for name, r in rounds.items()}
-    plain_ms = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do),
-                        iters=1, warmup=1, run_ahead=False)
-    del q, k, v, o, do, leaves, out, calls
+    plain = []
+    plain_ms = _time_ms(lambda: plain.append(flash_attention_bwd_plain(
+        q, k, v, o, do, causal=causal)), iters=1, warmup=1, run_ahead=False)
+    errs = {}
+    for name in (path, "fma"):
+        got = calls[name]()
+        errs[name] = bwd_errors(got, plain[-1])
+        _require(_bwd_ok(name, got, plain[-1], errs[name]),
+                 f"the {name} backward against its plain version at "
+                 f"{list(case)} in {dtype}: {errs[name]}")
+    del q, k, v, o, do, leaves, out, calls, plain, got
     torch.cuda.empty_cache()
-    return ms, rounds, plain_ms, path, [b, hq, hkv, s, t, d]
+    return ms, rounds, plain_ms, path, [b, hq, hkv, s, t, d], errs
 
 
 def time_flash_bwd(report: dict) -> dict:
@@ -658,12 +726,17 @@ def time_flash_bwd(report: dict) -> dict:
     time at float32's accuracy (``fma_bound_ms`` at the FMA peak, the
     units of the FMA kernels); each path's ``tflops`` is those 5 products
     over its time and ``bound_share`` its unit's bound over its time.
-    Then, under ``"bfloat16"``, the path a bfloat16 train step takes
-    (``fma``) beside SDPA's bfloat16 backward, its bound at the bfloat16
-    tensor cores' peak."""
+    Each row keeps both kernel paths' errors against the plain version
+    (``"errors"``).  Then, under ``"bfloat16_by_model"``, at each of
+    ``FLASH_BWD_BF16_SHAPES``, the path a
+    bfloat16 train step takes (``wgmma``), the ``fma`` kernels on the same
+    values with q off a 16-byte boundary and SDPA's bfloat16 backward in
+    turns, the bound at the bfloat16 tensor cores' peak; each with its
+    ``tflops`` (the 5 products over its time), ``bound_share`` and the
+    ratios ``vs_library`` (time over SDPA's) and ``fma_over_wgmma``."""
     import torch
-    ms, rounds, plain_ms, path, shape = _time_bwd_turns(torch.float32, 299,
-                                                        off16=True)
+    ms, rounds, plain_ms, path, shape, errs = _time_bwd_turns(torch.float32,
+                                                              299)
     _require(path == "tf32x3", "backward timing paths")
     flops, nbytes = attention_bwd_work(*shape, torch.float32)
     bound_ms, bound_by = bound({"3xtf32": flops}, nbytes)
@@ -680,25 +753,34 @@ def time_flash_bwd(report: dict) -> dict:
            "bound_ms": bound_ms, "bound_by": bound_by,
            "fma_bound_ms": fma_bound_ms, "paths": paths,
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-           "tflops": paths["tf32x3"]["tflops"]}
+           "tflops": paths["tf32x3"]["tflops"], "errors": errs}
     print(f"[time] flash_attention_bwd {row}", flush=True)
 
-    ms, rounds, plain_ms, path, shape = _time_bwd_turns(torch.bfloat16, 298,
-                                                        off16=False)
-    _require(path == "fma", f"the bfloat16 backward's timing path {path}")
-    flops, nbytes = attention_bwd_work(*shape, torch.bfloat16)
-    bound_ms, bound_by = bound({"bfloat16": flops}, nbytes)
-    row["bfloat16"] = bf16 = {
-        "dtype": "bfloat16", "path": path, "shape": shape, "ms": ms[path],
-        "ms_rounds": rounds[path], "plain_ms": plain_ms,
-        "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
-        "library": "SDPA backward (bfloat16, autograd.grad on a kept graph)",
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "fma_bound_ms": bound({"float32": flops}, nbytes)[0],
-        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-        "tflops": flops / (ms[path] * 1e-3) / 1e12,
-        "vs_library": ms[path] / ms["sdpa"]}
-    print(f"[time] flash_attention_bwd bfloat16 {bf16}", flush=True)
+    by_model = {}
+    for model, case in FLASH_BWD_BF16_SHAPES:
+        ms, rounds, plain_ms, path, shape, errs = _time_bwd_turns(
+            torch.bfloat16, 298, case=case)
+        _require(path == "wgmma", f"the bfloat16 backward's timing path {path}")
+        flops, nbytes = attention_bwd_work(*shape, torch.bfloat16, case[6])
+        bound_ms, bound_by = bound({"bfloat16": flops}, nbytes)
+        by_model[model] = bf16 = {
+            "dtype": "bfloat16", "path": path, "shape": shape,
+            "ms": ms[path], "ms_rounds": rounds[path],
+            "fma_ms": ms["fma"], "fma_ms_rounds": rounds["fma"],
+            "plain_ms": plain_ms,
+            "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
+            "library": "SDPA backward (bfloat16, autograd.grad on a kept "
+                       "graph)",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "fma_bound_ms": bound({"float32": flops}, nbytes)[0],
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "tflops": flops / (ms[path] * 1e-3) / 1e12,
+            "bound_share": bound_ms / ms[path],
+            "vs_library": ms[path] / ms["sdpa"],
+            "fma_over_wgmma": ms["fma"] / ms[path], "errors": errs}
+        print(f"[time] flash_attention_bwd bfloat16 {model} {bf16}",
+              flush=True)
+    row["bfloat16_by_model"] = by_model
     report["flash_attention_bwd_timing"] = row
     return row
 
@@ -2172,6 +2254,7 @@ def _train_counters():
             "tf32x3": flash_attention.path_launches["tf32x3"],
             "wgmma": flash_attention.path_launches["wgmma"],
             "bwd_tf32x3": flash_attention.bwd_path_launches["tf32x3"],
+            "bwd_wgmma": flash_attention.bwd_path_launches["wgmma"],
             "bwd_fma": flash_attention.bwd_path_launches["fma"],
             "ssd_scan": ssd_scan.launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches,
@@ -2189,16 +2272,16 @@ def _counts(counters) -> dict:
 
 
 # the flash paths a train step's launches take, by the model's dtype: the
-# forward's and the backward's (bfloat16's backward runs the FMA kernels)
+# forward's and the backward's
 TRAIN_FLASH_PATHS = {"float32": ("tf32x3", "bwd_tf32x3"),
-                     "bfloat16": ("wgmma", "bwd_fma")}
+                     "bfloat16": ("wgmma", "bwd_wgmma")}
 
 
 def _step_launches(cfg, remat: bool = False) -> dict:
     """Kernel launches of one train step, from the layer plan: one flash
     forward and backward per attention block or shared-block application,
     all on the dtype's paths (``TRAIN_FLASH_PATHS``: float32 ``tf32x3``
-    both ways, bfloat16 ``wgmma`` forward and ``fma`` backward); one SSD
+    both ways, bfloat16 ``wgmma`` both ways); one SSD
     forward and backward per Mamba-2 layer, two per mLSTM layer (so no
     backward runs the forward again: it reads the forward's kept scratch);
     one sLSTM scan forward and backward per sLSTM layer.  With remat every
@@ -2212,7 +2295,8 @@ def _step_launches(cfg, remat: bool = False) -> dict:
     ssd, sl = per["ssd_scan"], per["slstm_scan"]
     fwd_path, bwd_path = TRAIN_FLASH_PATHS[cfg.dtype]
     out = {"flash_attention": fwd, "flash_attention_bwd": bwd,
-           "tf32x3": 0, "wgmma": 0, "bwd_tf32x3": 0, "bwd_fma": 0,
+           "tf32x3": 0, "wgmma": 0, "bwd_tf32x3": 0, "bwd_wgmma": 0,
+           "bwd_fma": 0,
            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
            "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
     out[fwd_path], out[bwd_path] = fwd, bwd
@@ -2360,9 +2444,10 @@ def train_reduced_bf16_vs_cpu(run: dict) -> dict:
 
 
 # the kernels of a traced step, by the names their sources give them
-FLASH_BWD_KERNELS = ("bwd_x3_dq", "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv",
-                     "bwd_dq")
-FLASH_BWD_PATH_KERNELS = {"bwd_tf32x3": ("bwd_x3_dq", "bwd_x3_dkdv"),
+FLASH_BWD_KERNELS = ("bwd_wgmma_dq", "bwd_wgmma_dkdv", "bwd_x3_dq",
+                     "bwd_x3_dkdv", "bwd_prepass", "bwd_dkdv", "bwd_dq")
+FLASH_BWD_PATH_KERNELS = {"bwd_wgmma": ("bwd_wgmma_dq", "bwd_wgmma_dkdv"),
+                          "bwd_tf32x3": ("bwd_x3_dq", "bwd_x3_dkdv"),
                           "bwd_fma": ("bwd_prepass", "bwd_dkdv", "bwd_dq")}
 FLASH_FWD_KERNELS = {"tf32x3": ("flash_tf32x3",),
                      "wgmma": ("flash_wgmma_bf16",)}
@@ -3428,9 +3513,9 @@ def main() -> int:
                 for twin, out in examples.items()
                 if out["launches"].get(name)}
 
-    def flash_at(dtype, heads=(32, 8, 1024)):  # granite-8b's, S = 1024
+    def flash_at(dtype, heads=(32, 8, 1024, 128)):  # granite-8b's, S 1024
         return next(r for r in flash_timing if r["dtype"] == dtype
-                    and r["shape"][1:4] == list(heads))
+                    and r["shape"][1:4] + r["shape"][5:] == list(heads))
 
     flash_row = kernel_row("flash_attention", flash_at("float32"),
                            flash_err["float32"],
@@ -3445,9 +3530,10 @@ def main() -> int:
         arch: {k: r[k] for k in ("path", "shape", "ms", "plain_ms",
                                  "library_ms", "bound_ms", "bound_by")}
         for arch, r in (
-            ("qwen3-moe-30b-a3b", flash_at("bfloat16", [32, 4, 1024])),
-            ("moonshot-v1-16b-a3b", flash_at("bfloat16", [16, 16, 1024])),
-            ("internvl2-76b", flash_at("bfloat16", [64, 8, 1024])))}
+            ("qwen3-moe-30b-a3b", flash_at("bfloat16", [32, 4, 1024, 64])),
+            ("moonshot-v1-16b-a3b",
+             flash_at("bfloat16", [16, 16, 1024, 128])),
+            ("internvl2-76b", flash_at("bfloat16", [64, 8, 1024, 128])))}
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}
@@ -3469,19 +3555,26 @@ def main() -> int:
                               "attention_ref")
     bwd_row["fma_ms"] = flash_bwd_timing["fma_ms"]
     bwd_row["fma_bound_ms"] = flash_bwd_timing["fma_bound_ms"]
-    bwd_x3 = sum({**trained_by("bwd_tf32x3"),
-                  **examples_by("bwd_tf32x3")}.values())
     bwd_row["launches_by_kernel_path"] = {
-        "tf32x3": bwd_x3, "fma": bwd_row["launches"] - bwd_x3}
-    bf16_bwd = flash_bwd_timing["bfloat16"]
+        path: sum({**trained_by(f"bwd_{path}"),
+                   **examples_by(f"bwd_{path}")}.values())
+        for path in ("wgmma", "tf32x3", "fma")}
+    _require(sum(bwd_row["launches_by_kernel_path"].values())
+             == bwd_row["launches"],
+             f"the main path's backward launches by path "
+             f"{bwd_row['launches_by_kernel_path']}")
+    bf16_by_model = flash_bwd_timing["bfloat16_by_model"]
+    bf16_bwd = bf16_by_model[FLASH_BWD_BF16_SHAPES[0][0]]    # granite-8b's
+    keys = ("shape", "ms", "fma_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "tflops", "bound_share", "vs_library",
+            "fma_over_wgmma", "errors")
     bwd_row["bfloat16"] = {
-        "path": bf16_bwd["path"], "shape": bf16_bwd["shape"],
-        "max_abs_err": flash_bwd_err["bfloat16"],
-        "launches": sum(trained_by("bwd_fma").values()),
-        "ms": bf16_bwd["ms"], "plain_ms": bf16_bwd["plain_ms"],
-        "bound_ms": bf16_bwd["bound_ms"], "bound_by": bf16_bwd["bound_by"],
+        "path": bf16_bwd["path"], "max_abs_err": flash_bwd_err["bfloat16"],
+        "launches": sum(trained_by("bwd_wgmma").values()),
+        **{key: bf16_bwd[key] for key in keys},
         "fma_bound_ms": bf16_bwd["fma_bound_ms"],
-        "library_ms": bf16_bwd["library_ms"]}
+        "by_model": {model: {key: r[key] for key in keys}
+                     for model, r in bf16_by_model.items()}}
     ssd_bwd_row = kernel_row("ssd_scan_bwd", ssd_bwd_timing,
                              ssd_bwd_err["float32"],
                              "src/repro/kernels/ssd_scan.py:68",

@@ -626,25 +626,10 @@ constexpr int NTH = 160;               // a consumer warpgroup + a producer warp
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Tile {
-  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span, bytes
-  static constexpr int LAYOUT = SW == 128 ? 1 : 2;       // descriptor swizzle
-  static constexpr int BOX = SW / 2;                     // D columns a box
-  static constexpr int BOX_BYTES = 64 * SW;              // a box of 64 rows
-  static constexpr int BYTES = 64 * D * 2;               // a [64 x D] tile
-  static constexpr int SMEM = 1024 + 5 * BYTES + 5 * 8;  // q, 2 x (k, v)
+struct Tile : Bf16Tile<D> {
+  // q, 2 x (k, v), 5 mbarriers
+  static constexpr int SMEM = 1024 + 5 * Bf16Tile<D>::BYTES + 5 * 8;
 };
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 32)
-    wgmma_m64n32k16_rs_tb(d, a, db);
-  else if constexpr (D == 64)
-    wgmma_m64n64k16_rs_tb(d, a, db);
-  else
-    wgmma_m64n128k16_rs_tb(d, a, db);
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTH)
@@ -684,22 +669,14 @@ __global__ void __launch_bounds__(NTH)
     if (threadIdx.x == 128) {
       const int q_row = b * hq + h, kv_row = b * hkv + h / (hq / hkv);
       mbar_expect_tx(q_full, T::BYTES);
-#pragma unroll
-      for (int j = 0; j < D / T::BOX; ++j)
-        tma_load_3d(qs + j * T::BOX_BYTES, &map_q, q_full, j * T::BOX, q0,
-                    q_row);
+      tma_load_tile<D>(qs, &map_q, q_full, q0, q_row);
       for (int jt = 0; jt < n_kv; ++jt) {
         const int s = jt & 1;
         if (jt >= 2) mbar_wait(&empty[s], ((jt >> 1) - 1) & 1);
         uint8_t* ks = kv + 2 * s * T::BYTES;
         mbar_expect_tx(&full[s], 2 * T::BYTES);
-#pragma unroll
-        for (int j = 0; j < D / T::BOX; ++j) {
-          tma_load_3d(ks + j * T::BOX_BYTES, &map_k, &full[s], j * T::BOX,
-                      jt * BKV, kv_row);
-          tma_load_3d(ks + T::BYTES + j * T::BOX_BYTES, &map_v, &full[s],
-                      j * T::BOX, jt * BKV, kv_row);
-        }
+        tma_load_tile<D>(ks, &map_k, &full[s], jt * BKV, kv_row);
+        tma_load_tile<D>(ks + T::BYTES, &map_v, &full[s], jt * BKV, kv_row);
       }
     }
     return;
@@ -727,14 +704,7 @@ __global__ void __launch_bounds__(NTH)
     const uint32_t v_addr = k_addr + T::BYTES;
 
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off =
-          (16 * kk / T::BOX) * T::BOX_BYTES + (16 * kk % T::BOX) * 2;
-      wgmma_m64n64k16_ss(sc, smem_desc(q_addr + off, 16, 8 * T::SW, T::LAYOUT),
-                         smem_desc(k_addr + off, 16, 8 * T::SW, T::LAYOUT),
-                         kk > 0);
-    }
+    wgmma_tile_nt<D>(sc, q_addr, k_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sc);
@@ -791,19 +761,11 @@ __global__ void __launch_bounds__(NTH)
     for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
 
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(acc, pa[kk],
-                  smem_desc(v_addr + kk * 16 * T::SW, T::BOX_BYTES,
-                            8 * T::SW, T::LAYOUT));
+    wgmma_tile_rs<D>(acc, pa, v_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
-    // the wgmma read P from these registers until now: keep them live
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
+    keep_fragments(pa);   // the wgmma read P from these registers until now
     __syncwarp();
     if (t % 32 == 0) mbar_arrive(&empty[s]);
   }
@@ -833,17 +795,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int s_len, int t_len, int causal, float scale,
            cudaStream_t stream) {
   using T = Tile<D>;
-  const CUtensorMapSwizzle swz =
-      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const cuuint32_t box[3] = {T::BOX, 64, 1};
-  const cuuint64_t q_dims[3] = {D, (cuuint64_t)s_len, (cuuint64_t)b * hq};
-  const cuuint64_t q_strides[2] = {D * 2, (cuuint64_t)s_len * D * 2};
-  const cuuint64_t kv_dims[3] = {D, (cuuint64_t)t_len, (cuuint64_t)b * hkv};
-  const cuuint64_t kv_strides[2] = {D * 2, (cuuint64_t)t_len * D * 2};
   CUtensorMap map_q, map_k, map_v;
-  int err = bf16_map(&map_q, 3, q, q_dims, q_strides, box, swz);
-  if (!err) err = bf16_map(&map_k, 3, k, kv_dims, kv_strides, box, swz);
-  if (!err) err = bf16_map(&map_v, 3, v, kv_dims, kv_strides, box, swz);
+  int err = bf16_tile_map<D>(&map_q, q, s_len, b * hq);
+  if (!err) err = bf16_tile_map<D>(&map_k, k, t_len, b * hkv);
+  if (!err) err = bf16_tile_map<D>(&map_v, v, t_len, b * hkv);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_wgmma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

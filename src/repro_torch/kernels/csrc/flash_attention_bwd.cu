@@ -1,9 +1,10 @@
 // Flash attention backward for Hopper, sm_90a: dQ, dK and dV of causal or
-// non-causal GQA attention.  Two paths, chosen by the wrapper
-// (repro_torch/kernels/flash_attention.py::flash_bwd_path): float32 with
-// q, k, v, o and dO on 16-byte boundaries takes the 3xTF32 tensor-core
-// kernels (namespace x3, below); bfloat16, and float32 off a 16-byte
-// boundary, take the FMA kernels that follow this note.
+// non-causal GQA attention.  Three paths, chosen by the wrapper
+// (repro_torch/kernels/flash_attention.py::flash_bwd_path) by the dtype and
+// the alignment of q, k, v, o and dO: bfloat16 with all five on 16-byte
+// boundaries takes the TMA and wgmma kernels (namespace fb, at the end);
+// such float32 the 3xTF32 tensor-core kernels (namespace x3, below); either
+// dtype off a 16-byte boundary the FMA kernels that follow this note.
 //
 // The TPU kernel src/repro/kernels/flash_attention.py::flash_attention_pallas
 // has no backward: the JAX package's training gradient is XLA's autodiff of
@@ -19,7 +20,8 @@
 //   and a KV head's dK and dV sum over the query heads of its group;
 //   float32 accumulation, gradients written in the inputs' dtype.
 //
-// FMA path: three kernels, launched one after the other by one C call:
+// FMA path (off a 16-byte boundary): three kernels, launched one after the
+// other by one C call:
 //   1. the pre-pass, one block per (64-row q tile, q head, batch): the row's
 //      log-sum-exp LSE = m + log l, recomputed by walking the live key tiles
 //      with the forward's online max and sum (the forward kernels stay as
@@ -40,12 +42,14 @@
 //
 // Bound.  The function needs 5 products of S x T x D over the live (query,
 // key) pairs (Q K^T, dO V^T, P^T dO, dS^T Q, dS K), 2 D operations a pair
-// each; both paths do 8 (the LSE pass's Q K^T, and Q K^T and dO V^T once
+// each; every path does 8 (the LSE pass's Q K^T, and Q K^T and dO V^T once
 // in each of the dK/dV and dQ kernels).  At the training shape (B 2, Hq 32,
 // Hkv 8, S = T = 2048, D 128, causal) the 5 take 172 GFLOP against ~335 MB
 // of q, k, v, o, dO, dq, dk and dv in float32: bound by operations, 2.56 ms
 // at the 67 TFLOP/s float32 FMA peak, 1.04 ms at the 3xTF32 tensor-core
-// rate (495 / 3 TFLOP/s), which keeps float32's accuracy.
+// rate (495 / 3 TFLOP/s), which keeps float32's accuracy; in bfloat16
+// (~168 MB) 0.174 ms at the tensor cores' 989 TFLOP/s, and the 8 products
+// 0.278 ms.
 //
 // FMA layout of the products.  256 threads; thread (ty, tx) = (tid / 16,
 // tid % 16) owns rows ty + 16 i (i < 4) of a 64 x 64 score tile and columns
@@ -1073,6 +1077,471 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
 }  // namespace x3
 
+// -- bfloat16 on 16-byte boundaries: TMA + wgmma ------------------------------
+//
+// Two kernels, launched one after the other by one C call, each a block of
+// one consumer warpgroup and one producer warp, as the forward's wgmma
+// kernel (flash_attention.cu, namespace fa): the producer's one thread
+// TMA-loads [64 x D] bfloat16 tiles (hopper.cuh's Bf16Tile, from 3-D maps
+// [B * H, S | T, D], so a box past S or T is zero-filled; the 128-byte
+// swizzle, 64-byte at D = 32)
+// into a 2-stage ring, each stage guarded by a "full" mbarrier (TMA bytes)
+// and an "empty" one (one arrival a consumer warp); the consumers run the
+// products on the tensor cores by wgmma, bfloat16 in, float32 sums:
+//   1. dQ, one block per (64-row q tile, q head, batch), the heaviest causal
+//      tiles first.  Q and dO load once; Delta = rowsum(dO * O) of the
+//      thread's two rows is summed from 16-byte loads of O and dO while they
+//      do.  First pass, K alone through the ring: S = Q K^T over the live
+//      key tiles (wgmma_m64n64k16_ss, both K-major) and the online max and
+//      sum in base 2 give each row's LSE (+inf for a row past S: its P is
+//      0), written with Delta to float32 scratch [B, Hq, S_pad] (S rounded
+//      up to 64).  Second pass, K and V through the ring: S = Q K^T and
+//      dP = dO V^T, P = 2^(scale log2 e S - LSE), dS = P (dP - Delta) in
+//      registers, rounded to bfloat16 where the accumulator already has the
+//      layout of wgmma's register A operand, and dQ += dS K by
+//      wgmma_m64nDk16_rs with K read MN-major (the transpose bit), as the
+//      forward reads V.
+//   2. dK and dV, one block per (64-key tile, KV head, batch), key tile 0
+//      (the most live rows) first.  K and V load once and stay; the ring
+//      carries the group's q heads in turn and, for each, its 64-row q
+//      tiles that see the key tile (under the causal mask, rows
+//      i >= k0 - (T - S)): Q, dO and their rows' LSE and Delta (two 256-byte
+//      bulk copies from the scratch).  With the keys as the rows,
+//      S^T = K Q^T and dP^T = V dO^T (_ss, both K-major) leave P^T and
+//      dS^T as accumulator fragments, which serve as bfloat16 A operands as
+//      they stand; each thread reads the LSE and Delta of its 16 columns
+//      (q rows 8 (i / 4) + 2 (l % 4) + i % 2) from shared memory.  Then
+//      dV += P^T dO and dK += dS^T Q (_rs, the same Q or dO tile read
+//      MN-major where the scores read it K-major).
+// Every gradient element is written by one block and summed in one fixed
+// order, with no atomics: deterministic, run after run.  Rounding P and dS
+// to bfloat16 moves each term by at most 2^-9 of itself, inside bfloat16's
+// tolerance against the float32 plain version.  Registers: dK and dV take
+// D of a consumer thread's registers (128 at D = 128), S^T and dP^T 64
+// more, so the dK/dV kernel at D = 128 runs one block an SM; every other
+// kernel two.  Shared memory: six [64 x D] tiles (96 KiB at D = 128).
+
+namespace fb {
+
+using namespace hopper;
+using x3::quad_max;
+using x3::quad_sum;
+
+constexpr int BQ = 64, BKV = 64;
+constexpr int NTH = 160;               // a consumer warpgroup + a producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile : Bf16Tile<D> {
+  static constexpr int STATS = 2 * 2 * 64 * 4;           // 2 x (LSE, Delta)
+  // 6 tiles, the dK/dV kernel's LSE and Delta stages, 5 mbarriers
+  static constexpr int SMEM = 1024 + 6 * Bf16Tile<D>::BYTES + STATS + 5 * 8;
+  static constexpr int DKDV_BLOCKS = D == 128 ? 1 : 2;   // blocks an SM
+};
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);            // the tiles loaded once
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars[1 + s], 1);      // full
+      mbar_init(&bars[3 + s], 4);      // empty: one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 2)
+    bwd_wgmma_dq(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __nv_bfloat16* __restrict__ o,
+                 const __nv_bfloat16* __restrict__ dout,
+                 float* __restrict__ lse, float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int hq, int hkv, int s_len,
+                 int s_pad, int t_len, int causal, float scale) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1k(smem_raw);
+  uint8_t* dos = qs + T::BYTES;
+  uint8_t* ring = dos + T::BYTES;      // stage s: K at ring + 2 s BYTES, V
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + 4 * T::BYTES + T::STATS);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 3;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heavy tiles first
+  const int offset = t_len - s_len;
+  int n_kv = (t_len + BKV - 1) / BKV;
+  if (causal)  // the last live row of the tile sees keys up to here
+    n_kv = min(n_kv, (min(q0 + BQ, s_len) - 1 + offset) / BKV + 1);
+  init_bars(bars);
+
+  if (threadIdx.x >= 128) {            // the producer warp
+    if (threadIdx.x == 128) {
+      const int q_row = b * hq + h, kv_row = b * hkv + h / (hq / hkv);
+      mbar_expect_tx(bars, 2 * T::BYTES);
+      tma_load_tile<D>(qs, &map_q, bars, q0, q_row);
+      tma_load_tile<D>(dos, &map_do, bars, q0, q_row);
+      // 2 n_kv loads: the first pass's K tiles, then K and V
+      for (int it = 0; it < 2 * n_kv; ++it) {
+        const int s = it & 1, with_v = it >= n_kv;
+        const int k0 = (with_v ? it - n_kv : it) * BKV;
+        if (it >= 2) mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
+        uint8_t* ks = ring + 2 * s * T::BYTES;
+        mbar_expect_tx(&full[s], (1 + with_v) * T::BYTES);
+        tma_load_tile<D>(ks, &map_k, &full[s], k0, kv_row);
+        if (with_v)
+          tma_load_tile<D>(ks + T::BYTES, &map_v, &full[s], k0, kv_row);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t holds rows r_lo and r_lo + 8 of the
+  // tile (the accumulator layout in hopper.cuh)
+  const int t = threadIdx.x, l4 = t % 4;
+  const int r_lo = 16 * (t / 32) + (t % 32) / 4;
+  const float sl2 = scale * LOG2E;
+  const size_t qrow = (size_t)(b * hq + h) * s_len;
+
+  // Delta of rows r_lo, r_lo + 8: the quad's 4 threads take every 4th
+  // 16-byte chunk of the row of O and of dO
+  float dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r_lo + 8 * r;
+    float sum = 0.f;
+    if (row < s_len) {
+      const uint4* op = reinterpret_cast<const uint4*>(o + (qrow + row) * D);
+      const uint4* gp =
+          reinterpret_cast<const uint4*>(dout + (qrow + row) * D);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) {
+        uint4 x = __ldg(op + 4 * c + l4), y = __ldg(gp + 4 * c + l4);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(x2[e]);
+          const float2 g = __bfloat1622float2(y2[e]);
+          sum = fmaf(a.x, g.x, fmaf(a.y, g.y, sum));
+        }
+      }
+    }
+    dlt[r] = quad_sum(sum);
+  }
+
+  // scores of rows r_lo + 8 ((i / 2) % 2) at keys k0 + 8 (i / 4) + 2 l4 +
+  // i % 2: -inf past T and, under the causal mask, past the row's diagonal;
+  // only tiles across either edge are masked
+  auto mask = [&](float (&sc)[32], int k0) {
+    if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + 8 * (i / 4) + 2 * l4 + i % 2;
+        const int qp = q0 + r_lo + 8 * ((i / 2) % 2) + offset;
+        if (kp >= t_len || (causal && kp > qp)) sc[i] = -INFINITY;
+      }
+    }
+  };
+
+  float sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  const uint32_t q_addr = smem_u32(qs), do_addr = smem_u32(dos);
+  mbar_wait(bars, 0);
+
+  // first pass: each row's log-sum-exp in base 2
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+  for (int jt = 0; jt < n_kv; ++jt) {
+    const int s = jt & 1;
+    mbar_wait(&full[s], (jt >> 1) & 1);
+    wgmma_fence();
+    wgmma_tile_nt<D>(sc, q_addr, smem_u32(ring + 2 * s * T::BYTES));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    release(&empty[s]);
+    mask(sc, jt * BKV);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i / 2) % 2)
+        mx1 = fmaxf(mx1, sc[i]);
+      else
+        mx0 = fmaxf(mx0, sc[i]);
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0) * sl2);
+    const float mn1 = fmaxf(m1, quad_max(mx1) * sl2);
+    // a row with no live key yet keeps l = 0 (no inf - inf)
+    const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i / 2) % 2)
+        ps1 += exp2f(fmaf(sc[i], sl2, -mu1));
+      else
+        ps0 += exp2f(fmaf(sc[i], sl2, -mu0));
+    }
+    l0 = exp2f(m0 - mu0) * l0 + ps0;
+    l1 = exp2f(m1 - mu1) * l1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(r ? l1 : l0);
+    const int row = q0 + r_lo + 8 * r;
+    // +inf for a row past S or with no live key: its P is 0
+    lse2[r] = row < s_len && lr > 0.f ? (r ? m1 : m0) + log2f(lr) : INFINITY;
+    if (l4 == 0) {   // rows < s_pad: the tile lies inside the scratch
+      const size_t at = (size_t)(b * hq + h) * s_pad + row;
+      lse[at] = lse2[r];
+      delta[at] = dlt[r];
+    }
+  }
+
+  // second pass: dQ += dS K
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int jt = 0; jt < n_kv; ++jt) {
+    const int it = n_kv + jt, s = it & 1;
+    mbar_wait(&full[s], (it >> 1) & 1);
+    const uint32_t k_addr = smem_u32(ring + 2 * s * T::BYTES);
+    wgmma_fence();
+    wgmma_tile_nt<D>(sc, q_addr, k_addr);
+    wgmma_tile_nt<D>(dp, do_addr, k_addr + T::BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    fence_operands(dp);
+    mask(sc, jt * BKV);
+    uint32_t ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j, r = j % 2;   // row r_lo + 8 r
+        const float p0 = exp2f(fmaf(sc[i], sl2, -lse2[r]));
+        const float p1 = exp2f(fmaf(sc[i + 1], sl2, -lse2[r]));
+        ds[kk][j] = pack_bf16(p0 * (dp[i] - dlt[r]),
+                              p1 * (dp[i + 1] - dlt[r]));
+      }
+    wgmma_fence();
+    wgmma_tile_rs<D>(acc, ds, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    keep_fragments(ds);
+    release(&empty[s]);
+  }
+
+  __nv_bfloat16* qb = dq + qrow * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = q0 + r_lo + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * l4;
+    if (row < s_len)
+      *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)row * D + col) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, Tile<D>::DKDV_BLOCKS)
+    bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int hq, int hkv,
+                   int s_len, int s_pad, int t_len, int causal, float scale) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1k(smem_raw);
+  uint8_t* vs = ks + T::BYTES;
+  uint8_t* ring = vs + T::BYTES;       // stage s: Q at ring + 2 s BYTES, dO
+  float* stats = reinterpret_cast<float*>(ring + 4 * T::BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + T::STATS / 4);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 3;
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;   // key tile 0 sees the most rows: first
+  const int group = hq / hkv;
+  const int offset = t_len - s_len;
+  // under the causal mask, key k0 is live for rows i >= k0 - offset
+  const int first = causal ? max(0, k0 - offset) / BQ * BQ : 0;
+  const int n_qt = first < s_len ? (s_len - first + BQ - 1) / BQ : 0;
+  const int total = group * n_qt;   // q tiles: the group's heads in turn
+  init_bars(bars);
+
+  if (threadIdx.x >= 128) {          // the producer warp
+    if (threadIdx.x == 128) {
+      const int kv_row = b * hkv + hk;
+      mbar_expect_tx(bars, 2 * T::BYTES);
+      tma_load_tile<D>(ks, &map_k, bars, k0, kv_row);
+      tma_load_tile<D>(vs, &map_v, bars, k0, kv_row);
+      for (int it = 0; it < total; ++it) {
+        const int s = it & 1, q0 = first + it % n_qt * BQ;
+        const int q_row = b * hq + hk * group + it / n_qt;
+        if (it >= 2) mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
+        uint8_t* qs = ring + 2 * s * T::BYTES;
+        mbar_expect_tx(&full[s], 2 * T::BYTES + 2 * BQ * 4);
+        tma_load_tile<D>(qs, &map_q, &full[s], q0, q_row);
+        tma_load_tile<D>(qs + T::BYTES, &map_do, &full[s], q0, q_row);
+        // the rows' LSE and Delta: the scratch covers s_pad >= q0 + 64 rows
+        const size_t at = (size_t)q_row * s_pad + q0;
+        bulk_load(stats + 2 * BQ * s, lse + at, BQ * 4, &full[s]);
+        bulk_load(stats + 2 * BQ * s + BQ, delta + at, BQ * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t holds keys k0 + r_lo, k0 + r_lo + 8
+  // and, of the scores, q rows q0 + 8 (i / 4) + 2 l4 + i % 2
+  const int t = threadIdx.x, l4 = t % 4;
+  const int r_lo = 16 * (t / 32) + (t % 32) / 4;
+  const float sl2 = scale * LOG2E;
+  float acc_k[D / 2], acc_v[D / 2], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs);
+  mbar_wait(bars, 0);
+
+  for (int it = 0; it < total; ++it) {
+    const int s = it & 1, q0 = first + it % n_qt * BQ;
+    mbar_wait(&full[s], (it >> 1) & 1);
+    const uint32_t q_addr = smem_u32(ring + 2 * s * T::BYTES);
+    const uint32_t do_addr = q_addr + T::BYTES;
+    wgmma_fence();
+    wgmma_tile_nt<D>(st, k_addr, q_addr);     // S^T = K Q^T
+    wgmma_tile_nt<D>(dpt, v_addr, do_addr);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+    if (causal && k0 + BKV - 1 > q0 + offset) {   // across the diagonal
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + r_lo + 8 * ((i / 2) % 2);
+        const int qp = q0 + 8 * (i / 4) + 2 * l4 + i % 2 + offset;
+        if (kp > qp) st[i] = -INFINITY;
+      }
+    }
+    // P^T = 2^(scale log2 e S^T - LSE) (0 where masked, and in a column
+    // whose LSE is +inf: a row past S) and dS^T = P^T (dP^T - Delta); keys
+    // past T are never stored
+    const float* ls = stats + 2 * BQ * s;
+    const float* dl = ls + BQ;
+    uint32_t pt[4][4], dst[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const int col = 16 * kk + 8 * (j / 2) + 2 * l4;   // q rows col, + 1
+        const float2 lr = *reinterpret_cast<const float2*>(ls + col);
+        const float2 dr = *reinterpret_cast<const float2*>(dl + col);
+        const float p0 = exp2f(fmaf(st[i], sl2, -lr.x));
+        const float p1 = exp2f(fmaf(st[i + 1], sl2, -lr.y));
+        pt[kk][j] = pack_bf16(p0, p1);
+        dst[kk][j] = pack_bf16(p0 * (dpt[i] - dr.x), p1 * (dpt[i + 1] - dr.y));
+      }
+    wgmma_fence();
+    wgmma_tile_rs<D>(acc_v, pt, do_addr);    // dV += P^T dO
+    wgmma_tile_rs<D>(acc_k, dst, q_addr);    // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+    keep_fragments(pt);
+    keep_fragments(dst);
+    release(&empty[s]);
+  }
+
+  const size_t kvrow = (size_t)(b * hkv + hk) * t_len;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = k0 + r_lo + 8 * ((i / 2) % 2);
+    const size_t at = (kvrow + key) * D + 8 * (i / 4) + 2 * l4;
+    if (key < t_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(acc_k[i] * scale, acc_k[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, void* dq, void* dk, void* dv, float* lse,
+           float* delta, int b, int hq, int hkv, int s_len, int t_len,
+           int causal, float scale, cudaStream_t stream) {
+  using T = Tile<D>;
+  const int n_q = (s_len + BQ - 1) / BQ, n_k = (t_len + BKV - 1) / BKV;
+  if (n_q > 65535 || n_k > 65535 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int err = bf16_tile_map<D>(&map_q, q, s_len, b * hq);
+  if (!err) err = bf16_tile_map<D>(&map_do, dout, s_len, b * hq);
+  if (!err) err = bf16_tile_map<D>(&map_k, k, t_len, b * hkv);
+  if (!err) err = bf16_tile_map<D>(&map_v, v, t_len, b * hkv);
+  if (err) return err;
+  cudaError_t e;
+  if ((e = allow_smem(bwd_wgmma_dq<D>, T::SMEM)) ||
+      (e = allow_smem(bwd_wgmma_dkdv<D>, T::SMEM)))
+    return (int)e;
+  const int s_pad = n_q * BQ;   // the scratch's rows a head
+  const auto* ob = static_cast<const __nv_bfloat16*>(o);
+  const auto* gb = static_cast<const __nv_bfloat16*>(dout);
+  bwd_wgmma_dq<D><<<dim3(hq, b, n_q), NTH, T::SMEM, stream>>>(
+      map_q, map_k, map_v, map_do, ob, gb, lse, delta,
+      static_cast<__nv_bfloat16*>(dq), hq, hkv, s_len, s_pad, t_len, causal,
+      scale);
+  if ((e = cudaGetLastError())) return (int)e;
+  bwd_wgmma_dkdv<D><<<dim3(hkv, b, n_k), NTH, T::SMEM, stream>>>(
+      map_q, map_k, map_v, map_do, lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), hq,
+      hkv, s_len, s_pad, t_len, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fb
+
 }  // namespace
 
 // dq, dk, dv of attention from q, k, v, its output o and the output's
@@ -1129,6 +1598,35 @@ extern "C" int repro_flash_attention_bwd_tf32x3(
       return x3::launch<128>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
                              w(dv), w(lse), w(delta), b, hq, hkv, s_len,
                              t_len, causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bfloat16 on the tensor cores (TMA + wgmma): q, k, v, o, dout, dq, dk and
+// dv 16-byte aligned (the wrapper checks); lse and delta float32 scratch of
+// B * Hq * S_pad each, S_pad = S rounded up to 64, 16-byte aligned.
+// Returns 0 or a CUDA error code after the launches; a head size other than
+// 32, 64 or 128, or more than 65535 batches or tiles, gives
+// cudaErrorInvalidValue without a launch.
+extern "C" int repro_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
+    int b, int hq, int hkv, int s_len, int t_len, int d, int causal,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  switch (d) {
+    case 32:
+      return fb::launch<32>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,
+                            s_len, t_len, causal, scale, st);
+    case 64:
+      return fb::launch<64>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,
+                            s_len, t_len, causal, scale, st);
+    case 128:
+      return fb::launch<128>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,
+                             s_len, t_len, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the hand-written sm_90a kernels: TMA
 // tensor maps and loads, mbarriers, cp.async, the TF32 mma.sync product and
-// the 3xTF32 splits, and the wgmma instructions with their shared-memory
-// descriptors, all as raw PTX (no CUTLASS or CuTe: a source that includes
-// this builds in seconds).
+// the 3xTF32 splits, the wgmma instructions with their shared-memory
+// descriptors, and the bfloat16 [64 x D] tiles that flash attention's wgmma
+// kernels, forward and backward, load and multiply, all as raw PTX (no
+// CUTLASS or CuTe: a source that includes this builds in seconds).
 //
 // Tensor maps are encoded on the host for every call by the driver's
 // cuTensorMapEncodeTiled, found with dlsym in the libcuda.so.1 that the
@@ -388,6 +389,91 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- bfloat16 [64 x D] tiles for wgmma ---------------------------------------
+
+// A [64 x D] bfloat16 tile as the TMA lays it in shared memory from a map
+// made by bf16_tile_map: D / BOX boxes of BOX columns x 64 rows, box j at
+// j BOX_BYTES, each swizzled over SW bytes (128, or 64 at D = 32), the
+// tile on a 1024-byte boundary.  wgmma reads it K-major (its 64 rows are
+// the product's M or N, D its K) or MN-major (D is N, its rows K).
+template <int D>
+struct Bf16Tile {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span, bytes
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;       // descriptor swizzle
+  static constexpr int BOX = SW / 2;                     // D columns a box
+  static constexpr int BOX_BYTES = 64 * SW;              // a box of 64 rows
+  static constexpr int BYTES = 64 * D * 2;               // a [64 x D] tile
+};
+
+// host: the map of `mats` contiguous [len x D] bfloat16 matrices at ptr,
+// in Bf16Tile<D> boxes; a box past len loads zeros
+template <int D>
+inline int bf16_tile_map(CUtensorMap* map, const void* ptr, int len,
+                         int mats) {
+  using T = Bf16Tile<D>;
+  const cuuint32_t box[3] = {T::BOX, 64, 1};
+  const cuuint64_t dims[3] = {D, (cuuint64_t)len, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)len * D * 2};
+  return bf16_map(map, 3, ptr, dims, strides, box,
+                  T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// the tile at rows r0 of matrix `mat` of map into dst, on bar
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int r0, int mat) {
+  using T = Bf16Tile<D>;
+#pragma unroll
+  for (int j = 0; j < D / T::BOX; ++j)
+    tma_load_3d(dst + j * T::BOX_BYTES, map, bar, j * T::BOX, r0, mat);
+}
+
+// d[64 x 64] = A B^T: A and B the tiles at shared addresses a and b, both
+// read K-major
+template <int D>
+__device__ __forceinline__ void wgmma_tile_nt(float (&d)[32], uint32_t a,
+                                              uint32_t b) {
+  using T = Bf16Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off =
+        (16 * kk / T::BOX) * T::BOX_BYTES + (16 * kk % T::BOX) * 2;
+    wgmma_m64n64k16_ss(d, smem_desc(a + off, 16, 8 * T::SW, T::LAYOUT),
+                       smem_desc(b + off, 16, 8 * T::SW, T::LAYOUT), kk > 0);
+  }
+}
+
+// d[64 x D] += A B: A [64 x 64] as bfloat16 register fragments a[kk] (the
+// accumulator layout, k-steps of 16), B the tile at shared address b, read
+// MN-major
+template <int D>
+__device__ __forceinline__ void wgmma_tile_rs(float (&d)[D / 2],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t b) {
+  using T = Bf16Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db =
+        smem_desc(b + kk * 16 * T::SW, T::BOX_BYTES, 8 * T::SW, T::LAYOUT);
+    if constexpr (D == 32)
+      wgmma_m64n32k16_rs_tb(d, a[kk], db);
+    else if constexpr (D == 64)
+      wgmma_m64n64k16_rs_tb(d, a[kk], db);
+    else
+      wgmma_m64n128k16_rs_tb(d, a[kk], db);
+  }
+}
+
+// the register A fragments were read by the wgmmas until now: keep them live
+__device__ __forceinline__ void keep_fragments(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
 }
 
 }  // namespace hopper

@@ -42,18 +42,24 @@ or bfloat16, D in 32/64/128, any S and T; one C call, one count in
 is :func:`flash_bwd_path`, a plain function of the dtype and the alignment
 of q, k, v, o and dO:
 
+- ``"wgmma"``: bfloat16 with all five on 16-byte boundaries.  Tensor
+  cores, two kernels of a producer warp and a consumer warpgroup, as the
+  forward's: dQ per 64-row q tile (a first pass over its live 64-key
+  tiles for each row's log-sum-exp, and ``rowsum(dO * O)``, then dQ), and
+  dK and dV per 64-key tile over the group's q heads and their live
+  64-row q tiles; tiles by TMA through 2-stage rings, the products by
+  wgmma, P and dS in registers, rounded to bfloat16 for the products that
+  take them (at most 2^-9 of a term, inside the bfloat16 tolerance).
 - ``"tf32x3"``: float32 with all five on 16-byte boundaries.  Tensor cores
-  in 3xTF32 (``mma.sync``), two kernels: dQ per 64-row q tile (a first
-  pass over its live 32-key tiles for each row's log-sum-exp, and
-  ``rowsum(dO * O)``, then dQ), and dK and dV per 64-key tile over the
-  group's q heads and their live 16-row q steps; Q, dO or K, V through
-  ``cp.async`` rings, P and dS in registers.
-- ``"fma"``: bfloat16, and float32 off a 16-byte boundary: three kernels
-  on float32 FMAs (a pre-pass for the log-sum-exp and
+  in 3xTF32 (``mma.sync``), the same two kernels with 32-key tiles in dQ
+  and 16-row q steps in dK/dV; Q, dO or K, V through ``cp.async`` rings,
+  P and dS in registers.
+- ``"fma"``: either dtype with any of the five off a 16-byte boundary:
+  three kernels on float32 FMAs (a pre-pass for the log-sum-exp and
   ``rowsum(dO * O)``, then dK and dV per 64-key tile over 64-row q tiles,
   then dQ per q tile over 64-key tiles).
 
-Both keep every gradient element to one block and one order of summation
+Each path keeps every gradient element to one block and one order of summation
 (no atomics), so a result repeats bit for bit.  On the CPU the backward
 takes :func:`flash_attention_bwd_plain`, which walks the loops of the
 kernels that would take the inputs (``BWD_SCHEDULE``).  The TPU kernel has
@@ -83,14 +89,17 @@ HEAD_DIMS = (32, 64, 128)
 PATHS = ("wgmma", "tf32x3", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-BWD_PATHS = ("tf32x3", "fma")
+BWD_PATHS = ("wgmma", "tf32x3", "fma")
 # The backward kernels' tile schedules, which the plain version walks: the
 # log-sum-exp pass (q rows a tile, keys a tile), dK/dV (keys a block, q rows
 # a step) and dQ (q rows a tile, keys a tile); tf32x3's x3::BQ, BKQ, BKV,
-# BQS and the FMA kernels' BQ, BK in csrc/flash_attention_bwd.cu
-BWD_SCHEDULE = {"tf32x3": {"lse": (64, 32), "dkdv": (64, 16), "dq": (64, 32)},
-                "fma": {"lse": (64, 64), "dkdv": (64, 64), "dq": (64, 64)}}
-BWD_PAD = 64   # tf32x3's LSE and Delta scratch: S rounded up to this
+# BQS, and one schedule of 64-row tiles for wgmma's fb::BQ, BKV and the
+# FMA kernels' BQ, BK in csrc/flash_attention_bwd.cu
+_TILES_64 = {"lse": (64, 64), "dkdv": (64, 64), "dq": (64, 64)}
+BWD_SCHEDULE = {"wgmma": _TILES_64,
+                "tf32x3": {"lse": (64, 32), "dkdv": (64, 16), "dq": (64, 32)},
+                "fma": _TILES_64}
+BWD_PAD = 64   # the tensor-core paths' LSE and Delta scratch: S rounded up
 
 launches = LaunchCounter()
 path_launches = {path: LaunchCounter() for path in PATHS}
@@ -114,9 +123,8 @@ def flash_bwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, do: torch.Tensor) -> str:
     """The backward kernels that take these contiguous inputs: one of
     :data:`BWD_PATHS` (the module doc says which inputs go where)."""
-    path = _path(q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    return _path(q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), do.data_ptr()))
-    return "tf32x3" if path == "tf32x3" else "fma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -265,18 +273,17 @@ def _meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool) -> tuple[torch.Tensor, ...]:
     """The backward on the meta device: (dq, dk, dv) and, while the call
     lasts, the log-sum-exp and Delta scratch the kernels allocate; the
-    work reported in place of a launch (float32 on the aligned path,
-    ``tf32x3``; bfloat16 on ``fma``)."""
+    work reported in place of a launch at the unit of the aligned path's
+    products (float32 on ``tf32x3``, bfloat16 on ``wgmma``)."""
     b, hq, s, d = q.shape
     flops, nbytes = work.attention_bwd_work(b, hq, k.shape[1], s, k.shape[2],
                                             d, q.dtype, causal)
     grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    x3 = q.dtype == torch.float32
-    rows = -(-s // BWD_PAD) * BWD_PAD if x3 else s
+    rows = -(-s // BWD_PAD) * BWD_PAD
     scratch = torch.empty((2, b, hq, rows), dtype=torch.float32,
                           device=q.device)
-    work.report("flash_attention_bwd", {"3xtf32" if x3 else "float32": flops},
-                nbytes)
+    unit = "bfloat16" if q.dtype == torch.bfloat16 else "3xtf32"
+    work.report("flash_attention_bwd", {unit: flops}, nbytes)
     del scratch
     return grads
 
@@ -337,7 +344,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.dtype} on {q.device}")
     path = flash_bwd_path(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rows = -(-s // BWD_PAD) * BWD_PAD if path == "tf32x3" else s
+    rows = s if path == "fma" else -(-s // BWD_PAD) * BWD_PAD
     lse = torch.empty((b, hq, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -356,7 +363,8 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-_BWD_ENTRY = {"tf32x3": "repro_flash_attention_bwd_tf32x3",
+_BWD_ENTRY = {"wgmma": "repro_flash_attention_bwd_wgmma",
+              "tf32x3": "repro_flash_attention_bwd_tf32x3",
               "fma": "repro_flash_attention_bwd"}
 
 

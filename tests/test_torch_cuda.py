@@ -400,6 +400,9 @@ def test_ssd_gradients_flow_through_the_kernels(card):
 
 FLASH_BWD_F32_KEEP = 4e-5   # the float32 error under which the 3xTF32
                             # backward is kept (a 1xTF32 slip exceeds it)
+# the bfloat16 wgmma backward's ||g - plain|| / ||plain|| on each of dq, dk
+# and dv: chip_smoke.py's
+FLASH_BWD_BF16_KEEP = 5.5e-3
 # the sLSTM kernels' float32 keep-limits, x (1 + |v|): chip_smoke.py's
 SLSTM_F32_KEEP = {"fwd": 4.5e-5, "bwd": 1.2e-4}
 
@@ -526,7 +529,8 @@ def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
 @pytest.mark.parametrize("dtype,path,tol", [
     (torch.float32, "tf32x3", 2e-4),    # aligned float32: 3xTF32 mma.sync
     (torch.float32, "fma", 2e-4),       # q off a 16-byte boundary
-    (torch.bfloat16, "fma", 2e-2),
+    (torch.bfloat16, "wgmma", 2e-2),    # aligned bfloat16: TMA + wgmma
+    (torch.bfloat16, "fma", 2e-2),      # q off a 16-byte boundary
 ])
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
     (2, 32, 8, 256, 256, 128, True),
@@ -541,7 +545,7 @@ def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
 def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
                                         s, t, d, causal):
     q, k, v, o, do = _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal)
-    if path == "fma" and dtype == torch.float32:
+    if path == "fma":
         q = _off16(q)
     assert flash_bwd_path(q, k, v, o, do) == path
     before = {p: c.count for p, c in bwd_path_launches.items()}
@@ -552,7 +556,7 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
     assert {p: c.count - before[p] for p, c in bwd_path_launches.items()} == {
         p: int(p == path) for p in bwd_path_launches}
     want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-    for g, w in zip(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert bool(torch.isfinite(g).all())
         err = (g.float() - w.float()).abs()
@@ -561,15 +565,21 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
         if path == "tf32x3":
             assert bool((err <= FLASH_BWD_F32_KEEP * (1 + w.abs())).all()), \
                 float((err / (1 + w.abs())).max())
+        if path == "wgmma":
+            rel = float(torch.linalg.vector_norm(g.float() - w.float())
+                        / torch.linalg.vector_norm(w.float()))
+            assert rel <= FLASH_BWD_BF16_KEEP, (name, rel)
 
 
-@pytest.mark.parametrize("dtype,offset", [(torch.float32, False),
-                                          (torch.float32, True),
-                                          (torch.bfloat16, False)])
-def test_flash_bwd_kernel_repeats_bit_for_bit(card, dtype, offset):
+@pytest.mark.parametrize("dtype,offset,d", [(torch.float32, False, 128),
+                                            (torch.float32, True, 128),
+                                            (torch.bfloat16, False, 128),
+                                            (torch.bfloat16, False, 64),
+                                            (torch.bfloat16, True, 128)])
+def test_flash_bwd_kernel_repeats_bit_for_bit(card, dtype, offset, d):
     """No atomics: every gradient element is summed by one block in one
-    order, so two runs on one input agree bit for bit, on either path."""
-    q, k, v, o, do = _bwd_inputs(card, 2, 8, 2, 300, 300, 128, dtype, True)
+    order, so two runs on one input agree bit for bit, on every path."""
+    q, k, v, o, do = _bwd_inputs(card, 2, 8, 2, 300, 300, d, dtype, True)
     if offset:
         q = _off16(q)
     first = flash_attention_bwd(q, k, v, o, do)

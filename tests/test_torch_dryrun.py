@@ -178,12 +178,10 @@ def test_flash_meta_path_gives_the_plain_shapes(dtype):
     assert _shapes([got_o, *got_g]) == _shapes([want_o, *want_g])
     fwd = work.attention_work(b, hq, hkv, s, s, d, dtype)
     bwd = work.attention_bwd_work(b, hq, hkv, s, s, d, dtype)
-    x3 = dtype == torch.float32     # the aligned paths: tf32x3; wgmma, fma
-    assert calls == [
-        ("flash_attention", {"3xtf32" if x3 else "bfloat16": fwd[0]},
-         fwd[1]),
-        ("flash_attention_bwd", {"3xtf32" if x3 else "float32": bwd[0]},
-         bwd[1])]
+    # the aligned paths' units: tf32x3 both ways; wgmma both ways
+    unit = "3xtf32" if dtype == torch.float32 else "bfloat16"
+    assert calls == [("flash_attention", {unit: fwd[0]}, fwd[1]),
+                     ("flash_attention_bwd", {unit: bwd[0]}, bwd[1])]
     assert fa.launches.count == 0 and fa.bwd_launches.count == 0
 
 

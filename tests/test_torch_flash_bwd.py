@@ -1,15 +1,19 @@
 """Flash attention's backward on the CPU, against the JAX package's
 gradient: ``jax.vjp`` of ``repro.kernels.ref.attention_ref`` (the JAX
 package has no Pallas backward; its training gradient is autodiff of that
-function).  The port's plain backward walks the tile schedule of either
-backward path (``tf32x3``, the one float32 training takes, and ``fma``),
-so these tests hold the kernels' algorithm; the kernels themselves are
+function).  The port's plain backward walks the tile schedule of any
+backward path (``wgmma``, the one bfloat16 training takes, ``tf32x3``, the
+one float32 training takes, and ``fma``), so these tests hold the kernels'
+algorithm; the kernels themselves are
 held to the plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
 Tolerance: the reference's float32 kernel tolerance, rel 2e-4 of each
 gradient's largest magnitude; bfloat16 inputs at 2e-2.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +40,9 @@ CASES = [  # (b, hq, hkv, s, t, d, causal)
     (1, 4, 2, 50, 200, 128, False),   # non-causal, S < T, D = 128
 ]
 
-# the edges of the tf32x3 schedule: 16-row q steps of dK/dV, 32-key tiles
-# of the LSE pass and of dQ, 64-row q tiles and 64-key blocks
+# the edges of the schedules: tf32x3's 16-row q steps of dK/dV, 32-key
+# tiles of the LSE pass and of dQ; every path's 64-row q tiles and 64-key
+# blocks
 EDGE_CASES = [  # (b, hq, hkv, s, t, d, causal)
     (1, 4, 2, 33, 33, 32, True),      # one past a 32-row step, S = T
     (1, 4, 1, 17, 97, 64, True),      # one past a 16-row step; T one past 3 x 32
@@ -102,24 +107,24 @@ def _off16(x: torch.Tensor) -> torch.Tensor:
 
 
 def test_backward_path_chooser():
-    """Aligned float32 takes ``tf32x3``; bfloat16, and float32 with any of
-    q, k, v, o or dO off a 16-byte boundary, take ``fma``."""
+    """Aligned float32 takes ``tf32x3``, aligned bfloat16 ``wgmma``; either
+    dtype with any of q, k, v, o or dO off a 16-byte boundary ``fma``."""
     ts = [torch.from_numpy(x) for x in _inputs(1, 4, 2, 40, 40, 32)]
     q, k, v, do = ts
     assert flash_bwd_path(q, k, v, q, do) == "tf32x3"
     bf = [x.to(torch.bfloat16) for x in (q, k, v, q, do)]
-    assert flash_bwd_path(*bf) == "fma"
-    five = [q, k, v, q, do]
-    for i in range(5):
-        off = list(five)
-        off[i] = _off16(five[i])
-        assert off[i].data_ptr() % 16 and off[i].is_contiguous()
-        assert flash_bwd_path(*off) == "fma"
+    assert flash_bwd_path(*bf) == "wgmma"
+    for five in ([q, k, v, q, do], bf):
+        for i in range(5):
+            off = list(five)
+            off[i] = _off16(five[i])
+            assert off[i].data_ptr() % 16 and off[i].is_contiguous()
+            assert flash_bwd_path(*off) == "fma"
 
 
 def test_plain_backward_takes_the_schedule_of_the_path():
     """By default the plain version walks the schedule of the path the
-    inputs would take on the card; the two schedules agree to float32's
+    inputs would take on the card; the schedules agree to float32's
     rounding."""
     q, k, v, do = (torch.from_numpy(x)
                    for x in _inputs(1, 4, 2, 100, 100, 32, seed=5))
@@ -128,9 +133,15 @@ def test_plain_backward_takes_the_schedule_of_the_path():
                for p in BWD_PATHS}
     default = flash_attention_bwd_plain(q, k, v, o, do)
     off = flash_attention_bwd_plain(_off16(q), k, v, o, do)
-    for a, b, c, d in zip(default, by_path["tf32x3"], off, by_path["fma"]):
+    for a, b, c, d, w in zip(default, by_path["tf32x3"], off, by_path["fma"],
+                             by_path["wgmma"]):
         assert torch.equal(a, b) and torch.equal(c, d)
         assert _rel(a.numpy(), d.numpy()) < 1e-5
+        assert _rel(a.numpy(), w.numpy()) < 1e-5
+    bf = [x.to(torch.bfloat16) for x in (q, k, v, o, do)]
+    for a, b in zip(flash_attention_bwd_plain(*bf),
+                    flash_attention_bwd_plain(*bf, schedule="wgmma")):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", CASES)
@@ -163,6 +174,24 @@ def test_gradient_through_strided_inputs():
         assert _rel(x.grad.transpose(1, 2).numpy(), w) < 2e-4
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", CASES)
+def test_plain_wgmma_schedule_on_bfloat16_inputs(b, hq, hkv, s, t, d,
+                                                  causal):
+    """The ``wgmma`` kernels' schedule, walked by the plain version on
+    bfloat16-rounded inputs (the path aligned bfloat16 takes on the card),
+    against the reference's float32 gradient at those inputs: bfloat16's
+    tolerance, rel 2e-2."""
+    q, k, v, do = _inputs(b, hq, hkv, s, t, d, seed=6)
+    bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    o, want = _jax_grads(*(x.float().numpy() for x in bf), causal)
+    args = (*bf[:3], torch.tensor(o).to(torch.bfloat16), bf[3])
+    assert flash_bwd_path(*args) == "wgmma"
+    got = flash_attention_bwd_plain(*args, causal=causal, schedule="wgmma")
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g.float().numpy(), w) < 2e-2, name
+
+
 def test_bfloat16_backward_against_jax_float32():
     q, k, v, do = _inputs(1, 8, 2, 100, 100, 64, seed=3)
     bf = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
@@ -174,6 +203,30 @@ def test_bfloat16_backward_against_jax_float32():
         assert g.dtype == torch.bfloat16
         assert _rel(g.float().numpy(), w) < 2e-2
     assert out.dtype == torch.bfloat16
+
+
+def test_chip_smoke_holds_the_wgmma_gradients_as_a_whole():
+    """``chip_smoke._bwd_ok``, the check of every backward run on the card:
+    the plain version's own bfloat16 gradients pass; dq off by 1.5% on
+    every element stays inside the elementwise 2e-2 x (1 + |g|) but fails
+    the ``wgmma`` path's ``FLASH_BWD_BF16_KEEP`` on its norm, and passes
+    the ``fma`` path, which is held elementwise alone."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_flash_bwd",
+        Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(1, 8, 2, 130, 130, 64, seed=7))
+    want = flash_attention_bwd_plain(q, k, v, flash_attention(q, k, v), do)
+    assert cs._bwd_ok("wgmma", want, want, cs.bwd_errors(want, want))
+    off = ((want[0].float() * 1.015).to(torch.bfloat16), *want[1:])
+    errs = cs.bwd_errors(off, want)
+    assert errs["dq"]["max_rel_err"] < 2e-2
+    assert errs["dq"]["norm_rel_err"] > cs.FLASH_BWD_BF16_KEEP
+    assert errs["dk"]["norm_rel_err"] == errs["dv"]["norm_rel_err"] == 0.0
+    assert not cs._bwd_ok("wgmma", off, want, errs)
+    assert cs._bwd_ok("fma", off, want, errs)
 
 
 def test_no_grad_runs_the_forward_alone():

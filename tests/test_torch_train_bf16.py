@@ -327,7 +327,7 @@ def test_chip_smoke_trains_the_bfloat16_runs_at_full_width():
     full width (3.08 B parameters, ~49 GB at 16 bytes each), granite-8b x
     8, zamba2-1.2b and xlstm-125m whole, all B 2 x S 2048, beside the
     float32 runs; a bfloat16 step's flash launches are on ``wgmma``
-    forward and ``fma`` backward (remat runs the forward again)."""
+    forward and backward (remat runs the forward again)."""
     runs = {(r["arch"], r["dtype"]): r for r in CS.TRAIN_RUNS}
     assert {a for a, d in runs if d == "bfloat16"} == {
         "qwen3-moe-30b-a3b", "granite-8b", "zamba2-1.2b", "xlstm-125m"}
@@ -343,10 +343,11 @@ def test_chip_smoke_trains_the_bfloat16_runs_at_full_width():
     for remat, fwd in ((False, 4), (True, 8)):
         assert CS._step_launches(cfg, remat) == {
             "flash_attention": fwd, "flash_attention_bwd": 4, "tf32x3": 0,
-            "wgmma": fwd, "bwd_tf32x3": 0, "bwd_fma": 4, "ssd_scan": 0,
-            "ssd_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+            "wgmma": fwd, "bwd_tf32x3": 0, "bwd_wgmma": 4, "bwd_fma": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "slstm_scan": 0,
+            "slstm_scan_bwd": 0}
     granite = dataclasses.replace(tconfigs.get_config("granite-8b"),
                                   n_layers=8)
     assert CS._step_launches(granite)["tf32x3"] == 8
     assert CS._step_launches(dataclasses.replace(
-        granite, dtype="bfloat16"))["bwd_fma"] == 8
+        granite, dtype="bfloat16"))["bwd_wgmma"] == 8

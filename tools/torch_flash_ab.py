@@ -4,8 +4,10 @@
     python tools/torch_flash_ab.py [--variant NAME=FLAGS ...] [--rounds 3]
     python tools/torch_flash_ab.py --host [--against DIR]
     python tools/torch_flash_ab.py --mma-peak
-    python tools/torch_flash_ab.py --bwd [--variant NAME=FLAGS ...]
+    python tools/torch_flash_ab.py --bwd [--dtype bfloat16]
+                                   [--variant NAME=FLAGS ...]
                                    [--against DIR] [--rounds 3]
+    python tools/torch_flash_ab.py --bwd --cases [--dtype bfloat16]
 
 A variant ``NAME=FLAGS`` builds ``flash_attention.cu`` with the
 space-separated ``-D`` flags in FLAGS, from this tree's ``csrc`` or, with
@@ -39,17 +41,26 @@ the rounds are reported with each variant's largest error
 ``chiprun_out/flash_ab.jsonl``.
 
 With ``--bwd``: the backward at the training shape (q [2,32,2048,128],
-k/v [2,8,2048,128], causal, float32).  Each variant builds
-``flash_attention_bwd.cu`` as above and is called through its
-``repro_flash_attention_bwd_tf32x3``; beside them, in turn each round,
-this tree's wrapper on both paths (``tf32x3``; ``fma`` with q off a
-16-byte boundary), SDPA's backward on a kept graph and, with ``--against
-DIR``, the wrapper of the ``repro_torch`` under DIR (for example the
-parent commit's ``src``, unpacked by ``git archive`` into an ignored
-directory, which builds its own kernels there).  Each reports its median
-card time and its largest ``|g - plain| / (1 + |plain|)`` over dq, dk
-and dv; one profiled call of this tree's ``tf32x3`` path gives each
-kernel's card time.
+k/v [2,8,2048,128], causal), float32 by default; with ``--dtype
+bfloat16`` at each of ``chip_smoke.FLASH_BWD_BF16_SHAPES`` (granite-8b's,
+qwen3-moe-30b-a3b's and zamba2-1.2b's training shapes).  Each variant
+builds ``flash_attention_bwd.cu`` as above and is called through the
+entry point of the dtype's aligned path
+(``repro_flash_attention_bwd_tf32x3`` or ``_wgmma``); beside them this
+tree's wrapper on the aligned path (``tf32x3`` or ``wgmma``) and on
+``fma`` (q off a 16-byte boundary), SDPA's backward on a kept graph and,
+with ``--against DIR``, the wrapper of the ``repro_torch`` under DIR (for
+example the parent commit's ``src``, unpacked by ``git archive`` into an
+ignored directory, which builds its own kernels there).  The calls take
+turns, in order in even rounds and in reverse in odd ones (so the parent
+and this tree run parent, this, this, parent over two rounds).  Each
+reports its median card time and its largest ``|g - plain| / (1 +
+|plain|)`` over dq, dk and dv, and under ``errors`` each gradient's
+``chip_smoke.bwd_errors`` (SDPA's too: its own rounding beside the
+kernels'); one profiled call of this tree's aligned path gives each
+kernel's card time.  With ``--cases`` no times: the errors of this tree's
+backward and SDPA's over ``chip_smoke.FLASH_BWD_CASES`` on
+``check_flash_bwd``'s inputs, the readings its limits are set from.
 """
 from __future__ import annotations
 
@@ -180,35 +191,93 @@ def _mma_peak(cs) -> int:
 
 def _bwd(cs, fa, args) -> int:
     """The backward's variants, paths, SDPA and another tree (``--bwd``)."""
-    import statistics
+    import torch
+    dtype = getattr(torch, args.dtype)
+    if args.cases:
+        return _bwd_cases(cs, fa, dtype)
+    cases = ([("granite-8b", cs.FLASH_BWD_CASES[0])] if dtype == torch.float32
+             else list(cs.FLASH_BWD_BF16_SHAPES))
+    aligned = "tf32x3" if dtype == torch.float32 else "wgmma"
+    libs = _build(dict(v.split("=", 1) for v in args.variant or []),
+                  "flash_attention_bwd",
+                  "bwd_x3" if aligned == "tf32x3" else "bwd_wgmma")
+    other = _other_tree(args.against) if args.against else None
+    rows = [_bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other)
+            for model, case in cases]
+    _append({"nvidia_smi": cs._smi(), "dtype": args.dtype, "bwd": rows,
+             "ptxas": {var: rep for var, (_, rep) in libs.items()}})
+    return 0
+
+
+def _bwd_cases(cs, fa, dtype) -> int:
+    """``--bwd --cases``: each of ``chip_smoke.FLASH_BWD_CASES`` on the
+    inputs ``check_flash_bwd`` makes, this tree's backward (on the path the
+    inputs take) and SDPA's backward (where its causal mask is the end-aligned
+    one, S = T, or there is none) against the plain version, by
+    ``chip_smoke.bwd_errors``, with no limit applied."""
+    import torch
+    import torch.nn.functional as F
+    rows = []
+    for i, (b, hq, hkv, s, t, d, causal, *off) in enumerate(
+            cs.FLASH_BWD_CASES):
+        q, k, v, o, do = cs._bwd_inputs(b, hq, hkv, s, t, d, dtype, causal,
+                                        seed=200 + i)
+        if off:
+            q = cs._off16(q)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+        errs = {fa.flash_bwd_path(q, k, v, o, do): cs.bwd_errors(
+            fa.flash_attention_bwd(q, k, v, o, do, causal=causal), want)}
+        if s == t or not causal:
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+            errs["sdpa"] = cs.bwd_errors(torch.autograd.grad(out, leaves, do),
+                                         want)
+            del leaves, out
+        rows.append({"shape": [b, hq, hkv, s, t, d], "causal": causal,
+                     "q_off16": bool(off), "errors": errs})
+        print(f"[ab-bwd-cases] {rows[-1]}", flush=True)
+        del q, k, v, o, do, want
+        torch.cuda.empty_cache()
+    _append({"nvidia_smi": cs._smi(), "dtype": str(dtype).removeprefix(
+        "torch."), "bwd_cases": rows})
+    return 0
+
+
+def _bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other):
+    """One shape of ``--bwd``: the calls' errors, times in turns and the
+    aligned path's kernels."""
     import torch
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    b, hq, hkv, s, t, d, causal = cs.FLASH_BWD_CASES[0]
-    q, k, v, o, do = cs._bwd_inputs(b, hq, hkv, s, t, d, torch.float32,
-                                    causal, seed=299)
-    want = fa.flash_attention_bwd_plain(q, k, v, o, do)
+    b, hq, hkv, s, t, d, causal = case
+    q, k, v, o, do = cs._bwd_inputs(b, hq, hkv, s, t, d, dtype, causal,
+                                    seed=299)
+    _require = cs._require
+    _require(fa.flash_bwd_path(q, k, v, o, do) == aligned, "aligned path")
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
     q_off = cs._off16(q)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
-    calls = {"tf32x3": lambda: fa.flash_attention_bwd(q, k, v, o, do),
-             "fma": lambda: fa.flash_attention_bwd(q_off, k, v, o, do),
-             "sdpa": lambda: torch.autograd.grad(out, leaves, do,
-                                                 retain_graph=True)}
-    if args.against:
-        other = _other_tree(args.against)
-        calls["against"] = lambda: other.flash_attention_bwd(q, k, v, o, do)
-    libs = _build(dict(v.split("=", 1) for v in args.variant or []),
-                  "flash_attention_bwd", "bwd_x3")
+    calls = {}
+    if other is not None:
+        calls["against"] = lambda: other.flash_attention_bwd(
+            q, k, v, o, do, causal=causal)
+    calls[aligned] = lambda: fa.flash_attention_bwd(q, k, v, o, do,
+                                                    causal=causal)
+    calls["fma"] = lambda: fa.flash_attention_bwd(q_off, k, v, o, do,
+                                                  causal=causal)
+    calls["sdpa"] = lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True)
     rows = -(-s // fa.BWD_PAD) * fa.BWD_PAD
     for var, (lib, _) in libs.items():
-        fn = getattr(lib, "repro_flash_attention_bwd_tf32x3")
+        fn = getattr(lib, f"repro_flash_attention_bwd_{aligned}")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype, fn.argtypes = i, [p] * 10 + [i] * 7 + [ctypes.c_float, p]
 
-        def call(fn=fn):
+        def call(fn=fn, var=var):
             grads = [torch.empty_like(x) for x in (q, k, v)]
             scratch = [torch.empty((b, hq, rows), device=q.device)
                        for _ in range(2)]
@@ -222,31 +291,34 @@ def _bwd(cs, fa, args) -> int:
         calls[f"variant:{var}"] = call
     errs = {}
     for name, fn in calls.items():
-        if name == "sdpa":
-            continue
-        got = fn()
-        torch.cuda.synchronize()
-        errs[name] = max(float(((g - w).abs() / (1 + w.abs())).max())
-                         for g, w in zip(got, want))
+        errs[name] = cs.bwd_errors(fn(), want)
     times = {name: [] for name in calls}
-    for _ in range(args.rounds):
-        for name, fn in calls.items():
-            times[name].append(cs._time_ms(fn, iters=5))
+    for r in range(args.rounds):
+        for name in list(calls)[::(-1 if r % 2 else 1)]:
+            times[name].append(cs._time_ms(calls[name], iters=5))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        calls["tf32x3"]()
+        calls[aligned]()
         torch.cuda.synchronize()
     kernels = {ev.key[:80]: ev.self_device_time_total / 1e3
                for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA}
-    row = {"shape": [b, hq, hkv, s, t, d], "causal": causal,
-           "ms": {n: statistics.median(x) for n, x in times.items()},
-           "ms_rounds": times, "max_rel_err": errs,
-           "tf32x3_kernels_ms": kernels,
+    flops, nbytes = cs.attention_bwd_work(b, hq, hkv, s, t, d, dtype, causal)
+    unit = "3xtf32" if aligned == "tf32x3" else "bfloat16"
+    bound_ms, bound_by = cs.bound({unit: flops}, nbytes)
+    ms = {n: statistics.median(x) for n, x in times.items()}
+    row = {"model": model, "shape": [b, hq, hkv, s, t, d], "causal": causal,
+           "dtype": str(dtype).removeprefix("torch."), "ms": ms,
+           "ms_rounds": times,
+           "max_rel_err": {n: max(e["max_rel_err"] for e in by.values())
+                           for n, by in errs.items()},
+           "errors": errs, f"{aligned}_kernels_ms": kernels,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": {n: flops / (x * 1e-3) / 1e12 for n, x in ms.items()},
            "against": args.against}
     print(f"[ab-bwd] {row}", flush=True)
-    _append({"nvidia_smi": cs._smi(), "bwd": row,
-             "ptxas": {var: rep for var, (_, rep) in libs.items()}})
-    return 0
+    del q, k, v, o, do, q_off, leaves, out, calls, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def _other_tree(src: str):
@@ -324,6 +396,10 @@ def main() -> int:
     ap.add_argument("--against", default=None,
                     help="with --host or --bwd: another tree's src")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"), help="with --bwd")
+    ap.add_argument("--cases", action="store_true",
+                    help="with --bwd: errors over FLASH_BWD_CASES")
     ap.add_argument("--mma-peak", action="store_true")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
