@@ -233,6 +233,18 @@ FLASH_BWD_BF16_KEEP = 5.5e-3
 # SSD_BWD_CASES (dx 1.47e-4, db 2.64e-4, dc 2.12e-4); da, whose per-token
 # sums cancel (1.22e-3 at the strong decays), ~2x, inside SSD_TOL
 SSD_BWD_F32_KEEP = {"dx": 6e-4, "da": 2.5e-3, "db": 1.1e-3, "dc": 8.5e-4}
+# The SSD kernels in bfloat16, each output as a whole beside the elementwise
+# SSD_TOL: ||g - plain|| / ||plain|| at about twice the worst of the
+# kernels before their bfloat16 redesign over SSD_CASES, SSD_BWD_CASES and
+# the card tests' SSD cases (y 5.63e-5; dx 1.39e-4, da 2.32e-4, db
+# 1.29e-4, dc 1.38e-4, the largest at the tests' short S = 37, where one
+# flipped bfloat16 rounding weighs most; tools/torch_ssd_ab.py --errors,
+# PERF.md rows 2e-2f).  Both versions round float32 values to bfloat16
+# alike, so these count the elements whose float32 values straddle a
+# rounding boundary; an error of a few ulps on a whole tile or on every
+# element, inside SSD_TOL, exceeds them.
+SSD_BF16_KEEP = {"y": 1.2e-4, "dx": 2.8e-4, "da": 4.6e-4, "db": 2.6e-4,
+                 "dc": 2.8e-4}
 # The sLSTM kernels stay this far inside, x (1 + |v|), in float32, set
 # from the first sLSTM kernels over SLSTM_CASES before their redesign:
 # the forward 4x its worst against the float32 plain loop (1.12e-5, the
@@ -240,7 +252,10 @@ SSD_BWD_F32_KEEP = {"dx": 6e-4, "da": 2.5e-3, "db": 1.1e-3, "dc": 8.5e-4}
 # which computes in float64 since the redesign (dgx 1.1e-4 at the
 # training shape; its dr, 4.9e-4, failed TOL there, as the float32
 # plain's own did, both summing the reverse chain's rounding into dr
-# alike).
+# alike).  That rounding put dr at up to 1.53e-4 over seeds 0-15 at the
+# training shape (tools/torch_slstm_ab.py --seeds); the chain sums its
+# long-lived carries compensated since (slstm::carry_sum), and the limit
+# stayed where it was.
 SLSTM_F32_KEEP = {"fwd": 4.5e-5, "bwd": 1.2e-4}
 # the unit whose peak prices each flash path's products in its bound
 FLASH_UNIT = {"wgmma": "bfloat16", "tf32x3": "3xtf32", "fma": "float32"}
@@ -824,31 +839,92 @@ SSD_CASES = [
 ]
 
 
-def check_ssd(report: dict) -> float:
-    """Kernel against its plain version on the card.  Returns the largest
-    float32 error over the cases."""
+def ssd_errors(names, got, want) -> dict:
+    """Each named output of the SSD kernels against the plain version's:
+    the largest |g - w|, the largest |g - w| / (1 + |w|), ||g - w|| /
+    ||w|| (0 where w is all zeros and g equals it) and the largest |w|."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    out = {}
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        norm = float(torch.linalg.vector_norm(w))
+        out[name] = {
+            "max_abs_err": float(err.max()),
+            "max_rel_err": float((err / (1.0 + w.abs())).max()),
+            "norm_rel_err": (float(torch.linalg.vector_norm(g - w)) / norm
+                             if norm else 0.0 if not err.max() else math.inf),
+            "max_abs": float(w.abs().max())}
+    return out
+
+
+def _ssd_ok(got, want, errs: dict, dtype, shapes) -> bool:
+    """The SSD outputs hold (``errs`` from ``ssd_errors``): finite, of the
+    inputs' ``dtype`` and ``shapes`` (one an output), inside ``SSD_TOL`` x
+    (1 + |w|) everywhere; in float32 also inside ``SSD_F32_KEEP`` (y) or
+    ``SSD_BWD_F32_KEEP`` (a gradient) x (1 + |w|), in bfloat16 inside
+    ``SSD_BF16_KEEP`` as a whole."""
+    import torch
+    name_of = str(dtype).removeprefix("torch.")
+    ok = True
+    for (name, e), g, w, shape in zip(errs.items(), got, want, shapes):
+        keep = (SSD_BF16_KEEP[name] >= e["norm_rel_err"]
+                if name_of == "bfloat16" else
+                (SSD_F32_KEEP if name == "y" else SSD_BWD_F32_KEEP[name])
+                >= e["max_rel_err"])
+        ok = (ok and keep and g.dtype == dtype and tuple(g.shape) == shape
+              and bool(torch.isfinite(g).all())
+              and bool(((g.float() - w.float()).abs()
+                        <= SSD_TOL[name_of] * (1.0 + w.float().abs())).all()))
+    return ok
+
+
+def _fresh_route(dtype: str, d: int, n: int, route: str) -> str:
+    """The route fresh (aligned) inputs of D and N must take: in bfloat16
+    "bf16_async" where N is a multiple of 8 and D one too or below 16,
+    else "plain"; in float32 ``route``, the one ``ssd_route`` named."""
+    if dtype != "bfloat16":
+        return route
+    return "bf16_async" if n % 8 == 0 and (d % 8 == 0 or d < 16) else "plain"
+
+
+def _moved(counters: dict, before: dict) -> dict:
+    """The counters of ``counters`` (name: LaunchCounter) that moved since
+    ``before`` (name: count), by how much."""
+    return {k: c.count - before[k] for k, c in counters.items()
+            if c.count != before[k]}
+
+
+def check_ssd(report: dict) -> float:
+    """Kernel against its plain version on the card, every case in both
+    dtypes (``_ssd_ok``); each call counts one launch on the route
+    ``ssd_route`` gives, a bfloat16 one on "bf16_async" where b's and c's
+    rows are on 16 bytes (N a multiple of 8) and x's too or D is below 16,
+    else on "plain".  Returns the largest float32 error over the cases."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (path_launches, ssd_route,
+                                              ssd_scan, ssd_scan_plain)
     worst = 0.0
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for i, (b, s, h, d, n, decay) in enumerate(SSD_CASES):
             x, a, bm, cm = _ssd_inputs(b, s, h, d, n, dtype, decay, seed=i)
+            route = ssd_route(x, bm, cm)
+            before = {k: c.count for k, c in path_launches.items()}
             got = ssd_scan(x, a, bm, cm)
             torch.cuda.synchronize()
+            moved = _moved(path_launches, before)
             want = ssd_scan_plain(x, a, bm, cm)
-            err = (got.float() - want.float()).abs()
-            limit = SSD_TOL[name] * (1.0 + want.float().abs())
-            rel = float((err / (1.0 + want.float().abs())).max())
-            ok = (bool((err <= limit).all())
-                  and bool(torch.isfinite(got).all())
-                  and got.dtype == dtype and got.shape == x.shape
-                  and (name != "float32" or rel <= SSD_F32_KEEP))
+            errs = ssd_errors(("y",), (got,), (want,))
+            ok = (_ssd_ok((got,), (want,), errs, dtype, (tuple(x.shape),))
+                  and moved == {route: 1}
+                  and route == _fresh_route(name, d, n, route))
             row = {"dtype": name, "shape": [b, s, h, d, n], "decay": decay,
-                   "max_abs_err": float(err.max()), "max_rel_err": rel,
-                   "max_abs_out": float(want.float().abs().max()),
-                   "tol": SSD_TOL[name], "ok": ok}
+                   "route": route, **errs["y"], "tol": SSD_TOL[name],
+                   "ok": ok}
+            if name == "bfloat16":
+                row["keep"] = SSD_BF16_KEEP["y"]
             rows.append(row)
             print(f"[check] ssd_scan {row}", flush=True)
             _require(ok, f"SSD scan kernel against its plain version: {row}")
@@ -858,47 +934,67 @@ def check_ssd(report: dict) -> float:
     return worst
 
 
+# what the bfloat16 SSD rows' bound counts
+SSD_BF16_BOUND = ("work.ssd_work / ssd_bwd_work at bfloat16's bytes; a "
+                  "product of two inputs (C . B^T, M = dy x^T) at the "
+                  "bfloat16 peak, of an input and a float32 value at "
+                  "2xTF32 (half of TF32's peak) where D >= 16")
+# the kinds of work.H100_PEAK_FLOPS that run on the tensor cores
+TENSOR_KINDS = ("3xtf32", "2xtf32", "bfloat16")
+
+
 def time_ssd(report: dict) -> list[dict]:
-    """Kernel, plain version and the bound (the products the kernel runs in
-    3xTF32 at that rate, ``work.ssd_work``) at the served shapes, float32
+    """Kernel, plain version and the bound (``work.ssd_work``: float32's
+    tensor-core products in 3xTF32 at that rate) at the served shapes, float32
     (no single PyTorch call computes the scan: library_ms is null), with
     the wrapper's time per call, host included (``call_ms``), and the
     passes' scratch (``scratch_mb``, the design's cost, not in the
-    bound)."""
+    bound); then in bfloat16 at ``SSD_BWD_TRAIN``'s shapes (a training
+    step's forwards), with the route taken and the bound as
+    ``SSD_BF16_BOUND`` says."""
     import torch
     from repro_torch.kernels.ssd_scan import (NARROW_D, narrow_d,
-                                              scratch_floats, ssd_scan,
-                                              ssd_scan_plain)
+                                              scratch_floats, ssd_route,
+                                              ssd_scan, ssd_scan_plain)
     _require(narrow_d() == NARROW_D,
              f"the built SSD kernel's NARROW_D {narrow_d()} is the meta "
              f"path's {NARROW_D}")
+    cases = [(label, torch.float32, (b, s, h, d, n, decay))
+             for s in (256, 1024)
+             for label, (b, h, d, n, decay) in (
+                 ("zamba2", (1, 32, 128, 64, "mild")),
+                 ("mlstm_values", (4, 1, 384, 384, "mlstm")),
+                 ("mlstm_normalizer", (4, 1, 1, 384, "mlstm")))]
+    cases += [(f"{label}_train", torch.bfloat16, shape)
+              for label, shape in SSD_BWD_TRAIN.items()]
     rows = []
-    for s in (256, 1024):
-        for label, (b, h, d, n, decay) in (
-                ("zamba2", (1, 32, 128, 64, "mild")),
-                ("mlstm_values", (4, 1, 384, 384, "mlstm")),
-                ("mlstm_normalizer", (4, 1, 1, 384, "mlstm"))):
-            x, a, bm, cm = _ssd_inputs(b, s, h, d, n, torch.float32, decay,
-                                       seed=99)
-            ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20)
-            plain_ms = _time_ms(lambda: ssd_scan_plain(x, a, bm, cm),
-                                iters=3, warmup=1, run_ahead=False)
-            call_ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20,
-                               run_ahead=False)
-            flops, nbytes = ssd_work(b, s, h, d, n, torch.float32,
-                                     narrow_d())
-            bound_ms, bound_by = bound(flops, nbytes)
-            row = {"case": label, "dtype": "float32", "shape": [b, s, h, d, n],
-                   "ms": ms, "call_ms": call_ms,
-                   "scratch_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
-                   "plain_ms": plain_ms, "library_ms": None,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "gflop": sum(flops.values()) / 1e9,
-                   "tensor_core_gflop": flops.get("3xtf32", 0) / 1e9,
-                   "mbytes": nbytes / 1e6,
-                   "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
-            rows.append(row)
-            print(f"[time] ssd_scan {row}", flush=True)
+    for label, dtype, (b, s, h, d, n, decay) in cases:
+        x, a, bm, cm = _ssd_inputs(b, s, h, d, n, dtype, decay, seed=99)
+        ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20)
+        plain_ms = _time_ms(lambda: ssd_scan_plain(x, a, bm, cm),
+                            iters=3 if s < 2048 else 2, warmup=1,
+                            run_ahead=False)
+        call_ms = _time_ms(lambda: ssd_scan(x, a, bm, cm), iters=20,
+                           run_ahead=False)
+        flops, nbytes = ssd_work(b, s, h, d, n, dtype, narrow_d())
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = {"case": label, "dtype": str(dtype).removeprefix("torch."),
+               "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
+               "scratch_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": sum(flops.values()) / 1e9,
+               "tensor_core_gflop": sum(flops.get(k, 0)
+                                        for k in TENSOR_KINDS) / 1e9,
+               "mbytes": nbytes / 1e6,
+               "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
+        if dtype == torch.bfloat16:
+            row["route"] = ssd_route(x, bm, cm)
+            row["bound_counts"] = SSD_BF16_BOUND
+        rows.append(row)
+        print(f"[time] ssd_scan {row}", flush=True)
+        del x, a, bm, cm
+        torch.cuda.empty_cache()
     report["ssd_scan_timing"] = rows
     return rows
 
@@ -955,19 +1051,30 @@ SSD_BWD_CASES = [
 ]
 
 
+# (b, s, h, d, n) of the backward's bit-for-bit repeat in each dtype: D and
+# N that the tiles do not divide, in bfloat16 on "bf16_async" (N 96)
+SSD_BWD_REPEAT = {"float32": (3, 200, 2, 48, 100),
+                  "bfloat16": (3, 200, 2, 48, 96)}
+
+
 def check_ssd_bwd(report: dict) -> dict:
     """The backward kernel (dx, da, db, dc), reading the forward kernel's
     kept scratch as training runs it, against its plain version on the
-    card, every case in both dtypes, at ``SSD_TOL`` x (1 + |g|) and in
-    float32 also at ``SSD_BWD_F32_KEEP`` x (1 + |g|); each call moves the
-    backward's counter by one and launches no forward; two calls on one
+    card, every case in both dtypes (``_ssd_ok``: ``SSD_TOL`` x (1 + |g|),
+    float32 also ``SSD_BWD_F32_KEEP`` x (1 + |g|), bfloat16 also
+    ``SSD_BF16_KEEP`` as a whole), and at ``SSD_BWD_TRAIN``'s shapes the
+    forward kernel's y it reads too; each call moves the backward's counter
+    and its route's by one (a bfloat16 case on "bf16_async" where the
+    forward's is) and launches no forward; in each dtype, two calls on one
     input agree bit for bit (no atomics), the second without the kept
     scratch (it runs the forward first).  Returns the largest error in
     each dtype at zamba2's training shape."""
     import torch
-    from repro_torch.kernels.ssd_scan import (bwd_launches, launches,
-                                              ssd_scan_bwd,
-                                              ssd_scan_bwd_plain)
+    from repro_torch.kernels.ssd_scan import (bwd_launches,
+                                              bwd_path_launches, launches,
+                                              ssd_route, ssd_scan_bwd,
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_plain)
     worst = {}
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -975,33 +1082,34 @@ def check_ssd_bwd(report: dict) -> dict:
         for i, (b, s, h, d, n, decay) in enumerate(SSD_BWD_CASES):
             ins, saved = _ssd_bwd_inputs(b, s, h, d, n, dtype, decay,
                                          seed=300 + i)
+            route = ssd_route(ins[0], ins[2], ins[3], ins[4], ins[5])
             before = (bwd_launches.count, launches.count)
+            paths = {k: c.count for k, c in bwd_path_launches.items()}
             got = ssd_scan_bwd(*ins, saved=saved)
             torch.cuda.synchronize()
             launched = [bwd_launches.count - before[0],
                         launches.count - before[1]]
+            moved = _moved(bwd_path_launches, paths)
             del saved
             want = ssd_scan_bwd_plain(*ins)
+            names = ("dx", "da", "db", "dc")
+            shapes = tuple(tuple(t.shape) for t in ins[:4])
+            if i < len(SSD_BWD_TRAIN):  # the forward's y at phase 8's shapes
+                got = (ins[4], *got)
+                want = (ssd_scan_plain(*ins[:4]), *want)
+                names, shapes = ("y", *names), (shapes[0], *shapes)
+            errs = ssd_errors(names, got, want)
+            ok = (launched == [1, 0] and moved == {route: 1}
+                  and route == _fresh_route(name, d, n, route)
+                  and _ssd_ok(got, want, errs, dtype, shapes))
             row = {"dtype": name, "shape": [b, s, h, d, n], "decay": decay,
-                   "tol": SSD_TOL[name], "launches": launched[0],
-                   "forward_launches": launched[1]}
-            ok = launched == [1, 0]
-            for gname, g, w, like in zip(("dx", "da", "db", "dc"), got, want,
-                                         ins):
-                err = (g.float() - w.float()).abs()
-                limit = SSD_TOL[name] * (1.0 + w.float().abs())
-                rel = float((err / (1.0 + w.float().abs())).max())
-                ok = (ok and g.dtype == dtype and g.shape == like.shape
-                      and bool(torch.isfinite(g).all())
-                      and bool((err <= limit).all())
-                      and (name != "float32"
-                           or rel <= SSD_BWD_F32_KEEP[gname]))
-                row[f"{gname}_max_abs_err"] = float(err.max())
-                row[f"{gname}_max_rel_err"] = rel
-                row[f"{gname}_max_abs"] = float(w.float().abs().max())
-            if name == "float32":
-                row["keep"] = SSD_BWD_F32_KEEP
-            row["ok"] = ok
+                   "tol": SSD_TOL[name], "route": route,
+                   "launches": launched[0], "forward_launches": launched[1],
+                   **{f"{g}_{k}": v for g, e in errs.items()
+                      for k, v in e.items()},
+                   "keep": ({"y": SSD_F32_KEEP, **SSD_BWD_F32_KEEP}
+                            if name == "float32" else SSD_BF16_KEEP),
+                   "ok": ok}
             rows.append(row)
             print(f"[check] ssd_scan_bwd {row}", flush=True)
             _require(ok, f"SSD scan backward kernel against its plain "
@@ -1010,14 +1118,14 @@ def check_ssd_bwd(report: dict) -> dict:
                 worst[name] = max(row[f"{g}_max_abs_err"]
                                   for g in ("dx", "da", "db", "dc"))
             del ins, got, want
-    again, saved = _ssd_bwd_inputs(3, 200, 2, 48, 100, torch.float32,
-                                   "mlstm", 399)
-    first = ssd_scan_bwd(*again, saved=saved)
-    second = ssd_scan_bwd(*again)
-    torch.cuda.synchronize()
-    _require(all(torch.equal(u, v) for u, v in zip(first, second)),
-             "the SSD backward repeats bit for bit, also when it runs the "
-             "forward for its scratch")
+        again, saved = _ssd_bwd_inputs(*SSD_BWD_REPEAT[name], dtype,
+                                       "mlstm", 399)
+        first = ssd_scan_bwd(*again, saved=saved)
+        second = ssd_scan_bwd(*again)
+        torch.cuda.synchronize()
+        _require(all(torch.equal(u, v) for u, v in zip(first, second)),
+                 f"the SSD backward repeats bit for bit in {name}, also "
+                 f"when it runs the forward for its scratch")
     report["ssd_scan_bwd_checks"] = rows
     return worst
 
@@ -1025,39 +1133,51 @@ def check_ssd_bwd(report: dict) -> dict:
 def time_ssd_bwd(report: dict) -> dict:
     """The backward kernel, reading the forward kernel's kept scratch as
     training runs it, its plain version on the same inputs and the bound
-    (``_ssd_bwd_bound``) at each of ``SSD_BWD_TRAIN``'s shapes, float32.
-    No PyTorch call computes the scan's gradient, so library_ms is null.
-    Also the wrapper's time per call, host included (``call_ms``), the
-    backward's own scratch, the kept forward scratch it reads, and the
-    work it does (``gflop``, ``mbytes``, ``tflops``).  The row of zamba2's
-    shape, with the others under their names."""
+    (``_ssd_bwd_bound``) at each of ``SSD_BWD_TRAIN``'s shapes, in float32
+    and in bfloat16 (with the route taken; the bound as ``SSD_BF16_BOUND``
+    says).  No PyTorch call computes the scan's gradient, so library_ms is
+    null.  Also the wrapper's time per call, host included (``call_ms``),
+    the backward's own scratch, the kept forward scratch it reads, and the
+    work it does (``gflop``, ``mbytes``, ``tflops``).  The float32 row of
+    zamba2's shape, with the other float32 rows under their names and the
+    bfloat16 rows under ``bfloat16``."""
     import torch
     from repro_torch.kernels.ssd_scan import (bwd_scratch_floats,
-                                              scratch_floats, ssd_scan_bwd,
+                                              scratch_floats, ssd_route,
+                                              ssd_scan_bwd,
                                               ssd_scan_bwd_plain)
     rows = {}
-    for label, (b, s, h, d, n, decay) in SSD_BWD_TRAIN.items():
-        ins, saved = _ssd_bwd_inputs(b, s, h, d, n, torch.float32, decay,
-                                     seed=399)
-        ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved), iters=10)
-        call_ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved),
-                           iters=10, run_ahead=False)
-        plain_ms = _time_ms(lambda: ssd_scan_bwd_plain(*ins, saved=saved),
-                            iters=2, warmup=1, run_ahead=False)
-        flops, nbytes = ssd_bwd_work(b, s, h, d, n, torch.float32, True)
-        rows[label] = {
-            "case": f"{label}_train", "dtype": "float32",
-            "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            **_ssd_bwd_bound(b, s, h, d, n, torch.float32),
-            "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
-            "kept_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
-            "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
-            "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
-        del ins, saved
-        torch.cuda.empty_cache()
-    row = rows.pop("zamba2")
-    row.update(rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for label, (b, s, h, d, n, decay) in SSD_BWD_TRAIN.items():
+            ins, saved = _ssd_bwd_inputs(b, s, h, d, n, dtype, decay,
+                                         seed=399)
+            ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved), iters=10)
+            call_ms = _time_ms(lambda: ssd_scan_bwd(*ins, saved=saved),
+                               iters=10, run_ahead=False)
+            plain_ms = _time_ms(
+                lambda: ssd_scan_bwd_plain(*ins, saved=saved), iters=2,
+                warmup=1, run_ahead=False)
+            flops, nbytes = ssd_bwd_work(b, s, h, d, n, dtype, True)
+            row = {
+                "case": f"{label}_train", "dtype": name,
+                "shape": [b, s, h, d, n], "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "library_ms": None,
+                **_ssd_bwd_bound(b, s, h, d, n, dtype),
+                "scratch_mb": bwd_scratch_floats(b, s, h, d, n) * 4 / 1e6,
+                "kept_mb": scratch_floats(b, s, h, d, n) * 4 / 1e6,
+                "gflop": sum(flops.values()) / 1e9, "mbytes": nbytes / 1e6,
+                "tflops": sum(flops.values()) / (ms * 1e-3) / 1e12}
+            if dtype == torch.bfloat16:
+                row["route"] = ssd_route(ins[0], ins[2], ins[3], ins[4],
+                                         ins[5])
+                row["bound_counts"] = SSD_BF16_BOUND
+            rows.setdefault(name, {})[label] = row
+            del ins, saved
+            torch.cuda.empty_cache()
+    row = rows["float32"].pop("zamba2")
+    row.update(rows["float32"])
+    row["bfloat16"] = rows["bfloat16"]
     print(f"[time] ssd_scan_bwd {row}", flush=True)
     report["ssd_scan_bwd_timing"] = row
     return row
@@ -1078,6 +1198,25 @@ def _slstm_inputs(b, s, d, dtype, carry, seed):
     else:
         cs = [rn(b, d) * 0.5, rn(b, d), rn(b, d).abs() + 1.0, rn(b, d)]
     return gx.to(dtype), r.to(dtype), tuple(t.to(dtype) for t in cs)
+
+
+def slstm_grad_inputs(b, s, d, dtype, carry, seed):
+    """``_slstm_inputs`` at ``seed`` and a backward's output gradients:
+    dhs ``[B, S, d]`` and the last carry's four ``[B, d]``, N(0, 1) from a
+    generator seeded ``seed + 100``: (gx, r, carry, dhs, dlast)."""
+    import torch
+    gx, r, carry = _slstm_inputs(b, s, d, dtype, carry, seed)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 100)
+    dhs = torch.randn((b, s, d), generator=g, device=DEVICE).to(dtype)
+    dlast = tuple(torch.randn((b, d), generator=g, device=DEVICE).to(dtype)
+                  for _ in range(4))
+    return gx, r, carry, dhs, dlast
+
+
+# the runs of the sLSTM kernels on one input that check_slstm holds equal
+# bit for bit
+SLSTM_REPEATS = 5
 
 
 # (b, s, d) of the sLSTM recurrence at xlstm-125m's d 768: a 1024-token
@@ -1105,8 +1244,10 @@ def check_slstm(report: dict) -> dict:
     kernel's own hs and kept carry) against their plain versions on the
     card, every case of ``SLSTM_CASES`` in both dtypes, at ``TOL`` x (1 +
     |v|), and in float32 each direction also at ``SLSTM_F32_KEEP`` x (1 +
-    |v|) (the plain backward computes in float64); one count a call each.
-    Returns the largest error of each direction in each dtype over the
+    |v|) (the plain backward computes in float64); one count a call each;
+    ``SLSTM_REPEATS`` runs of the forward keeping the carry and of the
+    backward on one input give every output bit for bit alike
+    (``repeats_equal``).  Returns the largest error of each direction in each dtype over the
     cases, absolute and (``*_rel``) over (1 + |v|)."""
     import torch
     from repro_torch.kernels.slstm_scan import (bwd_launches, launches,
@@ -1118,21 +1259,26 @@ def check_slstm(report: dict) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         for i, (b, s, d, carry_kind) in enumerate(SLSTM_CASES):
-            gx, r, carry = _slstm_inputs(b, s, d, dtype, carry_kind, 500 + i)
+            gx, r, carry, dhs, dlast = slstm_grad_inputs(b, s, d, dtype,
+                                                         carry_kind, 500 + i)
             before = (launches.count, bwd_launches.count)
             with torch.no_grad():
                 hs0, last0 = slstm_scan(gx, r, carry)
             hs, last, kept = slstm_scan_keep(gx, r, carry)
             hs1, last1, kept1 = slstm_scan_keep(gx, r, carry)
-            g = torch.Generator(device=DEVICE)
-            g.manual_seed(600 + i)
-            dhs = torch.randn(hs.shape, generator=g, device=DEVICE).to(dtype)
-            dlast = tuple(torch.randn(t.shape, generator=g,
-                                      device=DEVICE).to(dtype) for t in last)
             grads = slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
             torch.cuda.synchronize()
             launched = [launches.count - before[0],
                         bwd_launches.count - before[1]]
+            runs = [(hs, kept, *last, grads[0], grads[1], *grads[2])]
+            for _ in range(SLSTM_REPEATS - 1):
+                hs2, last2, kept2 = slstm_scan_keep(gx, r, carry)
+                g2 = slstm_scan_bwd(gx, r, carry, hs2, kept2, dhs, dlast)
+                runs.append((hs2, kept2, *last2, g2[0], g2[1], *g2[2]))
+            torch.cuda.synchronize()
+            repeats = all(torch.equal(u, v) for run in runs[1:]
+                          for u, v in zip(run, runs[0]))
+            del runs
             want_hs, want_last, want_kept = slstm_scan_plain(gx, r, carry,
                                                              keep=True)
             want = slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast)
@@ -1141,8 +1287,9 @@ def check_slstm(report: dict) -> dict:
                    "keep_equal": torch.equal(hs0, hs) and torch.equal(
                        hs1, hs) and torch.equal(kept1, kept) and all(
                        torch.equal(u, v) and torch.equal(w, v)
-                       for u, v, w in zip(last0, last, last1))}
-            ok = launched == [3, 1] and row["keep_equal"]
+                       for u, v, w in zip(last0, last, last1)),
+                   "repeats_equal": repeats}
+            ok = launched == [3, 1] and row["keep_equal"] and repeats
             fwd = [("hs", hs0, want_hs), ("hs_kept", hs, want_hs),
                    ("kept", kept, want_kept),
                    *((f"last_{k}", u, v)
@@ -2258,6 +2405,10 @@ def _train_counters():
             "bwd_fma": flash_attention.bwd_path_launches["fma"],
             "ssd_scan": ssd_scan.launches,
             "ssd_scan_bwd": ssd_scan.bwd_launches,
+            **{f"ssd_{route}": ssd_scan.path_launches[route]
+               for route in TRAIN_SSD_ROUTES},
+            **{f"ssd_bwd_{route}": ssd_scan.bwd_path_launches[route]
+               for route in TRAIN_SSD_ROUTES},
             "slstm_scan": slstm_scan.launches,
             "slstm_scan_bwd": slstm_scan.bwd_launches}
 
@@ -2275,6 +2426,10 @@ def _counts(counters) -> dict:
 # forward's and the backward's
 TRAIN_FLASH_PATHS = {"float32": ("tf32x3", "bwd_tf32x3"),
                      "bfloat16": ("wgmma", "bwd_wgmma")}
+# the SSD load routes phase 8 counts: a bfloat16 step's every SSD launch,
+# forward and backward, on "bf16_async" and none on "plain"; a float32
+# step's on the float32 routes (not counted here), none on these two
+TRAIN_SSD_ROUTES = ("bf16_async", "plain")
 
 
 def _step_launches(cfg, remat: bool = False) -> dict:
@@ -2283,7 +2438,9 @@ def _step_launches(cfg, remat: bool = False) -> dict:
     all on the dtype's paths (``TRAIN_FLASH_PATHS``: float32 ``tf32x3``
     both ways, bfloat16 ``wgmma`` both ways); one SSD
     forward and backward per Mamba-2 layer, two per mLSTM layer (so no
-    backward runs the forward again: it reads the forward's kept scratch);
+    backward runs the forward again: it reads the forward's kept scratch),
+    in bfloat16 all on the "bf16_async" route, none on "plain"
+    (``TRAIN_SSD_ROUTES``);
     one sLSTM scan forward and backward per sLSTM layer.  With remat every
     stacked layer runs its forward again in the backward (the hybrid's
     shared block is not rematerialised)."""
@@ -2298,8 +2455,13 @@ def _step_launches(cfg, remat: bool = False) -> dict:
            "tf32x3": 0, "wgmma": 0, "bwd_tf32x3": 0, "bwd_wgmma": 0,
            "bwd_fma": 0,
            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
+           **{f"ssd_{r}": 0 for r in TRAIN_SSD_ROUTES},
+           **{f"ssd_bwd_{r}": 0 for r in TRAIN_SSD_ROUTES},
            "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
     out[fwd_path], out[bwd_path] = fwd, bwd
+    if cfg.dtype == "bfloat16":
+        out["ssd_bf16_async"] = out["ssd_scan"]
+        out["ssd_bwd_bf16_async"] = ssd
     return out
 
 
@@ -3595,6 +3757,25 @@ def main() -> int:
         ssd_bwd_row[label] = {key: ssd_bwd_timing[label][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_by_way")}
+    bf16_keys = ("route", "shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    ssd_bwd_row["bfloat16"] = {
+        label: {key: r[key] for key in (*bf16_keys, "bound_ms_by_way")}
+        for label, r in ssd_bwd_timing["bfloat16"].items()}
+    ssd_bwd_row["launches_by_route"] = {
+        route: sum(trained_by(f"ssd_bwd_{route}").values())
+        for route in TRAIN_SSD_ROUTES}
+    ssd_row = kernel_row("ssd_scan",
+                         next(r for r in ssd_timing if r["case"] == "zamba2"
+                              and r["shape"][1] == 1024),
+                         ssd_err, "src/repro/kernels/ssd_scan.py:68",
+                         {**served_by("ssd_scan"), **trained_by("ssd_scan"),
+                          **examples_by("ssd_scan")})
+    ssd_row["bfloat16"] = {r["case"]: {key: r[key] for key in bf16_keys}
+                           for r in ssd_timing if r["dtype"] == "bfloat16"}
+    ssd_row["launches_by_route"] = {
+        route: sum(trained_by(f"ssd_{route}").values())
+        for route in TRAIN_SSD_ROUTES}
     slstm_rows = []
     for name, timing, err in (
             ("slstm_scan", slstm_timing["prefill"], slstm_err["fwd_float32"]),
@@ -3623,12 +3804,7 @@ def main() -> int:
     kernels = [
         flash_row,
         bwd_row,
-        kernel_row("ssd_scan",
-                   next(r for r in ssd_timing if r["case"] == "zamba2"
-                        and r["shape"][1] == 1024),
-                   ssd_err, "src/repro/kernels/ssd_scan.py:68",
-                   {**served_by("ssd_scan"), **trained_by("ssd_scan"),
-                    **examples_by("ssd_scan")}),
+        ssd_row,
         ssd_bwd_row,
         *slstm_rows,
         kernel_row("matmul",

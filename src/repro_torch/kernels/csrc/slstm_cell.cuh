@@ -174,17 +174,41 @@ __device__ __forceinline__ Coef coef(const Step& st, const float r[4],
   return k;
 }
 
+// One step of a running sum carried compensated: k hi + (t + k lo) as
+// hi' + lo', hi' the sum rounded and lo' what the rounding dropped (Fast2Sum:
+// exact where |k hi| >= |t + k lo|, as over the long stretches where the
+// sum runs), so lo' is at most half an ulp of hi' and flows into the next
+// step's term.  The _rn intrinsics keep the compiler from fusing the
+// product into the sum, which lo' assumes it is not.
+__device__ __forceinline__ void carry_sum(float k, float hi, float lo,
+                                          float t, float& out_hi,
+                                          float& out_lo) {
+  const float p = __fmul_rn(k, hi);
+  const float y = fmaf(k, lo, t);
+  out_hi = __fadd_rn(p, y);
+  out_lo = __fadd_rn(__fsub_rn(p, out_hi), y);
+}
+
 // The serial chain's step: the carried gradient (dh, dc, dn, dm) of a
 // step's output carry -> that of its input carry.  Four dot products, at
-// most four FMAs deep.
-__device__ __forceinline__ float4 chain(const Coef& k, float4 g) {
+// most four FMAs deep.  dc, dn and dm are carried by factors fg, fg and
+// s_f, each exactly 1 wherever the forget gate wins (fm > pre_i, the
+// common case), so over such a stretch each is a running sum of one term
+// a step over thousands of steps, whose float32 rounding reached 1.5e-4 of
+// dr at xlstm-125m's training shape (tools/torch_slstm_ab.py --seeds; the
+// chain in float64, --variant chain64, removes it): each is summed
+// compensated (carry_sum), the rounding's rest in lo.  g itself is the
+// carried gradient to half an ulp, and every row reads it; dh, whose own
+// factor is r-sized, is carried plainly (lo.x stays 0).
+__device__ __forceinline__ float4 chain(const Coef& k, float4 g, float4& lo) {
   float4 o;
   o.x = fmaf(k.a.w, g.w, fmaf(k.a.z, g.z, fmaf(k.a.y, g.y,
                                                fmaf(k.a.x, g.x, k.bias.x))));
-  o.y = fmaf(k.c.z, g.y, fmaf(k.c.x, g.x, k.bias.y));
-  o.z = fmaf(k.c.z, g.z, fmaf(k.c.y, g.x, k.bias.z));
-  o.w = fmaf(k.b.w, g.w, fmaf(k.b.z, g.z, fmaf(k.b.y, g.y,
-                                               fmaf(k.b.x, g.x, k.bias.w))));
+  carry_sum(k.c.z, g.y, lo.y, fmaf(k.c.x, g.x, k.bias.y), o.y, lo.y);
+  carry_sum(k.c.z, g.z, lo.z, fmaf(k.c.y, g.x, k.bias.z), o.z, lo.z);
+  carry_sum(k.b.w, g.w, lo.w,
+            fmaf(k.b.z, g.z, fmaf(k.b.y, g.y, fmaf(k.b.x, g.x, k.bias.w))),
+            o.w, lo.w);
   return o;
 }
 

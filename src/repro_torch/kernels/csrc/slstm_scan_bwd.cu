@@ -51,7 +51,10 @@
 // read the carried gradient the chain left for each step, form dpre
 // (slstm::dpre), store dgx and sum dr in registers.  The chain warp runs
 // the linear map alone: per step four 16-byte shared loads, one 16-byte
-// store of the carried gradient, 12 FMAs at most four deep; no division, no
+// store of the carried gradient, 12 FMAs at most four deep, and dc, dn and
+// dm summed compensated (slstm::carry_sum: their own factors are exactly 1
+// wherever the forget gate wins, and a plain float32 running sum over
+// thousands of steps put 1.5e-4 x (1 + |dr|) into dr); no division, no
 // transcendental.  dr's per-thread parts are summed in one fixed order at
 // the end.  The 16-byte copies need d * sizeof(T) a multiple of 16 and
 // gx, hs, the kept carry and dhs on 16-byte boundaries: the wrapper pads d
@@ -65,11 +68,14 @@
 // Reading hs and the kept carry, as this kernel does, adds 4 B S d: ~164
 // MB, 49 us.  The bound is the smaller (work.slstm_bwd_work).  Measured
 // (tools/torch_slstm_ab.py, an H100 80GB HBM3 at 700 W): 0.091 ms at that
-// shape, 44 ns a step, where the first kernel (one warp recomputing each step
-// beside the reverse step) took 1.19 ms, 579 ns a step.  The producers set
-// the pace: alone they take 0.077 ms, the chain alone 0.056 (the tool's
-// --variant skip_chain and skip_producers, built from patched copies of
-// this file); 8 producer warps beat 4 and 16, 32-step chunks beat 16.
+// shape, 44 ns a step, with a plain float32 chain, where the first kernel
+// (one warp recomputing each step beside the reverse step) took 1.19 ms,
+// 579 ns a step.  The producers set that pace: alone they take 0.077 ms,
+// the chain alone 0.056 (the tool's --variant skip_chain and
+// skip_producers, built from patched copies of this file); 8 producer
+// warps beat 4 and 16, 32-step chunks beat 16.  The compensated sums
+// lengthen the chain's step: 0.0996 ms at that shape (the chain alone
+// 0.060, the producers alone 0.076).
 #include "hopper.cuh"
 #include "slstm_cell.cuh"
 
@@ -134,6 +140,7 @@ __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_bwd(
     // the chain: the carried gradient (dh, dc, dn, dm), walking t down;
     // lanes UNITS.. repeat lanes 0.. (same loads, same stores)
     float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 lo = g;                                // the compensated rest
     if (live) {
       const size_t row = b * d + u;
       g = make_float4(slstm::to_f32(dh_last[row]), slstm::to_f32(dc_last[row]),
@@ -156,7 +163,7 @@ __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_bwd(
           co.b = k[1];
           co.c = k[2];
           co.bias = k[3];
-          g = slstm::chain(co, g);
+          g = slstm::chain(co, g, lo);
         };
         const int nt = min(TC, s - p * TC);
         if (nt == TC) {       // coefficients loaded two steps ahead

@@ -15,12 +15,12 @@
 //
 // Bound.  At zamba2's heads (H 32, D 128, N 64) and S = 1024 the function
 // is ~1.35 GFLOP against ~34 MB of x, a, b, c and y: ~40 flops a byte.
-// All but C . B^T and the decays (under 0.5% of the flops) run below on
-// the tensor cores in 3xTF32, at a third of TF32's dense 495 TFLOP/s, so
+// All but the decays (under 0.1% of the flops) run below on the tensor
+// cores in 3xTF32, at a third of TF32's dense 495 TFLOP/s, so
 // the ridge is ~49 flops a byte and zamba2 is bound by bytes (~10 us);
 // mLSTM's values (D = N = 384, ~2.6 GFLOP against ~25 MB) are bound by
-// the tensor cores' operations (~15 us).  The D = 1 normalizer runs on
-// FMAs and is bound by reading b and c (~4 us).  The design below moves
+// the tensor cores' operations (~15 us).  The D = 1 normalizer runs all
+// but C . B^T on FMAs and is bound by reading b and c (~4 us).  The design below moves
 // more: the chunk states go through device memory (16.8 MB at zamba2,
 // S = 1024), written by pass 2, read and written by pass 3, read by pass
 // 4, and that traffic, not the arithmetic, sets the kernel's time.
@@ -30,10 +30,11 @@
 // chunks run in parallel, split as the Mamba-2 paper splits its chunked
 // algorithm (Dao & Gu, arXiv:2405.21060, section 6), in four passes that
 // one C call launches in order on the caller's stream:
-//   1. per (batch, chunk, half of the rows): C . B^T [L, L] once for all H
-//      heads (b and c are shared; the quarter above the diagonal is zeros)
-//      in float32 FMAs, and per head the chunk's Acum (the block stages the
-//      chunk's log-decays in shared memory, a warp scans a head);
+//   1. per (batch, chunk): C . B^T [L, L] once for all H heads (b and c
+//      are shared; the quarter above the diagonal is zeros) on the tensor
+//      cores in 3xTF32, each K tile's sum added in float32, and per head
+//      the chunk's Acum (the block stages the chunk's log-decays in shared
+//      memory, a warp scans a head);
 //   2. per (batch, chunk, head, D-tile, N-tile): the chunk's local end
 //      state s_c, stored [N, D] (D contiguous) in a float32 scratch (the
 //      last chunk's is never read, and not computed);
@@ -54,22 +55,35 @@
 // 3xTF32: each
 // float32 operand split into a TF32 high and low part, and the three
 // products that matter summed in float32, which keeps float32's accuracy
-// (single TF32 keeps ~3 digits, and the reference's 3e-3 is for float32);
-// bfloat16 inputs are converted to float32 on load.  A wide block
+// (single TF32 keeps ~3 digits, and the reference's 3e-3 is for float32).
+// A wide block
 // computes a [64, DT] tile with DT / 16 warps of 32 x 32; DT is 128 for
 // D > 64 where pass 4 then still has two blocks for each SM, else 64.
 // Shared tiles are padded so that every fragment read is free of bank
 // conflicts.  Pass 4's K runs over tiles of 64 through a ring of two
 // shared-memory stages that ends with (C . B^T, x) as its last item, whose
-// tile becomes G in place, so two blocks fit an SM at any N.  For
-// float32 inputs whose rows sit on 16-byte boundaries (D and N multiples
-// of 4, aligned pointers) the tiles of x, b, c and the scratch arrive by
-// cp.async, the next tile loading while the block computes on the last;
-// other inputs take plain loads.  D < 16 (the mLSTM normalizer's D = 1)
+// tile becomes G in place, so two blocks fit an SM at any N; the next
+// tile loads by cp.async while the block computes on the last.  How the
+// input tiles arrive is the load route (csrc/ssd_chunk.cuh's Route; the
+// wrapper names it and this entry point refuses any other).  float32 with x's, b's and c's rows on 16 bytes (D and N multiples
+// of 4, aligned pointers): every tile by cp.async (kF32); with only b's
+// and c's (kF32Bc), those.  bfloat16 with b's and c's rows on 16 bytes (N
+// a multiple of 8) and x's too or D below 16 (kBf16): bfloat16 tiles by
+// 16-byte cp.async, half the bytes of float ones, widened at the fragment
+// read (a shift of the bits); a bfloat16 value is exact in TF32, so a
+// product with one bfloat16 operand runs 2 TF32 mma.sync (C . h_c^T, b^T
+// (w x), G x), with two 1 (pass 1's C . B^T), with the same sums in the
+// same order as on float copies (the products dropped add exact zeros):
+// the scratch and y are bit for bit those of the plain route.  Pass 2 weights x's rows in float32 from a
+// bfloat16 staging tile.  Any other input (kPlain) loads converted to
+// float32 tiles.  The float32 scratch tiles (C . B^T, h_c) arrive by
+// cp.async on every route where D is a multiple of 4.
+// D < 16 (the mLSTM normalizer's D = 1)
 // takes narrow passes 2 and 4 (float32 FMAs) with one column of D a
 // block, so D = 1 pays for one column, not 64; narrow
 // pass 4 loads its 16 rows of c for all of N (in slices of 512) in one
-// round.  Above the diagonal exp(Acum_t - Acum_u) overflows (mLSTM's
+// round, narrow pass 2 on the bfloat16 route its block's [L, 128] slice
+// of b by cp.async.  Above the diagonal exp(Acum_t - Acum_u) overflows (mLSTM's
 // log-decay reaches -13.8 a token), so the triangle is selected before the
 // exponential, never multiplied by a 0/1 mask.  A ragged last chunk reads
 // x = a = b = c = 0 past S and stores only rows before S.  The scratch
@@ -90,10 +104,11 @@ __device__ __forceinline__ float comp(float4 v, int i) {
 
 // -- pass 4: every chunk's output ------------------------------------------
 
-// Two ring stages, each a [L][LDS] tile and a [TILE][LDX] tile
+// Two ring stages, each a [L][LDS] float region and a [TILE][LDX] one
 // (Wide::OUT_STAGE floats).  Items 0 .. nk - 1 are (c, h_c) tiles over N
 // for the carry C . h_c^T; item nk is (C . B^T, x), which becomes G in
-// place and meets x last.
+// place and meets x last.  c and x are tiles of TS: bfloat16 on kBf16
+// (half of their regions), else float.
 template <typename T, bool ASYNC, int DT>
 __global__ void __launch_bounds__(Wide<DT>::NT, 512 / Wide<DT>::NT)
 ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
@@ -101,6 +116,8 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
               const float* __restrict__ states, T* __restrict__ y, int s_len,
               int n_heads, int d_len, int n_len, int nc) {
   using W = Wide<DT>;
+  using TS = Smem<T, ASYNC>;
+  constexpr int LDC = std::is_same<TS, float>::value ? LDS : LDK;  // c's
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                       // [L]  Acum
   float* ring = smem + L;                 // 2 stages
@@ -117,22 +134,24 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
   const float* hc = states + (((size_t)b * nc + ci) * n_heads + h) *
                                  ((size_t)n_len * d_len) + d0;
   const int nk = (n_len + TILE - 1) / TILE;
+  const bool s_async = d_len % 4 == 0;    // h_c's rows on 16 bytes
   auto load = [&](int k) {
-    float* lo = ring + (k & 1) * STAGE;   // [L][LDS]
-    float* hi = lo + L * LDS;             // [TILE][LDX]
+    float* lo = ring + (k & 1) * STAGE;   // [L][LDS] floats
+    float* hi = lo + L * LDS;             // [TILE][LDX] floats
     if (k < nk) {
       const int n0 = k * TILE;
-      load_tile<T, ASYNC, L, TILE>(lo, LDS, cc + n0, n_len, len, n_len - n0);
-      load_tile<float, ASYNC, TILE, DT>(hi, W::LDX, hc + (size_t)n0 * d_len,
-                                        d_len, n_len - n0, d_len - d0);
+      load_tile<T, TS, ASYNC, L, TILE>(reinterpret_cast<TS*>(lo), LDC,
+                                       cc + n0, n_len, len, n_len - n0);
+      load_tile_if<float, float, true, TILE, DT>(
+          s_async, hi, W::LDX, hc + (size_t)n0 * d_len, d_len, n_len - n0,
+          d_len - d0);
     } else {
-      load_tile<float, ASYNC, L, TILE>(lo, LDS,
-                                       cb + ((size_t)b * nc + ci) * L * L, L,
-                                       L, L);
-      load_tile<T, ASYNC, L, DT>(hi, W::LDX, x + off_x, xrow, len,
-                                 d_len - d0);
+      load_tile<float, float, true, L, L>(
+          lo, LDS, cb + ((size_t)b * nc + ci) * L * L, L, L, L);
+      load_tile<T, TS, ASYNC, L, DT>(reinterpret_cast<TS*>(hi), W::LDX,
+                                     x + off_x, xrow, len, d_len - d0);
     }
-    commit<ASYNC>();
+    hopper::cp_async_commit();
   };
 
   load(0);
@@ -141,15 +160,16 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
   for (int k = 0; k <= nk; ++k) {
     if (k < nk) {
       load(k + 1);
-      wait_async<ASYNC, 1>();
+      hopper::cp_async_wait<1>();
     } else {
-      wait_async<ASYNC, 0>();
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();
     float* lo = ring + (k & 1) * STAGE;
     const float* hi = lo + L * LDS;
     if (k < nk) {  // carry += C . h_c^T over this N tile
-      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, 1, r0, c0);
+      mma_3xtf32(acc, reinterpret_cast<const TS*>(lo), LDC, 1, hi, W::LDX, 1,
+                 r0, c0);
     } else {
       // the carry's factor exp(Acum_t); then G: select the causal
       // triangle, then decay (the select comes first: above the diagonal
@@ -171,7 +191,8 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
         *g = u <= t ? *g * expf(as[t] - as[u]) : 0.f;
       }
       __syncthreads();
-      mma_3xtf32(acc, lo, LDS, 1, hi, W::LDX, 1, r0, c0);
+      mma_3xtf32(acc, lo, LDS, 1, reinterpret_cast<const TS*>(hi), W::LDX, 1,
+                 r0, c0);
     }
     __syncthreads();  // the stage is consumed before it is loaded again
   }
@@ -187,8 +208,13 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int d = c0 + 8 * ni + 2 * q;
-        if (d0 + d < d_len) store(&yr[d], acc[mi][ni][2 * hf]);
-        if (d0 + d + 1 < d_len) store(&yr[d + 1], acc[mi][ni][2 * hf + 1]);
+        const float* v = &acc[mi][ni][2 * hf];
+        if (ASYNC) {  // rows on 16 bytes: both columns in or out
+          if (d0 + d < d_len) store2(&yr[d], v[0], v[1]);
+        } else {
+          if (d0 + d < d_len) store(&yr[d], v[0]);
+          if (d0 + d + 1 < d_len) store(&yr[d + 1], v[1]);
+        }
       }
     }
 }
@@ -196,10 +222,10 @@ ssd_chunk_out(const T* __restrict__ x, const T* __restrict__ cm,
 // narrow pass 4 (D < NARROW_D): one column d and 16 rows of the chunk a
 // block, all of N (in slices of NW) loaded in one round; thread (r, kp) =
 // (tid / 16, tid % 16) sums a sixteenth of each slice for row r, and the
-// sixteenths meet by shuffles
+// sixteenths meet by shuffles.  ASYNC: c by cp.async (kF32Bc, kF32 and,
+// into a bfloat16 tile, kBf16).
 constexpr int NARROW_ROWS = 16;
 constexpr int NW = 512;           // state columns a narrow block holds
-constexpr int LDW = NW + 4;
 
 template <typename T, bool ASYNC>
 __global__ void __launch_bounds__(NTH)
@@ -208,7 +234,9 @@ ssd_chunk_out_narrow(const T* __restrict__ x, const T* __restrict__ cm,
                      const float* __restrict__ acum,
                      const float* __restrict__ states, T* __restrict__ y,
                      int s_len, int n_heads, int d_len, int n_len, int nc) {
-  __shared__ __align__(16) float cs[NARROW_ROWS * LDW];  // c rows, N slice
+  using TS = Smem<T, ASYNC>;
+  constexpr int LDW = NW + 16 / sizeof(TS);  // c's rows, on 16 bytes
+  __shared__ __align__(16) TS cs[NARROW_ROWS * LDW];     // c rows, N slice
   __shared__ __align__(16) float hv[NW];                 // h_c[n][d]
   __shared__ float xv[L];
   __shared__ float as[L];
@@ -237,8 +265,8 @@ ssd_chunk_out_narrow(const T* __restrict__ x, const T* __restrict__ cm,
   float carry = 0.f;
   for (int n0 = 0; n0 < n_len; n0 += NW) {
     __syncthreads();  // the last slice is consumed
-    load_tile<T, ASYNC, NARROW_ROWS, NW>(cs, LDW, cc + n0, n_len, c_rows,
-                                         n_len - n0);
+    load_tile<T, TS, ASYNC, NARROW_ROWS, NW>(cs, LDW, cc + n0, n_len, c_rows,
+                                             n_len - n0);
     commit<ASYNC>();
     for (int i = tid; i < NW; i += NTH)
       hv[i] = n0 + i < n_len ? hc[(size_t)(n0 + i) * d_len] : 0.f;
@@ -247,8 +275,7 @@ ssd_chunk_out_narrow(const T* __restrict__ x, const T* __restrict__ cm,
 #pragma unroll
     for (int m = 0; m < NW / 64; ++m) {
       const int k = 4 * kp + 64 * m;
-      carry = dot4(*reinterpret_cast<const float4*>(&cs[r * LDW + k]),
-                   *reinterpret_cast<const float4*>(&hv[k]), carry);
+      carry = dot4(load4(&cs[r * LDW + k]), load4(&hv[k]), carry);
     }
   }
   // G row t against x over this thread's columns u <= t
@@ -291,8 +318,9 @@ int launch_out(const T* x, const T* c, const float* cb, const float* acum,
 }
 
 // ASYNC_BC: b and c tiles by cp.async (passes 1 and the narrow 4); ASYNC:
-// x, b, c and the scratch tiles by cp.async (the wide passes 2 and 4).
-// Passes 1 to 3 are csrc/ssd_chunk.cuh's chunk_states.
+// x's too (the wide passes 2 and 4): kF32Bc (true, false), kF32 and kBf16
+// (true, true), kPlain (false, false).  Passes 1 to 3 are
+// csrc/ssd_chunk.cuh's chunk_states.
 template <typename T, bool ASYNC_BC, bool ASYNC>
 int launch(const T* x, const T* a, const T* b, const T* c, T* y,
            float* scratch, int bsz, int s_len, int n_heads, int d_len,
@@ -322,17 +350,19 @@ int launch(const T* x, const T* a, const T* b, const T* c, T* y,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  scratch: n_scratch floats, at least
-// B * nc * (L * L + H * L + H * N * D) with nc = ceil(S / L), 16-byte
-// aligned; its contents on entry are never read.  Returns
+// dtype: 0 = float32, 1 = bfloat16.  route: the load route (Route in
+// csrc/ssd_chunk.cuh; kernels/ssd_scan.py's ssd_route).  scratch: n_scratch
+// floats, at least B * nc * (L * L + H * L + H * N * D) with nc = ceil(S /
+// L), 16-byte aligned; its contents on entry are never read.  Returns
 // cudaGetLastError() after the last launch (0 on success).  Without a
 // launch: -2 when H or B * nc exceed a grid dimension (65535), and
-// cudaErrorInvalidValue for an unsupported dtype or too small a scratch.
+// cudaErrorInvalidValue for an unsupported dtype, a route other than
+// best_route's or too small a scratch.
 extern "C" int repro_ssd_scan(const void* x, const void* a, const void* b,
                               const void* c, void* y, void* scratch,
-                              long long n_scratch, int dtype, int bsz,
-                              int s_len, int n_heads, int d_len, int n_len,
-                              void* stream) {
+                              long long n_scratch, int route, int dtype,
+                              int bsz, int s_len, int n_heads, int d_len,
+                              int n_len, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long nc = (s_len + L - 1) / L;
   if (n_heads > 65535 || (long long)bsz * nc > 65535) return kGridTooLarge;
@@ -340,7 +370,11 @@ extern "C" int repro_ssd_scan(const void* x, const void* a, const void* b,
       (long long)bsz * nc *
       ((long long)L * L + (long long)n_heads * L +
        (long long)n_heads * n_len * d_len);
-  if (n_scratch < need || !aligned16(scratch))
+  if (n_scratch < need || !aligned16(scratch) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* rows[] = {x, y};
+  if (route != best_route(dtype, rows_aligned(dtype, rows, 2, d_len), b, c,
+                          d_len, n_len))
     return (int)cudaErrorInvalidValue;
   float* sc = static_cast<float*>(scratch);
   if (dtype == 0) {
@@ -348,24 +382,24 @@ extern "C" int repro_ssd_scan(const void* x, const void* a, const void* b,
     const F *xf = static_cast<const F*>(x), *af = static_cast<const F*>(a),
             *bf = static_cast<const F*>(b), *cf = static_cast<const F*>(c);
     F* yf = static_cast<F*>(y);
-    const int route = load_route(xf, bf, cf, d_len, n_len);
-    if (route == 2)
+    if (route == kF32)
       return launch<F, true, true>(xf, af, bf, cf, yf, sc, bsz, s_len,
                                    n_heads, d_len, n_len, st);
-    if (route == 1)
+    if (route == kF32Bc)
       return launch<F, true, false>(xf, af, bf, cf, yf, sc, bsz, s_len,
                                     n_heads, d_len, n_len, st);
     return launch<F, false, false>(xf, af, bf, cf, yf, sc, bsz, s_len,
                                    n_heads, d_len, n_len, st);
   }
-  if (dtype == 1) {
-    using B = __nv_bfloat16;
-    return launch<B, false, false>(
-        static_cast<const B*>(x), static_cast<const B*>(a),
-        static_cast<const B*>(b), static_cast<const B*>(c),
-        static_cast<B*>(y), sc, bsz, s_len, n_heads, d_len, n_len, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  using B = __nv_bfloat16;
+  const B *xh = static_cast<const B*>(x), *ah = static_cast<const B*>(a),
+          *bh = static_cast<const B*>(b), *ch = static_cast<const B*>(c);
+  B* yh = static_cast<B*>(y);
+  if (route == kBf16)
+    return launch<B, true, true>(xh, ah, bh, ch, yh, sc, bsz, s_len, n_heads,
+                                 d_len, n_len, st);
+  return launch<B, false, false>(xh, ah, bh, ch, yh, sc, bsz, s_len, n_heads,
+                                 d_len, n_len, st);
 }
 
 // D below this takes the narrow passes 2 and 4 (float32 FMAs); wider D runs

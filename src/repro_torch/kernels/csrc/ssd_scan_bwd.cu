@@ -48,17 +48,26 @@
 // x . dx; a block of 4 warps computes 64 x 64 tiles over K tiles of 64,
 // each warp 32 x 32.  Where a row is scaled (E_u, exp(Acum_t)) the
 // product is scaled after it, in registers, as the plain version does.
-// float32 tiles whose rows sit on 16-byte boundaries (D and N multiples
-// of 4, aligned pointers) arrive by cp.async, in two groups a step so
-// that the first product starts while the second's tiles still load, and
-// the forward's scratch always does; bfloat16 inputs are converted on
-// load.  Pass 4 keeps four tiles of 64 x 72 floats (G; dy; b, then x;
+// Tiles arrive by the forward's load routes (csrc/ssd_chunk.cuh's Route,
+// here with y, dy and dx's rows beside x's): cp.async in two groups a step
+// so that the first product starts while the second's tiles still load;
+// the L x L scratch (C . B^T, M) always so, h_c and R_c wherever D is a
+// multiple of 4.
+// On the bfloat16 route the input tiles are bfloat16 (by cp.async, x's, y's
+// and dy's where their rows sit on 16 bytes, else by loads), widened at
+// the fragment read, and the products with bfloat16 operands drop the
+// TF32 low parts that are zero (B R_c, G^T dy, dy h_c^T, x R_c^T, M B and
+// M^T C 2 mma.sync each, M = dy x^T 1), every sum in the same order as on
+// float copies: the gradients are bit for bit the plain route's.  Pass 4
+// keeps four tiles of 64 x 72 floats (G; dy; b, then x;
 // R_c, then y: x and y load while G^T dy runs) and pass 5 four (dy, h_c,
 // x, R_c, then M twice, b, c): 75.0 and 74.2 KB, so an SM holds 3 blocks
-// of either (12 warps).  Shared tiles are padded (rows of 68 floats where
+// of either (12 warps); a bfloat16 tile fills half of its region.  Shared
+// float tiles are padded (rows of 68 floats where
 // a fragment reads along a row, 72 where it reads down a column) so that
 // fragment reads are free of bank conflicts, but for dy's reads as M's A
-// operand (two-way).
+// operand (two-way); bfloat16 tiles' rows of 72 halves are free either
+// way.
 //
 // Bound.  At zamba2's heads (H 32, D 128, N 64), B 2 x S 2048, reading
 // the kept scratch the function needs ~11.9 GFLOP of products (the
@@ -114,20 +123,27 @@ __device__ __forceinline__ void scale_rows(float (&acc)[2][4][4],
 
 constexpr size_t kSmemDx = sizeof(float) * (4 * (size_t)FT + 5 * L);
 
-template <typename S, bool ASYNC_BC, bool ASYNC_X>
+// The input tiles are of TS (Smem: bfloat16 on kBf16, else float; a
+// bfloat16 tile fills half of its region); x_async: x, y and dy by cp.async
+// (their rows on 16 bytes, TS the inputs' type).
+template <typename S, bool ASYNC_BC>
 __global__ void __launch_bounds__(NTB, 3)
 ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
            const S* __restrict__ y, const S* __restrict__ dy,
            const float* __restrict__ cb, const float* __restrict__ acum,
            const float* __restrict__ gstates, S* __restrict__ dx,
            float* __restrict__ mout, float* __restrict__ qout, int s_len,
-           int n_heads, int d_len, int n_len, int nc) {
+           int n_heads, int d_len, int n_len, int nc, int x_async) {
+  using TS = Smem<S, ASYNC_BC>;
+  constexpr bool XA = std::is_same<S, TS>::value;  // x may come by cp.async
+  constexpr int LDB = std::is_same<TS, float>::value ? LDS : LDK;
   extern __shared__ __align__(16) float smem[];
   float* gs = smem;              // G [t][u] (LDK), read K-major
-  float* dys = gs + FT;          // dy [t][d] (LDK)
-  float* bxs = dys + FT;         // b [u][n], then x [u][d] (LDS)
-  float* rs = bxs + FT;          // R_c [n][d], then y [u][d] (LDK)
-  float* as = rs + FT;           // [L] Acum
+  TS* dys = reinterpret_cast<TS*>(gs + FT);      // dy [t][d] (LDK)
+  TS* bxs = reinterpret_cast<TS*>(gs + 2 * FT);  // b [u][n], then x [u][d]
+  float* rs = gs + 3 * FT;       // R_c [n][d] (LDK), then y [u][d] (LDK)
+  TS* ys = reinterpret_cast<TS*>(rs);
+  float* as = gs + 4 * FT;       // [L] Acum
   float* ew = as + L;            // [L] E = exp(A_tot - Acum)
   float* qp = ew + L;            // [2][L] the da terms of each column half
   float* q = qp + 2 * L;         // [L] dy . y - x . dx, summed over D
@@ -141,9 +157,11 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
   const size_t xoff = ((size_t)b * s_len + t0) * xrow + (size_t)h * d_len;
   const S* bb = bm + ((size_t)b * s_len + t0) * n_len;
   const float* rc = gstates + base * n_len * d_len;
+  const bool s_async = d_len % 4 == 0;  // R_c's rows on 16 bytes
 
-  load_tile<float, true, L, L>(gs, LDK, cb + ((size_t)b * nc + ci) * L * L,
-                               L, L, L);
+  load_tile<float, float, true, L, L>(gs, LDK,
+                                      cb + ((size_t)b * nc + ci) * L * L, L,
+                                      L, L);
   hopper::cp_async_commit();
   if (tid < L) {
     as[tid] = acum[base * L + tid];
@@ -163,28 +181,28 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
     float acc[2][4][4] = {};
     for (int n0 = 0; n0 < n_len; n0 += TILE) {
       __syncthreads();  // the last tiles are consumed
-      load_tile<S, ASYNC_BC, L, TILE>(bxs, LDS, bb + n0, n_len, len,
-                                      n_len - n0);
-      load_tile<float, ASYNC_X, TILE, TILE>(
-          rs, LDK, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0,
+      load_tile<S, TS, ASYNC_BC, L, TILE>(bxs, LDB, bb + n0, n_len, len,
+                                          n_len - n0);
+      load_tile_if<float, float, true, TILE, TILE>(
+          s_async, rs, LDK, rc + (size_t)n0 * d_len + d0, d_len, n_len - n0,
           d_len - d0);
       hopper::cp_async_commit();
       if (n0 == 0) {  // dy goes on loading while B R_c runs
-        load_tile<S, ASYNC_X, L, TILE>(dys, LDK, dy + xoff + d0, xrow, len,
-                                       d_len - d0);
+        load_tile_if<S, TS, XA, L, TILE>(x_async, dys, LDK, dy + xoff + d0,
+                                         xrow, len, d_len - d0);
         hopper::cp_async_commit();
         hopper::cp_async_wait<1>();
       } else {
         hopper::cp_async_wait<0>();
       }
       __syncthreads();
-      mma_3xtf32(acc, bxs, LDS, 1, rs, LDK, 1, r0, c0);  // (u, d) += B R_c
+      mma_3xtf32(acc, bxs, LDB, 1, rs, LDK, 1, r0, c0);  // (u, d) += B R_c
     }
     __syncthreads();  // b and R_c are consumed: x and y load in their place
-    load_tile<S, ASYNC_X, L, TILE>(bxs, LDS, x + xoff + d0, xrow, len,
-                                   d_len - d0);
-    load_tile<S, ASYNC_X, L, TILE>(rs, LDK, y + xoff + d0, xrow, len,
-                                   d_len - d0);
+    load_tile_if<S, TS, XA, L, TILE>(x_async, bxs, LDB, x + xoff + d0, xrow,
+                                     len, d_len - d0);
+    load_tile_if<S, TS, XA, L, TILE>(x_async, ys, LDK, y + xoff + d0, xrow,
+                                     len, d_len - d0);
     hopper::cp_async_commit();
     scale_rows(acc, ew, r0);                           // E_u (B R_c)
     hopper::cp_async_wait<1>();                        // dy
@@ -192,7 +210,7 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
     mma_3xtf32(acc, gs, 1, LDK, dys, LDK, 1, r0, c0);  // + G^T dy
     hopper::cp_async_wait<0>();                        // x and y
     __syncthreads();
-    mma_3xtf32(m, dys, LDK, 1, bxs, 1, LDS, r0, c0);   // M(t, u) += dy x^T
+    mma_3xtf32(m, dys, LDK, 1, bxs, 1, LDB, r0, c0);   // M(t, u) += dy x^T
 
     // dx, and each row's dy . y - x . dx over this tile's columns: a
     // thread's 8 columns in order, its 4 lanes by shuffles, then the two
@@ -209,16 +227,14 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
           if (u >= len || d0 + d >= d_len) continue;
           const size_t at = xoff + (size_t)u * xrow + d0 + d;
           const float* v = &acc[mi][ni][2 * hf];
-          if constexpr (ASYNC_X)  // float, D a multiple of 4: both in
-            *reinterpret_cast<float2*>(&dx[at]) = make_float2(v[0], v[1]);
+          if (x_async)  // rows on 16 bytes: both columns in
+            store2(&dx[at], v[0], v[1]);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            if (!ASYNC_X) {
-              if (d0 + d + e >= d_len) break;
-              store(&dx[at + e], v[e]);
-            }
-            part += dys[u * LDK + d + e] * rs[u * LDK + d + e] -
-                    bxs[u * LDS + d + e] * v[e];
+            if (d0 + d + e >= d_len) break;
+            if (!x_async) store(&dx[at + e], v[e]);
+            part += to_f32(dys[u * LDK + d + e]) * to_f32(ys[u * LDK + d + e]) -
+                    to_f32(bxs[u * LDB + d + e]) * v[e];
           }
         }
         part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -250,19 +266,26 @@ ssd_bwd_dx(const S* __restrict__ x, const S* __restrict__ bm,
 
 constexpr size_t kSmemDbDc = sizeof(float) * (4 * (size_t)FT + 2 * L);
 
-template <typename S, bool ASYNC_BC, bool ASYNC_X>
+// Input tiles of TS and x_async as pass 4's.
+template <typename S, bool ASYNC_BC>
 __global__ void __launch_bounds__(NTB, 3)
 ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
              const S* __restrict__ cm, const S* __restrict__ dy,
              const float* __restrict__ acum, const float* __restrict__ hstates,
              const float* __restrict__ gstates, const float* __restrict__ mm,
              float* __restrict__ dbp, float* __restrict__ dcp, int s_len,
-             int n_heads, int d_len, int n_len, int nc) {
+             int n_heads, int d_len, int n_len, int nc, int x_async) {
+  using TS = Smem<S, ASYNC_BC>;
+  constexpr bool XA = std::is_same<S, TS>::value;  // x may come by cp.async
+  constexpr int LDA = std::is_same<TS, float>::value ? LDS : LDK;
   extern __shared__ __align__(16) float smem[];
-  float* t0s = smem;             // dy [t][d] (LDS), then M [t][u] (LDS)
+  float* t0s = smem;             // dy [t][d] (LDA), then M [t][u] (LDS)
   float* t1s = t0s + FT;         // h_c [n][d] (LDS), then M [t][u] (LDK)
-  float* t2s = t1s + FT;         // x [u][d] (LDS), then b [u][n] (LDK)
+  float* t2s = t1s + FT;         // x [u][d] (LDA), then b [u][n] (LDK)
   float* t3s = t2s + FT;         // R_c [n][d] (LDS), then c [t][n] (LDK)
+  TS* dys = reinterpret_cast<TS*>(t0s);
+  TS* xbs = reinterpret_cast<TS*>(t2s);
+  TS* cs = reinterpret_cast<TS*>(t3s);
   float* et = t3s + FT;          // [L] exp(Acum)
   float* ew = et + L;            // [L] E = exp(A_tot - Acum)
   const int n0 = blockIdx.x * TILE, h = blockIdx.y;
@@ -277,6 +300,7 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
   const size_t brow = ((size_t)b * s_len + t0) * n_len + n0;
   const size_t soff = base * n_len * d_len + (size_t)n0 * d_len;
   const int nn = n_len - n0;
+  const bool s_async = d_len % 4 == 0;  // h_c's and R_c's rows on 16 bytes
   if (tid < L) {
     et[tid] = expf(acum[base * L + tid]);
     ew[tid] = expf(acum[base * L + L - 1] - acum[base * L + tid]);
@@ -285,39 +309,39 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
   for (int d0 = 0; d0 < d_len; d0 += TILE) {
     const int dcols = d_len - d0;
     __syncthreads();  // the last tiles are consumed
-    load_tile<S, ASYNC_X, L, TILE>(t0s, LDS, dy + xoff + d0, xrow, len,
-                                   dcols);
-    load_tile<float, ASYNC_X, TILE, TILE>(t1s, LDS, hstates + soff + d0,
-                                          d_len, nn, dcols);
+    load_tile_if<S, TS, XA, L, TILE>(x_async, dys, LDA, dy + xoff + d0, xrow,
+                                     len, dcols);
+    load_tile_if<float, float, true, TILE, TILE>(
+        s_async, t1s, LDS, hstates + soff + d0, d_len, nn, dcols);
     hopper::cp_async_commit();
-    load_tile<S, ASYNC_X, L, TILE>(t2s, LDS, x + xoff + d0, xrow, len,
-                                   dcols);
-    load_tile<float, ASYNC_X, TILE, TILE>(t3s, LDS, gstates + soff + d0,
-                                          d_len, nn, dcols);
+    load_tile_if<S, TS, XA, L, TILE>(x_async, xbs, LDA, x + xoff + d0, xrow,
+                                     len, dcols);
+    load_tile_if<float, float, true, TILE, TILE>(
+        s_async, t3s, LDS, gstates + soff + d0, d_len, nn, dcols);
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();  // dy and h_c; x and R_c go on loading
     __syncthreads();
-    mma_3xtf32(dc, t0s, LDS, 1, t1s, 1, LDS, r0, c0);  // (t, n) += dy h_c^T
+    mma_3xtf32(dc, dys, LDA, 1, t1s, 1, LDS, r0, c0);  // (t, n) += dy h_c^T
     hopper::cp_async_wait<0>();
     __syncthreads();
-    mma_3xtf32(db, t2s, LDS, 1, t3s, 1, LDS, r0, c0);  // (u, n) += x R_c^T
+    mma_3xtf32(db, xbs, LDA, 1, t3s, 1, LDS, r0, c0);  // (u, n) += x R_c^T
   }
   __syncthreads();  // the D-tiles are consumed
   const float* mb = mm + base * L * L;
-  load_tile<float, true, L, L>(t0s, LDS, mb, L, L, L);
-  load_tile<S, ASYNC_BC, L, TILE>(t2s, LDK, bm + brow, n_len, len, nn);
+  load_tile<float, float, true, L, L>(t0s, LDS, mb, L, L, L);
+  load_tile<S, TS, ASYNC_BC, L, TILE>(xbs, LDK, bm + brow, n_len, len, nn);
   hopper::cp_async_commit();
-  load_tile<float, true, L, L>(t1s, LDK, mb, L, L, L);
-  load_tile<S, ASYNC_BC, L, TILE>(t3s, LDK, cm + brow, n_len, len, nn);
+  load_tile<float, float, true, L, L>(t1s, LDK, mb, L, L, L);
+  load_tile<S, TS, ASYNC_BC, L, TILE>(cs, LDK, cm + brow, n_len, len, nn);
   hopper::cp_async_commit();
   scale_rows(dc, et, r0);  // exp(Acum_t) (dy h_c^T)
   scale_rows(db, ew, r0);  // E_u (x R_c^T)
   hopper::cp_async_wait<1>();  // M and b
   __syncthreads();
-  mma_3xtf32(dc, t0s, LDS, 1, t2s, LDK, 1, r0, c0);  // + M B
+  mma_3xtf32(dc, t0s, LDS, 1, xbs, LDK, 1, r0, c0);  // + M B
   hopper::cp_async_wait<0>();  // M again and c
   __syncthreads();
-  mma_3xtf32(db, t1s, 1, LDK, t3s, LDK, 1, r0, c0);  // + M^T C
+  mma_3xtf32(db, t1s, 1, LDK, cs, LDK, 1, r0, c0);   // + M^T C
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -332,10 +356,8 @@ ssd_bwd_dbdc(const S* __restrict__ x, const S* __restrict__ bm,
         const float* vb = &db[mi][ni][2 * hf];
         if (ASYNC_BC) {  // N a multiple of 4: both columns in or out
           if (n < n_len) {
-            *reinterpret_cast<float2*>(&dcp[row + n]) = make_float2(vc[0],
-                                                                     vc[1]);
-            *reinterpret_cast<float2*>(&dbp[row + n]) = make_float2(vb[0],
-                                                                     vb[1]);
+            store2(&dcp[row + n], vc[0], vc[1]);
+            store2(&dbp[row + n], vb[0], vb[1]);
           }
         } else {
 #pragma unroll
@@ -397,13 +419,15 @@ ssd_bwd_da(const float* __restrict__ q, S* __restrict__ da, int bsz, int s_len,
 
 // -- launch -------------------------------------------------------------------
 
-// ASYNC_BC: b and c tiles by cp.async; ASYNC_X: also x, y, dy and the
-// state tiles (load_route's 1 and 2, with y and dy aligned as x).
+// ASYNC_BC: b and c tiles by cp.async; ASYNC_X: the dual's local states
+// take dy's tiles by cp.async too (kF32Bc (true, false), kF32 and kBf16
+// (true, true), kPlain (false, false)); x_async: passes 4 and 5 take x's,
+// y's and dy's tiles so (kF32, and kBf16 with those rows on 16 bytes).
 template <typename S, bool ASYNC_BC, bool ASYNC_X>
 int launch(const S* x, const S* b, const S* c, const S* y, const S* dy,
            S* dx, S* da, S* db, S* dc, const float* fwd, float* scratch,
            int bsz, int s_len, int n_heads, int d_len, int n_len,
-           cudaStream_t stream) {
+           bool x_async, cudaStream_t stream) {
   const int nc = (s_len + L - 1) / L;
   const size_t chunks = (size_t)bsz * nc;
   const size_t elems = (size_t)n_len * d_len;
@@ -419,8 +443,8 @@ int launch(const S* x, const S* b, const S* c, const S* y, const S* dy,
   float* dcp = dbp + (size_t)bsz * s_len * n_heads * n_len;  // [B, S, H, N]
   const int n_tiles = (n_len + TILE - 1) / TILE;
   cudaError_t err;
-  if ((err = allow_smem(ssd_bwd_dx<S, ASYNC_BC, ASYNC_X>, kSmemDx)) ||
-      (err = allow_smem(ssd_bwd_dbdc<S, ASYNC_BC, ASYNC_X>, kSmemDbDc)))
+  if ((err = allow_smem(ssd_bwd_dx<S, ASYNC_BC>, kSmemDx)) ||
+      (err = allow_smem(ssd_bwd_dbdc<S, ASYNC_BC>, kSmemDbDc)))
     return (int)err;
 
   const int dt = state_tile(d_len, n_heads, bsz, nc);
@@ -429,15 +453,15 @@ int launch(const S* x, const S* b, const S* c, const S* y, const S* dy,
                                             stream)) ||
       (err = pass_states<true>(acum, gs, bsz, n_heads, elems, nc, stream)))
     return (int)err;
-  ssd_bwd_dx<S, ASYNC_BC, ASYNC_X>
+  ssd_bwd_dx<S, ASYNC_BC>
       <<<dim3(n_heads, (unsigned)chunks), NTB, kSmemDx, stream>>>(
           x, b, y, dy, cb, acum, gs, dx, mm, q, s_len, n_heads, d_len, n_len,
-          nc);
+          nc, x_async ? 1 : 0);
   if ((err = cudaGetLastError())) return (int)err;
-  ssd_bwd_dbdc<S, ASYNC_BC, ASYNC_X>
+  ssd_bwd_dbdc<S, ASYNC_BC>
       <<<dim3(n_tiles, n_heads, (unsigned)chunks), NTB, kSmemDbDc, stream>>>(
           x, b, c, dy, acum, hs, gs, mm, dbp, dcp, s_len, n_heads, d_len,
-          n_len, nc);
+          n_len, nc, x_async ? 1 : 0);
   if ((err = cudaGetLastError())) return (int)err;
   const size_t rows = (size_t)bsz * s_len;
   ssd_bwd_heads<S><<<(unsigned)((rows * n_len + NTH - 1) / NTH), NTH, 0,
@@ -468,49 +492,52 @@ long long scratch_need(int bsz, int s_len, int n_heads, int d_len,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for all of x, b, c, y, dy and the
-// gradients dx, da, db, dc (contiguous, the shapes of x, a, b, c).  fwd:
-// n_fwd floats, at least fwd_need(...) (the wrapper's scratch_floats),
-// 16-byte aligned: the forward kernel's scratch on these inputs, read
-// only.  scratch: n_scratch floats, at least scratch_need(...) (the
-// wrapper's bwd_scratch_floats), 16-byte aligned; its contents on entry
-// are never read.  Returns cudaGetLastError() after the last launch (0 on
-// success).  Without a launch: -2 when H or B * ceil(S / 64) exceed a
-// grid dimension (65535), and cudaErrorInvalidValue for an unsupported
-// dtype or too small a buffer.
+// gradients dx, da, db, dc (contiguous, the shapes of x, a, b, c).  route:
+// the load route (Route in csrc/ssd_chunk.cuh; kernels/ssd_scan.py's
+// ssd_route, with y, dy and dx beside x).  fwd: n_fwd floats, at least
+// fwd_need(...) (the wrapper's scratch_floats), 16-byte aligned: the
+// forward kernel's scratch on these inputs, read only.  scratch: n_scratch
+// floats, at least scratch_need(...) (the wrapper's bwd_scratch_floats),
+// 16-byte aligned; its contents on entry are never read.  Returns
+// cudaGetLastError() after the last launch (0 on success).  Without a
+// launch: -2 when H or B * ceil(S / 64) exceed a grid dimension (65535),
+// and cudaErrorInvalidValue for an unsupported dtype, a route other than
+// best_route's or too small a buffer.
 extern "C" int repro_ssd_scan_bwd(const void* x, const void* b, const void* c,
                                   const void* y, const void* dy, void* dx,
                                   void* da, void* db, void* dc,
                                   const void* fwd, long long n_fwd,
                                   void* scratch, long long n_scratch,
-                                  int dtype, int bsz, int s_len, int n_heads,
-                                  int d_len, int n_len, void* stream) {
+                                  int route, int dtype, int bsz, int s_len,
+                                  int n_heads, int d_len, int n_len,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long nc = (s_len + L - 1) / L;
   if (n_heads > 65535 || (long long)bsz * nc > 65535) return kGridTooLarge;
   if (n_fwd < fwd_need(bsz, s_len, n_heads, d_len, n_len) ||
       !aligned16(fwd) ||
       n_scratch < scratch_need(bsz, s_len, n_heads, d_len, n_len) ||
-      !aligned16(scratch))
+      !aligned16(scratch) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const void* rows[] = {x, y, dy, dx};
+  const bool xa = rows_aligned(dtype, rows, 4, d_len);
+  if (route != best_route(dtype, xa, b, c, d_len, n_len))
     return (int)cudaErrorInvalidValue;
   const float* fw = static_cast<const float*>(fwd);
   float* sc = static_cast<float*>(scratch);
-#define REPRO_SSD_BWD(S, BC, X)                                              \
+#define REPRO_SSD_BWD(S, BC, X, XA)                                          \
   launch<S, BC, X>(static_cast<const S*>(x), static_cast<const S*>(b),       \
                    static_cast<const S*>(c), static_cast<const S*>(y),       \
                    static_cast<const S*>(dy), static_cast<S*>(dx),           \
                    static_cast<S*>(da), static_cast<S*>(db),                 \
                    static_cast<S*>(dc), fw, sc, bsz, s_len, n_heads, d_len,  \
-                   n_len, st)
+                   n_len, XA, st)
   if (dtype == 0) {
-    int route = load_route(static_cast<const float*>(x),
-                           static_cast<const float*>(b),
-                           static_cast<const float*>(c), d_len, n_len);
-    if (route == 2 && !(aligned16(dy) && aligned16(y))) route = 1;
-    if (route == 2) return REPRO_SSD_BWD(float, true, true);
-    if (route == 1) return REPRO_SSD_BWD(float, true, false);
-    return REPRO_SSD_BWD(float, false, false);
+    if (route == kF32) return REPRO_SSD_BWD(float, true, true, true);
+    if (route == kF32Bc) return REPRO_SSD_BWD(float, true, false, false);
+    return REPRO_SSD_BWD(float, false, false, false);
   }
-  if (dtype == 1) return REPRO_SSD_BWD(__nv_bfloat16, false, false);
+  if (route == kBf16) return REPRO_SSD_BWD(__nv_bfloat16, true, true, xa);
+  return REPRO_SSD_BWD(__nv_bfloat16, false, false, false);
 #undef REPRO_SSD_BWD
-  return (int)cudaErrorInvalidValue;
 }

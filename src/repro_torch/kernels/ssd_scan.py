@@ -24,7 +24,28 @@ output.
 :func:`ssd_scan` launches ``csrc/ssd_scan.cu`` for a CUDA tensor (all four
 inputs float32 or all bfloat16, any S, D and N: every pass tiles N) or
 raises; it takes :func:`ssd_scan_plain` only for a
-tensor on the CPU.  The four passes are one C call and count as one launch.
+tensor on the CPU.  The four passes are one C call and count as one launch,
+in ``launches`` and in ``path_launches`` of its load route.  The route
+(:func:`ssd_route`, a plain function of the dtype, D, N and the pointers'
+alignment, which the C entry points check again) is how the input tiles
+reach shared memory; a row is "on 16 bytes" where its length is a whole
+number of 16 bytes (4 floats, 8 halves) and its pointer is aligned:
+
+- ``"bf16_async"``: bfloat16 with b's and c's rows on 16 bytes, and x's
+  (with y's, and dy's and dx's in the backward) too or D below
+  :data:`NARROW_D`: bfloat16 shared tiles by 16-byte ``cp.async``,
+  widened at the fragment read, each product on as many TF32 ``mma.sync``
+  as its float32 operands need (1 for two bfloat16 operands, 2 for one);
+- ``"f32_async"``: float32 with x's, b's and c's rows on 16 bytes: every
+  tile by ``cp.async``;
+- ``"f32_async_bc"``: float32 with b's and c's rows only;
+- ``"plain"``: any other input: loads converted to float32 tiles.
+
+The float32 scratch (C . B^T, Acum, the chunk states, M) arrives by
+``cp.async`` on every route where its rows sit on 16 bytes (D a multiple
+of 4).  Every route computes the same function in float32 with the same
+tiles and sums; a failed build or launch raises, and no route gives way
+to another.
 The wrapper makes the inputs contiguous, transposes nothing (the TPU
 wrapper moved H before S), and allocates the passes' float32 scratch with
 ``torch.empty``: C . B^T ``[B, nc, L, L]``, Acum ``[B, nc, H, L]`` and the
@@ -47,7 +68,9 @@ forward kernel's own bits, or on the CPU the plain version's, laid out
 alike; :func:`ssd_scan_keep`).  Its backward launches
 ``csrc/ssd_scan_bwd.cu`` for CUDA tensors (float32 or bfloat16, any S, D
 and N; one C call, one count in ``bwd_launches``), which reads that
-scratch and launches none of the forward's passes, and takes
+scratch and launches none of the forward's passes (one count in
+``bwd_launches`` and in ``bwd_path_launches`` of its route, which reads
+y, dy and dx's rows beside x's), and takes
 :func:`ssd_scan_bwd_plain` for CPU ones.  :func:`ssd_scan_bwd` called
 without ``saved`` runs the forward first to get it.
 With g_u the dual state (the loss's gradient at h_u),
@@ -91,9 +114,39 @@ CHUNK = 64     # tokens per chunk (L in csrc/ssd_scan.cu)
 NARROW_D = 16
 _DEVICES = ("cpu", "cuda", "meta")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the load routes and their codes (Route in csrc/ssd_chunk.cuh)
+ROUTES = ("bf16_async", "f32_async", "f32_async_bc", "plain")
+_ROUTE_CODE = {"plain": 0, "f32_async_bc": 1, "f32_async": 2,
+               "bf16_async": 3}
 
 launches = LaunchCounter()
+path_launches = {route: LaunchCounter() for route in ROUTES}
 bwd_launches = LaunchCounter()
+bwd_path_launches = {route: LaunchCounter() for route in ROUTES}
+
+
+def ssd_route(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              *rows: torch.Tensor) -> str:
+    """The load route of these contiguous inputs: one of :data:`ROUTES`
+    (the module doc says which inputs go where).  ``rows``: the other
+    tensors with x's rows (y; dy and dx in the backward)."""
+    return route_of(x.dtype, x.shape[3], b.shape[2], b.data_ptr(),
+                    c.data_ptr(), [t.data_ptr() for t in (x, *rows)])
+
+
+def route_of(dtype: torch.dtype, d: int, n: int, b_ptr: int, c_ptr: int,
+             row_ptrs) -> str:
+    """:func:`ssd_route` from the dtype, D, N, b's and c's addresses and
+    those of the tensors with rows of D elements (``best_route`` in
+    ``csrc/ssd_chunk.cuh``)."""
+    per16 = 16 // dtype.itemsize
+    bc = n % per16 == 0 and b_ptr % 16 == 0 and c_ptr % 16 == 0
+    xa = d % per16 == 0 and all(p % 16 == 0 for p in row_ptrs)
+    if dtype == torch.bfloat16:
+        return "bf16_async" if bc and (xa or d < NARROW_D) else "plain"
+    if bc and xa:
+        return "f32_async"
+    return "f32_async_bc" if bc else "plain"
 
 
 def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -225,7 +278,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i,
-                       i, p]
+                       i, i, p]
     return lib
 
 
@@ -265,6 +318,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _kernel_check(x, n)
     x, a, b, c = (t.contiguous() for t in (x, a, b, c))
     y = torch.empty_like(x)
+    route = ssd_route(x, b, c, y)
     n_scratch = scratch_floats(bsz, s, h, d, n)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     lib = _lib()
@@ -272,11 +326,13 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), scratch.data_ptr(), n_scratch,
+            y.data_ptr(), scratch.data_ptr(), n_scratch, _ROUTE_CODE[route],
             _DTYPE_CODE[x.dtype], bsz, s, h, d, n, stream)
     if err:
-        raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"SSD scan kernel launch failed on route "
+                           f"{route}: CUDA error {err}")
     launches.add()
+    path_launches[route].add()
     return (y, scratch) if keep else y
 
 
@@ -288,7 +344,7 @@ def _bwd_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
         fn.argtypes = ([p] * 10 + [ctypes.c_longlong, p, ctypes.c_longlong]
-                       + [i] * 6 + [p])
+                       + [i] * 7 + [p])
     return lib
 
 
@@ -324,6 +380,7 @@ def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     n = b.shape[2]
     _kernel_check(x, n)
     grads = tuple(torch.empty_like(t) for t in (x, a, b, c))
+    route = ssd_route(x, b, c, y, dy, grads[0])
     n_scratch = bwd_scratch_floats(bsz, s, h, d, n)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     lib = _bwd_lib()
@@ -331,12 +388,14 @@ def _launch_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan_bwd(
             *(t.data_ptr() for t in (x, b, c, y, dy, *grads)),
-            saved.data_ptr(), saved.numel(), scratch.data_ptr(), n_scratch, _DTYPE_CODE[x.dtype], bsz, s, h,
-            d, n, stream)
+            saved.data_ptr(), saved.numel(), scratch.data_ptr(), n_scratch,
+            _ROUTE_CODE[route], _DTYPE_CODE[x.dtype], bsz, s, h, d, n,
+            stream)
     if err:
-        raise RuntimeError(f"SSD scan backward kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"SSD scan backward kernel launch failed on "
+                           f"route {route}: CUDA error {err}")
     bwd_launches.add()
+    bwd_path_launches[route].add()
     return grads
 
 

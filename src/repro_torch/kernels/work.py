@@ -19,6 +19,9 @@ H100_HBM_BYTES = 80e9
 H100_PEAK_FLOPS = {"float32": 67e12,     # float32 outside the tensor cores
                    "bfloat16": 989e12,   # tensor cores
                    "3xtf32": 495e12 / 3,  # TF32 tensor cores, 3 products each
+                   # ... 2 each: a bfloat16 operand (exact in TF32, no low
+                   # part) against a float32 one
+                   "2xtf32": 495e12 / 2,
                    # the special function units (exp2, reciprocal, ...): 16
                    # a clock an SM (CUDA guide, compute capability 9.0), at
                    # the 1.98 GHz at which 132 SMs give float32's 67e12
@@ -65,24 +68,47 @@ def attention_bwd_work(b, hq, hkv, s, t, d, dtype, causal=True):
     return 5 * flops // 2, nbytes
 
 
+def _tensor_kinds(dtype):
+    """The kinds at which the SSD kernels' tensor-core products are priced
+    on inputs of ``dtype``: (two float32 operands or, in bfloat16, two
+    inputs; one input against a float32 value).  float32's accuracy on
+    float32 operands is 3xTF32's; a bfloat16 input is exact in TF32, so a
+    product of one against a float32 value needs 2 TF32 products, and one
+    of two inputs is a bfloat16 product with a float32 accumulator."""
+    return ("3xtf32", "3xtf32") if dtype.itemsize == 4 else (
+        "bfloat16", "2xtf32")
+
+
+def _add(flops: dict, kind: str, n: int) -> None:
+    if n:
+        flops[kind] = flops.get(kind, 0) + n
+
+
 def ssd_work(b, s, h, d, n, dtype, narrow_d):
     """(flops by kind, bytes) the SSD scan needs at the kernel's chunk
     length L.  Per chunk of l tokens, over the l (l + 1) / 2 live (t, u)
     pairs of the causal triangle: C . B^T once per batch (b and c are
-    shared by the heads) and the decay of each pair per (batch, head),
-    float32 FMAs; per (batch, head) G @ x, and C . h^T and the state
-    update over l x D x N each, in 3xTF32 on the tensor cores where the
-    kernel puts them there (D >= ``narrow_d``), else FMAs.  x, a, b, c
-    read once, y written once."""
+    shared by the heads), on the tensor cores, and the decay of each pair
+    per (batch, head), float32 FMAs; per (batch, head) G @ x, and C . h^T
+    and the state update over l x D x N each, on the tensor cores where
+    the kernel puts them there (D >= ``narrow_d``), else FMAs.  Each
+    tensor-core product at its kind (``_tensor_kinds``: in float32
+    3xTF32; in bfloat16 C . B^T, two inputs, a bfloat16 product, and the
+    rest, an input against a float32 value, 2xTF32).  x, a, b, c read
+    once, y written once."""
     from .ssd_scan import CHUNK
-    fma = mma = 0
+    both, one = _tensor_kinds(dtype)
+    cb = decay = mma = 0
     for t0 in range(0, s, CHUNK):
         ln = min(CHUNK, s - t0)
         pairs = ln * (ln + 1) // 2
-        fma += b * 2 * pairs * n + b * h * pairs
+        cb += b * 2 * pairs * n
+        decay += b * h * pairs
         mma += b * h * (2 * pairs * d + 4 * ln * d * n)
-    flops = ({"float32": fma, "3xtf32": mma} if d >= narrow_d
-             else {"float32": fma + mma})
+    flops: dict = {}
+    _add(flops, "float32", decay + (0 if d >= narrow_d else mma))
+    _add(flops, both, cb)
+    _add(flops, one, mma if d >= narrow_d else 0)
     nbytes = (2 * b * s * h * d + b * s * h + 2 * b * s * n) * dtype.itemsize
     return flops, nbytes
 
@@ -91,27 +117,35 @@ def ssd_bwd_work(b, s, h, d, n, dtype, kept: bool):
     """(flops by kind, bytes) the SSD scan's backward needs at the chunk
     length L, with C . B^T, Acum and h_c ``kept`` from the forward's
     scratch, or else computed again.  Per chunk of l tokens, over its l (l
-    + 1) / 2 live (t, u) pairs: the decay of each pair per (batch, head)
-    and, computed again, C . B^T per batch, FMAs; per (batch, head) the
+    + 1) / 2 live (t, u) pairs: the decay of each pair per (batch, head),
+    FMAs, and, computed again, C . B^T per batch; per (batch, head) the
     four pair products G^T dy, M = dy x^T, M B and M^T C, and the l x D x
     N products: the dual's local states and the carries B R, dy h^T and x
-    R^T, and computed again the forward's local states, priced at
-    3xTF32's rate: the least time at float32's accuracy (``fma_bound_ms``
-    prices them at the FMA peak).  x, a, b, c, y and dy read once, and the
-    kept scratch (float32); dx, da, db and dc written once."""
+    R^T, and computed again the forward's local states.  The products at
+    the least time at float32's accuracy (``_tensor_kinds``: 3xTF32 in
+    float32; in bfloat16 C . B^T and M = dy x^T, two inputs, a bfloat16
+    product, the rest, an input against a float32 value, 2xTF32;
+    ``fma_bound_ms`` prices them all at the FMA peak).  x, a, b, c, y and
+    dy read once, and the kept scratch (float32); dx, da, db and dc
+    written once."""
     from .ssd_scan import CHUNK, scratch_floats
-    fma = mma = 0
+    both, one = _tensor_kinds(dtype)
+    decay = two = mixed = 0
     for t0 in range(0, s, CHUNK):
         ln = min(CHUNK, s - t0)
         pairs = ln * (ln + 1) // 2
-        fma += b * h * pairs + (0 if kept else b * 2 * pairs * n)
-        mma += b * h * (4 * pairs * d + 4 * pairs * n
-                        + (8 if kept else 10) * ln * d * n)
+        decay += b * h * pairs
+        two += b * h * 2 * pairs * d + (0 if kept else b * 2 * pairs * n)
+        mixed += b * h * (2 * pairs * d + 4 * pairs * n
+                          + (8 if kept else 10) * ln * d * n)
+    flops: dict = {"float32": decay}
+    _add(flops, both, two)
+    _add(flops, one, mixed)
     nbytes = (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n) * (
         dtype.itemsize)
     if kept:
         nbytes += 4 * scratch_floats(b, s, h, d, n)
-    return {"float32": fma, "3xtf32": mma}, nbytes
+    return flops, nbytes
 
 
 def slstm_work(b, s, d, dtype, keep: bool):

@@ -198,9 +198,7 @@ def _ssd_inputs(card, b, s, h, d, n, dtype, strong=False):
                                   rn(b, s, n) * n ** -0.25)]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-3),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,s,h,d,n,strong", [
+SSD_FWD_CASES = [      # (b, s, h, d, n, strong)
     (1, 256, 32, 128, 64, False),     # zamba2's heads
     (1, 300, 32, 128, 64, False),     # ragged S
     (4, 200, 1, 384, 384, True),      # mLSTM values, strong decay
@@ -213,7 +211,12 @@ def _ssd_inputs(card, b, s, h, d, n, dtype, strong=False):
     (2, 300, 3, 18, 98, False),       # D, N off 16 bytes: plain loads
     (1, 40, 2, 1, 100, True),         # S < 64 with D = 1
     (1, 130, 2, 16, 4096, False),     # N wider than shared memory's tiles
-])
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,d,n,strong", SSD_FWD_CASES)
 def test_ssd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n, strong):
     x, a, bm, cm = _ssd_inputs(card, b, s, h, d, n, dtype, strong)
     before = ssd_scan.launches.count
@@ -226,6 +229,114 @@ def test_ssd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n, strong):
     if dtype == torch.float32:    # 3xTF32 is kept only this far inside
         torch.testing.assert_close(got, want, rtol=SSD_F32_KEEP,
                                    atol=SSD_F32_KEEP)
+    else:                         # and bfloat16 this far, as a whole
+        assert _norm_rel(got, want) <= SSD_BF16_KEEP["y"]
+
+
+def _norm_rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def _off16_copy(t):
+    """t's values in a contiguous tensor off a 16-byte boundary (2 bytes
+    past one)."""
+    base = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = base[1:1 + t.numel()].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    return off
+
+
+SSD_ROUTE_CASES = [     # (b, s, h, d, n, which input off 16 bytes, route)
+    (1, 256, 32, 128, 64, None, "bf16_async"),   # zamba2's heads
+    (4, 130, 1, 1, 384, None, "bf16_async"),     # the mLSTM normalizer
+    (4, 130, 1, 1, 384, "x", "bf16_async"),      # ... its x read by loads
+    (2, 100, 3, 8, 32, None, "bf16_async"),      # D = 8: narrow, x's rows
+                                                 # on 16 bytes
+    (2, 37, 4, 32, 16, None, "bf16_async"),      # S shorter than a chunk
+    (3, 150, 2, 48, 100, None, "plain"),         # N % 8 == 4
+    (1, 130, 2, 1, 100, None, "plain"),          # ... with D = 1
+    (2, 300, 2, 20, 64, None, "plain"),          # D % 8 == 4, D >= 16
+    (1, 256, 4, 128, 64, "x", "plain"),          # x off 16 bytes
+    (1, 256, 4, 128, 64, "c", "plain"),          # c off 16 bytes
+]
+
+
+def _ssd_route_inputs(card, b, s, h, d, n, off):
+    """The bfloat16 inputs of a ``SSD_ROUTE_CASES`` case (``off``: the one
+    copied off a 16-byte boundary) and its dy."""
+    ins = _ssd_inputs(card, b, s, h, d, n, torch.bfloat16)
+    if off is not None:
+        i = "xabc".index(off)
+        ins[i] = _off16_copy(ins[i])
+    g = torch.Generator(device=card)
+    g.manual_seed(s + d + n)
+    dy = torch.randn((b, s, h, d), generator=g, device=card).to(
+        torch.bfloat16)
+    return (*ins, dy)
+
+
+@pytest.mark.parametrize("b,s,h,d,n,off,route", SSD_ROUTE_CASES)
+def test_ssd_bf16_takes_its_route(card, b, s, h, d, n, off, route):
+    """A bfloat16 scan on the route ``ssd_route`` names: "bf16_async" where
+    b's and c's rows are on 16 bytes (N a multiple of 8) and x's too or D
+    is below 16, else "plain"; one launch on it forward and backward, each
+    against the plain version at 2e-2 x (1 + |v|) and ``SSD_BF16_KEEP``."""
+    x, a, bm, cm, dy = _ssd_route_inputs(card, b, s, h, d, n, off)
+    assert ssd_scan.ssd_route(x, bm, cm) == route
+    counts = lambda: ({k: c.count for k, c in ssd_scan.path_launches.items()},
+                      {k: c.count
+                       for k, c in ssd_scan.bwd_path_launches.items()})
+    fwd0, bwd0 = counts()
+    y, saved = ssd_scan.ssd_scan_keep(x, a, bm, cm)
+    got = ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy, saved=saved)
+    torch.cuda.synchronize()
+    fwd1, bwd1 = counts()
+    assert {k: fwd1[k] - fwd0[k] for k in fwd0 if fwd1[k] != fwd0[k]} == {
+        route: 1}
+    assert {k: bwd1[k] - bwd0[k] for k in bwd0 if bwd1[k] != bwd0[k]} == {
+        route: 1}
+    want_y = ssd_scan.ssd_scan_plain(x, a, bm, cm)
+    want = ssd_scan.ssd_scan_bwd_plain(x, a, bm, cm, y, dy)
+    for name, u, v in (("y", y, want_y), *zip(("dx", "da", "db", "dc"), got,
+                                              want)):
+        assert u.dtype == torch.bfloat16 and torch.isfinite(u).all()
+        err = (u.float() - v.float()).abs()
+        assert bool((err <= 2e-2 * (1 + v.float().abs())).all()), name
+        assert _norm_rel(u, v) <= SSD_BF16_KEEP[name], name
+
+
+@pytest.mark.parametrize("b,s,h,d,n", [
+    (2, 300, 4, 128, 64),     # zamba2's heads, ragged
+    (2, 200, 1, 384, 384),    # the mLSTM values
+    (2, 130, 3, 48, 96),      # D and N the tiles do not divide
+])
+def test_ssd_bf16_route_computes_what_the_plain_route_does(card, b, s, h, d,
+                                                          n):
+    """"bf16_async" drops only products with an exactly zero low part and
+    keeps every sum's order, so on x off 16 bytes (the "plain" route, the
+    same values in float tiles) the forward's scratch (C . B^T, Acum, the
+    chunk states) and y are bit for bit the same, and so is the backward
+    on the same kept scratch."""
+    x, a, bm, cm = _ssd_inputs(card, b, s, h, d, n, torch.bfloat16, True)
+    xo = _off16_copy(x)
+    assert ssd_scan.ssd_route(x, bm, cm) == "bf16_async"
+    assert ssd_scan.ssd_route(xo, bm, cm) == "plain"
+    y, saved = ssd_scan.ssd_scan_keep(x, a, bm, cm)
+    yo, saved_o = ssd_scan.ssd_scan_keep(xo, a, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.equal(saved, saved_o)
+    assert torch.equal(y, yo)
+    g = torch.Generator(device=card)
+    g.manual_seed(7)
+    dy = torch.randn(y.shape, generator=g, device=card).to(torch.bfloat16)
+    got = ssd_scan.ssd_scan_bwd(x, a, bm, cm, y, dy, saved=saved)
+    plain = ssd_scan.ssd_scan_bwd(xo, a, bm, cm, y, dy, saved=saved)
+    torch.cuda.synchronize()
+    for name, u, v in zip(("dx", "da", "db", "dc"), got, plain):
+        assert torch.equal(u, v), name
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(card):
@@ -337,12 +448,16 @@ def test_ssd_bwd_kernel_matches_plain(card, dtype, tol, b, s, h, d, n,
         if dtype == torch.float32:
             rel = float((err / (1.0 + w.float().abs())).max())
             assert rel <= SSD_BWD_F32_KEEP[name], (name, rel)
+        else:
+            assert _norm_rel(g, w) <= SSD_BF16_KEEP[name], name
 
 
-def test_ssd_bwd_kernel_repeats_bit_for_bit(card):
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 100),
+                                     (torch.bfloat16, 96)])
+def test_ssd_bwd_kernel_repeats_bit_for_bit(card, dtype, n):
     """No atomics: the sums over heads and chunks have one order, so two
-    runs on one input agree bit for bit."""
-    ins = _ssd_bwd_inputs(card, 2, 300, 4, 48, 100, torch.float32, True)
+    runs on one input agree bit for bit (bfloat16 on "bf16_async")."""
+    ins = _ssd_bwd_inputs(card, 2, 300, 4, 48, n, dtype, True)
     first = ssd_scan.ssd_scan_bwd(*ins)
     second = ssd_scan.ssd_scan_bwd(*ins)
     torch.cuda.synchronize()
@@ -417,6 +532,19 @@ def _slstm_inputs(card, b, s, d, dtype, random_carry, seed=0):
     return gx.to(dtype), r.to(dtype), tuple(t.to(dtype) for t in carry)
 
 
+def _slstm_grad_inputs(card, b, s, d, dtype, random_carry, seed):
+    """``_slstm_inputs`` and a backward's output gradients, dhs [B, S, d]
+    and the last carry's four [B, d], from a generator seeded ``seed +
+    100``: the same inputs in every run, whatever ran before."""
+    gx, r, carry = _slstm_inputs(card, b, s, d, dtype, random_carry, seed)
+    g = torch.Generator(device=card)
+    g.manual_seed(seed + 100)
+    dhs = torch.randn((b, s, d), generator=g, device=card).to(dtype)
+    dlast = tuple(torch.randn((b, d), generator=g, device=card).to(dtype)
+                  for _ in range(4))
+    return gx, r, carry, dhs, dlast
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,d,random_carry", [
@@ -433,13 +561,12 @@ def test_slstm_kernels_match_plain(card, dtype, tol, b, s, d, random_carry):
     (1 + |v|), in float32 also at ``SLSTM_F32_KEEP`` (as ``chip_smoke.py``
     holds it; the plain backward computes in float64); one launch a call
     each (a d off 16 bytes through the wrapper's zero padding)."""
-    gx, r, carry = _slstm_inputs(card, b, s, d, dtype, random_carry, s + d)
+    gx, r, carry, dhs, dlast = _slstm_grad_inputs(card, b, s, d, dtype,
+                                                  random_carry, s + d)
     counts = lambda: (slstm_scan.launches.count,
                       slstm_scan.bwd_launches.count)
     before = counts()
     hs, last, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
-    dhs = torch.randn_like(hs.float()).to(dtype)
-    dlast = tuple(torch.randn_like(t.float()).to(dtype) for t in last)
     grads = slstm_scan.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
     torch.cuda.synchronize()
     assert tuple(a - b_ for a, b_ in zip(counts(), before)) == (1, 1)
@@ -458,6 +585,30 @@ def test_slstm_kernels_match_plain(card, dtype, tol, b, s, d, random_carry):
             assert float(err.max()) <= tol
             if dtype == torch.float32:
                 assert float(err.max()) <= SLSTM_F32_KEEP[part], part
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_kernels_repeat_bit_for_bit(card, dtype):
+    """At xlstm-125m's training shape, the forward keeping the carry and
+    the backward on its hs and kept carry, run 5 times on one input, give
+    hs, the kept carry, the last carry, dgx, dr and the initial carry's
+    gradient bit for bit alike (no atomics, one order for every sum)."""
+    gx, r, carry, dhs, dlast = _slstm_grad_inputs(card, 2, 2048, 768, dtype,
+                                                  False, 11)
+
+    def run():
+        hs, last, kept = slstm_scan.slstm_scan_keep(gx, r, carry)
+        dgx, dr, dcarry = slstm_scan.slstm_scan_bwd(gx, r, carry, hs, kept,
+                                                    dhs, dlast)
+        return (hs, kept, *last, dgx, dr, *dcarry)
+
+    first = run()
+    for _ in range(4):
+        again = run()
+        torch.cuda.synchronize()
+        for name, u, v in zip(("hs", "kept", "h", "c", "n", "m", "dgx", "dr",
+                               "dh0", "dc0", "dn0", "dm0"), again, first):
+            assert torch.equal(u, v), name
 
 
 def test_slstm_kernels_take_an_input_off_16_bytes(card):
@@ -908,6 +1059,8 @@ BF16_REDUCED_TOL = _SMOKE.BF16_REDUCED_TOL
 # the float32 error of the SSD backward, x (1 + |g|), per gradient, under
 # which its 3xTF32 products are kept, grounded there too
 SSD_BWD_F32_KEEP = _SMOKE.SSD_BWD_F32_KEEP
+# the bfloat16 SSD kernels' ||g - plain|| / ||plain|| per output, likewise
+SSD_BF16_KEEP = _SMOKE.SSD_BF16_KEEP
 
 
 def _prefixed(cfg, device, seed=5):

@@ -410,6 +410,8 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
         want = {"flash_attention": fwd, "flash_attention_bwd": 48,
                 "tf32x3": fwd, "wgmma": 0, "bwd_tf32x3": 48, "bwd_wgmma": 0,
                 "bwd_fma": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                "ssd_bf16_async": 0, "ssd_plain": 0,
+                "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
                 "slstm_scan": 0, "slstm_scan_bwd": 0}
         assert cs._step_launches(music, remat) == want
 

@@ -16,6 +16,7 @@ runs them) are held against the chunk-by-chunk walk at 1e-5.  Tolerances
 are the reference's own (``tests/test_kernels.py``): 2e-4 in float32 and
 2e-2 in bfloat16 for attention, 3e-3 for the SSD scan.
 """
+import collections
 import importlib.util
 from pathlib import Path
 
@@ -342,29 +343,71 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("b,s,h,d,n,by", [
-    (1, 1024, 32, 128, 64, "bytes"),        # zamba2's heads
-    (4, 1024, 1, 384, 384, "operations"),   # the mLSTM values
-    (4, 1024, 1, 1, 384, "bytes"),          # the mLSTM normalizer
+@pytest.mark.parametrize("b,s,h,d,n,by,dtype", [
+    pytest.param(1, 1024, 32, 128, 64, "bytes", torch.float32,
+                 id="1-1024-32-128-64-bytes"),         # zamba2's heads
+    pytest.param(4, 1024, 1, 384, 384, "operations", torch.float32,
+                 id="4-1024-1-384-384-operations"),    # the mLSTM values
+    pytest.param(4, 1024, 1, 1, 384, "bytes", torch.float32,
+                 id="4-1024-1-1-384-bytes"),           # the mLSTM normalizer
+    # bfloat16 at the training shapes: half the bytes, and the products
+    # priced by the TF32 products a bfloat16 input needs, so zamba2's heads
+    # turn operations-bound
+    pytest.param(2, 2048, 32, 128, 64, "operations", torch.bfloat16,
+                 id="bfloat16-2-2048-32-128-64-operations"),
+    pytest.param(8, 2048, 1, 384, 384, "operations", torch.bfloat16,
+                 id="bfloat16-8-2048-1-384-384-operations"),
+    pytest.param(8, 2048, 1, 1, 384, "bytes", torch.bfloat16,
+                 id="bfloat16-8-2048-1-1-384-bytes"),
 ])
-def test_ssd_bound_prices_each_product_at_its_unit(b, s, h, d, n, by):
-    """The SSD bound ``chip_smoke.py`` prices (``kernels/work.py``): the
-    products that the kernel runs in
-    3xTF32 (D at or above its narrow threshold, 16) at a third of TF32's
-    peak, the rest at the float32 FMA peak; the kinds add up to the same
-    flops whichever path, and the bound is the longest of bytes and each
-    kind's operations."""
+def test_ssd_bound_prices_each_product_at_its_unit(b, s, h, d, n, by, dtype):
+    """The SSD bound ``chip_smoke.py`` prices (``kernels/work.py``): C . B^T
+    on the tensor cores at every D, the other products there only at D at
+    or above the narrow threshold (16), else with the decays at the
+    float32 FMA peak.  A tensor-core product of two float32 operands at
+    3xTF32 (a third of TF32's peak); in bfloat16 one of two inputs (C .
+    B^T; the backward's M = dy x^T too) at the bfloat16 peak, one of an
+    input against a float32 value at 2xTF32 (half of TF32's: a bfloat16
+    value is exact in TF32).  The bound is the longest of bytes and each
+    kind's operations; in bfloat16 the bytes are the inputs' and output's
+    at 2 bytes an element."""
+    from repro_torch.kernels.ssd_scan import CHUNK, scratch_floats
     assert ssd_scan.NARROW_D == 16     # what the meta path prices by
-    wide, nbytes = work.ssd_work(b, s, h, d, n, torch.float32, 16)
-    fma, nbytes_fma = work.ssd_work(b, s, h, d, n, torch.float32, d + 1)
-    assert set(fma) == {"float32"} and nbytes == nbytes_fma
-    assert sum(wide.values()) == fma["float32"]
-    assert set(wide) == ({"float32", "3xtf32"} if d >= 16 else {"float32"})
+    lens = [min(CHUNK, s - t0) for t0 in range(0, s, CHUNK)]
+    pairs = sum(ln * (ln + 1) // 2 for ln in lens)
+    decay, cb = b * h * pairs, b * 2 * pairs * n
+    rest = b * h * (2 * pairs * d + 4 * s * d * n)
+    both, one = (("3xtf32", "3xtf32") if dtype == torch.float32
+                 else ("bfloat16", "2xtf32"))
+    want = collections.Counter({"float32": decay})
+    want[both] += cb
+    want[one if d >= 16 else "float32"] += rest
+    wide, nbytes = work.ssd_work(b, s, h, d, n, dtype, 16)
+    narrow, nbytes_narrow = work.ssd_work(b, s, h, d, n, dtype, d + 1)
+    assert wide == dict(want) and nbytes == nbytes_narrow
+    assert narrow == {"float32": decay + rest, both: cb}
+    assert nbytes * 4 == work.ssd_work(b, s, h, d, n, torch.float32,
+                                       16)[1] * dtype.itemsize
     ms, bound_by = work.bound(wide, nbytes)
     times = [nbytes / 3.35e12] + [f / work.H100_PEAK_FLOPS[k]
                                   for k, f in wide.items()]
     assert bound_by == by and ms == pytest.approx(max(times) * 1e3)
+    # the backward, with the scratch kept: M = dy x^T of two inputs, G^T dy,
+    # M B, M^T C and the four l x D x N products of an input and a float32
+    # value
+    bwd, bwd_bytes = work.ssd_bwd_work(b, s, h, d, n, dtype, True)
+    two = b * h * 2 * pairs * d
+    mixed = b * h * (2 * pairs * d + 4 * pairs * n + 8 * s * d * n)
+    want = collections.Counter({"float32": decay})
+    want[both] += two
+    want[one] += mixed
+    assert bwd == dict(want)
+    assert bwd_bytes == (4 * b * s * h * d + 2 * b * s * h + 4 * b * s * n
+                         ) * dtype.itemsize + 4 * scratch_floats(b, s, h, d,
+                                                                 n)
     assert work.H100_PEAK_FLOPS["3xtf32"] == pytest.approx(495e12 / 3)
+    assert work.H100_PEAK_FLOPS["2xtf32"] == pytest.approx(495e12 / 2)
+    assert work.H100_PEAK_FLOPS["bfloat16"] == pytest.approx(989e12)
 
 
 @pytest.mark.parametrize("path,unit,peak", [

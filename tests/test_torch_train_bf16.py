@@ -344,8 +344,9 @@ def test_chip_smoke_trains_the_bfloat16_runs_at_full_width():
         assert CS._step_launches(cfg, remat) == {
             "flash_attention": fwd, "flash_attention_bwd": 4, "tf32x3": 0,
             "wgmma": fwd, "bwd_tf32x3": 0, "bwd_wgmma": 4, "bwd_fma": 0,
-            "ssd_scan": 0, "ssd_scan_bwd": 0, "slstm_scan": 0,
-            "slstm_scan_bwd": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0, "ssd_bf16_async": 0,
+            "ssd_plain": 0, "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
+            "slstm_scan": 0, "slstm_scan_bwd": 0}
     granite = dataclasses.replace(tconfigs.get_config("granite-8b"),
                                   n_layers=8)
     assert CS._step_launches(granite)["tf32x3"] == 8

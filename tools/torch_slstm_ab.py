@@ -5,6 +5,7 @@ sets a step's time.
     python tools/torch_slstm_ab.py [--src DIR] [--label NAME] [--iters 20]
                                    [--variants] [--l2] [--check] [--host]
                                    [--sass] [--variant NAME ...]
+                                   [--repeat N] [--seeds 0-15]
 
 Imports ``repro_torch`` from ``DIR`` (default: this tree's ``src``; another
 tree, for example the parent commit unpacked by ``git archive`` into an
@@ -42,10 +43,23 @@ a copy of this tree's backward source with a few lines replaced, written
 to ``_build/ab/`` (the shipped source holds no switches): ``np4`` and
 ``np16`` producer warps for 8, ``tc16`` steps a chunk for 32, and the
 probes ``skip_chain`` and ``skip_producers``, which leave one side of the
-kernel out (wrong gradients, by design) to time the other alone.  It
-times the copy at the training shape beside the shipped build (shipped,
-variant, variant, shipped) and gives the largest difference of its
-outputs from the shipped build's.
+kernel out (wrong gradients, by design) to time the other alone, and
+``chain64``, the chain's carried gradient in float64.  It times the copy
+at the training shape beside the shipped build (shipped, variant,
+variant, shipped) and gives the largest difference of its outputs from
+the shipped build's, and with ``--seeds`` its errors over those seeds.
+
+``--repeat N`` runs the forward keeping the carry and the backward N
+times on one input at the training shape, in both dtypes, and gives for
+each output (hs, the kept carry, the last carry, dgx, dr, the initial
+carry's gradient) whether every run equals the first bit for bit, and
+the largest difference where one does not.  ``--seeds A-B,C`` (ranges
+and single seeds) gives, for each seed, the float32 backward's largest ``|kernel -
+plain| / (1 + |plain|)`` of each gradient at the training shape (the
+inputs of ``chip_smoke.slstm_grad_inputs``: zero carry, dhs and the last
+carry's gradient from a seeded generator), dr's summation part of its
+error (``dr_sum``, as ``--check`` splits it), and the worst over the
+seeds.
 
 Prints one JSON object (label, source, the card's name and power limit,
 the rows) and appends it to ``chiprun_out/slstm_ab.jsonl``.
@@ -87,6 +101,48 @@ PATCHES = {
     "skip_producers": ("bwd", [("    issue(p + NS - 1);",
                                 "    block_sync();\n    continue;\n"
                                 "    issue(p + NS - 1);")]),
+    # the chain's carried gradient in float64 (its coefficients, and the
+    # copy each step hands the producers, float32) in place of float32
+    # with dc, dn and dm summed compensated: what the chain's rounding
+    # still costs dgx and dr
+    "chain64": ("bwd", [
+        ("template <typename T>\n__global__ void __launch_bounds__"
+         "(blk::THREADS, 1) slstm_scan_bwd(",
+         "__device__ __forceinline__ double4 chain64(const slstm::Coef& k, "
+         "double4 g) {\n"
+         "  double4 o;\n"
+         "  o.x = fma((double)k.a.w, g.w, fma((double)k.a.z, g.z, "
+         "fma((double)k.a.y, g.y, fma((double)k.a.x, g.x, "
+         "(double)k.bias.x))));\n"
+         "  o.y = fma((double)k.c.z, g.y, fma((double)k.c.x, g.x, "
+         "(double)k.bias.y));\n"
+         "  o.z = fma((double)k.c.z, g.z, fma((double)k.c.y, g.x, "
+         "(double)k.bias.z));\n"
+         "  o.w = fma((double)k.b.w, g.w, fma((double)k.b.z, g.z, "
+         "fma((double)k.b.y, g.y, fma((double)k.b.x, g.x, "
+         "(double)k.bias.w))));\n"
+         "  return o;\n}\n\n"
+         "template <typename T>\n__global__ void __launch_bounds__"
+         "(blk::THREADS, 1) slstm_scan_bwd("),
+        ("    float4 g = make_float4(0.f, 0.f, 0.f, 0.f);\n"
+         "    float4 lo = g;                                // the "
+         "compensated rest",
+         "    double4 g = make_double4(0., 0., 0., 0.);"),
+        ("      g = make_float4(slstm::to_f32(dh_last[row]),",
+         "      g = make_double4(slstm::to_f32(dh_last[row]),"),
+        ("          gb[j * UNITS] = g;",
+         "          gb[j * UNITS] = make_float4((float)g.x, (float)g.y, "
+         "(float)g.z, (float)g.w);"),
+        ("          g = slstm::chain(co, g, lo);",
+         "          g = chain64(co, g);"),
+        ("      dh0[row] = slstm::from_f32<T>(g.x);",
+         "      dh0[row] = slstm::from_f32<T>((float)g.x);"),
+        ("      dc0[row] = slstm::from_f32<T>(g.y);",
+         "      dc0[row] = slstm::from_f32<T>((float)g.y);"),
+        ("      dn0[row] = slstm::from_f32<T>(g.z);",
+         "      dn0[row] = slstm::from_f32<T>((float)g.z);"),
+        ("      dm0[row] = slstm::from_f32<T>(g.w);",
+         "      dm0[row] = slstm::from_f32<T>((float)g.w);")]),
 }
 
 
@@ -218,6 +274,9 @@ def _variants(cs, sl, build, specs: list[str], args) -> list[dict]:
                         float((u.float() - v.float()).abs().max())
                         for u, v in zip(got, shipped[kind]))
             row["ms"] = ms
+            if args.seeds:                # the variant's errors over seeds
+                setattr(sl, attr, lambda lb=var_lib: lb)
+                row["seeds"] = _seeds(cs, sl, args.seeds)
         except RuntimeError as err:       # a launch the variant cannot make
             row["error"] = str(err)
         setattr(sl, attr, lambda lb=ship_lib: lb)
@@ -358,6 +417,77 @@ def _check(cs, sl) -> dict:
     return {"worst_rel": worst, "rows": rows}
 
 
+def _outputs(sl, gx, r, carry, dhs, dlast) -> dict:
+    """Every output of a forward keeping the carry and of the backward on
+    its hs and kept carry, by name."""
+    hs, last, kept = sl.slstm_scan_keep(gx, r, carry)
+    grads = sl.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
+    return {"hs": hs, "kept": kept,
+            **{f"last_{k}": t for k, t in zip("hcnm", last)},
+            "dgx": grads[0], "dr": grads[1],
+            **{f"d{k}0": t for k, t in zip("hcnm", grads[2])}}
+
+
+def _repeat(cs, sl, runs: int) -> dict:
+    import torch
+    out = {}
+    b, s, d = cs.SLSTM_TRAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        ins = cs.slstm_grad_inputs(b, s, d, dtype, "zero", 0)
+        first = _outputs(sl, *ins)
+        row = {"runs": runs, "equal": True, "max_diff": {}}
+        for _ in range(runs - 1):
+            again = _outputs(sl, *ins)
+            for k, t in again.items():
+                if not torch.equal(t, first[k]):
+                    row["equal"] = False
+                    diff = float((t.float() - first[k].float()).abs().max())
+                    row["max_diff"][k] = max(row["max_diff"].get(k, 0.0),
+                                             diff)
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def _seeds(cs, sl, seeds: list[int]) -> dict:
+    import torch
+    from repro_torch.kernels import slstm_scan as plain   # this tree's
+    b, s, d = cs.SLSTM_TRAIN
+    rows, worst = [], {}
+    for seed in seeds:
+        gx, r, carry, dhs, dlast = cs.slstm_grad_inputs(
+            b, s, d, torch.float32, "zero", seed)
+        hs, last, kept = sl.slstm_scan_keep(gx, r, carry)
+        got = sl.slstm_scan_bwd(gx, r, carry, hs, kept, dhs, dlast)
+        want = plain.slstm_scan_bwd_plain(gx, r, carry, hs, kept, dhs, dlast)
+        row = {"seed": seed}
+        for k, u, v in (("dgx", got[0], want[0]), ("dr", got[1], want[1]),
+                        *((f"d{c}0", u, v)
+                          for c, u, v in zip("hcnm", got[2], want[2]))):
+            v = v.float()
+            row[k] = float(((u.float() - v).abs() / (1 + v.abs())).max())
+            worst[k] = max(worst.get(k, 0.0), row[k])
+        # dr against its own dgx summed in float64: the sum's part of dr's
+        # error (the rest is dgx's, carried into dr)
+        d64 = _dr64(got[0], carry, hs)
+        row["dr_sum"] = float(((got[1].double() - d64).abs()
+                               / (1 + d64.abs())).max())
+        worst["dr_sum"] = max(worst.get("dr_sum", 0.0), row["dr_sum"])
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return {"shape": [b, s, d], "worst": worst, "rows": rows}
+
+
+def _seed_list(text: str) -> list[int]:
+    """"0-15,2816" -> 0, 1, ..., 15, 2816"""
+    seeds = []
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        seeds += range(int(lo), int(hi or lo) + 1)
+    return seeds
+
+
 def _host(sl, args) -> dict:
     import torch
     gx = torch.randn(1, 1, 4, 768, device="cuda")
@@ -464,6 +594,8 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--variant", action="append", default=[],
                     choices=sorted(PATCHES), help="repeatable")
+    ap.add_argument("--repeat", type=int, default=0)
+    ap.add_argument("--seeds", type=_seed_list, default=[])
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
     import torch
@@ -479,6 +611,10 @@ def main() -> int:
         out["l2"] = _l2(cs, sl, args)
     if args.check:
         out["check"] = _check(cs, sl)
+    if args.repeat:
+        out["repeat"] = _repeat(cs, sl, args.repeat)
+    if args.seeds:
+        out["seeds"] = _seeds(cs, sl, args.seeds)
     if args.host:
         out["host"] = _host(sl, args)
     if args.sass:
