@@ -44,7 +44,13 @@ which fails the run (non-zero exit, no result line) if it fails:
    and in float32 also at ``SLSTM_F32_KEEP`` x (1 + |v|) (the backward
    against its plain version in float64), one count a call each (d 33 and
    bfloat16 d 100 through the wrapper's zero padding to 16 bytes), and a
-   second call's hs, carries and kept carry equal bit for bit;
+   second call's hs, carries and kept carry equal bit for bit; AdamW's
+   update and gradient norm (``check_adamw``) in float32, bfloat16 with a
+   float32 master copy and bfloat16 params with float32 gradients, on
+   leaves of 1, 7, 4097 (off 16 bytes) and 2^24 + 3 elements: 2 steps bit
+   for bit the eager update with the clip not binding, each leaf's update
+   bit for bit on the same scalars with it binding, a second run bit for
+   bit, the norm within 1e-6 of a float64 sum;
 4. time each kernel beside its plain version, the PyTorch library call
    for the same function (SDPA for attention, ``torch.matmul``,
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
@@ -63,7 +69,12 @@ which fails the run (non-zero exit, no result line) if it fails:
    wrapper's time per call (host included) and the passes' scratch, the
    SSD backward at the training shapes (no library call computes it); the
    sLSTM scan at the prefill shape and, with its backward, at the training
-   shape, each beside the plain loop (no library call computes it);
+   shape, each beside the plain loop (no library call computes it); AdamW
+   (``time_adamw``) for each phase-8 configuration at its largest leaf
+   (checked there bit for bit too) and over its whole tree, beside the
+   eager update and, for scale only, ``torch._fused_adamw_`` over the same
+   float32 leaves (another function: it decays before the step and keeps
+   no master copy);
 5. run the node path: the paper's node kernels as the payloads of a
    96-task ``mixed_dag`` (matmul 4096^3, copy [8192, 8192], 4 stencil
    sweeps of [1, 2048, 2048], float32) on the port's threaded runtime, on
@@ -145,10 +156,19 @@ which fails the run (non-zero exit, no result line) if it fails:
    backward once per Mamba-2 layer and twice per mLSTM layer, so no
    backward runs the forward again; the sLSTM scan forward and backward
    once per sLSTM layer; remat runs
-   every stacked layer's forward twice); the step time, tokens per
-   second, peak memory, the checkpoint's write and restore seconds and,
-   from one traced step, the share of the card time of the flash, SSD and
-   sLSTM kernels, forward and backward.
+   every stacked layer's forward twice; the AdamW kernels' update once a
+   leaf and the norm's pass once a leaf and its finalize once); the step
+   time, tokens per second, peak memory, the checkpoint's write and
+   restore seconds and, from one traced step run as ``split_step``
+   composes it, the share of the card time of the flash, SSD and sLSTM
+   kernels, forward and backward, and the card time of the gradient's and
+   the update's ranges by class of kernel (the update's in the AdamW
+   kernels).  zamba2-1.2b in bfloat16 also takes 4 steps with the AdamW
+   kernels and, re-initialised each time, the same 4 with the eager leaf
+   update on the kernels' norm and with the eager update whole
+   (``update_vs_plain``): the first two's losses equal bit for bit, the
+   third's within the bfloat16 rule's step-loss limit (its float32 norm
+   moves the clip factor's last bits).
    Then (``TRAIN_PREFIXED``) musicgen-large at full width and depth with
    its frontend prefix, float32, B 2 x (P 64 + 1984 text tokens) as
    ``train_batch_specs`` lays them out, through ``make_train_step`` (the
@@ -191,8 +211,10 @@ which fails the run (non-zero exit, no result line) if it fails:
    power limit.
 
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
-carry their bfloat16 numbers under ``"bfloat16"``; the backwards' launches
-are phases 8 and 10's), then the
+carry their bfloat16 numbers under ``"bfloat16"``; the backwards' and
+AdamW's launches are phases 8 and 10's; AdamW's row times the whole tree
+of qwen3-moe-30b-a3b x 4 in bfloat16, every configuration under
+``by_config``), then the
 ``nvidia-smi`` line, then, last,
 ``{"ok": true, "device": {...}}``.  The details (every case's error, every
 timing shape, the compiler's register report) go to
@@ -1404,6 +1426,328 @@ def time_slstm(report: dict) -> dict:
     return rows
 
 
+# -- AdamW's update and gradient norm (csrc/adamw.cu) -----------------------------
+# (param dtype, gradient dtype) of the checks: float32 (no master copy),
+# bfloat16 with a float32 master copy, bfloat16 params with float32
+# gradients (the dry-run's accumulation step)
+ADAMW_KINDS = {"float32": ("float32", "float32"),
+               "bfloat16": ("bfloat16", "bfloat16"),
+               "bfloat16_f32_grads": ("bfloat16", "float32")}
+# the checks' leaves: one element, less than a chunk of 8, a ragged length
+# whose tensors all lie off 16 bytes (ADAMW_OFF16, its index), 2^24 + 3
+ADAMW_SIZES = (1, 7, 4097, (1 << 24) + 3)
+ADAMW_OFF16 = 2
+ADAMW_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10, weight_decay=0.1)
+ADAMW_NORM_TOL = 1e-6     # the norm kernel against a float64 sum, relative
+ADAMW_GRAD_SCALE = 1e-4   # the timed trees' gradients: N(0, 1) x this
+# the configuration whose whole tree heads the AdamW row: the largest
+ADAMW_HEADLINE = "train:qwen3-moe-30b-a3bx4:bfloat16"
+
+
+def _adamw_state(kind: str, seed: int):
+    """(params, opt_state) over ``ADAMW_SIZES``' leaves in ``kind``'s param
+    dtype: N(0, 1) weights, moments as after a few steps; the
+    ``ADAMW_OFF16`` leaf's tensors off 16 bytes."""
+    import torch
+    from repro_torch.optim import init_opt_state
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    pdt = getattr(torch, ADAMW_KINDS[kind][0])
+    params = [torch.randn(n, generator=g, device=DEVICE).to(pdt)
+              for n in ADAMW_SIZES]
+    state = init_opt_state(params)
+    state["m"] = [torch.randn(n, generator=g, device=DEVICE) * 1e-3
+                  for n in ADAMW_SIZES]
+    state["v"] = [torch.rand(n, generator=g, device=DEVICE) * 1e-6
+                  for n in ADAMW_SIZES]
+    for tree in (params, *(state[k] for k in ("m", "v", "master")
+                           if k in state)):
+        tree[ADAMW_OFF16] = _off16(tree[ADAMW_OFF16])
+    return params, state
+
+
+def _adamw_grads(kind: str, scale: float, seed: int):
+    import torch
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    gdt = getattr(torch, ADAMW_KINDS[kind][1])
+    grads = [(torch.randn(n, generator=g, device=DEVICE) * scale).to(gdt)
+             for n in ADAMW_SIZES]
+    grads[ADAMW_OFF16] = _off16(grads[ADAMW_OFF16])
+    return grads
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _max_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _adamw_scalars(cfg, grads):
+    """The step-1 scalars ``apply_updates`` hands a leaf, the clip factor
+    from the norm kernel's norm of ``grads``: (lr, scale, b1c, b2c)."""
+    import torch
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import schedule
+    step = torch.ones((), dtype=torch.int32, device=DEVICE)
+    gnorm = adamw.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    return (schedule(cfg, step), scale, 1 - cfg.b1 ** step.to(torch.float32),
+            1 - cfg.b2 ** step.to(torch.float32))
+
+
+def _adamw_consts(cfg) -> dict:
+    return dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                weight_decay=cfg.weight_decay)
+
+
+def check_adamw(report: dict) -> float:
+    """The update and norm kernels against their plain versions on the
+    card, for each of ``ADAMW_KINDS`` over ``ADAMW_SIZES``' leaves: 2 steps
+    of ``apply_updates`` with the clip not binding (its factor exactly 1.0,
+    whatever the norm's bits) bit for bit ``apply_updates_plain``'s (params,
+    moments, master copy), one update launch a leaf, the norm's pass a leaf
+    and one finalize a step, and a second run from the same state bit for
+    bit the first; with the clip binding (gradients N(0, 1)), each leaf's
+    update on the same scalars bit for bit the plain one's; the norm within
+    ``ADAMW_NORM_TOL`` of the gradients' float64 sum, the eager norm's
+    distance beside it.  Returns the largest difference from the plain
+    version (0.0: bit for bit)."""
+    import torch
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import AdamWConfig, apply_updates
+    from repro_torch.optim.adamw import apply_updates_plain, tree_map
+    cfg = AdamWConfig(**ADAMW_OPT)
+    clone = lambda tree: tree_map(      # off 16 bytes where the original is
+        lambda t: _off16(t) if t.data_ptr() % 16 else t.clone(), tree)
+    moved = lambda st: {k: st[k] for k in st if k != "step"}
+    rows, worst = [], 0.0
+    for kind in ADAMW_KINDS:
+        params, state = _adamw_state(kind, 0)
+        runs = []
+        for fn in (apply_updates, apply_updates, apply_updates_plain):
+            p, st = clone(params), clone(state)
+            before = (adamw.launches.count, adamw.norm_launches.count)
+            norms = [float(fn(p, _adamw_grads(kind, 1e-5, 10 + i), st,
+                              cfg)[2]["grad_norm"]) for i in range(2)]
+            torch.cuda.synchronize()
+            runs.append((p, st, norms, [
+                adamw.launches.count - before[0],
+                adamw.norm_launches.count - before[1]]))
+        (pk, sk, nk, lk), (pk2, sk2, _, _), (pp, sp, _, lp) = runs
+        n = len(ADAMW_SIZES)
+        grads = _adamw_grads(kind, 1.0, 20)
+        scalars = _adamw_scalars(cfg, grads)
+        clipped = {}                        # the clip binding
+        for name, update in (("kernel", adamw.update),
+                             ("plain", adamw.update_plain)):
+            p, st = clone(params), clone(state)
+            masters = st.get("master", p)
+            with torch.no_grad():
+                for i in range(n):
+                    update(p[i], masters[i], grads[i], st["m"][i],
+                           st["v"][i], *scalars, **_adamw_consts(cfg))
+            clipped[name] = (p, moved(st))
+        want = torch.sqrt(sum(torch.sum(torch.square(g.double()))
+                              for g in grads))
+        norm_rel = {name: float(abs(fn(grads).double() - want) / want)
+                    for name, fn in (("kernel", adamw.global_norm),
+                                     ("eager", adamw.global_norm_plain))}
+        row = {"kind": kind, "sizes": list(ADAMW_SIZES),
+               "off16_leaf": ADAMW_SIZES[ADAMW_OFF16],
+               "unclipped_norms": nk,
+               "unclipped_bit_for_bit": (_same_bits(pk, pp)
+                                         and _same_bits(moved(sk), moved(sp))),
+               "repeat_bit_for_bit": (_same_bits(pk, pk2)
+                                      and _same_bits(moved(sk), moved(sk2))),
+               "clipped_scale": float(scalars[1]),
+               "clipped_bit_for_bit": (
+                   _same_bits(clipped["kernel"][0], clipped["plain"][0])
+                   and _same_bits(clipped["kernel"][1], clipped["plain"][1])),
+               "launches": lk, "plain_launches": lp,
+               "norm_rel_err": norm_rel["kernel"],
+               "eager_norm_rel_err": norm_rel["eager"],
+               "max_abs_err": max(_max_diff(pk, pp),
+                                  _max_diff(moved(sk), moved(sp)),
+                                  _max_diff(clipped["kernel"][0],
+                                            clipped["plain"][0]))}
+        row["ok"] = (row["unclipped_bit_for_bit"] and row["repeat_bit_for_bit"]
+                     and row["clipped_bit_for_bit"] and max(nk) < cfg.clip_norm
+                     and row["clipped_scale"] < 1.0
+                     and lk == [2 * n, 2 * (n + 1)] and lp == [0, 0]
+                     and norm_rel["kernel"] <= ADAMW_NORM_TOL)
+        rows.append(row)
+        print(f"[check] adamw {row}", flush=True)
+        _require(row["ok"], f"AdamW kernels against the eager update: {row}")
+        worst = max(worst, row["max_abs_err"])
+        del params, state, runs, clipped, grads
+    report["adamw_checks"] = rows
+    return worst
+
+
+def _train_cfg(run: dict):
+    """A phase-8 run's model: full width, in the run's dtype, at its
+    depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(run["arch"]), dtype=run["dtype"])
+    if run["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    return cfg
+
+
+def _fused_adamw_ms(p32, g32, m, v, cfg) -> float:
+    """``torch._fused_adamw_`` over float32 leaves, timed: the yardstick
+    for scale only, another function (it decays the weight before the step
+    and keeps no master copy)."""
+    import torch
+    steps = [torch.ones((), device=DEVICE) for _ in p32]
+    return _time_ms(lambda: torch._fused_adamw_(
+        p32, g32, m, v, [], steps, lr=cfg.lr, beta1=cfg.b1, beta2=cfg.b2,
+        weight_decay=cfg.weight_decay, eps=cfg.eps, amsgrad=False,
+        maximize=False), iters=3, warmup=1)
+
+
+def _time_adamw_leaf(cfg, opt) -> dict:
+    """The update kernel at the model's largest leaf alone (N(0, 1)
+    weights and gradients, moments as after a few steps), checked bit for
+    bit against the plain version on the same scalars (the clip binding),
+    then timed beside the plain version and the fused yardstick over its
+    float32 leaves; the bound of the update's bytes."""
+    import torch
+    from repro_torch.kernels import adamw, work
+    from repro_torch.models import init_params
+    shape = max((t.shape for t in _leaves(init_params(cfg, device="meta"))),
+                key=lambda sh: math.prod(sh))
+    pdt = getattr(torch, cfg.dtype)
+    master = pdt != torch.float32
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    rn = lambda: torch.randn(shape, generator=g, device=DEVICE)
+    p = rn().to(pdt)
+    p32 = p.float() if master else p
+    grad = rn().to(pdt)
+    m, v = rn() * 1e-3, torch.rand(shape, generator=g, device=DEVICE) * 1e-6
+    scalars = _adamw_scalars(opt, [grad])
+    consts = _adamw_consts(opt)
+    p_, m_, v_ = p.clone(), m.clone(), v.clone()
+    p32_ = p32.clone() if master else p_
+    with torch.no_grad():
+        adamw.update(p, p32, grad, m, v, *scalars, **consts)
+        adamw.update_plain(p_, p32_, grad, m_, v_, *scalars, **consts)
+    same = _same_bits([p, p32, m, v], [p_, p32_, m_, v_])
+    del p_, p32_, m_, v_
+    torch.cuda.empty_cache()
+    _require(same, f"the AdamW kernel at {cfg.name}'s largest leaf "
+                   f"{list(shape)} against the plain version")
+    n = math.prod(shape)
+    nbytes = work.adamw_work(n, pdt, pdt, master)[1]
+    with torch.no_grad():
+        ms = _time_ms(lambda: adamw.update(p, p32, grad, m, v, *scalars,
+                                           **consts), iters=5, warmup=1)
+        plain_ms = _time_ms(lambda: adamw.update_plain(
+            p, p32, grad, m, v, *scalars, **consts), iters=2, warmup=1)
+    del p
+    g32 = grad.float() if master else grad
+    del grad
+    fused_ms = _fused_adamw_ms([p32], [g32], [m], [v], opt)
+    return {"shape": list(shape), "elements": n, "bit_for_bit": same,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": fused_ms,
+            "bytes": nbytes, **dict(zip(("bound_ms", "bound_by"),
+                                        work.bound({}, nbytes))),
+            "tb_per_s": nbytes / (ms * 1e-3) / 1e12}
+
+
+def _time_adamw_tree(cfg, opt) -> dict:
+    """``apply_updates`` (the norm and the update kernels) over the model's
+    whole tree (``init_params`` seed 0, gradients N(0, 1) x
+    ``ADAMW_GRAD_SCALE`` in the params' dtype) beside the eager update
+    (``apply_updates_plain``), in turns (kernel, plain, plain, kernel; one
+    call each: each moves the state), the bound of the bytes they need,
+    each norm against the float64 sum; then the fused yardstick over the
+    float32 leaves (the master copy, or the float32 params) with float32
+    gradients."""
+    import torch
+    from repro_torch.kernels import adamw, work
+    from repro_torch.models import init_params
+    from repro_torch.optim import apply_updates, init_opt_state
+    from repro_torch.optim.adamw import apply_updates_plain, tree_map
+    params = init_params(cfg, seed=0, device=DEVICE)
+    state = init_opt_state(params)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    draw = lambda p, dtype: (torch.randn(p.shape, generator=g, device=DEVICE)
+                             * ADAMW_GRAD_SCALE).to(dtype)
+    grads = tree_map(lambda p: draw(p, p.dtype), params)
+    master = "master" in state
+    pairs = list(zip(_leaves(params), _leaves(grads)))
+    nbytes = sum(work.adamw_work(p.numel(), p.dtype, gr.dtype, master)[1]
+                 for p, gr in pairs) + work.adamw_norm_work(
+        [(gr.numel(), gr.dtype) for _, gr in pairs])[1]
+    calls = {"kernel": lambda: apply_updates(params, grads, state, opt),
+             "plain": lambda: apply_updates_plain(params, grads, state, opt)}
+    calls["kernel"]()
+    ms = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms[name].append(_time_ms(calls[name], iters=1, warmup=0))
+    flat = list(_leaves(grads))
+    want = torch.sqrt(sum(torch.sum(torch.square(t.double())) for t in flat))
+    norm_rel = {name: float(abs(fn(flat).double() - want) / want)
+                for name, fn in (("kernel", adamw.global_norm),
+                                 ("eager", adamw.global_norm_plain))}
+    out = {"params_b": sum(p.numel() for p, _ in pairs) / 1e9,
+           "leaves": len(pairs), "ms_runs": ms, "ms": min(ms["kernel"]),
+           "plain_ms": min(ms["plain"]), "bytes": nbytes,
+           **dict(zip(("bound_ms", "bound_by"), work.bound({}, nbytes))),
+           "norm_rel_err": norm_rel["kernel"],
+           "eager_norm_rel_err": norm_rel["eager"]}
+    out["tb_per_s"] = nbytes / (out["ms"] * 1e-3) / 1e12
+    _require(norm_rel["kernel"] <= ADAMW_NORM_TOL,
+             f"{cfg.name}'s gradient norm against its float64 sum: {out}")
+    weights = list(_leaves(state["master"] if master else params))
+    del flat, grads, pairs, calls
+    if master:                 # room for the float32 gradients
+        del params
+    g32 = [draw(w, torch.float32) for w in weights]
+    out["library_ms"] = _fused_adamw_ms(weights, g32, list(_leaves(state["m"])),
+                                        list(_leaves(state["v"])), opt)
+    return out
+
+
+def time_adamw(report: dict) -> dict:
+    """For each phase-8 configuration (``TRAIN_RUNS``, ``TRAIN_PREFIXED``):
+    the update kernel at its largest leaf (``_time_adamw_leaf``) and the
+    norm and update kernels over its whole tree (``_time_adamw_tree``),
+    each beside the plain version, the fused yardstick and the bound."""
+    import gc
+    import torch
+    from repro_torch.optim import AdamWConfig
+    rows = {}
+    for run in (*TRAIN_RUNS, *TRAIN_PREFIXED):
+        cfg = _train_cfg(run)
+        opt = AdamWConfig(lr=run["lr"], warmup_steps=TRAIN_WARMUP,
+                          total_steps=run["steps"])
+        key = _train_key({"arch": cfg.name, "layers": cfg.n_layers,
+                          "dtype": cfg.dtype})
+        t0 = time.perf_counter()
+        rows[key] = {"leaf": _time_adamw_leaf(cfg, opt)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[key]["tree"] = _time_adamw_tree(cfg, opt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[key]["seconds"] = time.perf_counter() - t0
+        print(f"[time] adamw {key} {rows[key]}", flush=True)
+    report["adamw_timing"] = rows
+    return rows
+
+
 def _randn(shape, dtype, seed):
     import torch
     g = torch.Generator(device=DEVICE)
@@ -2310,7 +2654,9 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
     # the kernels' own events (an operator's event also carries the time
     # of the kernels it launched)
     kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)
+               and ev.key not in STEP_RANGES]
     card_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
     _require(card_ms > 0, f"{cfg.name}: the traced decode step ran nothing "
                           f"on the card")
@@ -2365,7 +2711,8 @@ TRAIN_RUNS = (
     {"arch": "granite-8b", "layers": 8, "dtype": "bfloat16", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
     {"arch": "zamba2-1.2b", "layers": None, "dtype": "bfloat16", "batch": 2,
-     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3,
+     "plain_update_steps": 4},
     {"arch": "xlstm-125m", "layers": None, "dtype": "bfloat16", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
 )
@@ -2395,7 +2742,7 @@ def _tree_rel(got, want) -> float:
 
 
 def _train_counters():
-    from repro_torch.kernels import flash_attention, slstm_scan, ssd_scan
+    from repro_torch.kernels import adamw, flash_attention, slstm_scan, ssd_scan
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "tf32x3": flash_attention.path_launches["tf32x3"],
@@ -2410,7 +2757,8 @@ def _train_counters():
             **{f"ssd_bwd_{route}": ssd_scan.bwd_path_launches[route]
                for route in TRAIN_SSD_ROUTES},
             "slstm_scan": slstm_scan.launches,
-            "slstm_scan_bwd": slstm_scan.bwd_launches}
+            "slstm_scan_bwd": slstm_scan.bwd_launches,
+            "adamw": adamw.launches, "adamw_norm": adamw.norm_launches}
 
 
 def _reset(counters) -> None:
@@ -2432,7 +2780,13 @@ TRAIN_FLASH_PATHS = {"float32": ("tf32x3", "bwd_tf32x3"),
 TRAIN_SSD_ROUTES = ("bf16_async", "plain")
 
 
-def _step_launches(cfg, remat: bool = False) -> dict:
+def _n_leaves(cfg) -> int:
+    """The leaves of the model's parameter tree."""
+    from repro_torch.models import init_params
+    return sum(1 for _ in _leaves(init_params(cfg, device="meta")))
+
+
+def _step_launches(cfg, remat: bool = False, update: bool = True) -> dict:
     """Kernel launches of one train step, from the layer plan: one flash
     forward and backward per attention block or shared-block application,
     all on the dtype's paths (``TRAIN_FLASH_PATHS``: float32 ``tf32x3``
@@ -2443,7 +2797,9 @@ def _step_launches(cfg, remat: bool = False) -> dict:
     (``TRAIN_SSD_ROUTES``);
     one sLSTM scan forward and backward per sLSTM layer.  With remat every
     stacked layer runs its forward again in the backward (the hybrid's
-    shared block is not rematerialised)."""
+    shared block is not rematerialised).  With ``update`` (a train step,
+    not a gradient alone) the AdamW kernels: one update a leaf, and the
+    gradient norm's partial pass a leaf and its finalize."""
     per = _launches_per_prefill(cfg)
     from repro_torch.models import layer_plan
     again = sum(k in ("attn", "attn_moe") for k in layer_plan(cfg)) if (
@@ -2457,7 +2813,11 @@ def _step_launches(cfg, remat: bool = False) -> dict:
            "ssd_scan": ssd * (2 if remat else 1), "ssd_scan_bwd": ssd,
            **{f"ssd_{r}": 0 for r in TRAIN_SSD_ROUTES},
            **{f"ssd_bwd_{r}": 0 for r in TRAIN_SSD_ROUTES},
-           "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl}
+           "slstm_scan": sl * (2 if remat else 1), "slstm_scan_bwd": sl,
+           "adamw": 0, "adamw_norm": 0}
+    if update:
+        leaves = _n_leaves(cfg)
+        out["adamw"], out["adamw_norm"] = leaves, leaves + 1
     out[fwd_path], out[bwd_path] = fwd, bwd
     if cfg.dtype == "bfloat16":
         out["ssd_bf16_async"] = out["ssd_scan"]
@@ -2501,7 +2861,7 @@ def train_reduced_vs_cpu(run: dict) -> dict:
     for params, dev in ((cpu, "cpu"), (gpu, DEVICE)):
         g, met = make_grad_step(cfg, remat=False)(params, batch_on(0, dev))
         grads[dev] = (g, float(met["total_loss"]))
-    want = _step_launches(cfg)
+    want = _step_launches(cfg, update=False)
     _require(_counts(counters) == want,
              f"reduced {cfg.name}'s grad step launches {_counts(counters)}, "
              f"want {want}")
@@ -2565,7 +2925,7 @@ def train_reduced_bf16_vs_cpu(run: dict) -> dict:
         g, met = make_grad_step(cfg, remat=False)(
             params, on(bf16_drift_batch(cfg32, 4), dev))
         grads[dev] = (g, float(met["total_loss"]))
-    want = _step_launches(cfg16)
+    want = _step_launches(cfg16, update=False)
     _require(_counts(counters) == want,
              f"reduced {cfg16.name}'s bfloat16 grad step launches "
              f"{_counts(counters)}, want {want}")
@@ -2626,10 +2986,77 @@ SLSTM_FWD_KERNELS, SLSTM_BWD_KERNELS = ("slstm_scan_fwd",), ("slstm_scan_bwd",)
 # PyTorch's elementwise and reduction kernels
 TRACE_CLASSES = (
     ("flash", ("flash_", *FLASH_BWD_KERNELS)),
-    ("ssd", ("ssd_",)), ("slstm", ("slstm_",)),
+    ("ssd", ("ssd_",)), ("slstm", ("slstm_",)), ("adamw", ("adamw_",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
     ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+# the ranges a traced train step runs in (``split_step``): the gradient,
+# then the AdamW update with its gradient norm
+STEP_RANGES = ("step:grad", "step:update")
+
+
+def _trace_class(name: str) -> str:
+    return next((kind for kind, names in TRACE_CLASSES
+                 if any(n in name for n in names)), "other")
+
+
+def split_step(grad_step, update):
+    """A train step as ``make_train_step`` composes it, ``grad_step(params,
+    batch)`` (``make_grad_step``'s) and then ``update(params, grads,
+    opt_state)`` (``apply_updates``), each inside a
+    ``torch.profiler.record_function`` range of ``STEP_RANGES``, so that a
+    trace splits the step's card time between them (``_traced_step``);
+    ``(params, opt_state, batch) -> (params, opt_state, metrics)``."""
+    from torch.profiler import record_function
+
+    def step(params, opt_state, batch):
+        with record_function(STEP_RANGES[0]):
+            grads, metrics = grad_step(params, batch)
+        with record_function(STEP_RANGES[1]):
+            params, opt_state, info = update(params, grads, opt_state)
+        return params, opt_state, {**metrics, **info}
+
+    return step
+
+
+def _range_ms(traced: dict, i: int) -> float:
+    """The card time of a traced step's ``STEP_RANGES[i]``."""
+    return traced["card_ms_by_range"].get(STEP_RANGES[i], {}).get(
+        "card_ms", 0.0)
+
+
+def _card_ms_by_range(prof) -> dict:
+    """The card time of each ``STEP_RANGES`` range of a trace of one
+    ``split_step``, whole and by class of kernel, on the card's clock: the
+    update's span there is the profiler's device-side annotation of its
+    range (its first kernel to its last; the step's kernels run in order on
+    one stream), a kernel that begins before it is the gradient's, one
+    after it "outside" (the loss's copy to the host).  The host's spans of
+    the ranges do not split the kernels (the host runs ahead of the card,
+    and the profiler's two clocks differ by up to milliseconds), nor does
+    the gradient's device-side annotation (it holds only the kernels
+    launched from the thread that opened it, not the backward's).  {} where
+    the trace has no such annotation."""
+    from torch.autograd import DeviceType
+    device = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spans = [ev.time_range for ev in device if ev.name == STEP_RANGES[1]
+             and getattr(ev, "is_user_annotation", False)]
+    if not spans:
+        return {}
+    lo, hi = min(t.start for t in spans), max(t.end for t in spans)
+    out: dict = {}
+    for ev in device:
+        if ev.name in STEP_RANGES or getattr(ev, "is_user_annotation", False):
+            continue
+        start = ev.time_range.start
+        where = (STEP_RANGES[0] if start < lo else
+                 STEP_RANGES[1] if start <= hi else "outside")
+        row = out.setdefault(where, {"card_ms": 0.0, "by_class": {}})
+        ms = ev.time_range.elapsed_us() / 1e3
+        row["card_ms"] += ms
+        kind = _trace_class(ev.name)
+        row["by_class"][kind] = row["by_class"].get(kind, 0.0) + ms
+    return out
 
 
 def _require_losses(cfg, losses: list[float]) -> float:
@@ -2662,7 +3089,9 @@ def _traced_step(run_step, per_step: dict, dtype: str = "float32") -> dict:
         run_step()
         torch.cuda.synchronize()
     kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)
+               and ev.key not in STEP_RANGES]
     card_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
     _require(card_ms > 0, "the traced train step ran nothing on the card")
 
@@ -2673,15 +3102,15 @@ def _traced_step(run_step, per_step: dict, dtype: str = "float32") -> dict:
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]
     by_class: dict = {}
     for ev in kernels:
-        kind = next((kind for kind, names in TRACE_CLASSES
-                     if any(n in ev.key for n in names)), "other")
+        kind = _trace_class(ev.key)
         by_class[kind] = by_class.get(kind, 0.0) + (
             ev.self_device_time_total / 1e3)
     traced = {"card_ms": card_ms,
               "kernels": sum(ev.count for ev in kernels),
               "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total
                                  / 1e3 for ev in top},
-              "card_ms_by_class": by_class}
+              "card_ms_by_class": by_class,
+              "card_ms_by_range": _card_ms_by_range(prof)}
     fwd_path, bwd_path = TRAIN_FLASH_PATHS[dtype]
     for name, names in (("flash_bwd", FLASH_BWD_KERNELS),
                         ("flash_fwd", FLASH_FWD_KERNELS[fwd_path]),
@@ -2703,6 +3132,13 @@ def _traced_step(run_step, per_step: dict, dtype: str = "float32") -> dict:
     if per_step["slstm_scan"]:
         _require(traced["slstm_bwd_ms"] > 0 and traced["slstm_fwd_ms"] > 0,
                  f"the traced step's sLSTM kernels: {traced}")
+    ranges = traced["card_ms_by_range"]
+    if per_step.get("adamw"):       # the update's card time in its kernels
+        grad, upd = (ranges.get(name, {"card_ms": 0.0, "by_class": {}})
+                     for name in STEP_RANGES)
+        _require(upd["by_class"].get("adamw", 0.0) > 0.5 * upd["card_ms"]
+                 and not grad["by_class"].get("adamw"),
+                 f"the traced step's update in the AdamW kernels: {ranges}")
     return traced
 
 
@@ -2817,6 +3253,82 @@ def moe_bwd_determinism(cfg, batch: int, seq: int) -> dict:
     return out
 
 
+def update_vs_plain(cfg, opt, data, steps: int) -> dict:
+    """``steps`` train steps from ``init_params`` (seed 0) on the stream's
+    first batches, three times, re-initialised from the same seed each
+    time, one state at a time: with the AdamW kernels; with the eager leaf
+    update on the kernels' gradient norm (``apply_updates_with``); with the
+    eager update and the eager norm (``apply_updates_plain``, the update as
+    it ran before the kernels).  The first two take the same scalars, so
+    their losses must be equal, bit for bit.  The eager norm sums float32
+    in another order, which moves the clip factor's last bits, and a
+    bfloat16 step carries a last bit of its params into its losses: the
+    third run's losses are held to the bfloat16 rule's step-loss limit
+    (``bf16_grad_limits``, twice the reference's own bfloat16 drift); in
+    float32 to rel 1e-4, the port's train-step convention.  The kernels'
+    launches: one update a leaf, the norm's pass a leaf and a finalize a
+    step; the eager run's none.  Each step's wall time."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import adamw
+    from repro_torch.models import init_params
+    from repro_torch.optim import apply_updates, init_opt_state
+    from repro_torch.optim.adamw import apply_updates_plain, apply_updates_with
+    from repro_torch.train import make_grad_step
+    counters = _train_counters()
+    per_step = _step_launches(cfg)
+    arms = {"kernel": apply_updates,
+            "plain_update": lambda p, g, s, opt: apply_updates_with(
+                p, g, s, opt, norm=adamw.global_norm,
+                update=adamw.update_plain),
+            "plain": apply_updates_plain}
+    out: dict = {}
+    for name, apply in arms.items():
+        params = init_params(cfg, seed=0, device=DEVICE)
+        state = init_opt_state(params)
+        step = split_step(make_grad_step(cfg, remat=False),
+                          lambda p, g, s, apply=apply: apply(p, g, s, opt))
+        stream = SyntheticStream(data)
+        _reset(counters)
+        losses, norms, walls = [], [], []
+        for i in range(steps):
+            batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE)
+                     for k, v in stream.batch_at(i).items()}
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            walls.append(time.perf_counter() - t0)
+        n = _counts(counters)
+        out[name] = {"losses": losses, "grad_norms": norms,
+                     "step_ms": [1e3 * w for w in walls],
+                     "adamw": n["adamw"], "adamw_norm": n["adamw_norm"]}
+        del params, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    limit = (bf16_grad_limits()[cfg.name]["steps"]
+             if cfg.dtype == "bfloat16" else 1e-4)
+    out["step_loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        out["kernel"]["losses"], out["plain"]["losses"]))
+    out["step_loss_limit"] = limit
+    print(f"[train] {cfg.name} ({cfg.dtype}) {steps} steps with the AdamW "
+          f"kernels, the eager update on their norm, and the eager update: "
+          f"{out}", flush=True)
+    _require(out["kernel"]["losses"] == out["plain_update"]["losses"]
+             and out["step_loss_rel"] <= limit
+             and out["kernel"]["adamw"] == steps * per_step["adamw"]
+             and out["kernel"]["adamw_norm"] == steps * per_step["adamw_norm"]
+             and out["plain_update"]["adamw"] == 0
+             and out["plain_update"]["adamw_norm"]
+             == steps * per_step["adamw_norm"]
+             and out["plain"]["adamw"] == out["plain"]["adamw_norm"] == 0,
+             f"{cfg.name}'s steps with the AdamW kernels against the eager "
+             f"update: {out}")
+    return out
+
+
 def train_one(run: dict) -> dict:
     """One model of phase 8 through the port's ``Trainer`` (its default pod
     monitor over 2 pods fed the measured step times), in the run's dtype,
@@ -2843,8 +3355,8 @@ def train_one(run: dict) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
-    from repro_torch.optim import AdamWConfig, global_norm
-    from repro_torch.train import make_grad_step, make_train_step
+    from repro_torch.optim import AdamWConfig, apply_updates, global_norm
+    from repro_torch.train import make_grad_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     t_phase = time.perf_counter()
@@ -2942,19 +3454,22 @@ def train_one(run: dict) -> dict:
                          "launches": _counts(counters)}
             del grads, met
         out["remat"] = {str(k): v for k, v in remat.items()}
-        for on in (False, True):
-            _require(remat[on]["launches"] == _step_launches(cfg, on),
+        for on in (False, True):      # the gradient, and the norm here
+            want = {**_step_launches(cfg, on, update=False),
+                    "adamw_norm": per_step["adamw_norm"]}
+            _require(remat[on]["launches"] == want,
                      f"{cfg.name}'s grad step launches with remat={on}: "
-                     f"{remat[on]['launches']}, want "
-                     f"{_step_launches(cfg, on)}")
+                     f"{remat[on]['launches']}, want {want}")
         for key in ("loss", "grad_norm"):
             rel = abs(remat[True][key] - remat[False][key]) / abs(
                 remat[False][key])
             out[f"remat_{key}_rel"] = rel
             _require(rel < 1e-5, f"remat changes the {key}: {remat}")
 
-        # one more train step, traced: the kernels' card time by kernel
-        step = make_train_step(cfg, opt, remat=False)
+        # one more train step, traced: the kernels' card time by kernel and
+        # by range (the gradient, the update)
+        step = split_step(make_grad_step(cfg, remat=False),
+                          lambda p, g, s: apply_updates(p, g, s, opt))
 
         def run_step():
             b.params, b.opt_state, met = step(b.params, b.opt_state, batch)
@@ -2962,6 +3477,11 @@ def train_one(run: dict) -> dict:
         traced = out["traced_step"] = _traced_step(run_step, per_step,
                                                    cfg.dtype)
         del b, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run.get("plain_update_steps"):
+            out["update_vs_plain"] = update_vs_plain(
+                cfg, opt, data, run["plain_update_steps"])
     finally:
         shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
         gc.collect()
@@ -2983,7 +3503,9 @@ def train_one(run: dict) -> dict:
           f"{100 * traced['flash_bwd_share']:.1f}%, SSD backward "
           f"{100 * traced['ssd_bwd_share']:.1f}%, sLSTM forward and backward "
           f"{100 * (traced['slstm_fwd_share'] + traced['slstm_bwd_share']):.1f}"
-          f"%; resume from step {ckpt} "
+          f"%; the gradient's range {_range_ms(traced, 0):.1f} ms, the "
+          f"update's {_range_ms(traced, 1):.1f} ms of card time; resume "
+          f"from step {ckpt} "
           f"bit for bit; {out['phase_s']:.0f} s", flush=True)
     return out
 
@@ -3034,8 +3556,8 @@ def train_prefixed(run: dict) -> dict:
     import torch
     from repro_torch.configs import InputShape, get_config
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, init_opt_state
-    from repro_torch.train import make_train_step
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.train import make_grad_step, make_train_step
 
     t_phase = time.perf_counter()
     out = {"reduced_vs_cpu": train_reduced_vs_cpu(run)}
@@ -3086,10 +3608,13 @@ def train_prefixed(run: dict) -> dict:
     out["tokens_per_s"] = n_text / (out["step_ms_p50"] / 1e3)
     init_loss = _require_losses(cfg, losses)
 
+    traced_step = split_step(make_grad_step(cfg, remat=False),
+                             lambda p, g, s: apply_updates(p, g, s, opt))
+
     def run_step():
-        float(step(params, opt_state, batch)[2]["loss"])
+        float(traced_step(params, opt_state, batch)[2]["loss"])
     traced = out["traced_step"] = _traced_step(run_step, per_step, cfg.dtype)
-    del params, opt_state, batch, step
+    del params, opt_state, batch, step, traced_step
     gc.collect()
     torch.cuda.empty_cache()
     out.update(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
@@ -3106,7 +3631,9 @@ def train_prefixed(run: dict) -> dict:
           f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} text "
           f"tokens/s, peak {out['peak_mem_gb']:.2f} GB; of a step's card "
           f"time flash forward {100 * traced['flash_fwd_share']:.1f}%, "
-          f"backward {100 * traced['flash_bwd_share']:.1f}%; "
+          f"backward {100 * traced['flash_bwd_share']:.1f}%; the gradient's "
+          f"range {_range_ms(traced, 0):.1f} ms, the update's "
+          f"{_range_ms(traced, 1):.1f} ms of card time; "
           f"{out['phase_s']:.0f} s", flush=True)
     return out
 
@@ -3549,8 +4076,8 @@ def _rel(got, want) -> float:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -3605,6 +4132,7 @@ def main() -> int:
     matmul_err = check_matmul(report)
     copy_err = check_copy(report)
     stencil_err = check_stencil(report)
+    adamw_err = check_adamw(report)
     lap("check")
     flash_timing = time_flash(report)
     flash_bwd_timing = time_flash_bwd(report)
@@ -3614,6 +4142,7 @@ def main() -> int:
     matmul_timing = time_matmul(report)
     copy_timing = time_copy(report)
     stencil_timing = time_stencil(report)
+    adamw_timing = time_adamw(report)
     lap("time")
     node = node_dag(report)
     lap("node_dag")
@@ -3801,6 +4330,25 @@ def main() -> int:
         "bound_ms_with_kept", "ns_per_step")}
     slstm_rows[1]["bound_way"] = slstm_timing["bwd"]["bound_way"]
     slstm_rows[1]["bound_ms_by_way"] = slstm_timing["bwd"]["bound_ms_by_way"]
+    tree = adamw_timing[ADAMW_HEADLINE]["tree"]
+    adamw_row = kernel_row(
+        "adamw", {**tree, "dtype": "bfloat16",
+                  "shape": f"the whole tree of {ADAMW_HEADLINE}: "
+                           f"{tree['params_b']:.3f} B params, "
+                           f"{tree['leaves']} leaves"},
+        adamw_err, "src/repro/optim/adamw.py:62",
+        {**trained_by("adamw"), **examples_by("adamw")})
+    adamw_row["replaces_tpu_kernel"] = (
+        "none: the reference's AdamW update, fused by the jax.jit of its "
+        "train step (src/repro/train/trainer.py:56)")
+    adamw_row["library"] = (
+        "torch._fused_adamw_ over the same float32 leaves (the master copy "
+        "or the float32 params) with float32 gradients: another function "
+        "(it decays before the step and keeps no master copy), for scale "
+        "only")
+    adamw_row["norm_launches"] = {**trained_by("adamw_norm"),
+                                  **examples_by("adamw_norm")}
+    adamw_row["by_config"] = adamw_timing
     kernels = [
         flash_row,
         bwd_row,
@@ -3819,6 +4367,7 @@ def main() -> int:
                    node_by("stencil")),
         kernel_row("copy", copy_timing[0], copy_err,
                    "src/repro/kernels/copy.py:22", node_by("copy")),
+        adamw_row,
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

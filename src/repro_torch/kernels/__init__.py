@@ -14,11 +14,12 @@ ref.py           — dense torch oracles
 
 Kernels: flash_attention (the prefill of every attention layer), ssd_scan
 (the prefill of every Mamba-2 and mLSTM layer), slstm_scan (every sLSTM
-layer's recurrence: prefill, decode and training), and the paper's node
+layer's recurrence: prefill, decode and training), adamw (the optimizer's
+update and gradient norm, every training step), and the paper's node
 kernels matmul, copy and stencil (the payloads of the task runtime).
 """
-from . import (copy, flash_attention, matmul, ops, ref, slstm_scan, ssd_scan,
-               stencil)
+from . import (adamw, copy, flash_attention, matmul, ops, ref, slstm_scan,
+               ssd_scan, stencil)
 
-__all__ = ["copy", "flash_attention", "matmul", "ops", "ref", "slstm_scan",
-           "ssd_scan", "stencil"]
+__all__ = ["adamw", "copy", "flash_attention", "matmul", "ops", "ref",
+           "slstm_scan", "ssd_scan", "stencil"]

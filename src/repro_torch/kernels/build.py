@@ -24,8 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd", "slstm_scan", "slstm_scan_bwd", "matmul", "copy",
-           "stencil")
+           "ssd_scan_bwd", "slstm_scan", "slstm_scan_bwd", "adamw", "matmul",
+           "copy", "stencil")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,7 @@ least time an H100 could take for them.
 
 One copy read by two callers: ``chip_smoke.py`` prices each kernel's bound
 with it, and on the meta device the wrappers of flash attention, the SSD
-scan and the sLSTM scan report it (:func:`report`) to whatever counts the work of a step
+scan, the sLSTM scan and AdamW report it (:func:`report`) to whatever counts the work of a step
 (``launch/op_analysis.py``), since a kernel is no aten op that a counter of
 the op stream could price.
 """
@@ -40,7 +40,8 @@ def bound(flops: dict, nbytes) -> tuple[float, str]:
     memory rate and, for each key of H100_PEAK_FLOPS in ``flops``, its
     operations at that peak (the kinds run on separate units).  Returns
     (ms, "operations" or "bytes")."""
-    t_ops = max(f / H100_PEAK_FLOPS[kind] for kind, f in flops.items())
+    t_ops = max((f / H100_PEAK_FLOPS[kind] for kind, f in flops.items()),
+                default=0.0)
     t_bytes = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -184,6 +185,24 @@ def slstm_bwd_work(b, s, d, dtype, kept: bool):
               + 4 * steps + 4 * d + 4 * b * d
               + (4 * steps if kept else 0)) * dtype.itemsize
     return {"float32": 60 * steps, "sfu": 7 * steps}, nbytes
+
+
+def adamw_work(n, param_dtype, grad_dtype, master: bool):
+    """(flops, bytes) of one leaf's AdamW update over n parameters: no
+    flops (the dry-run counts products only, as the reference's HLO
+    analysis counts dots only; the update's ~10 float32 operations a
+    parameter are far below the card's ridge); g read once, m, v and the
+    float32 weight read and written once, and with a ``master`` copy the
+    param of ``param_dtype`` written once."""
+    nbytes = n * (grad_dtype.itemsize + 6 * 4
+                  + (param_dtype.itemsize if master else 0))
+    return {}, nbytes
+
+
+def adamw_norm_work(grads):
+    """(flops, bytes) of the gradient norm over ``grads``, (numel, dtype)
+    pairs: no flops; each gradient read once, the float32 norm written."""
+    return {}, sum(n * dtype.itemsize for n, dtype in grads) + 4
 
 
 # -- the meta path's report -----------------------------------------------------

@@ -11,6 +11,17 @@ new moments, master copy and params into the tensors it is given (under
 builds new ones.  The values are the reference's; what the update saves is
 memory (granite-8b at 8 layers holds 2.15 B parameters: a functional update
 would hold a second set of params and moments, 25.8 GB, beside the first).
+
+What runs where.  The step's scalars (lr, the clip factor, the bias
+corrections) are eager 0-d tensors on the params' device.  The gradient
+norm and each leaf's update go to ``kernels/adamw.py``: on the card its
+kernels (``csrc/adamw.cu``: the norm summed in float64 in a fixed order,
+one update pass a leaf, bit for bit the eager update given the same
+scalars), the counterpart of the reference's update fused by ``jit``; on
+the CPU the eager arithmetic, bit for bit as before the kernels; on the
+meta device (the dry-run) their work reported, nothing computed.
+:func:`apply_updates_plain` runs the eager update on any device: the
+update as it ran on the card before the kernels, the kernels' yardstick.
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ import math
 from typing import Any, Iterator
 
 import torch
+
+from ..kernels import adamw as _kernels
 
 PyTree = Any
 
@@ -90,20 +103,23 @@ def init_opt_state(params: PyTree) -> dict:
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves(tree)))
+    """The L2 norm of the tree's leaves, a 0-d float32 tensor (the module
+    doc says what computes it where)."""
+    return _kernels.global_norm(list(leaves(tree)))
 
 
 @torch.no_grad()
-def apply_updates(params: PyTree, grads: PyTree, state: dict,
-                  cfg: AdamWConfig) -> tuple[PyTree, dict, dict]:
-    """One AdamW step.  Returns (new_params, new_state, info); the new
-    params, moments and master copy are the given tensors, updated in place
-    (the module doc says why)."""
+def apply_updates_with(params: PyTree, grads: PyTree, state: dict,
+                       cfg: AdamWConfig, *, norm,
+                       update) -> tuple[PyTree, dict, dict]:
+    """:func:`apply_updates` with the gradient norm ``norm(grads)`` and the
+    leaf update ``update`` given (``kernels/adamw.py``'s ``global_norm``,
+    ``update`` or their plain versions): the step's scalars, then one
+    ``update`` a leaf."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = norm(list(leaves(grads)))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
@@ -112,14 +128,28 @@ def apply_updates(params: PyTree, grads: PyTree, state: dict,
     masters = state.get("master", params)
     for p, p32, g, m, v in zip(leaves(params), leaves(masters), leaves(grads),
                                leaves(state["m"]), leaves(state["v"])):
-        g = g.to(torch.float32) * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        w = p32.to(torch.float32)
-        new = w - lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-                        + cfg.weight_decay * w)
-        p32.copy_(new)
-        if p is not p32:
-            p.copy_(new)           # rounded to the param's dtype
+        update(p, p32, g, m, v, lr, scale, b1c, b2c, b1=cfg.b1, b2=cfg.b2,
+               eps=cfg.eps, weight_decay=cfg.weight_decay)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def apply_updates(params: PyTree, grads: PyTree, state: dict,
+                  cfg: AdamWConfig) -> tuple[PyTree, dict, dict]:
+    """One AdamW step.  Returns (new_params, new_state, info); the new
+    params, moments and master copy are the given tensors, updated in place
+    (the module doc says why, and what computes it where)."""
+    return apply_updates_with(params, grads, state, cfg,
+                              norm=_kernels.global_norm,
+                              update=_kernels.update)
+
+
+@torch.no_grad()
+def apply_updates_plain(params: PyTree, grads: PyTree, state: dict,
+                        cfg: AdamWConfig) -> tuple[PyTree, dict, dict]:
+    """:func:`apply_updates` with the eager norm and leaf updates on any
+    device (``kernels/adamw.py``'s plain versions)."""
+    return apply_updates_with(params, grads, state, cfg,
+                              norm=_kernels.global_norm_plain,
+                              update=_kernels.update_plain)

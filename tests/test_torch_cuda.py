@@ -1149,3 +1149,212 @@ def test_prefixed_model_trains_on_the_card(card, arch):
         assert g.device.type == "cuda"
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
             w.abs().max())
+
+
+# -- AdamW's update and gradient norm (csrc/adamw.cu) ---------------------------
+
+# (param dtype, gradient dtype): float32 (no master copy), bfloat16 with a
+# float32 master copy, bfloat16 params with float32 gradients (the
+# dry-run's accumulation step)
+ADAMW_KINDS = {"float32": (torch.float32, torch.float32),
+               "bfloat16": (torch.bfloat16, torch.bfloat16),
+               "bfloat16_f32_grads": (torch.bfloat16, torch.float32)}
+ADAMW_SIZES = {"one": 1, "seven": 7, "ragged": 4097, "large": (1 << 24) + 3}
+ADAMW_OFF16 = "ragged"      # this leaf's tensors lie off a 16-byte boundary
+
+
+def _adamw_off16(t):
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    flat.copy_(t.reshape(-1))
+    return flat.view(t.shape)
+
+
+def _adamw_tree(card, kind, seed=0):
+    """Params of ``ADAMW_SIZES``' leaves in ``kind``'s dtype and their AdamW
+    state (after ``init_opt_state``, moments drawn as after a few steps),
+    the ``ADAMW_OFF16`` leaf's tensors all off 16 bytes."""
+    from repro_torch.optim import init_opt_state
+    pdt, _ = ADAMW_KINDS[kind]
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    params = {k: torch.randn(n, generator=g, device=card).to(pdt)
+              for k, n in ADAMW_SIZES.items()}
+    state = init_opt_state(params)
+    for k, n in ADAMW_SIZES.items():
+        state["m"][k] = torch.randn(n, generator=g, device=card) * 1e-3
+        state["v"][k] = torch.rand(n, generator=g, device=card) * 1e-6
+    params[ADAMW_OFF16] = _adamw_off16(params[ADAMW_OFF16])
+    for key in ("m", "v", "master"):
+        if key in state:
+            state[key][ADAMW_OFF16] = _adamw_off16(state[key][ADAMW_OFF16])
+    return params, state
+
+
+def _adamw_grads(card, kind, scale, seed):
+    _, gdt = ADAMW_KINDS[kind]
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    grads = {k: (torch.randn(n, generator=g, device=card) * scale).to(gdt)
+             for k, n in ADAMW_SIZES.items()}
+    grads[ADAMW_OFF16] = _adamw_off16(grads[ADAMW_OFF16])
+    return grads
+
+
+def _adamw_clone(tree):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _adamw_bits_equal(a, b) -> bool:
+    from repro_torch.optim.adamw import leaves
+    return all(x.dtype == y.dtype and torch.equal(
+        x.reshape(-1).view(torch.int16 if x.element_size() == 2 else
+                           torch.int32),
+        y.reshape(-1).view(torch.int16 if y.element_size() == 2 else
+                           torch.int32))
+        for x, y in zip(leaves(a), leaves(b)))
+
+
+ADAMW_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10, weight_decay=0.1)
+
+
+@pytest.mark.parametrize("kind", list(ADAMW_KINDS))
+def test_adamw_kernel_is_the_eager_update_bit_for_bit(card, kind):
+    """With the clip not binding (the clip factor exactly 1.0 whatever the
+    norm's bits), 3 steps of ``apply_updates`` through the kernels equal
+    the eager update (``apply_updates_plain``) bit for bit: moments, master
+    copy, params; one update launch a leaf, one norm pass a leaf and one
+    finalize a step."""
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import AdamWConfig, apply_updates
+    from repro_torch.optim.adamw import apply_updates_plain
+    cfg = AdamWConfig(**ADAMW_OPT)
+    params, state = _adamw_tree(card, kind)
+    p2, s2 = _adamw_clone(params), _adamw_clone(state)
+    if kind == "float32":
+        assert "master" not in state
+    for step in range(3):
+        grads = _adamw_grads(card, kind, 1e-5, 10 + step)
+        before = (adamw.launches.count, adamw.norm_launches.count)
+        _, _, info = apply_updates(params, grads, state, cfg)
+        torch.cuda.synchronize()
+        assert (adamw.launches.count - before[0],
+                adamw.norm_launches.count - before[1]) == (
+            len(ADAMW_SIZES), len(ADAMW_SIZES) + 1)
+        assert float(info["grad_norm"]) < cfg.clip_norm
+        apply_updates_plain(p2, grads, s2, cfg)
+        assert _adamw_bits_equal(params, p2)
+        assert _adamw_bits_equal({k: state[k] for k in state if k != "step"},
+                                 {k: s2[k] for k in s2 if k != "step"})
+
+
+@pytest.mark.parametrize("kind", list(ADAMW_KINDS))
+def test_adamw_kernel_with_the_clip_binding(card, kind):
+    """With the clip binding, the kernel's leaf update and the eager one on
+    the same scalars (the kernel's norm, its clip factor), bit for bit."""
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import AdamWConfig, schedule
+    from repro_torch.optim.adamw import leaves
+    cfg = AdamWConfig(**ADAMW_OPT)
+    params, state = _adamw_tree(card, kind, seed=1)
+    p2, s2 = _adamw_clone(params), _adamw_clone(state)
+    grads = _adamw_grads(card, kind, 1.0, 20)
+    step = state["step"] + 1
+    gnorm = adamw.global_norm(list(leaves(grads)))
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    assert float(scale) < 1.0
+    scalars = (schedule(cfg, step), scale,
+               1 - cfg.b1 ** step.to(torch.float32),
+               1 - cfg.b2 ** step.to(torch.float32))
+    consts = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay)
+    for fn, (ps, st) in ((adamw.update, (params, state)),
+                         (adamw.update_plain, (p2, s2))):
+        masters = st.get("master", ps)
+        with torch.no_grad():
+            for k in ADAMW_SIZES:
+                fn(ps[k], masters[k], grads[k], st["m"][k], st["v"][k],
+                   *scalars, **consts)
+    torch.cuda.synchronize()
+    assert _adamw_bits_equal(params, p2)
+    assert _adamw_bits_equal({k: state[k] for k in ("m", "v")},
+                             {k: s2[k] for k in ("m", "v")})
+    if "master" in state:
+        assert _adamw_bits_equal(state["master"], s2["master"])
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_adamw_kernels_repeat_bit_for_bit(card, kind):
+    """Two runs of the norm and of 2 steps of the update from one state
+    and one set of gradients agree bit for bit."""
+    from repro_torch.kernels import adamw
+    from repro_torch.optim import AdamWConfig, apply_updates
+    from repro_torch.optim.adamw import leaves
+    cfg = AdamWConfig(**ADAMW_OPT)
+    runs = []
+    base = _adamw_tree(card, kind, seed=2)
+    for _ in range(2):
+        params, state = _adamw_clone(base[0]), _adamw_clone(base[1])
+        norms = []
+        for step in range(2):
+            grads = _adamw_grads(card, kind, 1.0, 30 + step)
+            norms.append(adamw.global_norm(list(leaves(grads))))
+            apply_updates(params, grads, state, cfg)
+        runs.append((params, state, norms))
+    (pa, sa, na), (pb, sb, nb) = runs
+    assert all(torch.equal(x, y) for x, y in zip(na, nb))
+    assert _adamw_bits_equal(pa, pb)
+    assert _adamw_bits_equal({k: sa[k] for k in sa if k != "step"},
+                             {k: sb[k] for k in sb if k != "step"})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_norm_against_a_float64_sum(card, dtype):
+    """The norm kernel over ~10^8 terms within rel 1e-6 of their sum in
+    float64; the eager norm's own distance printed beside it (its float32
+    sums run in another order, so it is no bit-for-bit yardstick)."""
+    from repro_torch.kernels import adamw
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    grads = [torch.randn(n, generator=g, device=card).to(dtype)
+             for n in ((1 << 26) + 5, 30_000_000, 4097, 1)]
+    grads[2] = _adamw_off16(grads[2])
+    want = torch.sqrt(sum(torch.sum(torch.square(t.double()))
+                          for t in grads))
+    got = adamw.global_norm(grads)
+    eager = adamw.global_norm_plain(grads)
+    rel = float(abs(got.double() - want) / want)
+    rel_eager = float(abs(eager.double() - want) / want)
+    print(f"adamw norm {dtype}: kernel rel {rel:.3e}, eager rel "
+          f"{rel_eager:.3e} of the float64 sum")
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert rel <= 1e-6
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import adamw
+    n = 64
+    f32 = lambda: torch.zeros(n, device=card)
+    one = torch.ones((), device=card)
+    consts = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    p = f32()
+    bad = [
+        (p, p, torch.zeros(n, device=card, dtype=torch.float16), f32(), f32(),
+         one, one, one, one),                              # float16 g
+        (p, p, f32(), torch.zeros(2 * n, device=card)[::2], f32(), one, one,
+         one, one),                                        # strided m
+        (p, p, f32(), f32(), torch.zeros(n + 1, device=card), one, one, one,
+         one),                                             # another shape
+        (p, p, f32(), f32(), f32(), torch.ones(()), one, one, one),  # CPU lr
+        (p, p, f32(), f32(), f32(), one, torch.ones(1, device=card), one,
+         one),                                             # 1-d scale
+    ]
+    with torch.no_grad():
+        for args in bad:
+            with pytest.raises(ValueError):
+                adamw.update(*args, **consts)
+    with pytest.raises(ValueError):
+        adamw.global_norm([f32(), torch.zeros(n)])         # two devices
+    with pytest.raises(ValueError):
+        adamw.global_norm([torch.zeros(n, device=card, dtype=torch.float16)])

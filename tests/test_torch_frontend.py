@@ -382,8 +382,9 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
     """``chip_smoke.py`` serves internvl2-76b in bfloat16 cut to 32 layers
     (29.48 B parameters) and musicgen-large in float32 whole, and requires
     one flash launch a layer per prefill (32, 48) and per train step each
-    way (48; 96 forwards with remat); it prices internvl2's decode step by
-    the weights it must read."""
+    way (48; 96 forwards with remat) and the AdamW kernels' update a leaf
+    (11) and the norm's pass a leaf and a finalize (12) a step; it prices
+    internvl2's decode step by the weights it must read."""
     cs = _chip_smoke()
     served = dict(cs.SERVED)
     assert served["internvl2-76b"] == "bfloat16"
@@ -412,7 +413,8 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
                 "bwd_fma": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
                 "ssd_bf16_async": 0, "ssd_plain": 0,
                 "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
-                "slstm_scan": 0, "slstm_scan_bwd": 0}
+                "slstm_scan": 0, "slstm_scan_bwd": 0,
+                "adamw": 11, "adamw_norm": 12}
         assert cs._step_launches(music, remat) == want
 
 

@@ -327,7 +327,9 @@ def test_chip_smoke_trains_the_bfloat16_runs_at_full_width():
     full width (3.08 B parameters, ~49 GB at 16 bytes each), granite-8b x
     8, zamba2-1.2b and xlstm-125m whole, all B 2 x S 2048, beside the
     float32 runs; a bfloat16 step's flash launches are on ``wgmma``
-    forward and backward (remat runs the forward again)."""
+    forward and backward (remat runs the forward again), and its AdamW
+    kernels' are one update a leaf (13) and the norm's pass a leaf and a
+    finalize (14)."""
     runs = {(r["arch"], r["dtype"]): r for r in CS.TRAIN_RUNS}
     assert {a for a, d in runs if d == "bfloat16"} == {
         "qwen3-moe-30b-a3b", "granite-8b", "zamba2-1.2b", "xlstm-125m"}
@@ -346,7 +348,8 @@ def test_chip_smoke_trains_the_bfloat16_runs_at_full_width():
             "wgmma": fwd, "bwd_tf32x3": 0, "bwd_wgmma": 4, "bwd_fma": 0,
             "ssd_scan": 0, "ssd_scan_bwd": 0, "ssd_bf16_async": 0,
             "ssd_plain": 0, "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
-            "slstm_scan": 0, "slstm_scan_bwd": 0}
+            "slstm_scan": 0, "slstm_scan_bwd": 0, "adamw": 13,
+            "adamw_norm": 14}
     granite = dataclasses.replace(tconfigs.get_config("granite-8b"),
                                   n_layers=8)
     assert CS._step_launches(granite)["tf32x3"] == 8

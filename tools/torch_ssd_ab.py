@@ -5,6 +5,7 @@ one chip call.
     python tools/torch_ssd_ab.py [--src DIR] [--label NAME] [--iters 20]
                                  [--profile] [--bwd] [--train]
                                  [--dtype float32|bfloat16] [--errors]
+                                 [--seeds 0-15]
 
 Imports ``repro_torch`` from ``DIR`` (default: this tree's ``src``;
 another tree, for example the parent commit unpacked by ``git archive``
@@ -31,7 +32,13 @@ card tests' ``SSD_FWD_CASES``, ``SSD_BWD_CASES`` and (bfloat16)
 ``SSD_ROUTE_CASES`` on the inputs those tests draw, each output's
 ``||g - plain|| / ||plain||`` and its largest ``|g - plain| / (1 +
 |plain|)``, and the worst of each over the cases: the readings that
-ground ``chip_smoke.SSD_BF16_KEEP``.  Prints one JSON object (label,
+ground ``chip_smoke.SSD_BF16_KEEP``.  ``--seeds A-B,C`` (ranges and
+single seeds) gives, in that dtype, for each seed and each of the
+backward's training shapes (``chip_smoke.SSD_BWD_TRAIN``), the largest
+``|g - plain| / (1 + |plain|)`` of dx, da, db and dc, on inputs drawn as
+``chip_smoke._ssd_bwd_inputs`` draws them at that seed and the tree's own
+forward's kept scratch, and the worst of each over the seeds with its
+seed, beside ``chip_smoke.SSD_BWD_F32_KEEP``.  Prints one JSON object (label,
 source, the card's name and power limit, ms by shape and the route
 timed) and appends it to ``chiprun_out/ssd_ab.jsonl``.
 """
@@ -219,6 +226,40 @@ def _errors(cs, ssd_scan, dtype) -> dict:
     return {"worst": worst, "rows": rows}
 
 
+def _seeds(cs, ssd_scan, dtype, seeds: list[int]) -> dict:
+    """The backward's largest ``|g - plain| / (1 + |plain|)`` of each
+    gradient at each training shape and seed, and the worst over the
+    seeds (value and seed) beside its keep-limit."""
+    import torch
+    names = ("dx", "da", "db", "dc")
+    out = {}
+    for label, (b, s, h, d, n, decay) in cs.SSD_BWD_TRAIN.items():
+        rows, worst = [], {}
+        for seed in seeds:
+            x, a, bm, cm = cs._ssd_inputs(b, s, h, d, n, dtype, decay, seed)
+            g = torch.Generator(device=cs.DEVICE)
+            g.manual_seed(seed + 1000)
+            dy = torch.randn((b, s, h, d), generator=g, device=cs.DEVICE)
+            got, want = _bwd_case(ssd_scan, x, a, bm, cm, dy)
+            row = {"seed": seed}
+            for name, u, v in zip(names, got, want):
+                u, v = u.float(), v.float()
+                row[name] = float(((u - v).abs() / (1 + v.abs())).max())
+                if row[name] >= worst.get(name, (-1.0, None))[0]:
+                    worst[name] = (row[name], seed)
+            rows.append(row)
+            del x, a, bm, cm, dy, got, want
+            torch.cuda.empty_cache()
+        out[label] = {"shape": [b, s, h, d, n], "decay": decay,
+                      "worst": {k: {"value": v, "seed": sd}
+                                for k, (v, sd) in worst.items()},
+                      "keep": cs.SSD_BWD_F32_KEEP,
+                      "within_keep": all(v <= cs.SSD_BWD_F32_KEEP[k]
+                                         for k, (v, _) in worst.items()),
+                      "rows": rows}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -235,6 +276,9 @@ def main() -> int:
                     default="float32")
     ap.add_argument("--errors", action="store_true",
                     help="each output's error over chip_smoke's cases")
+    ap.add_argument("--seeds", default="",
+                    help="the backward's error over these seeds (0-15,99) "
+                         "at the training shapes")
     args = ap.parse_args()
     import chip_smoke as cs           # puts this tree's src on the path
     import torch
@@ -269,6 +313,9 @@ def main() -> int:
             for label, spec in at.items()}
     if args.errors:
         out["errors"] = _errors(cs, ssd_scan, dtype)
+    if args.seeds:
+        from torch_slstm_ab import _seed_list     # a sibling in tools/
+        out["seeds"] = _seeds(cs, ssd_scan, dtype, _seed_list(args.seeds))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     with open(out_dir / "ssd_ab.jsonl", "a") as f:
