@@ -178,18 +178,23 @@ which fails the run (non-zero exit, no result line) if it fails:
    forward and 48 backward launches a step, all ``tf32x3``), the peak
    memory, the step time, text tokens per second and one traced step;
 9. dry-run and placement: (a) the port's dry-run (``launch/dryrun.py``)
-   of every arch x shape at full width and depth on the meta device, its
-   leaves DTensors on both production meshes over a fake process group,
-   all 80 cells; no cell may fail, every OK cell carries its collectives
-   (``launch/collectives.py``), every ``train_4k`` cell a gradient
-   reduction over the DP axes, and the count of cells each roofline term
-   (compute, memory, collective) dominates is printed; (b) its host-mesh
-   cell of granite-8b x 8 (B 2 x S 2048, remat), in float32 and in
-   bfloat16 (a float32 master copy and moments), against the same step on
-   the card: the
-   predicted argument bytes within 1% of what the card allocates for
-   them, the predicted peak beside the measured one, the counted flops
-   beside 6 N tokens; (c) the node DAG once more under DAM-C with a
+   of every arch x shape at full width and depth, its step run as
+   DTensors (meta shards) on both production meshes over a fake process
+   group, all 80 cells, one process an arch, all started together; no
+   cell may fail, every OK cell carries its observed and derived
+   collectives, every ``train_4k`` cell a gradient reduction over the data
+   axes; per cell the per-device flops, bytes and peak, their ratio to the
+   even split, the observed and derived collective totals and the dominant
+   roofline term are printed, and the count of cells each term dominates;
+   (b) its host-mesh cell of
+   granite-8b x 8 (B 2 x S 2048, remat), in float32 and in bfloat16 (a
+   float32 master copy and moments), as DTensors on the card's (1, 1)
+   CUDA mesh, against the same step on the card, plain and then as
+   DTensors on that mesh (the flash and AdamW kernels through their
+   sharding rules): the same loss bit for bit and the same launches, the
+   predicted argument bytes within 1e-6 of what the card allocates for
+   them, the predicted peak's ratio to the measured one within 1e-4 of 1,
+   the counted flops beside 6 N tokens; (c) the node DAG once more under DAM-C with a
    queue penalty and ``placement_backend="torch"`` (the score on the
    card), held to phase 5's checks, its score calls counted and timed,
    and 10,000 seeded draws scored on the card held to numpy (1 float32
@@ -224,6 +229,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3661,15 +3667,22 @@ def train(report: dict) -> dict:
 
 
 # -- phase 9: dry-run and placement -----------------------------------------------
-# (a) The dry-run's meta sweep in this process: every arch x shape on both
-# production meshes (80 cells).
+# (a) The dry-run's sweep, its step as DTensors: every arch x shape on both
+# production meshes (16 x 16 and 2 x 16 x 16 over a fake process group,
+# meta shards; 80 cells), one process an arch, all started together (their
+# CUDA hidden: the dry-run runs on the host)
 DRYRUN_MESHES = ("single", "multi")
+DRYRUN_TIMEOUT = 600
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
 # (b) granite-8b x 8, phase 8's bfloat16 run, as a host-mesh cell, in
-# float32 and bfloat16: the argument bytes the dry-run predicts are held to
-# what the card allocates for them
+# float32 and bfloat16, its step as DTensors on the card's (1, 1) CUDA
+# mesh: the argument bytes and the peak the dry-run predicts are held to
+# what the card allocates for them (relative 1e-6; the peak's ratio within
+# 1e-4 of 1), and the real step as DTensors to the plain step: the same
+# loss, bit for bit, and the same kernel launches
 GROUND = {"arch": "granite-8b", "layers": 8, "batch": 2, "seq": 2048}
-GROUND_ARG_TOL = 0.01
+GROUND_ARG_TOL = 1e-6
+GROUND_PEAK_TOL = 1e-4
 # (c) the torch placement score: the node DAG under a queue penalty, and
 # seeded draws of (PTT values, loads) scored on the card
 SCORE_PENALTY = 0.05
@@ -3677,85 +3690,114 @@ SCORE_DRAWS = 10_000
 
 
 def dryrun_sweep() -> dict:
-    """Phase 9 (a): ``dryrun.run_cell`` for every mesh of ``DRYRUN_MESHES``
-    (fake process group, meta device) x arch x shape; no cell may fail."""
+    """Phase 9 (a): every arch x shape on each mesh of ``DRYRUN_MESHES``,
+    each arch's cells in a process of its own (``python -m
+    repro_torch.launch.dryrun``), all started together; no cell may fail,
+    every OK cell carries its observed and derived collectives, every
+    train cell a gradient reduction over the data axes.  Per cell: the
+    per-device flops, bytes and peak, their ratio to the even split (the
+    whole step's over the devices), the observed and derived collective
+    totals, ``dominant``; the count of cells each roofline term
+    dominates."""
+    import json
+    import subprocess
     from repro_torch.configs import ARCHS, SHAPES
-    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    recs = [dryrun.run_cell(arch, shape, mesh, DRYRUN_OUT)
-            for mesh in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    mesh = "both" if len(DRYRUN_MESHES) == 2 else DRYRUN_MESHES[0]
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--all", "--mesh", mesh, "--out", str(DRYRUN_OUT)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch in ARCHS}
+    logs = {}
+    try:
+        for arch, proc in procs.items():
+            logs[arch], _ = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    recs = [json.loads((DRYRUN_OUT / f"{arch}__{shape}__{m}.json")
+                       .read_text())
+            for m in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES]
     counts = {k: sum(r["status"] == k for r in recs)
               for k in ("OK", "SKIPPED", "FAIL")}
     ok = [r for r in recs if r["status"] == "OK"]
     dominant = {term: sum(r["roofline"]["dominant"] == term for r in ok)
                 for term in ("compute", "memory", "collective")}
     out = {"counts": counts, "seconds": time.perf_counter() - t0,
-           "dominant": dominant,
-           "cells": {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
-               k: r.get(k) for k in ("status", "seconds", "params_counted",
-                                     "fits_hbm", "error")}
-               for r in recs}}
-    for r in ok:
-        cell = out["cells"][f"{r['arch']}__{r['shape']}__{r['mesh']}"]
-        coll = r["collectives"]
-        cell.update(dominant=r["roofline"]["dominant"],
-                    collective_s=r["roofline"]["collective_s"],
-                    collective_bytes=None if coll is None else coll["bytes"],
-                    dp_grad_bytes=None if coll is None
-                    else _dp_grad_bytes(coll))
-    print(f"[dryrun] sweep: {counts['OK']} OK, {counts['SKIPPED']} skipped, "
-          f"{counts['FAIL']} failed of {len(recs)} cells in "
-          f"{out['seconds']:.1f} s; the dominant roofline term: "
-          f"{dominant}", flush=True)
+           "dominant": dominant, "cells": {}}
+    for r in recs:
+        cell = {k: r.get(k) for k in ("status", "seconds", "fits_hbm",
+                                      "error")}
+        if r["status"] == "OK":
+            w = r["work"]
+            coll, derived = r["collectives"], r["collectives_derived"]
+            cell.update(
+                flops_per_device=w["flops"], bytes_per_device=w["bytes"],
+                peak_bytes_per_device=w["peak_bytes"],
+                over_even_split=w["whole"]["per_device_over_even_split"],
+                collective_bytes_observed=coll["bytes"]["total"],
+                collective_bytes_derived=derived["bytes"]["total"],
+                dominant=r["roofline"]["dominant"],
+                roofline_s={k: r["roofline"][f"{k}_s"] for k in (
+                    "compute", "memory", "collective")},
+                dp_grad_bytes=_dp_grad_bytes(coll))
+            even = cell["over_even_split"]     # x the even split
+            print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}: "
+                  f"{w['flops']:.2e} fl {even['flops']:.2f}x, "
+                  f"{w['bytes']:.2e} B {even['bytes']:.2f}x, "
+                  f"{w['peak_bytes'] / 1e9:.2f} GB {even['peak_bytes']:.2f}x;"
+                  f" coll {coll['bytes']['total']:.2e} / derived "
+                  f"{derived['bytes']['total']:.2e}; {cell['dominant']}",
+                  flush=True)
+        out["cells"][f"{r['arch']}__{r['shape']}__{r['mesh']}"] = cell
+    print(f"[dryrun] sweep as DTensors: {counts['OK']} OK, "
+          f"{counts['SKIPPED']} skipped, {counts['FAIL']} failed of "
+          f"{len(recs)} cells in {out['seconds']:.1f} s; the dominant "
+          f"roofline term: {dominant}", flush=True)
+    _require(all(p.returncode == 0 for p in procs.values()),
+             "dry-run processes failed: " + "; ".join(
+                 f"{a}: {logs.get(a, '')[-600:]}" for a, p in procs.items()
+                 if p.returncode != 0))
     _require(counts["FAIL"] == 0, "dry-run cells failed: " + ", ".join(
         k for k, v in out["cells"].items() if v["status"] == "FAIL"))
-    _require(all(r["collectives"] is not None for r in ok),
-             "OK dry-run cells without collectives")
-    no_dp = [k for k, v in out["cells"].items() if v.get("dp_grad_bytes")
-             is not None and "__train_4k__" in k and not v["dp_grad_bytes"]]
+    no_dp = [k for k, v in out["cells"].items() if "__train_4k__" in k
+             and not v["dp_grad_bytes"]]
     _require(not no_dp, f"train cells with no DP gradient reduction: {no_dp}")
     return out
 
 
 def _dp_grad_bytes(coll: dict) -> int:
-    """The bytes of a cell's gradient reductions over the DP axes (the
-    update's, and FSDP's reduce-scatters in the backward), all-reduce
-    2x."""
+    """The bytes of the reductions a cell's step issues over the data axis
+    (observed: ``entries`` named by mesh axis), all-reduce 2x."""
     return sum((2 if e["kind"] == "all-reduce" else 1) * e["bytes_each"]
                * e["count"] for e in coll["entries"]
                if e["kind"] in ("all-reduce", "reduce-scatter")
-               and ({"pod", "data"} & set([e["axis"]] if isinstance(
-                   e["axis"], str) else e["axis"])))
+               and e["axis"] in ("pod", "data"))
 
 
-def dryrun_grounding(dtype: str = "float32") -> dict:
-    """Phase 9 (b): the host-mesh dry-run cell of ``GROUND`` (in ``dtype``,
-    B x S, one microbatch, remat, the dry-run's step) against the same step
-    on the card: the predicted argument bytes (params, AdamW state with a
-    bfloat16 cell's float32 master copy, batch) within ``GROUND_ARG_TOL``
-    of what ``memory_allocated`` grows by when they are built; the
-    predicted peak (arguments + the step's temporaries) beside
-    ``max_memory_allocated``'s growth over the step; the counted flops
-    beside 6 N tokens."""
-    import dataclasses
+def _ground_step(cfg, shape, distributed: bool) -> dict:
+    """The grounding cell's step on the card (one microbatch, remat, the
+    dry-run's ``make_accum_train_step``), its leaves DTensors on the (1, 1)
+    CUDA mesh where ``distributed`` (under ``sharding_ctx``: the kernels
+    run through their sharding rules): the arguments' and the peak's
+    growth of ``memory_allocated``, the loss, the launches, the seconds."""
+    import contextlib
     import gc
     import torch
-    from repro_torch.configs import InputShape, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, init_opt_state
-    cfg = dataclasses.replace(get_config(GROUND["arch"]),
-                              n_layers=GROUND["layers"], dtype=dtype)
-    shape = InputShape("train_b2_s2048" + (
-        "" if dtype == "float32" else f"_{dtype}"), "train", GROUND["seq"],
-        GROUND["batch"])
-    rec = dryrun.run_cell(cfg.name, shape.name, "host", DRYRUN_OUT, cfg=cfg,
-                          shape=shape, mesh=make_host_mesh(), n_micro=1)
-    _require(rec["status"] == "OK", f"host dry-run cell: {rec.get('error')}")
-    pred_args = sum(rec["argument_bytes_per_device"].values())
-    pred_peak = pred_args + rec["memory"]["temp_bytes_per_device"]
-
+    from repro_torch.parallel import (batch_specs, distribute,
+                                      opt_moment_specs, param_specs,
+                                      sharding_ctx)
+    counters = _train_counters()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3768,45 +3810,111 @@ def dryrun_grounding(dtype: str = "float32") -> dict:
                                              shape.seq_len),
                               generator=g, device=DEVICE, dtype=torch.int32)
              for k in ("tokens", "labels")}
+    ctx = contextlib.nullcontext()
+    grad_specs = None
+    if distributed:
+        mesh = make_host_mesh()
+        moments = opt_moment_specs(params, mesh)
+        ospecs = {"m": moments, "v": moments, "step": ()}
+        if "master" in opt_state:
+            ospecs["master"] = moments
+        params = distribute(params, param_specs(params, mesh), mesh)
+        opt_state = distribute(opt_state, ospecs, mesh)
+        batch = distribute(batch, batch_specs(batch, mesh), mesh)
+        ctx, grad_specs = sharding_ctx(mesh), moments
     torch.cuda.synchronize()
     args = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
-    micro_grad, update = dryrun.make_accum_train_step(cfg, AdamWConfig(),
-                                                      n_micro=1)
+    _reset(counters)
+    micro_grad, update = dryrun.make_accum_train_step(
+        cfg, AdamWConfig(), n_micro=1, grad_specs=grad_specs)
     t0 = time.perf_counter()
-    gsum, loss = micro_grad(params, batch, None)
-    update(params, opt_state, gsum)
+    with ctx:
+        gsum, loss = micro_grad(params, batch, None)
+        update(params, opt_state, gsum)
+        if distributed:
+            loss = loss.to_local()
     torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - base
-    loss = float(loss)
-    del params, opt_state, batch, gsum
+    out = {"args": args, "peak": torch.cuda.max_memory_allocated() - base,
+           "loss": float(loss), "launches": _counts(counters),
+           "step_s": time.perf_counter() - t0}
+    del params, opt_state, batch, gsum, loss
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_grounding(dtype: str = "float32") -> dict:
+    """Phase 9 (b): the host-mesh dry-run cell of ``GROUND`` (in ``dtype``,
+    B x S, one microbatch, remat, the dry-run's step, as DTensors on the
+    card's (1, 1) CUDA mesh) against the same step on the card: first
+    plain, then as DTensors on that mesh (the flash and AdamW kernels
+    through their sharding rules), the same loss bit for bit and the same
+    launches; the predicted argument bytes (params, AdamW state with a
+    bfloat16 cell's float32 master copy, batch) within ``GROUND_ARG_TOL``
+    of what ``memory_allocated`` grows by when they are built and
+    distributed; the predicted peak (arguments + the step's temporaries)
+    within ``GROUND_PEAK_TOL`` of ``max_memory_allocated``'s growth over
+    the DTensor step; the counted flops beside 6 N tokens."""
+    import dataclasses
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dataclasses.replace(get_config(GROUND["arch"]),
+                              n_layers=GROUND["layers"], dtype=dtype)
+    shape = InputShape("train_b2_s2048" + (
+        "" if dtype == "float32" else f"_{dtype}"), "train", GROUND["seq"],
+        GROUND["batch"])
+    rec = dryrun.run_cell(cfg.name, shape.name, "host", DRYRUN_OUT, cfg=cfg,
+                          shape=shape, mesh=make_host_mesh(), n_micro=1)
+    _require(rec["status"] == "OK", f"host dry-run cell: {rec.get('error')}")
+    pred_args = sum(rec["argument_bytes_per_device"].values())
+    pred_peak = pred_args + rec["memory"]["temp_bytes_per_device"]
+    plain = _ground_step(cfg, shape, distributed=False)
+    dist = _ground_step(cfg, shape, distributed=True)
+    args, peak = dist["args"], dist["peak"]
     out = {"cell": f"{cfg.name} x {cfg.n_layers} layers, {dtype}, B "
                    f"{shape.global_batch} x S {shape.seq_len}, remat",
+           "mesh": rec["mesh_shape"], "mesh_device": rec["mesh_device"],
            "predicted_args_bytes": pred_args, "allocated_args_bytes": args,
            "args_rel_err": abs(args - pred_args) / pred_args,
+           "plain_args_bytes": plain["args"],
            "predicted_peak_bytes": pred_peak, "measured_peak_bytes": peak,
+           "plain_peak_bytes": plain["peak"],
            "peak_ratio": pred_peak / peak,
            "counted_flops": rec["work"]["flops"],
+           "counted_flops_whole": rec["work"]["whole"]["flops"],
            "model_flops_6nt": rec["roofline"]["model_flops"],
            "counted_over_6nt": rec["work"]["flops"]
            / rec["roofline"]["model_flops"],
            "kernels": rec["work"]["parts"]["micro"]["kernels"],
-           "step_s": step_s, "loss": loss,
+           "launches": dist["launches"], "plain_launches": plain["launches"],
+           "loss": dist["loss"], "plain_loss": plain["loss"],
+           "step_s": dist["step_s"], "plain_step_s": plain["step_s"],
            "dryrun_s": rec["seconds"]}
-    print(f"[dryrun] grounding {out['cell']}: arguments predicted "
+    print(f"[dryrun] grounding {out['cell']} as DTensors on the "
+          f"{out['mesh']} {out['mesh_device']} mesh: arguments predicted "
           f"{pred_args / 1e9:.4f} GB, allocated {args / 1e9:.4f} GB (rel "
-          f"{out['args_rel_err']:.2e}); peak predicted {pred_peak / 1e9:.2f} "
-          f"GB, measured {peak / 1e9:.2f} GB (ratio {out['peak_ratio']:.3f});"
+          f"{out['args_rel_err']:.2e}); peak predicted {pred_peak / 1e9:.4f} "
+          f"GB, measured {peak / 1e9:.4f} GB (ratio {out['peak_ratio']:.8f});"
           f" flops counted {out['counted_flops']:.4e}, 6 N tokens "
           f"{out['model_flops_6nt']:.4e} ({out['counted_over_6nt']:.3f}x); "
-          f"step {step_s:.2f} s", flush=True)
+          f"loss {dist['loss']!r} (plain {plain['loss']!r}); launches "
+          f"{dist['launches']} (plain {plain['launches']}); step "
+          f"{dist['step_s']:.2f} s (plain {plain['step_s']:.2f})", flush=True)
     _require(out["args_rel_err"] <= GROUND_ARG_TOL,
              f"predicted argument bytes {pred_args} against {args} "
              f"allocated")
-    _require(math.isfinite(loss), f"grounding step's loss {loss}")
+    _require(abs(out["peak_ratio"] - 1) <= GROUND_PEAK_TOL,
+             f"predicted peak {pred_peak} against {peak} measured")
+    _require(math.isfinite(dist["loss"]) and dist["loss"] == plain["loss"],
+             f"grounding step's loss as DTensors {dist['loss']!r}, plain "
+             f"{plain['loss']!r}")
+    _require(dist["launches"] == plain["launches"]
+             and dist["launches"]["flash_attention"] > 0
+             and dist["launches"]["adamw"] > 0,
+             f"grounding step's launches as DTensors {dist['launches']}, "
+             f"plain {plain['launches']}")
     return out
 
 

@@ -25,7 +25,10 @@ says how); the norm kernel sums in float64 in a fixed order, where the
 plain version sums float32 in PyTorch's order.  On the meta device (the
 dry-run's abstract step) both compute nothing and report their work
 (``work.adamw_work``, ``work.adamw_norm_work``: bytes, no flops) through
-``work.report``.  Any other device raises.
+``work.report``.  Any other device raises.  On DTensors (a step run on a
+device mesh, as the dry-run runs it) each device updates its shard, and
+the norm sums each leaf's squares over the mesh dims that shard it
+(``_update_sharded``, ``_global_norm_sharded``).
 
 Counters: ``launches``, one a leaf update; ``norm_launches``, the norm's
 kernels: one partial pass a leaf and one finalize a norm.
@@ -36,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..parallel import sharding
 from . import work
 from .common import LaunchCounter
 
@@ -120,6 +124,9 @@ def _check_leaf(p, p32, g, m, v, scalars) -> None:
 def update(p, p32, g, m, v, lr, scale, b1c, b2c, *, b1: float, b2: float,
            eps: float, weight_decay: float) -> None:
     """One leaf's AdamW update in place (the module doc)."""
+    if sharding.is_distributed(p, p32, g, m, v):
+        return _update_sharded(p, p32, g, m, v, lr, scale, b1c, b2c, b1=b1,
+                               b2=b2, eps=eps, weight_decay=weight_decay)
     dev = _device((p, p32, g, m, v))
     consts = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if dev.type == "cpu":
@@ -160,6 +167,8 @@ def global_norm(grads) -> torch.Tensor:
     grads = list(grads)
     if not grads:
         raise ValueError("global_norm of no gradients")
+    if sharding.is_distributed(*grads):
+        return _global_norm_sharded(grads)
     dev = _device(grads)
     if dev.type == "cpu":
         return global_norm_plain(grads)
@@ -196,3 +205,62 @@ def global_norm(grads) -> torch.Tensor:
                            f"{err}")
     norm_launches.add()
     return out
+
+
+def _local(t):
+    return t.to_local() if sharding.is_distributed(t) else t
+
+
+def _update_sharded(p, p32, g, m, v, lr, scale, b1c, b2c, **consts) -> None:
+    """:func:`update` on DTensors: elementwise, so each device updates its
+    shard with the kernel.  The shard is the moments' (ZeRO-1): the param
+    and its gradient are cut to the moments' placements first (the
+    gradient normally arrives there), and the updated param goes back to
+    its own placements, an all-gather where the moments shard a dim the
+    param does not."""
+    mesh, target = m.device_mesh, tuple(m.placements)
+
+    def on_moments(t):
+        return (t if tuple(t.placements) == target
+                else t.redistribute(mesh, target))
+
+    pm = on_moments(p)
+    p32m = pm if p32 is p else on_moments(p32)
+    update(_local(pm), _local(p32m), _local(on_moments(g)), _local(m),
+           _local(v), *(_local(t) for t in (lr, scale, b1c, b2c)), **consts)
+    for t, moved in ((p, pm), (p32, p32m)):
+        if moved is not t:
+            t.copy_(moved.redistribute(mesh, t.placements))
+
+
+def _global_norm_sharded(grads) -> torch.Tensor:
+    """:func:`global_norm` of DTensors, a replicated DTensor.  A norm is no
+    sum of the shards' norms: each leaf's sum of squares is summed over
+    the mesh dims on which it is sharded (a leaf replicated on a dim counts
+    once, not once a device), then the root is taken.  The leaves are
+    grouped by those dims; a group's local sum of squares is the square of
+    the kernel's norm of its local shards, in float64.  Where no leaf is
+    sharded (one device) the norm is the kernel's own, bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = grads[0].device_mesh
+    whole = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    grads = [g.redistribute(mesh, tuple(
+        Replicate() if p.is_partial() else p for p in g.placements))
+        if any(p.is_partial() for p in g.placements) else g for g in grads]
+    groups: dict[tuple, list] = {}
+    for g in grads:
+        key = tuple(i for i, p in enumerate(g.placements) if p.is_shard())
+        groups.setdefault(key, []).append(g.to_local())
+    if list(groups) == [()]:
+        return DTensor.from_local(global_norm(groups[()]), mesh, whole,
+                                  run_check=False)
+    total = None
+    for key, local in groups.items():
+        sq = global_norm(local).double() ** 2
+        if key:
+            sq = DTensor.from_local(sq, mesh, tuple(
+                Partial() if i in key else Replicate()
+                for i in range(mesh.ndim)), run_check=False).full_tensor()
+        total = sq if total is None else total + sq
+    return DTensor.from_local(total.sqrt().float(), mesh, whole,
+                              run_check=False)

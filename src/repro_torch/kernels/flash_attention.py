@@ -73,6 +73,11 @@ dtypes and report the work a launch would do (``work.attention_work``,
 ``work.attention_bwd_work``, the flops and bytes ``chip_smoke.py`` prices
 in the bound) through ``work.report``.  Any device but the CPU, CUDA and
 meta raises.
+
+On DTensors (a step run on a device mesh, as the dry-run runs it) the
+forward and the backward run on each device's shard, as on one device,
+by the sharding rule of ``_sharded`` (batch over the data axes, heads over
+"model" where they divide; the K/V heads that a shard's query heads read).
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ import ctypes
 
 import torch
 
+from ..parallel import sharding
 from . import work
 from .common import LaunchCounter
 
@@ -148,11 +154,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     _check(q, k, v, causal)
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    if sharding.is_distributed(q, k, v):
+        return _sharded(q, k, v, causal, scale)
     if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no flash attention for device {q.device}")
-    return FlashAttention.apply(q, k, v, causal,
-                                q.shape[3] ** -0.5 if scale is None
-                                else scale)
+    return FlashAttention.apply(q, k, v, causal, scale)
+
+
+def _sharded(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The sharding rule of attention on DTensors: the kernels (forward and
+    backward) run on each device's shard.  Batch over the data axes where
+    they divide it; query heads over "model" where it divides them, and
+    K/V heads with them where it divides those too.  Where it divides the
+    query heads but not the K/V heads (granite-8b's 8 on 16), K/V stay
+    whole on every device, each shard reads the K/V heads its query heads
+    map to (``h // group``, not its first ones), and their gradients are
+    partial sums over "model".  Where a shard's heads would straddle
+    groups unevenly, or "model" divides no heads, the heads stay whole."""
+    from torch.distributed.tensor import Partial
+    mesh = q.device_mesh
+    b, hq = q.shape[:2]
+    hkv = k.shape[1]
+    group = hq // hkv
+    m = sharding.model_size(mesh)
+    n = hq // m
+    heads = m > 1 and hq % m == 0 and (n % group == 0 or group % n == 0)
+    kv_heads = heads and hkv % m == 0
+    dims = dict.fromkeys(sharding.batch_axes(mesh, b), 0)
+    qp = sharding.placements(mesh, {**dims, "model": 1 if heads else None})
+    kvp = sharding.placements(mesh, {**dims,
+                                     "model": 1 if kv_heads else None})
+    kvg = kvp
+    if heads and not kv_heads:
+        kvg = tuple(Partial() if name == "model" else p
+                    for name, p in zip(mesh.mesh_dim_names, kvp))
+    coord = sharding.model_coordinate(mesh)
+
+    def local(ql, kl, vl):
+        if heads and not kv_heads:      # the K/V heads of this shard's
+            lo = coord * n // group     # query heads
+            hi = ((coord + 1) * n - 1) // group + 1
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+        return flash_attention(ql, kl, vl, causal=causal, scale=scale)
+
+    return sharding.on_shards(local, mesh, (q, k, v), (qp, kvp, kvp), qp,
+                              (qp, kvg, kvg))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,12 +1,16 @@
 """Plain torch oracles for every kernel (port of ``matmul_ref``,
 ``copy_ref``, ``stencil_ref``, ``attention_ref``, ``decode_attention_ref``
-and ``ssd_ref`` of ``repro/kernels/ref.py``).  The JAX originals pin
-shardings with ``constrain``; a single card has nothing to pin, so those
-lines are gone."""
+and ``ssd_ref`` of ``repro/kernels/ref.py``).  ``decode_attention_ref``
+pins its logits with ``constrain`` as the reference does (a step on
+DTensors moves them; a plain tensor stays as it is); the reference's
+chunked XLA attention, whose pins are the others, has no counterpart
+here: on a mesh the flash kernel's sharding rule takes their place."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import constrain, is_distributed
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,12 +73,22 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     bsz, hq, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
+    q = constrain(q, ("dp", None, None))   # every head meets each shard
     qg = q.reshape(bsz, hkv, hq // hkv, d).float()
     logits = torch.einsum("bhgd,bthd->bhgt", qg, k_cache.float()) * scale
+    logits = constrain(logits, ("dp", None, None, "model"))
     mask = (torch.arange(t, device=q.device)[None, None, None, :]
             < lengths[:, None, None, None])
     logits = logits.masked_fill(~mask, float("-inf"))
-    w = torch.softmax(logits, dim=-1)
+    if is_distributed(logits) and any(p.is_shard(3)
+                                      for p in logits.placements):
+        # a softmax over a sequence-sharded cache, as the reference's pin
+        # lowers it: each (b, h) row's max and sum reduced over the shards
+        # (a softmax op would gather the logits)
+        e = torch.exp(logits - logits.amax(3, keepdim=True))
+        w = e / e.sum(3, keepdim=True)
+    else:
+        w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", w, v_cache.float())
     return out.reshape(bsz, hq, d).to(q.dtype)
 

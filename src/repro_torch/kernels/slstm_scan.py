@@ -54,6 +54,11 @@ kernels give (the kept carry too) and report the work a launch would do
 (``work.slstm_work``, ``work.slstm_bwd_work``) through ``work.report``.
 Any device but the CPU, CUDA and meta raises.
 
+On DTensors (a step run on a device mesh, as the dry-run runs it) the
+forward and the backward run on each device's shard, as on one device,
+by the sharding rule of ``_sharded``: the units are independent, so a
+shard of d runs its own with no exchange.
+
 This module imports nothing of ``repro_torch.models``: the model's
 ``xlstm.slstm_block`` and ``slstm_decode`` call it, and its
 ``_slstm_cell`` is :func:`slstm_cell`.
@@ -65,6 +70,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel import sharding
 from . import work
 from .common import LaunchCounter
 
@@ -183,12 +189,45 @@ def slstm_scan(gx: torch.Tensor, r: torch.Tensor,
     asked for."""
     carry = tuple(carry)
     _check(gx, r, carry)
+    if sharding.is_distributed(gx, r, *carry):
+        return _sharded(gx, r, carry)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (gx, r, *carry)):
         hs, *last = SLSTMScan.apply(gx, r, *carry)
         return hs, tuple(last)
     hs, last, _ = _forward(gx, r, carry, keep=False)
     return hs, last
+
+
+def _sharded(gx, r, carry) -> tuple[torch.Tensor, tuple]:
+    """The sharding rule of the recurrence on DTensors: the kernels (forward
+    and backward) run on each device's shard.  Each unit's recurrence reads
+    its own gate inputs, its own column of r and its own carry, so a shard
+    of the units (d over "model" where it divides d) runs with no exchange
+    between the shards, from a token to the next or in the backward; the
+    batch goes over the data axes where they divide it.  r's gradient sums
+    over the batch: a partial sum over the data axes."""
+    from torch.distributed.tensor import Partial
+    mesh = gx.device_mesh
+    units = ({"model": 1} if sharding.model_size(mesh) > 1
+             and gx.shape[3] % sharding.model_size(mesh) == 0 else {})
+    batch = sharding.batch_axes(mesh, gx.shape[0])
+    dims = dict.fromkeys(batch, 0)
+    gp = sharding.placements(mesh, {**dims, **{k: 3 for k in units}})
+    rp = sharding.placements(mesh, units)
+    rg = tuple(Partial() if name in batch else p
+               for name, p in zip(mesh.mesh_dim_names, rp))
+    cp = sharding.placements(mesh, {**dims, **units})
+    hp = sharding.placements(mesh, {**dims, **{k: 2 for k in units}})
+
+    def local(gxl, rl, *cl):
+        hs, last = slstm_scan(gxl, rl, cl)
+        return (hs, *last)
+
+    hs, *last = sharding.on_shards(
+        local, mesh, (gx, r, *carry), (gp, rp) + (cp,) * 4,
+        (hp,) + (cp,) * 4, (gp, rg) + (cp,) * 4)
+    return hs, tuple(last)
 
 
 def _forward(gx, r, carry, keep: bool):

@@ -96,6 +96,11 @@ saves what its backward reads) and report the work a launch would do
 (``work.ssd_work``, ``work.ssd_bwd_work`` with the scratch kept, the flops
 and bytes ``chip_smoke.py`` prices in the bound) through ``work.report``.
 Any device but the CPU, CUDA and meta raises.
+
+On DTensors (a step run on a device mesh, as the dry-run runs it) the
+forward and the backward run on each device's shard, as on one device,
+by the sharding rule of ``_sharded`` (batch rows and heads are scans of
+their own).
 """
 from __future__ import annotations
 
@@ -104,6 +109,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharding
 from . import work
 from .common import LaunchCounter
 
@@ -168,11 +174,47 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     _check(x, a, b, c)
+    if sharding.is_distributed(x, a, b, c):
+        return _sharded(x, a, b, c)
     if x.device.type not in _DEVICES:
         raise ValueError(f"no SSD scan for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         return SSDScan.apply(x, a, b, c)
     return _forward(x, a, b, c)       # no graph, nothing saved
+
+
+def _sharded(x, a, b, c) -> torch.Tensor:
+    """The sharding rule of the scan on DTensors: the kernels (forward and
+    backward) run on each device's shard.  Each batch row and each head is
+    a scan of its own.  Where "model" divides the heads, x and a are
+    sharded on their heads and b and c, which every head reads, stay whole
+    (their gradients partial sums over "model"), the batch over the data
+    axes where they divide it.  Otherwise (mLSTM folds its heads into the
+    batch) all four take the batch sharding of the input that arrives
+    sharded on the most mesh dims and on nothing but its batch (the others
+    are cut to it, on their own device), and else the data axes' alone."""
+    from torch.distributed.tensor import Partial
+    mesh = x.device_mesh
+    m = sharding.model_size(mesh)
+    if m > 1 and x.shape[2] % m == 0:
+        dims = dict.fromkeys(sharding.batch_axes(mesh, x.shape[0]), 0)
+        xp = sharding.placements(mesh, {**dims, "model": 2})
+        bp = sharding.placements(mesh, dims)
+        bg = tuple(Partial() if name == "model" else p
+                   for name, p in zip(mesh.mesh_dim_names, bp))
+        ins, grads = (xp, xp, bp, bp), (xp, xp, bg, bg)
+    else:
+        batch_only = [tuple(t.placements) for t in (x, a, b, c)
+                      if all(p.is_replicate() or getattr(p, "dim", None) == 0
+                             for p in t.placements)]
+        xp = max(batch_only, default=None, key=lambda pl: sum(
+            not p.is_replicate() for p in pl))
+        if xp is None:
+            xp = sharding.placements(mesh, dict.fromkeys(
+                sharding.batch_axes(mesh, x.shape[0]), 0))
+        ins = grads = (xp,) * 4
+    return sharding.on_shards(ssd_scan, mesh, (x, a, b, c), ins, ins[0],
+                              grads)
 
 
 def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

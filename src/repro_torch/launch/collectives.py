@@ -2,8 +2,9 @@
 port's counterpart of the collective half of ``repro/launch/hlo_analysis.py``.
 
 The reference parses every collective out of its compiled, partitioned HLO.
-The port runs its step on global meta tensors (``launch/dryrun.py``), so it
-derives them instead: from each leaf's *sanitized* spec, as
+The port's dry-run observes those its step on DTensors issues
+(``launch/dryrun.py``); this module derives them beside that: from each
+leaf's *sanitized* spec, as
 ``parallel/sharding.py`` assigns it (an axis that ``sanitize`` dropped
 implies nothing), and from the activation layouts each block of the
 ``layer_plan`` passes.  Each entry is one collective with its mesh axis,
@@ -54,16 +55,22 @@ replicated over it between blocks; data parallelism over ``dp_axes``):
   new K/V row are all-gathered, the softmax's per-(b, h) max and sum and
   the output are all-reduced.  A prefill fills such a cache by an
   all-to-all of K and V from head-sharded to T-sharded.
-- **sLSTM.** Where ``r_gates`` is sharded, the recurrence keeps its h
-  replicated, as the output projections read it: each token's h is
-  all-gathered (forward, remat forward), and its gradient, sharded where
-  ``r_gates`` is, all-gathered in the backward, per token and sLSTM layer.
-  mLSTM's ``xi`` meets a replicated ``w_if`` beside its column-sharded
-  q, k, v: its gradient is all-reduced before it is cut to the shard.
+- **sLSTM.** Where ``r_gates`` is sharded, the recurrence runs on each
+  device's shard of the units with no exchange, a token or a step (each
+  unit reads its own column of r and its own carry; the kernels' sharding
+  rule, which the dry-run's DTensor step observes: its calls do not grow
+  with S); its output h is all-gathered once a layer for the up
+  projections (forward, remat forward), its gradient reduce-scattered back
+  in the backward.  mLSTM's ``xi`` meets a replicated ``w_if`` beside its
+  column-sharded q, k, v: its gradient is all-reduced before it is cut to
+  the shard.
 
 Not counted: the scalar reductions of the loss and the MoE aux loss over
-the batch (a few bytes), and the reference's Megatron sequence parallelism
-(``seq_parallel``): the port's models do not run it.
+the batch (a few bytes), and Megatron sequence parallelism
+(``seq_parallel``, which the models run under ``sharding_ctx`` since they
+pin its layouts with ``constrain``): this count is the specs' alone.  The
+dry-run records what its step on DTensors issues beside it
+(``launch/dryrun.py``); this count is ``collectives_derived`` there.
 """
 from __future__ import annotations
 
@@ -397,10 +404,9 @@ class _Step:
                                 f"{src}.mlstm", ("mlstm", "w_down"))
             elif kind == "slstm":
                 p = lambda name: self.spec(kind, "slstm", name)
-                if col(p("r_gates")):
-                    per_token = self.b * d * self.it
-                    gathered(t, per_token, src=f"{src}.slstm.h_t", phases=ph,
-                             times=self.s, grad="all-gather")
+                if col(p("r_gates")):   # h whole for the up projections
+                    gathered(t, self.act(d), src=f"{src}.slstm.h",
+                             phases=ph)
                 self.proj_group(kind, ph, [("slstm", n) for n in
                                            ("w_i", "w_f", "w_z", "w_o")],
                                 f"{src}.slstm")

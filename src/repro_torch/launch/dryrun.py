@@ -1,6 +1,7 @@
 """Dry-run: every (arch x shape x mesh) cell at full width and depth on the
-meta device, its shardings made real as DTensors, its work counted (port of
-``repro/launch/dryrun.py``).
+meta device, its step run as DTensors on the mesh, each device's work its
+own (port of ``repro/launch/dryrun.py``, which compiles the step for its
+256 or 512 host devices and reads one device's partitioned program).
 
 Per cell this driver:
   1. builds the params, the AdamW state, the batch (``train_batch_specs``)
@@ -11,34 +12,52 @@ Per cell this driver:
      reference's lower + compile: a spec that is no valid placement fails
      the cell — and sums each device's argument bytes from the local
      shards;
-  3. runs the step once on the meta device under ``op_analysis.analyze``
-     (one microbatch of a train step, whose flops and bytes count
-     ``n_micro`` times, then the AdamW update once): the flops, the bytes
-     and the peak of the temporaries, the kernels' work through their meta
-     path;
-  4. counts the collectives the specs imply, per device
-     (``launch/collectives.py``: TP, the vocab-sharded embedding and head,
-     EP, DP with ZeRO-1, FSDP, SP decode, the sLSTM recurrence), in the
+  3. runs the step once on those DTensors (their shards on the meta
+     device) under ``sharding_ctx(mesh)`` and ``op_analysis.analyze``: one
+     microbatch of a train step (distributed at its own size; its counts
+     ``n_micro`` times), its gradient pinned to the moments' specs as the
+     reference's accumulation pins it (a reduce-scatter over the data
+     axes), then the AdamW update on the moments' shards, whose params go
+     back to their own specs; a prefill, whose decode state is made at
+     ``decode_state_specs``; a decode step, which writes its state in
+     place.  The models pin the reference's layouts with ``constrain``
+     (SP decode, the decode logits, Megatron sequence parallelism where
+     ``seq_parallel``), and the kernels run on their shards by their
+     sharding rules.  The flops, bytes and peak of the temporaries are
+     rank 0's, which holds the largest shard where a dim splits unevenly:
+     work that every device of a group repeats counts in full, an
+     activation a device holds whole at its whole size;
+  4. records the collectives that run issues, per device, in the
      reference's record (result bytes by kind, all-reduce 2x, call
-     counts);
+     counts), and beside them those the specs imply
+     (``launch/collectives.py``, ``collectives_derived``) and the ratio of
+     the two totals; it also runs the step on the global tensors, whose
+     counts over the device count are the even split that the record sets
+     the per-device counts against (``work.whole``);
   5. computes the three roofline terms at the H100 SXM's dense peaks (989
      TFLOP/s bfloat16, 3.35 TB/s, 80 GB a device) and one 400 Gb/s NIC a
-     device (50 GB/s; ``kernels/work.py``), takes the largest as
-     ``dominant``, and writes one JSON record per cell.
+     device (50 GB/s; ``kernels/work.py``) from the per-device counts and
+     the observed collectives, takes the largest as ``dominant``, and
+     writes one JSON record per cell.
 
-The step's flops and bytes divide over the devices evenly: per device is
-the whole over the device count (data, tensor and expert parallelism split
-every matmul and the batch; what a device does twice is not seen here:
-the step runs on global meta tensors, not on DTensors).  The collectives
-are each device's own.
+The mesh: the production meshes are CPU meshes over the fake process group
+(``launch/mesh.py``) whose shards lie on the meta device.  DTensor's
+sharding propagation needs a device module for its cost model, which a
+meta-device mesh has not; on a CPU mesh DTensor stands an all-gather in
+for an all-to-all (gloo has none), and the op counter counts that as the
+all-to-all a card would run.  The host mesh is the card's, (n, 1) CUDA
+(``make_host_mesh``), or (1, 1) on the CPU when asked for; on a (1, 1)
+mesh every leaf is replicated and every count is the plain step's.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --arch granite-8b,xlstm-125m --shape train_4k,decode_32k
   python -m repro_torch.launch.dryrun --all [--mesh both] [--skip-existing]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -53,8 +72,10 @@ from ..kernels import work
 from ..models import init_decode_state, init_params
 from ..optim import AdamWConfig, apply_updates, init_opt_state
 from ..optim.adamw import leaves, tree_map
-from ..parallel import (axis_sizes, batch_specs, decode_state_specs,
-                        distribute, dp_axes, opt_moment_specs, param_specs)
+from ..parallel import (axis_sizes, batch_specs, constrain,
+                        decode_state_specs, distribute, dp_axes,
+                        opt_moment_specs, param_specs, sharding_ctx)
+from ..parallel.sharding import is_distributed
 from ..train import make_decode_step, make_grad_step, make_prefill_step
 from .collectives import step_collectives
 from .mesh import make_host_mesh, make_production_mesh
@@ -81,22 +102,31 @@ def n_micro_for(mesh) -> int:
 
 
 def make_accum_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                          n_micro: int, remat: bool = True):
+                          n_micro: int, remat: bool = True,
+                          grad_specs=None):
     """The reference's grad-accumulation train step, eager: the gradient of
     each of ``n_micro`` microbatches summed into a float32 buffer (the
     first microbatch's gradient itself where it is float32), divided by
     ``n_micro`` in place, then one AdamW update.  Returns ``(micro_grad,
     update)``: ``micro_grad(params, micro, gsum)`` gives the running sum
     (``gsum`` None for the first) and the loss; ``update(params, opt_state,
-    gsum)`` gives (params, opt_state, info)."""
+    gsum)`` gives (params, opt_state, info).  ``grad_specs`` (the moments'
+    specs): under ``sharding_ctx`` each microbatch's sum is pinned there,
+    as the reference pins it (ZeRO: a reduce-scatter of the gradient over
+    the data axes a microbatch); plain tensors stay as they are."""
     grad_step = make_grad_step(cfg, remat=remat)
+
+    def pin(tree):
+        if grad_specs is None:
+            return tree
+        return tree_map(constrain, tree, grad_specs)
 
     def micro_grad(params, micro, gsum):
         grads, metrics = grad_step(params, micro)
         loss = metrics["total_loss"]
         if gsum is None:
-            return tree_map(lambda g: g.to(torch.float32), grads), loss
-        for acc, g in zip(leaves(gsum), leaves(grads)):
+            return pin(tree_map(lambda g: g.to(torch.float32), grads)), loss
+        for acc, g in zip(leaves(gsum), leaves(pin(grads))):
             acc.add_(g)
         return gsum, loss
 
@@ -164,36 +194,82 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, *,
     return Cell(cfg, shape.kind, args, specs, outs, n_micro or 1, use_fsdp)
 
 
-def analyze_cell(cell: Cell, shape: InputShape) -> dict:
-    """The step's work, whole: ``op_analysis`` of one microbatch of a train
-    step (its flops and bytes ``n_micro`` times) and of the update once;
-    of the prefill or the decode step once.  ``peak_bytes``: the most the
-    step holds beyond its arguments."""
-    cfg, a = cell.cfg, cell.args
+def analyze_cell(cell: Cell, shape: InputShape, mesh=None) -> dict:
+    """The step's work: ``op_analysis`` of one microbatch of a train step
+    (its flops, bytes and collectives ``n_micro`` times) and of the update
+    once; of the prefill or the decode step once.  ``peak_bytes``: the
+    most the step holds beyond its arguments.  On ``mesh`` the step runs as
+    DTensors at the cell's specs (a train step's microbatch distributed at
+    its own size) under ``sharding_ctx``, and every count is one device's;
+    without one, on the global tensors, every count is the whole step's."""
+    cfg, a = cell.cfg, dict(cell.args)
     if cell.kind == "train":
-        micro_grad, update = make_accum_train_step(
-            cfg, AdamWConfig(), n_micro=cell.n_micro)
         size = shape.global_batch // cell.n_micro
-        micro = {k: v[:size] for k, v in a["batch"].items()}
-        held = {}
+        a["batch"] = {k: v[:size] for k, v in a["batch"].items()}
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        specs = dict(cell.specs, batch=batch_specs(a["batch"], mesh))
+        a = {name: distribute(tree, specs[name], mesh)
+             for name, tree in a.items()}
+        ctx = sharding_ctx(mesh)
+    with ctx:
+        if cell.kind == "train":
+            micro_grad, update = make_accum_train_step(
+                cfg, AdamWConfig(), n_micro=cell.n_micro,
+                grad_specs=cell.specs["opt_state"]["m"])
+            held = {}
 
-        def one_micro():
-            held["gsum"], _ = micro_grad(a["params"], micro, None)
+            def one_micro():
+                held["gsum"], _ = micro_grad(a["params"], a["batch"], None)
 
-        g = analyze(one_micro)
-        u = analyze(update, a["params"], a["opt_state"], held["gsum"])
-        gsum_bytes = _nbytes(held["gsum"])
-        return {"flops": cell.n_micro * g["flops"] + u["flops"],
-                "bytes": cell.n_micro * g["bytes"] + u["bytes"],
-                "peak_bytes": max(g["peak_bytes"],
-                                  gsum_bytes + u["peak_bytes"]),
-                "micro": g, "update": u}
-    with torch.no_grad():
-        if cell.kind == "prefill":
-            step = make_prefill_step(cfg, max_len=shape.seq_len)
-            return analyze(step, a["params"], a["batch"])
-        step = make_decode_step(cfg)
-        return analyze(step, a["params"], a["state"], a["batch"]["tokens"])
+            g = analyze(one_micro)
+            u = analyze(update, a["params"], a["opt_state"], held["gsum"])
+            gsum_bytes = _local_bytes(held["gsum"])
+            coll = _sum_records([(g["collectives"], cell.n_micro),
+                                 (u["collectives"], 1)])
+            return {"flops": cell.n_micro * g["flops"] + u["flops"],
+                    "bytes": cell.n_micro * g["bytes"] + u["bytes"],
+                    "peak_bytes": max(g["peak_bytes"],
+                                      gsum_bytes + u["peak_bytes"]),
+                    "collectives": coll, "micro": g, "update": u}
+        with torch.no_grad():
+            if cell.kind == "prefill":
+                step = make_prefill_step(cfg, max_len=shape.seq_len)
+                return analyze(step, a["params"], a["batch"])
+            step = make_decode_step(cfg)
+            return analyze(step, a["params"], a["state"],
+                           a["batch"]["tokens"])
+
+
+def _sum_records(parts) -> dict:
+    """The collectives' records of ``(record, times)`` parts, summed."""
+    out: dict = {"bytes": {}, "counts": {}, "entries": []}
+    for rec, times in parts:
+        for key in ("bytes", "counts"):
+            for kind, v in rec[key].items():
+                out[key][kind] = out[key].get(kind, 0) + times * v
+        out["entries"] += [dict(e, count=e["count"] * times)
+                           for e in rec["entries"]]
+    out["bytes"].setdefault("total", 0)
+    return out
+
+
+def _name_axes(record: dict, mesh) -> dict:
+    """The record with each entry's ``axis`` (a process group's name) named
+    by the mesh dims whose group it is, this rank's."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    by_ranks = {tuple(dist.get_process_group_ranks(mesh.get_group(name))):
+                name for name in mesh.mesh_dim_names}
+    names: dict = {}
+    for e in record["entries"]:
+        g = e["axis"]
+        if g not in names:
+            ranks = tuple(dist.get_process_group_ranks(
+                _resolve_process_group(g))) if g else ()
+            names[g] = by_ranks.get(ranks, f"{len(ranks)} ranks")
+        e["axis"] = names[g]
+    return record
 
 
 def count_collectives(cell: Cell, shape: InputShape, mesh) -> dict:
@@ -218,9 +294,11 @@ def count_collectives(cell: Cell, shape: InputShape, mesh) -> dict:
                             seq=seq, n_micro=cell.n_micro, **kw)
 
 
-def _local_bytes(dtree) -> int:
-    return sum(t.to_local().numel() * t.element_size()
-               for t in leaves(dtree))
+def _local_bytes(tree) -> int:
+    """The bytes of a tree's local shards (its leaves' where they are plain
+    tensors)."""
+    return sum((t.to_local() if is_distributed(t) else t).numel()
+               * t.element_size() for t in leaves(tree))
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
@@ -229,7 +307,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
              n_micro: int | None = None) -> dict:
     """One cell: ``ARCHS[arch]`` in bfloat16 at ``SHAPES[shape_name]`` on
     the ``mesh_kind`` mesh (single, multi, host), or the ``cfg``,
-    ``shape`` and ``mesh`` given.  Writes and returns its record; a FAIL
+    ``shape`` and ``mesh`` given.  The step runs as DTensors on the mesh,
+    its counts one device's; it also runs on the global tensors, whose
+    counts over the device count are the even split that the record sets
+    beside them (``work.whole``).  Writes and returns its record; a FAIL
     record keeps its traceback."""
     tag = f"{arch}__{shape_name}__{mesh_kind}"
     path = Path(out_dir) / f"{tag}.json"
@@ -262,12 +343,18 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
         outs_local = {name: _local_bytes(t) for name, t in out_dist.items()}
         del dist, out_dist
         t_build = time.perf_counter() - t0
-        wk = analyze_cell(cell, shape)
-        coll = count_collectives(cell, shape, mesh)
+        wk = analyze_cell(cell, shape, mesh)
         t_analyze = time.perf_counter() - t0 - t_build
+        derived = count_collectives(cell, shape, mesh)
+        coll = _name_axes(wk["collectives"], mesh)
+        w = analyze_cell(cell, shape)
+        even = {"flops": w["flops"], "bytes": w["bytes"],
+                "peak_bytes": w["peak_bytes"],
+                "per_device_over_even_split": {
+                    k: wk[k] * n_dev / max(w[k], 1)
+                    for k in ("flops", "bytes", "peak_bytes")}}
 
-        flops_dev = wk["flops"] / n_dev
-        bytes_dev = wk["bytes"] / n_dev
+        flops_dev, bytes_dev = wk["flops"], wk["bytes"]
         compute_s = flops_dev / PEAK_FLOPS
         memory_s = bytes_dev / HBM_BW
         coll_s = coll["bytes"]["total"] / NET_BW
@@ -278,11 +365,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
         model_flops = (6 if shape.kind == "train" else 2) * (
             cfg_full.n_active_params * tokens)
         args_b = sum(args_local.values())
-        temp_b = wk["peak_bytes"] / n_dev
+        temp_b = wk["peak_bytes"]
         fits = args_b + temp_b <= HBM_PER_DEVICE
         record.update(
             status="OK", n_devices=n_dev,
             mesh_shape=axis_sizes(mesh), device="meta",
+            mesh_device=mesh.device_type,
             build_s=t_build, analyze_s=t_analyze,
             n_micro=cell.n_micro, fsdp=cell.fsdp,
             params_counted=sum(t.numel() for t in leaves(cell.args["params"])),
@@ -291,24 +379,29 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir,
             argument_bytes_whole=args_whole,
             output_bytes_per_device=outs_local,
             memory={"argument_bytes_per_device": args_b,
-                    "temp_bytes_whole": wk["peak_bytes"],
                     "temp_bytes_per_device": temp_b,
                     "per_device_bytes": args_b + temp_b},
             fits_hbm=bool(fits),
-            work={"flops": wk["flops"], "bytes": wk["bytes"],
-                  "peak_bytes": wk["peak_bytes"],
+            work={"flops": flops_dev, "bytes": bytes_dev,
+                  "peak_bytes": temp_b,
                   "flops_per_device": flops_dev,
                   "bytes_per_device": bytes_dev,
+                  "whole": even,
                   "parts": {k: v for k, v in wk.items()
-                            if k not in ("flops", "bytes", "peak_bytes")}},
+                            if k not in ("flops", "bytes", "peak_bytes",
+                                         "collectives")}},
             collectives=coll,
+            collectives_derived=derived,
+            collectives_observed_over_derived=(
+                coll["bytes"]["total"] / derived["bytes"]["total"]
+                if derived["bytes"]["total"] else None),
             roofline={
                 "compute_s": compute_s, "memory_s": memory_s,
                 "collective_s": coll_s, "dominant": dominant,
                 "model_flops": float(model_flops),
                 "flops_per_device": flops_dev,
-                "useful_flops_ratio": float(model_flops / max(wk["flops"],
-                                                              1.0)),
+                "useful_flops_ratio": float(model_flops / max(
+                    flops_dev * n_dev, 1.0)),
                 "peaks": {"flops": PEAK_FLOPS, "bytes_per_s": HBM_BW,
                           "hbm_bytes": HBM_PER_DEVICE,
                           "net_bytes_per_s": NET_BW,
@@ -360,8 +453,8 @@ def main() -> None:
     args = ap.parse_args()
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    archs = list(ARCHS) if args.arch is None else [args.arch]
-    shapes = list(SHAPES) if args.shape is None else [args.shape]
+    archs = list(ARCHS) if args.arch is None else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape is None else args.shape.split(",")
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("pass --arch and --shape, or --all")
     results = sweep(archs, shapes, meshes, args.out, args.skip_existing)

@@ -4,10 +4,13 @@ Functions, not module-level constants: importing this module touches no
 process group.  A process holds one default group, so the production
 meshes share one: the ``"fake"`` backend of PyTorch's testing tools, at
 the larger world (512 ranks), from which the single-pod mesh takes the
-first 256.  This process is rank 0; no collective runs on a fake group
-(the dry-run distributes meta tensors without one).  The reference's
-``jax.make_mesh`` gives Explicit axes on recent JAX, under which its
-``constrain`` raises; a ``DeviceMesh`` has no such mode.
+first 256.  This process is rank 0; a collective on a fake group moves
+nothing and returns a tensor of its result's shape (the dry-run's step on
+DTensors issues them on meta shards).  The meshes are CPU meshes by
+default: DTensor's sharding propagation prices its choices with the
+device module of the mesh's type, which the meta device has not.  The
+reference's ``jax.make_mesh`` gives Explicit axes on recent JAX, under
+which its ``constrain`` raises; a ``DeviceMesh`` has no such mode.
 """
 from __future__ import annotations
 
@@ -29,10 +32,17 @@ def _default_group() -> None:
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=WORLD)
+    # DTensor caches its sharding decisions by the meshes' values: a mesh of
+    # an earlier group (torn down in this process) equals a new one and
+    # would bring back that group's process groups
+    from torch.distributed.tensor import debug
+    clear = getattr(debug, "_clear_sharding_prop_cache", None)
+    if clear is not None:
+        clear()
 
 
 def make_mesh(shape: tuple[int, ...], names: tuple[str, ...],
-              device_type: str = "meta"):
+              device_type: str = "cpu"):
     """A ``DeviceMesh`` of ``shape`` with the dim ``names`` over the first
     ranks of the default group (started if need be)."""
     from torch.distributed.device_mesh import DeviceMesh
@@ -45,11 +55,12 @@ def make_mesh(shape: tuple[int, ...], names: tuple[str, ...],
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "meta"):
+                         device_type: str = "cpu"):
     """Single pod: (data=16, model=16) = 256 devices.  Multi-pod: (pod=2,
     data=16, model=16) = 512 devices — the pod axis is the slow links
     between pods; gradients reduce inside each pod first.  On the
-    ``device_type`` "meta" (a dry-run's, the default) or "cpu"."""
+    ``device_type`` "cpu" (a dry-run's, the default) or "meta", where
+    DTensor runs an all-to-all as one but propagates no sharding."""
     if multi_pod:
         return make_mesh((2, 16, 16), ("pod", "data", "model"), device_type)
     return make_mesh((16, 16), ("data", "model"), device_type)

@@ -22,20 +22,38 @@ where nothing is computed or allocated:
   peak_bytes  the most bytes of storage the run holds at once beyond what
               existed when it began (the step's temporaries: activations,
               what autograd saves, gradients, the kernels' scratch),
-              counted by each new storage's size until it is freed.
+              counted by each new storage's size until it is freed;
+  collectives the functional collectives the run issues (a step on
+              DTensors redistributes through them), in the reference's
+              record: result bytes by kind, an all-reduce 2x, and call
+              counts.
 
-:func:`analyze` gives these for one run of a function, whole: a caller
-that runs a step on sharded inputs divides them per device.  The
-collective terms of ``analyze_hlo`` stay out (no collective runs in an
-eager step on one process).
+A step on DTensors (``torch.distributed.tensor``, as the dry-run runs it on
+a mesh) is counted per device, for this process's rank, which is rank 0:
+the mode lets each DTensor op through to DTensor's dispatch (it returns
+``NotImplemented``, as ``CommDebugMode`` does) and counts what that runs
+on the local shards: the redistributions' collectives and copies, then the
+op on the shards it reads.  So an op's flops are its local share (its
+global count over the mesh dims on which its output is ``Shard`` or
+``Partial``, whole on a ``Replicate`` dim, where every device does it),
+its bytes those of the local shards it reads and writes, and the peak
+that of the local storages.  Where a dim splits unevenly, rank 0 holds
+the largest shard, so its counts are the most any device does.  The
+kernels run on their shards (``parallel.sharding.on_shards``) and report
+the local work.  DTensor's own sharding propagation runs ops on fake
+tensors; those are not counted.  A run on plain tensors counts what it
+did before (and issues no collective).
 """
 from __future__ import annotations
 
+import sys
 import weakref
 from collections import Counter
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..kernels import work
@@ -51,6 +69,28 @@ _RESULT_SIZED = {aten.index, aten.index_select, aten.gather, aten.embedding}
 # write region), by the update's position among the arguments
 _SCATTER = {aten.scatter: 3, aten.scatter_: 3, aten.scatter_add: 3,
             aten.scatter_add_: 3, aten.index_put: 2, aten.index_put_: 2}
+# the functional collectives, by the reference's kind
+_COLLECTIVE = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all"}
+# ops around a collective that hand its result on: no bytes, no storage
+_PASS = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _in_cpu_alltoall() -> bool:
+    """Whether an all-gather is DTensor's stand-in for an all-to-all: on a
+    CPU mesh ``shard_dim_alltoall`` all-gathers and keeps its chunk (gloo
+    has no all-to-all); a device that has one runs the all-to-all."""
+    f = sys._getframe(2)
+    for _ in range(12):
+        if f is None:
+            return False
+        if f.f_code.co_name == "shard_dim_alltoall":
+            return True
+        f = f.f_back
+    return False
 
 
 def _tensors(obj) -> list[torch.Tensor]:
@@ -73,6 +113,7 @@ class _OpCounter(TorchDispatchMode):
         self.flops_by_op: Counter = Counter()
         self.live = 0
         self.peak = 0
+        self.collectives: list[tuple[str, int, str]] = []
         self._storages: dict[int, tuple[int, weakref.ref]] = {}
 
     def _free(self, key: int) -> None:
@@ -90,10 +131,42 @@ class _OpCounter(TorchDispatchMode):
         self.live += nbytes
         self.peak = max(self.peak, self.live)
 
+    def _collective(self, name: str, args, out):
+        """A collective: its kind and result bytes in ``collectives``; as
+        an op, its operand and result bytes.  DTensor's stand-in for an
+        all-to-all on a CPU mesh is counted as the all-to-all: its result
+        is the chunk it keeps, and its whole gather is no storage."""
+        ins = [t for a in args for t in _tensors(a)]
+        res = _tensors(out)
+        nbytes = sum(t.nbytes for t in res)
+        kind = _COLLECTIVE[name]
+        if kind == "all-gather" and _in_cpu_alltoall():
+            kind, nbytes = "all-to-all", sum(t.nbytes for t in ins)
+            self.bytes += 2 * nbytes
+        else:
+            self.bytes += sum(t.nbytes for t in ins) + nbytes
+            in_storages = {id(t.untyped_storage()) for t in ins}
+            for t in res:
+                self._track(t, in_storages)
+        self.ops += 1
+        group = [a for a in args if isinstance(a, str)]
+        self.collectives.append((kind, nbytes, group[-1] if group else ""))
+        return out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # counted on the shards it runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in (*_tensors(out), *(
+                t for a in args for t in _tensors(a)))):
+            return out                  # DTensor's sharding propagation
         packet = func.overloadpacket
+        name = packet.__name__
+        if name in _PASS:
+            return out
+        if name in _COLLECTIVE:
+            return self._collective(name, args, out)
         if packet in self._flop_formulas:
             f = int(self._flop_formulas[packet](*args, out_val=out, **kwargs))
             self.flops += f
@@ -125,14 +198,21 @@ class _OpCounter(TorchDispatchMode):
 
 def analyze(fn: Callable[..., Any], *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once under the op counter and return the
-    work of the run, whole: ``flops`` (the matmul family's and the
-    kernels'), ``bytes``, ``peak_bytes``, and their parts: ``aten_flops``
-    by op, the kernels' calls, flops and bytes by kernel, ``ops`` (the aten
-    ops that move bytes).  Nothing in the run is computed where its tensors
-    lie on the meta device."""
+    work of the run (one device's where its tensors are DTensors):
+    ``flops`` (the matmul family's and the kernels'), ``bytes``,
+    ``peak_bytes``, and their parts: ``aten_flops`` by op, the kernels'
+    calls, flops and bytes by kernel, ``ops`` (the aten ops that move
+    bytes); ``collectives``, the record of those it issued (``{"bytes":
+    {kind: ..., "total": ...}, "counts": {kind: calls}, "entries": [...]}``,
+    an entry's ``axis`` the name of its process group).  Nothing in the
+    run is computed where its tensors lie on the meta device."""
     counter = _OpCounter()
     with work.collect() as calls, counter:
         fn(*args, **kwargs)
+    from .collectives import Entry, summarize
+    tally: Counter = Counter(counter.collectives)
+    coll = summarize([Entry(kind, nbytes, n, group, "run", "step")
+                      for (kind, nbytes, group), n in tally.items()])
     kernels: dict[str, dict] = {}
     for name, flops, nbytes in calls:
         k = kernels.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0})
@@ -148,4 +228,5 @@ def analyze(fn: Callable[..., Any], *args, **kwargs) -> dict:
         "aten_flops": dict(counter.flops_by_op),
         "kernels": kernels,
         "ops": counter.ops,
+        "collectives": coll,
     }

@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import (is_distributed, merge_heads, on_shards,
+                                 split_heads)
+from ..parallel.sharding import pad as zero_pad
 from .layers import init_linear, rms_norm
 
 CONV_W = 4
@@ -48,9 +51,27 @@ def _split_proj(params: dict, x: torch.Tensor):
             x @ params["wc"], x @ params["wdt"])
 
 
+def _decay_of(dt: torch.Tensor, bias: torch.Tensor,
+              a_log: torch.Tensor) -> torch.Tensor:
+    return -F.softplus(dt + bias) * torch.exp(a_log)
+
+
 def _decay(params: dict, dt: torch.Tensor) -> torch.Tensor:
-    """a_t = dt * A with dt = softplus(dt_raw + bias), A = -exp(a_log)."""
-    return -F.softplus(dt + params["dt_bias"]) * torch.exp(params["a_log"])
+    """a_t = dt * A with dt = softplus(dt_raw + bias), A = -exp(a_log).  On
+    a mesh it runs on the shards of the heads (elementwise a head; the
+    per-head leaves' gradients partial sums over the batch's shards), where
+    DTensor would decompose softplus and move the leaves by its own rules."""
+    if not is_distributed(dt):
+        return _decay_of(dt, params["dt_bias"], params["a_log"])
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    heads = dt.ndim - 1
+    dp = tuple(Replicate() if p.is_partial() else p for p in dt.placements)
+    hp = tuple(Shard(0) if p.is_shard(heads) else Replicate() for p in dp)
+    hg = tuple(Partial() if p.is_shard() and not p.is_shard(heads) else h
+               for p, h in zip(dp, hp))
+    return on_shards(_decay_of, dt.device_mesh,
+                     (dt, params["dt_bias"], params["a_log"]), (dp, hp, hp),
+                     dp, (dp, hg, hg))
 
 
 def mamba2_block(params: dict, x: torch.Tensor, *, n_heads: int,
@@ -59,28 +80,49 @@ def mamba2_block(params: dict, x: torch.Tensor, *, n_heads: int,
     ``return_state`` also returns the decode state after the last token:
     the closed-form final SSM state and the conv tail (the last W-1 raw
     inputs, zeros in front when S < W-1)."""
-    bsz, s, _ = x.shape
-    d_inner = n_heads * head_dim
+    s = x.shape[1]
     xs_raw, z, b, c, dt = _split_proj(params, x)
 
     # causal depthwise conv of width 4 along S
-    pad = F.pad(xs_raw, (0, 0, CONV_W - 1, 0))
+    pad = zero_pad(xs_raw, (0, 0, CONV_W - 1, 0))
     conv = sum(pad[:, i:i + s] * params["conv_w"][i] for i in range(CONV_W))
     xs = F.silu(conv)
 
     a = _decay(params, dt)                                # [B,S,H]
-    xh = xs.reshape(bsz, s, n_heads, head_dim)
-    y = ops.ssd_scan(xh, a, b, c).reshape(bsz, s, d_inner)
+    xh = split_heads(xs, n_heads, head_dim)
+    y = merge_heads(ops.ssd_scan(xh, a, b, c))
     y = rms_norm(y * F.silu(z), params["norm_z"])         # gated output norm
     out = y @ params["w_out"]
     if not return_state:
         return out
     # closed-form final state: h_T = sum_u exp(Acum_T - Acum_u) x_u (x) B_u
+    state = {"ssm": _final_state(xh, a, b).to(x.dtype),
+             "conv": pad[:, s:s + CONV_W - 1]}
+    return out, state
+
+
+def _final_state_of(xh: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """h_T = sum_u exp(Acum_T - Acum_u) x_u (x) B_u, float32 [B,H,D,N]."""
     acum = torch.cumsum(a.float(), dim=1)
     w = torch.exp(acum[:, -1:] - acum)                    # [B,S,H]
-    h_final = torch.einsum("bshd,bsh,bsn->bhdn", xh.float(), w, b.float())
-    state = {"ssm": h_final.to(x.dtype), "conv": pad[:, s:s + CONV_W - 1]}
-    return out, state
+    return torch.einsum("bshd,bsh,bsn->bhdn", xh.float(), w, b.float())
+
+
+def _final_state(xh: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """The closed-form final state; on a mesh on the shards of the batch
+    and the heads (b whole over the heads' mesh dims): a head's state reads
+    only its own x and decay."""
+    if not is_distributed(xh):
+        return _final_state_of(xh, a, b)
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+               for p in xh.placements)
+    bp = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    out = tuple(Shard(1) if p.is_shard(2) else p for p in pl)
+    return on_shards(_final_state_of, xh.device_mesh, (xh, a, b),
+                     (pl, pl, bp), out)
 
 
 def mamba2_decode(params: dict, x: torch.Tensor, state: dict, *,
@@ -97,7 +139,7 @@ def mamba2_decode(params: dict, x: torch.Tensor, state: dict, *,
     xs = F.silu(conv)
 
     a = _decay(params, dt)                                # [B,H]
-    xh = xs.reshape(bsz, n_heads, head_dim)
+    xh = split_heads(xs, n_heads, head_dim)
     h = (torch.exp(a)[..., None, None] * state["ssm"]
          + xh[..., None] * b[:, None, None, :])
     y = torch.einsum("bhdn,bn->bhd", h, c).reshape(bsz, d_inner)

@@ -32,11 +32,15 @@ over k in float32, rounded once to ``x.dtype``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import (axis_sizes, constrain, dp_axes,
+                                 is_distributed, model_coordinate,
+                                 model_size, on_shards, placements)
 from .layers import ffn, init_linear
 
 
@@ -115,7 +119,9 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
     capacity = group_capacity(sg, top_k, n_experts, capacity_factor)
     # the place of each (s, k) in its expert's queue: the running count of
     # that expert over the flattened (s, k) order
-    pos = (oh.cumsum(-1) - 1).gather(1, flat).reshape(n_groups, sg, top_k)
+    # (dim 2, not -1: DTensor's scan rule reads a negative dim as none of
+    # the tensor's and would scan each shard of a sharded one apart)
+    pos = (oh.cumsum(2) - 1).gather(1, flat).reshape(n_groups, sg, top_k)
     keep = pos < capacity
     gates = torch.where(keep, gate_vals, 0.0)
     return expert_idx, gates, pos, keep, capacity, aux
@@ -133,13 +139,16 @@ def _swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def _experts_by_slot(params, xg, expert_idx, pos, keep, capacity):
+def _experts_by_slot(params, xg, expert_idx, pos, keep, capacity,
+                     group_tokens=None):
     """Every expert on its capacity slots; returns each (s, k)'s expert
     output [G, S*K, d] (a dropped one's is read from slot 0: its weight
-    is 0)."""
+    is 0).  ``group_tokens``: a group's tokens where ``xg`` holds a part
+    of each group (a shard of them on a mesh); the slots are the whole
+    group's."""
     n_groups, sg, d = xg.shape
-    n_experts, top_k = params["router"].shape[-1], expert_idx.shape[-1]
-    cap = min(capacity, sg)
+    n_experts, top_k = params["experts_gate"].shape[0], expert_idx.shape[-1]
+    cap = min(capacity, group_tokens or sg)
     slot = (expert_idx * cap + pos).reshape(n_groups, sg * top_k)
     keep = keep.reshape(n_groups, sg * top_k)
     rows = _per_pair(xg, top_k)                                # [G,S*K,d]
@@ -166,6 +175,51 @@ def _experts_by_pair(params, xg, expert_idx):
     return out.reshape(n_groups, -1, d)
 
 
+def _experts_sharded(params, xg, expert_idx, pos, keep, capacity,
+                     pairs: bool):
+    """The experts on DTensors (expert parallelism): each device runs, in
+    the form ``moe_block`` takes, the (token, k) pairs of its groups that
+    its own experts (the stacks' shard over "model", where it divides E)
+    take, and gives 0 for the others, so the outputs are partial sums over
+    "model"; the groups go over the data axes as they arrive, the routing
+    whole over "model".  The weights' gradients are partial sums over the
+    data axes, the tokens' over "model"."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = xg.device_mesh
+    names = mesh.mesh_dim_names
+    m = model_size(mesh)
+    n_experts = params["experts_gate"].shape[0]
+    ep = m > 1 and n_experts % m == 0
+    tok = tuple(Replicate() if n == "model" else p
+                for n, p in zip(names, xg.placements))
+    data = [n for n, p in zip(names, tok) if not p.is_replicate()]
+    wp = placements(mesh, {"model": 0 if ep else None})
+    wg = tuple(Partial() if n in data else p for n, p in zip(names, wp))
+    out_p = tuple(Partial() if n == "model" and ep else p
+                  for n, p in zip(names, tok))
+    tok_g = out_p
+    coord = model_coordinate(mesh)
+
+    def local(xl, idx, posl, keepl, gate, up, down):
+        e0 = coord * gate.shape[0] if ep else 0
+        mine = (idx >= e0) & (idx < e0 + gate.shape[0])
+        idx = torch.where(mine, idx - e0, 0)
+        p = {"experts_gate": gate, "experts_up": up, "experts_down": down}
+        if pairs:
+            out = _experts_by_pair(p, xl, idx)
+        else:
+            out = _experts_by_slot(p, xl, idx, posl, keepl & mine, capacity,
+                                   group_tokens=xg.shape[1])
+        return out * mine.reshape(*out.shape[:2], 1).to(out.dtype)
+
+    return on_shards(local, mesh, (xg, expert_idx, pos, keep,
+                                   params["experts_gate"],
+                                   params["experts_up"],
+                                   params["experts_down"]),
+                     (tok,) * 4 + (wp,) * 3, out_p,
+                     (tok_g,) + (tok,) * 3 + (wg,) * 3)
+
+
 def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
               group_size: int = 2048, with_aux: bool = True
@@ -176,10 +230,23 @@ def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
     n_experts = params["router"].shape[-1]
     groups, sg, pairs, _ = dispatch_plan(bsz * s, top_k, n_experts,
                                          capacity_factor, group_size)
+    # on a mesh the groups (or, where they do not divide, their tokens) go
+    # over the data axes, whole over the model axis, and so does their
+    # gradient
+    if is_distributed(x):       # the tokens whole over the model axis
+        x = constrain(x, ("dp", None, None))
     xg = x.reshape(groups, sg, d)
+    if is_distributed(xg):
+        dp = math.prod(axis_sizes(xg.device_mesh)[a]
+                       for a in dp_axes(xg.device_mesh))
+        xg = constrain(xg, ("dp", None, None) if groups % dp == 0
+                       else (None, "dp", None))
     expert_idx, gates, pos, keep, capacity, aux = route(
         params, xg, top_k, capacity_factor, with_aux)
-    if pairs:
+    if is_distributed(xg) and xg.device_mesh.size() > 1:
+        out = _experts_sharded(params, xg, expert_idx, pos, keep, capacity,
+                               pairs)
+    elif pairs:
         out = _experts_by_pair(params, xg, expert_idx)
     else:
         out = _experts_by_slot(params, xg, expert_idx, pos, keep, capacity)

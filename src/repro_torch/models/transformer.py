@@ -35,6 +35,14 @@ unlike the reference: ``prefill`` writes each block's state into a state
 preallocated for ``max_len``, and ``decode_step`` writes each block's new
 state (the K/V row and ``length`` of a cache, the recurrent state of an
 SSM block) into the ``state`` it is given and returns that same object.
+
+On a device mesh (params and batch as DTensors under
+``parallel.sharding_ctx``, as the dry-run runs a step) the same functions
+run the step on every device's shards: FSDP's leaves are gathered over
+the data axes (``gather_data``), the layouts the reference pins are pinned
+with ``constrain``, the vocab-sharded lookup, the experts and the kernels
+run on their shards by their sharding rules, and a prefill's state is
+made at ``decode_state_specs``.  On plain tensors nothing of that runs.
 """
 from __future__ import annotations
 
@@ -46,6 +54,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..parallel.sharding import (constrain, decode_state_specs,
+                                 gather_data, is_distributed, keep_layout,
+                                 model_coordinate, on_shards, placements,
+                                 zeros_distributed)
+from ..parallel.sharding import pad as zero_pad
 from .attention import (attention_block, attention_decode, init_attention,
                         init_kv_cache)
 from .layers import ffn, init_ffn, init_linear, rms_norm
@@ -192,17 +205,44 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
 # forward / prefill
 # ---------------------------------------------------------------------------
 
+def _whole(h: torch.Tensor) -> torch.Tensor:
+    """A block's (or the head's) normed input, on a mesh whole over the
+    model axis before the projections sharded over it: with
+    ``cfg.seq_parallel`` (which the dry-run sets with FSDP) Megatron
+    sequence parallelism's gather of the sequence-sharded stream, as the
+    reference pins it (else its partitioner gathers the weights); in any
+    case the boundary at which the partial sums of its gradient from those
+    projections are reduced (Megatron's all-reduce of the input gradient),
+    where DTensor would carry them on into the products before it."""
+    return constrain(h, ("dp", None, None))
+
+
 def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-         with_aux: bool = False):
+         with_aux: bool = False, sp: bool = False):
     """The second half of an attention block: (x_out, the MoE aux loss with
-    ``with_aux``, else None, and None for a dense FFN)."""
-    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    ``with_aux``, else None, and None for a dense FFN).  ``sp``: the
+    forward's, whose residual stream is sequence-sharded on a mesh under
+    ``cfg.seq_parallel``."""
+    h = _whole(rms_norm(x, p["ln2"], cfg.rms_eps))
     if kind == "attn_moe":
         y, aux = moe_block(p["moe"], h, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
                            with_aux=with_aux)
-        return x + y, aux
-    return x + ffn(p["ffn"], h, cfg.act), None
+        return x + _branch(y, cfg, sp), aux
+    return x + _branch(ffn(p["ffn"], h, cfg.act), cfg, sp), None
+
+
+def _branch(y: torch.Tensor, cfg: ModelConfig, sp: bool) -> torch.Tensor:
+    """A block's output before it joins the residual stream.  On a mesh,
+    Megatron's tensor parallelism: the row-parallel product's partial sum
+    over the model axis is all-reduced, so that the stream and every
+    block's input stay whole over it, or, in the forward with
+    ``cfg.seq_parallel``, reduce-scattered onto the sequence-sharded stream
+    (the reference's partitioner makes that choice; DTensor would carry the
+    partial sum on and run the next products on gathered weights)."""
+    if sp and cfg.seq_parallel:
+        return constrain(y, ("dp", "model", None))
+    return constrain(y, ("dp",) + (None,) * (y.ndim - 1))
 
 
 def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -210,13 +250,14 @@ def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     """One block over the whole sequence: (x_out, its decode state — (k, v)
     for attention — or None without ``with_state``, its MoE aux loss
     without ``with_state`` (a prefill drops it) or None)."""
-    h = rms_norm(x, p["ln1"], cfg.rms_eps)
+    h = _whole(rms_norm(x, p["ln1"], cfg.rms_eps))
     if kind in _ATTN:
         y, kv = attention_block(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             positions=positions, return_kv=True)
-        x, aux = _mlp(cfg, kind, p, x + y, with_aux=not with_state)
+        x, aux = _mlp(cfg, kind, p, x + _branch(y, cfg, not with_state),
+                      with_aux=not with_state, sp=not with_state)
         return x, kv, aux
     if kind == "mamba2":
         out = mamba2_block(p["mamba"], h, n_heads=cfg.n_heads,
@@ -231,21 +272,60 @@ def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     else:
         raise ValueError(kind)
     y, st = out if with_state else (out, None)
-    return x + y, st, None
+    return x + _branch(y, cfg, not with_state), st, None
 
 
 def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                positions: torch.Tensor):
-    """One block of the forward: (x_out, its MoE aux loss or None)."""
+    """One block of the forward: (x_out, its MoE aux loss or None).  With
+    ``cfg.seq_parallel`` a stacked block's output, the residual stream
+    (and what remat keeps of it), is pinned sequence-sharded over the model
+    axis, as the reference's scan body pins it."""
     x, _, aux = _block(cfg, kind, p, x, positions, with_state=False)
+    if cfg.seq_parallel and kind != "shared_attn":
+        x = constrain(x, ("dp", "model", None))
     return x, aux
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh of more than one device the lookup
+    runs on the shards, as the reference's vocab-sharded embedding: each
+    shard of the vocabulary gives the rows of the tokens it holds and zeros
+    for the others, partial sums all-reduced over the model axis (the
+    gradient lands on the local rows, a partial sum over the data axes)."""
+    if not is_distributed(table) or table.device_mesh.size() == 1:
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    if not is_distributed(tokens):
+        tokens = DTensor.from_local(tokens, mesh, tuple(
+            Replicate() for _ in names), run_check=False)
+    vocab = [n for n, p in zip(names, table.placements) if p.is_shard(0)]
+    tp = placements(mesh, dict.fromkeys(vocab, 0))
+    tok = tuple(p if p.is_shard(0) else Replicate()
+                for p in tokens.placements)
+    batch = [n for n, p in zip(names, tok) if p.is_shard()]
+    out = tuple(Partial() if n in vocab else p for n, p in zip(names, tok))
+    grad = tuple(Partial() if n in batch else p for n, p in zip(names, tp))
+    coord = model_coordinate(mesh) if "model" in vocab else 0
+
+    def local(t, ids):
+        if not vocab:
+            return t[ids]
+        ids = ids.long() - coord * t.shape[0]
+        mine = (ids >= 0) & (ids < t.shape[0])
+        return t[ids.clamp(0, t.shape[0] - 1)] * mine[..., None].to(t.dtype)
+
+    x = on_shards(local, mesh, (table, tokens), (tp, tok), out, (grad, tok))
+    return x.redistribute(mesh, tok)    # the partial sums reduced
 
 
 def _embed(params: Params, tokens: torch.Tensor,
            frontend: torch.Tensor | None) -> tuple[torch.Tensor, int]:
     """The token embeddings after the ``frontend`` prefix, if any, cast to
     their dtype: (x [B, P + S, d], P)."""
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if frontend is None:
         return x, 0
     return torch.cat([frontend.to(x.dtype), x], dim=1), frontend.shape[1]
@@ -259,6 +339,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     are prepended; logits come back for the text positions only.  With
     ``remat`` each stacked layer keeps only its input for the backward and
     runs again there."""
+    params = gather_data(params)
     x, prefix = _embed(params, tokens, frontend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), device=x.device)
@@ -270,7 +351,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x, aux = _block_fwd(cfg, kind, p, x, positions)
         if aux is not None:
             aux_total = aux_total + aux
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)[:, prefix:]
+    x = _whole(rms_norm(x, params["final_norm"], cfg.rms_eps))[:, prefix:]
     logits = (x @ _head(params, cfg)).float()
     return logits, aux_total
 
@@ -282,17 +363,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (last-token logits [B,V] float32, decode state sized for ``max_len``,
     holding the prefix's and the prompt's ``P + S`` positions) — the
     serving engine's prefill."""
+    params = gather_data(params)
     x, _ = _embed(params, tokens, frontend)
     bsz, s_total = x.shape[0], x.shape[1]
     if max_len < s_total:
         raise ValueError(f"max_len {max_len} < prompt {s_total}")
     positions = torch.arange(s_total, device=x.device)[None, :]
-    state = init_decode_state(cfg, bsz, max_len, device=x.device)
+    state = _new_state(cfg, bsz, max_len, x)
     for kind, p, i in _walk(params, cfg):
         x, st, _ = _block(cfg, kind, p, x, positions, with_state=True)
         slot = state[_STATE_KEY[kind]]
         if kind in _ATTN:
-            slot["k"][i, :, :s_total], slot["v"][i, :, :s_total] = st
+            for name, t in zip("kv", st):
+                _fill_cache(slot[name], i, t)
         else:
             for name, t in st.items():
                 slot[name][i] = t
@@ -304,6 +387,79 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, state
 
 
+def _fill_cache(cache: torch.Tensor, i: int, t: torch.Tensor) -> None:
+    """Layer ``i`` of a K/V cache ``[L, B, T, Hkv, D]`` takes the prompt's
+    rows ``t [B, S, Hkv, D]`` at positions 0..S-1.  A DTensor cache
+    sharded on its sequence takes them padded to T, moved to the layer's
+    sharding and written into its local shard, a whole layer (the slots
+    past S are zeros in a new cache): a slice of a sharded dim is no shard
+    of it."""
+    s = t.shape[1]
+    if is_distributed(cache) and any(p.is_shard(2) for p in cache.placements):
+        from torch.distributed.tensor import Shard
+        layer = tuple(Shard(p.dim - 1) if p.is_shard() else p
+                      for p in cache.placements)
+        full = zero_pad(t, (0, 0, 0, 0, 0, cache.shape[2] - s))
+        cache.to_local()[i] = full.redistribute(cache.device_mesh,
+                                                layer).to_local()
+    else:
+        cache[i, :, :s] = t
+
+
+def _new_state(cfg: ModelConfig, bsz: int, max_len: int,
+               x: torch.Tensor) -> PyTree:
+    """A prefill's decode state, on ``x``'s device; where ``x`` is a DTensor,
+    at ``decode_state_specs`` on its mesh, each leaf made from its own
+    shard (its shapes from a build of fake tensors)."""
+    if not is_distributed(x):
+        return init_decode_state(cfg, bsz, max_len, device=x.device)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        shapes = init_decode_state(cfg, bsz, max_len, device="meta")
+    mesh = x.device_mesh
+    return zeros_distributed(shapes, decode_state_specs(shapes, mesh), mesh,
+                             x.to_local().device)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's -log softmax(logits)[label].  Logits sharded on their
+    vocabulary (a mesh's vocab-sharded head) stay so, as the reference's
+    pins keep them: each token's max and sum of exponentials reduced over
+    the shards, its label's logit taken by the shard that holds it (a
+    softmax op would gather the logits)."""
+    v = logits.ndim - 1
+    if not (is_distributed(logits) and any(p.is_shard(v)
+                                           for p in logits.placements)):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = logits.device_mesh
+    logits = keep_layout(logits)    # its gradient vocab-sharded too
+    m = logits.detach().amax(v, keepdim=True)
+    lse = (logits - m).exp().sum(v, keepdim=True).log() + m
+    pl = tuple(p if not p.is_shard(v) else Replicate()
+               for p in logits.placements)
+    vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(v)]
+    names = mesh.mesh_dim_names
+
+    def pick(lg, lab):
+        start = 0       # the first vocabulary row of this shard
+        for i in vocab:
+            start = start * mesh.shape[i] + mesh.get_local_rank(i)
+        idx = lab.long() - start * lg.shape[-1]
+        mine = (idx >= 0) & (idx < lg.shape[-1])
+        got = lg.gather(-1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(mine, got[..., 0], 0.0)
+
+    lab = tuple(p if p.is_shard(0) else Replicate()
+                for p in labels.placements) if is_distributed(labels) else pl
+    out = tuple(Partial() if i in vocab else p
+                for i, p in enumerate(pl[:len(names)]))
+    picked = on_shards(pick, mesh, (logits, labels),
+                       (tuple(logits.placements), lab), out)
+    return lse[..., 0] - picked.redistribute(mesh, pl)
+
+
 def loss_and_metrics(params: Params, cfg: ModelConfig, batch: dict,
                      remat: bool = False) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL over ``loss_mask`` (all tokens without one) plus
@@ -311,8 +467,7 @@ def loss_and_metrics(params: Params, cfg: ModelConfig, batch: dict,
     "tokens"}), as the reference's."""
     logits, aux = forward(params, cfg, batch["tokens"], batch.get("frontend"),
                           remat=remat)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    nll = _nll(logits, batch["labels"])
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -362,7 +517,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
             p["attn"], h, st, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta)
-        return _mlp(cfg, kind, p, x + y)[0], None
+        return _mlp(cfg, kind, p, x + _branch(y, cfg, False))[0], None
     if kind == "mamba2":
         y, new = mamba2_decode(p["mamba"], h, st, n_heads=cfg.n_heads,
                                head_dim=cfg.mamba_head_dim,
@@ -373,14 +528,15 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, new = slstm_decode(p["slstm"], h, st, n_heads=cfg.n_heads)
     else:
         raise ValueError(kind)
-    return x + y, new
+    return x + _branch(y, cfg, False), new
 
 
 def decode_step(params: Params, cfg: ModelConfig, state: PyTree,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, PyTree]:
     """One decode step.  tokens: [B] -> (logits [B, V] float32, state),
     with ``state`` updated in place."""
-    x = params["embed"][tokens][:, None, :]          # [B, 1, d]
+    params = gather_data(params)
+    x = _lookup(params["embed"], tokens)[:, None, :]  # [B, 1, d]
     for kind, p, i in _walk(params, cfg):
         slot = state[_STATE_KEY[kind]]
         x, new = _block_decode(cfg, kind, p, x, _layer(slot, i))

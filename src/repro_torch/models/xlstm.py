@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.slstm_scan import slstm_cell
+from ..parallel.sharding import constrain, merge_heads, split_heads
 from .layers import init_linear, rms_norm
 
 
@@ -65,17 +66,19 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
     """Parallel path: the forget gate is the decay (a = log f), the input
     gate scales v, B = k and C = q.  With ``return_state`` also returns
     the exact (C, n) decode state after the last token."""
-    bsz, s, _ = x.shape
+    bsz = x.shape[0]
     xi = x @ params["w_x"]
     gate = x @ params["w_gate_proj"]
     d_inner = xi.shape[-1]
     head_dim = d_inner // n_heads
 
-    q = (xi @ params["wq"]).reshape(bsz, s, n_heads, head_dim)
-    k = ((xi @ params["wk"]).reshape(bsz, s, n_heads, head_dim)
-         * head_dim ** -0.5)
-    v = (xi @ params["wv"]).reshape(bsz, s, n_heads, head_dim)
-    gates = xi @ params["w_if"]
+    q = split_heads(xi @ params["wq"], n_heads, head_dim)
+    k = split_heads(xi @ params["wk"], n_heads, head_dim) * head_dim ** -0.5
+    v = split_heads(xi @ params["wv"], n_heads, head_dim)
+    # on a mesh the gates (a partial sum where xi is sharded) go whole over
+    # the model axis, batch-sharded: each shard of the heads then reads its
+    # own, as the folded scans take them
+    gates = constrain(xi @ params["w_if"], ("dp", None, None))
     i_gate = torch.sigmoid(gates[..., :n_heads])          # [B,S,H]
     f_gate = torch.sigmoid(gates[..., n_heads:])          # [B,S,H]
 
@@ -90,8 +93,7 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
                        af, kf, qf)
     den = _unfold_heads(den, bsz, n_heads)                # [B,S,H,1]
     y = y / torch.clamp(den.abs(), min=1.0)
-    h = y.reshape(bsz, s, d_inner)
-    h = rms_norm(h, params["norm_h"]) * F.silu(gate)
+    h = rms_norm(merge_heads(y), params["norm_h"]) * F.silu(gate)
     out = h @ params["w_down"]
     if not return_state:
         return out
@@ -114,9 +116,9 @@ def mlstm_decode(params: dict, x: torch.Tensor, state: dict, *,
     d_inner = xi.shape[-1]
     head_dim = d_inner // n_heads
 
-    q = (xi @ params["wq"]).reshape(bsz, n_heads, head_dim)
-    k = (xi @ params["wk"]).reshape(bsz, n_heads, head_dim) * head_dim ** -0.5
-    v = (xi @ params["wv"]).reshape(bsz, n_heads, head_dim)
+    q = split_heads(xi @ params["wq"], n_heads, head_dim)
+    k = split_heads(xi @ params["wk"], n_heads, head_dim) * head_dim ** -0.5
+    v = split_heads(xi @ params["wv"], n_heads, head_dim)
     gates = xi @ params["w_if"]
     i_g = torch.sigmoid(gates[..., :n_heads])[..., None]   # [B,H,1]
     f_g = torch.sigmoid(gates[..., n_heads:])[..., None]

@@ -1001,6 +1001,63 @@ def test_grad_step_on_the_card_matches_the_cpu_path(card):
             w.abs().max())
 
 
+def test_train_step_as_dtensors_on_the_card_mesh_is_the_plain_step(card):
+    """Reduced granite-8b's grad step and AdamW update as DTensors on the
+    card's (1, 1) CUDA mesh (``make_host_mesh``; every leaf replicated,
+    the flash and AdamW kernels through their sharding rules) against the
+    same step on plain tensors: the loss, every gradient and every updated
+    param bit for bit, and the same launches (a flash forward and backward
+    a layer, an AdamW update a leaf, the norm's passes)."""
+    import contextlib
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel import (batch_specs, distribute,
+                                      opt_moment_specs, param_specs,
+                                      sharding_ctx)
+    from repro_torch.train import make_grad_step
+    cfg = get_config("granite-8b").reduced()
+    counters = (launches, bwd_launches, adamw.launches, adamw.norm_launches)
+    runs = []
+    mesh = make_host_mesh()
+    try:
+        for on_mesh in (False, True):
+            params = to_torch(init_params(cfg, seed=3, device="cpu"), card)
+            opt = init_opt_state(params)
+            batch = _train_batch(cfg.vocab, card)
+            ctx = contextlib.nullcontext()
+            if on_mesh:
+                moments = opt_moment_specs(params, mesh)
+                params = distribute(params, param_specs(params, mesh), mesh)
+                opt = distribute(opt, {"m": moments, "v": moments,
+                                       "step": ()}, mesh)
+                batch = distribute(batch, batch_specs(batch, mesh), mesh)
+                ctx = sharding_ctx(mesh)
+            before = [c.count for c in counters]
+            with ctx:
+                grads, met = make_grad_step(cfg, remat=False)(params, batch)
+                apply_updates(params, grads, opt, AdamWConfig())
+            torch.cuda.synchronize()
+            local = (lambda t: t.to_local()) if on_mesh else (lambda t: t)
+            runs.append((local(met["loss"]).clone(),
+                         [local(g).clone() for g in leaves(grads)],
+                         [local(p).clone() for p in leaves(params)],
+                         [c.count - b for c, b in zip(counters, before)]))
+    finally:
+        dist.destroy_process_group()
+    (loss, grads, params, counts), (d_loss, d_grads, d_params, d_counts) = runs
+    assert torch.equal(loss, d_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, d_grads))
+    assert all(torch.equal(a, b) for a, b in zip(params, d_params))
+    assert d_counts == counts
+    assert counts[:2] == [cfg.n_layers, cfg.n_layers]
+    assert counts[2] == len(params)
+
+
 @pytest.mark.parametrize("arch,grad_tol", [("zamba2-1.2b", 3e-3),
                                            ("xlstm-125m", 1e-4)])
 def test_ssd_model_trains_on_the_card(card, arch, grad_tol):
