@@ -23,10 +23,13 @@ which fails the run (non-zero exit, no result line) if it fails:
    path is taken (matmul: ``wgmma``, ``fma_pipelined``, ``general``;
    flash attention: ``wgmma``, ``tf32x3``, ``fma``; among its cases
    internvl2-76b's 64 query heads over 8 at the prefixed lengths 556 and
-   1280, and musicgen-large's at 364); flash attention's
-   backward (dq, dk, dv) at the training shapes (granite-8b's, zamba2's
-   and qwen3-moe's) and at ragged, non-causal,
-   short, GQA 1 / 4 / 8 and q-off-16-byte cases, each naming its path
+   1280, musicgen-large's at 364, and on every path stablelm-3b's head
+   dim 80 and qwen2.5-14b's GQA group of 5, aligned and ragged, T > S,
+   non-causal and off 16 bytes); flash attention's
+   backward (dq, dk, dv) at the training shapes (granite-8b's, zamba2's,
+   qwen3-moe's, stablelm-3b's D 80 and qwen2.5-14b's group 5) and at
+   ragged, non-causal,
+   short, GQA 1 / 4 / 5 / 8, D 80 and q-off-16-byte cases, each naming its path
    (``tf32x3`` for aligned float32, also held to ``FLASH_BWD_F32_KEEP``;
    ``wgmma`` for aligned bfloat16, also held to ``FLASH_BWD_BF16_KEEP`` as
    a whole; ``fma`` off a 16-byte boundary; each
@@ -56,13 +59,16 @@ which fails the run (non-zero exit, no result line) if it fails:
    ``Tensor.clone``, ``F.conv2d`` with the stencil's cross; none computes
    the SSD scan) and its bound, at the paths' shapes (the stencil's bound
    row at [8, 4096, 4096], past the L2), the matmul and flash attention
-   in both dtypes (bfloat16 flash also at qwen3-moe's, moonshot's and
-   internvl2-76b's heads), each row naming its path (float32 flash rows also time
+   in both dtypes (flash also at stablelm-3b's heads of 80; bfloat16
+   flash also at qwen3-moe's, moonshot's, internvl2-76b's, qwen2.5-14b's
+   and nemotron-4-15b's heads), each row naming its path (float32 flash rows also time
    the FMA kernel on the same values off a 16-byte boundary and give its
    bound), flash attention's backward at the training shape on both
-   float32 paths beside SDPA's backward, and in bfloat16 on the ``wgmma``
-   kernels a bfloat16 train step takes, at granite-8b's, qwen3-moe's and
-   zamba2's training shapes, beside the ``fma`` kernels on the same values
+   float32 paths beside SDPA's backward (also at stablelm-3b's, D 80),
+   and in bfloat16 on the ``wgmma``
+   kernels a bfloat16 train step takes, at granite-8b's, qwen3-moe's,
+   zamba2's, stablelm-3b's and qwen2.5-14b's training shapes, beside the
+   ``fma`` kernels on the same values
    off a 16-byte boundary and SDPA's bfloat16 backward (both kernel paths
    held to the plain version there too), the
    SSD rows with the
@@ -86,8 +92,11 @@ which fails the run (non-zero exit, no result line) if it fails:
    xlstm-125m in float32, then qwen3-moe-30b-a3b and moonshot-v1-16b-a3b
    in bfloat16 (30.1 B and 28.9 B parameters: an 80 GB card holds them
    only so), internvl2-76b in bfloat16 at full width cut to 32 of its 80
-   layers (29.48 B parameters, 58.96 GB; all 80 take 141 GB), and
-   musicgen-large in float32 at full width and depth, each on its text
+   layers (29.48 B parameters, 58.96 GB; all 80 take 141 GB),
+   musicgen-large in float32 at full width and depth, stablelm-3b in
+   float32 (2.80 B, head dim 80) and qwen2.5-14b (14.77 B, QKV bias, GQA
+   group 5) and nemotron-4-15b (15.63 B, squared ReLU) in bfloat16, all
+   at full width and depth, each on its text
    path (the engine takes no frontend, as the reference's), random
    weights from a seed, through the port's
    PTT-scheduled ``ServingEngine``: 8 requests of 256-1024 prompt tokens
@@ -111,33 +120,39 @@ which fails the run (non-zero exit, no result line) if it fails:
    prefill + decode also agrees with its forward at full width and
    ``MOE_CHECK_LAYERS`` layers in float32 (rel 5e-3, every step), where a
    decode fault shows that 48 layers of bfloat16 drift would hide, and so
-   does internvl2-76b's at ``DENSE_CHECK_LAYERS`` layers (5.5 B
-   parameters) after its prefix.  For the vlm and audio models, with their
+   does each bfloat16 dense model's at ``DENSE_CHECK_LAYERS`` layers
+   (internvl2-76b's after its prefix); stablelm-3b's and qwen2.5-14b's
+   reduced models also at their own head layouts (``REAL_HEADS``: head dim
+   80; 10 heads over 2), card against CPU in float32.  For the vlm and audio models, with their
    frontend prefix (N(0, 1), internvl2 256 positions, musicgen 64):
    ``make_prefill_step`` + 16 decode steps against ``forward`` at full
    width (float32 rel 5e-3, bfloat16 on the median), ``make_forward_step``
    against ``forward``, a prefix of zeros changes the logits, and the
    reduced models' card-against-CPU checks take a prefix of 16.
    bfloat16 logits are held on the median over tokens of each token's
-   rel, at ``BF16_FULL_TOL`` (48 layers; ``DENSE_BF16_FULL_TOL`` for
-   internvl2-76b's 32) or ``BF16_REDUCED_TOL`` (4),
-   grounded in the reference's own drift (``tools/moe_bf16_drift.py``):
+   rel, at ``BF16_FULL_TOL`` (48 layers; ``DENSE_BF16_FULL_TOL`` of the
+   arch for the dense models, ``tools/dense_bf16_drift.py``) or
+   ``BF16_REDUCED_TOL`` (4), grounded in the reference's own drift
+   (``tools/moe_bf16_drift.py``):
    a routing flip moves one token's logits by 0.2-0.9 in the reference
    itself, and its drift grows with depth.
    For xlstm-125m it also times one 1024-token prefill and its sLSTM blocks
    inside it; for a bfloat16 model, the card time of one decode step
    (``torch.profiler``) against the bytes of the weights it must read;
 8. train, one model after the other (``TRAIN_RUNS``): granite-8b at full
-   width cut to 4 layers (1.27 B parameters, B 2 x S 2048), zamba2-1.2b
-   at full width and depth (B 2 x S 2048) and xlstm-125m at full width
-   and depth (B 2 x S 2048), in float32; then in bfloat16 (bfloat16
-   params, a float32 master copy and moments) qwen3-moe-30b-a3b at full
-   width cut to 4 of 48 layers (3.08 B parameters, capacity factor 1.25),
-   granite-8b at 8 layers (2.15 B parameters), zamba2-1.2b and xlstm-125m
-   as above.
+   width cut to 1 layer (0.62 B parameters, B 2 x S 2048), zamba2-1.2b
+   at full width cut to 6 of 38 layers (0.35 B, B 2 x S 2048) and
+   xlstm-125m at full width and depth (B 2 x S 2048), in float32; then in
+   bfloat16 (bfloat16 params, a float32 master copy and moments)
+   qwen3-moe-30b-a3b at full width cut to 1 of 48 layers (1.24 B
+   parameters, capacity factor 1.25), granite-8b and zamba2-1.2b as in
+   float32, xlstm-125m whole, stablelm-3b at full width and depth (2.80 B, the ``wgmma``
+   backward at D 80) and qwen2.5-14b at full width cut to 4 of 48 layers
+   (2.66 B: the QKV bias's gradients, the backward at GQA group 5).
    Each: the reduced model on the card against the CPU path in float32
    (loss rel 1e-5, gradient leaves at 1e-4, the hybrid's at 3e-3, of each
-   leaf's largest; 3 AdamW steps' losses rel 1e-4), and for a bfloat16
+   leaf's largest; 3 AdamW steps' losses rel 1e-4; stablelm-3b's and
+   qwen2.5-14b's also at their own heads, ``REAL_HEADS``), and for a bfloat16
    run also in bfloat16 against the CPU's float32 run of the same weights
    under the rule (``bf16_grad_limits``: the loss, the worst gradient leaf
    but zamba2's, 3 AdamW steps' losses); an MoE model's backward at the
@@ -170,17 +185,22 @@ which fails the run (non-zero exit, no result line) if it fails:
    third's within the bfloat16 rule's step-loss limit (its float32 norm
    moves the clip factor's last bits).
    Then (``TRAIN_PREFIXED``) musicgen-large at full width and depth with
-   its frontend prefix, float32, B 2 x (P 64 + 1984 text tokens) as
+   its frontend prefix, in float32 and then in bfloat16 (a float32 master
+   copy and moments; its reduced model also under the bfloat16 rule),
+   B 2 x (P 64 + 1984 text tokens) as
    ``train_batch_specs`` lays them out, through ``make_train_step`` (the
    ``Trainer``'s stream emits no frontend, in the reference too): its
    reduced model card against CPU with a prefix, then 8 steps (losses
    finite, the first near ln V + 1/2, the last below the first; 48 flash
-   forward and 48 backward launches a step, all ``tf32x3``), the peak
+   forward and 48 backward launches a step, all ``tf32x3`` in float32 and
+   ``wgmma`` in bfloat16), the peak
    memory, the step time, text tokens per second and one traced step;
 9. dry-run and placement: (a) the port's dry-run (``launch/dryrun.py``)
    of every arch x shape at full width and depth, its step run as
    DTensors (meta shards) on both production meshes over a fake process
-   group, all 80 cells, one process an arch, all started together; no
+   group, all 80 cells, one process an arch, all started together on the
+   host right after phase 2 (they run beside phases 3 and 4, whose kernel
+   times are the card's, and are collected before phase 5); no
    cell may fail, every OK cell carries its observed and derived
    collectives, every ``train_4k`` cell a gradient reduction over the data
    axes; per cell the per-device flops, bytes and peak, their ratio to the
@@ -218,7 +238,7 @@ which fails the run (non-zero exit, no result line) if it fails:
 Prints ``{"kernels": [...]}`` (the matmul's and flash attention's rows
 carry their bfloat16 numbers under ``"bfloat16"``; the backwards' and
 AdamW's launches are phases 8 and 10's; AdamW's row times the whole tree
-of qwen3-moe-30b-a3b x 4 in bfloat16, every configuration under
+of stablelm-3b in bfloat16, the largest, every configuration under
 ``by_config``), then the
 ``nvidia-smi`` line, then, last,
 ``{"ok": true, "device": {...}}``.  The details (every case's error, every
@@ -293,18 +313,21 @@ DEVICE = "cuda"
 SERVED = (("granite-8b", "float32"), ("zamba2-1.2b", "float32"),
           ("xlstm-125m", "float32"), ("qwen3-moe-30b-a3b", "bfloat16"),
           ("moonshot-v1-16b-a3b", "bfloat16"), ("internvl2-76b", "bfloat16"),
-          ("musicgen-large", "float32"))
+          ("musicgen-large", "float32"), ("stablelm-3b", "float32"),
+          ("qwen2.5-14b", "bfloat16"), ("nemotron-4-15b", "bfloat16"))
 # the served models cut in depth: internvl2-76b at full width is 76 B
 # parameters (141 GB in bfloat16 at 80 layers); 32 of its layers are
 # 29.48 B, 58.96 GB
 SERVED_LAYERS = {"internvl2-76b": 32}
 # the flash path every served launch of a dtype takes
 SERVED_FLASH_PATH = {"float32": "tf32x3", "bfloat16": "wgmma"}
-# the served head layouts (Hq, Hkv, D) by dtype: granite-8b and zamba2's
-# shared attention (and musicgen-large's) in float32, qwen3-moe, moonshot
-# and internvl2-76b in bfloat16
-SERVED_LAYOUTS = {"float32": {(32, 8, 128), (32, 32, 64)},
-                  "bfloat16": {(32, 4, 64), (16, 16, 128), (64, 8, 128)}}
+# the served head layouts (Hq, Hkv, D) by dtype: granite-8b, zamba2's
+# shared attention (and musicgen-large's) and stablelm-3b (D 80) in
+# float32, qwen3-moe, moonshot, internvl2-76b, qwen2.5-14b (GQA group 5)
+# and nemotron-4-15b in bfloat16
+SERVED_LAYOUTS = {"float32": {(32, 8, 128), (32, 32, 64), (32, 32, 80)},
+                  "bfloat16": {(32, 4, 64), (16, 16, 128), (64, 8, 128),
+                               (40, 8, 128), (48, 8, 128)}}
 # bfloat16 logits are held on the median over tokens of each token's rel
 # (a routing flip moves one token's logits by 0.2-0.9 in the reference
 # itself); tools/moe_bf16_drift.py measures the reference on the CPU.
@@ -320,12 +343,15 @@ BF16_REDUCED_TOL = 0.1
 # internvl2-76b's at its served 32 layers with a prefix of 256 and 16
 # decode steps: 0.019-0.025 over 8 seeds (tools/dense_bf16_drift.py).
 BF16_FULL_TOL = 0.2
-# ... and a dense model's (internvl2-76b, served at 32 layers), which no
-# routing flip moves: twice the reference's largest median on the same
-# comparison at 32 layers, 8 seeds, P 256 (0.0253) or no prefix (0.0181)
-# (tools/dense_bf16_drift.jsonl); its decode path's structure is held in
-# float32 at DENSE_CHECK_LAYERS, where a fault shows.
-DENSE_BF16_FULL_TOL = 0.05
+# ... and a dense model's, which no routing flip moves, by arch: twice the
+# reference's largest median on the same comparison at the served depth,
+# 8 seeds, 16 decode steps (tools/dense_bf16_drift.jsonl, reduced width):
+# internvl2-76b at 32 layers, P 256 (0.0253) or no prefix (0.0181);
+# qwen2.5-14b at 48 (0.0221) and nemotron-4-15b at 32 (0.0183), no prefix;
+# each decode path's structure is held in float32 at DENSE_CHECK_LAYERS,
+# where a fault shows.
+DENSE_BF16_FULL_TOL = {"internvl2-76b": 0.05, "qwen2.5-14b": 0.0443,
+                       "nemotron-4-15b": 0.0366}
 # bfloat16 training is held to the exact function, the float32 run of the
 # same weights and batch: a bfloat16 loss, its gradients (each leaf's largest
 # error over its largest magnitude, worst leaf) and 3 AdamW steps' losses
@@ -380,6 +406,23 @@ def bf16_grad_limits(rows=None) -> dict:
         if arch in limits:
             limits[arch]["grad"] = None
     return limits
+
+
+# The head layouts that reduced() hides (4 heads of 32 for every arch) and
+# the card runs at full width: stablelm-3b's head dim 80 (the flash
+# kernels' D = 80 instantiations) and qwen2.5-14b's GQA group of 5 with its
+# QKV bias.  The reduced models' card-against-CPU checks run them too, and
+# the CPU tests hold them to the JAX package.
+REAL_HEADS = {"stablelm-3b": {"head_dim": 80},
+              "qwen2.5-14b": {"n_heads": 10, "n_kv_heads": 2}}
+
+
+def real_heads(cfg):
+    """``cfg``'s reduced config at the arch's own head layout
+    (``REAL_HEADS``), or None for an arch whose layout reduced() keeps."""
+    import dataclasses
+    over = REAL_HEADS.get(cfg.name)
+    return dataclasses.replace(cfg.reduced(), **over) if over else None
 
 
 MOE_CHECK_CAPACITY = 16.0  # prefill + decode against forward, MoE models
@@ -478,6 +521,22 @@ def check_flash(report: dict) -> dict:
         (2, 32, 32, 2048, 2048, 64, True),      # musicgen's training shape
         (1, 8, 2, 40, 40, 32, True),            # S < 64, one ragged tile
         (1, 16, 4, 200, 200, 64, True, True),   # the FMA kernel
+        # stablelm-3b's head dim 80 (32 heads over 32), qwen2.5-14b's GQA
+        # group of 5 (40 over 8) and nemotron-4-15b's 48 over 8: aligned
+        # and ragged, T > S, non-causal, S < 64, and off 16 bytes (FMA)
+        (1, 32, 32, 1024, 1024, 80, True),      # stablelm-3b's prefill
+        (1, 32, 32, 300, 300, 80, True),        # the same, ragged
+        (1, 32, 32, 256, 768, 80, True),        # D 80, T > S
+        (1, 32, 32, 300, 300, 80, False),       # D 80, non-causal
+        (1, 8, 8, 40, 40, 80, True),            # D 80, S < 64
+        (1, 32, 32, 300, 300, 80, True, True),  # D 80 on the FMA kernel
+        (1, 40, 8, 1024, 1024, 128, True),      # qwen2.5-14b: group 5
+        (1, 40, 8, 300, 300, 128, True),        # the same, ragged
+        (1, 40, 8, 256, 768, 128, True),        # group 5, T > S
+        (1, 40, 8, 300, 300, 128, False),       # group 5, non-causal
+        (1, 10, 2, 300, 300, 80, True),         # group 5 at D 80
+        (1, 40, 8, 300, 300, 128, True, True),  # group 5 on the FMA kernel
+        (1, 48, 8, 1024, 1024, 128, True),      # nemotron-4-15b: group 6
     ]
     worst_main = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
@@ -519,8 +578,10 @@ def time_flash(report: dict) -> list[dict]:
     zamba2-1.2b's shared attention (Hq = Hkv = 32, D 64) at S = 1024, in
     both dtypes (musicgen-large's heads are zamba2's), and qwen3-moe's
     (Hq 32, Hkv 4, D 64), moonshot's (Hq = Hkv = 16, D 128) and
-    internvl2-76b's (Hq 64, Hkv 8, D 128) at S = 1024 in bfloat16, the
-    dtype they are served in; each row names the kernel's path and prices its products
+    internvl2-76b's (Hq 64, Hkv 8, D 128), qwen2.5-14b's (Hq 40, Hkv 8, D
+    128: GQA group 5) and nemotron-4-15b's (Hq 48, Hkv 8, D 128) at S =
+    1024 in bfloat16, the dtype they are served in, and stablelm-3b's (Hq
+    = Hkv = 32, D 80) at S = 1024 in both; each row names the kernel's path and prices its products
     at that path's unit (``FLASH_UNIT``).  A float32 row also times the
     FMA kernel on the same values with q off a 16-byte boundary
     (``fma_ms``) and gives the FMA-priced bound (``fma_bound_ms``)."""
@@ -533,9 +594,11 @@ def time_flash(report: dict) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         bf16_only = ((32, 4, 1024, 64), (16, 16, 1024, 128),
-                     (64, 8, 1024, 128))
+                     (64, 8, 1024, 128), (40, 8, 1024, 128),
+                     (48, 8, 1024, 128))
         for hq, hkv, s, d in ((32, 8, 256, 128), (32, 8, 512, 128),
                               (32, 8, 1024, 128), (32, 32, 1024, 64),
+                              (32, 32, 1024, 80),
                               *(bf16_only if dtype == torch.bfloat16
                                 else ())):
             q, k, v = _qkv(1, hq, hkv, s, s, d, dtype, seed=99)
@@ -576,7 +639,9 @@ def time_flash(report: dict) -> list[dict]:
 # S and T one past a 32-row step (ragged in the 16-row q steps and 32-key
 # tiles of the 3xTF32 kernels), and q off a 16-byte boundary (float32 on
 # the FMA kernels); last, qwen3-moe-30b-a3b's training shape (GQA group 8
-# at D 64), after the others so that their seeds (200 + the index) stay
+# at D 64), after the others so that their seeds (200 + the index) stay;
+# after it stablelm-3b's head dim 80 and qwen2.5-14b's GQA group of 5: their
+# training shapes, ragged, non-causal, one past a 32-row step, off 16 bytes
 FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (2, 32, 8, 2048, 2048, 128, True),
     (2, 32, 32, 2048, 2048, 64, True),
@@ -589,14 +654,29 @@ FLASH_BWD_CASES = [  # (b, hq, hkv, s, t, d, causal[, q off 16 bytes])
     (1, 8, 2, 33, 97, 128, True),
     (1, 16, 4, 200, 200, 64, True, True),
     (2, 32, 4, 2048, 2048, 64, True),   # qwen3-moe-30b-a3b's: group 8, D 64
+    (2, 32, 32, 2048, 2048, 80, True),  # stablelm-3b's: D 80
+    (1, 32, 32, 300, 700, 80, True),    # D 80, ragged S < T
+    (1, 8, 8, 33, 97, 80, True),        # D 80, one past 32-row steps
+    (1, 8, 8, 200, 200, 80, True, True),   # D 80 on the FMA kernels
+    (2, 40, 8, 2048, 2048, 128, True),  # qwen2.5-14b's: group 5
+    (1, 10, 2, 130, 70, 80, False),     # group 5 at D 80, non-causal S > T
+    (1, 40, 8, 300, 300, 128, True, True),  # group 5 on the FMA kernels
 ]
 # the bfloat16 training shapes of the backward, by model: granite-8b's
-# heads, qwen3-moe-30b-a3b's (GQA group 8 at D 64) and zamba2-1.2b's
-# shared attention's (Hq = Hkv = 32, D 64), B 2, S = T = 2048, causal
+# heads, qwen3-moe-30b-a3b's (GQA group 8 at D 64), zamba2-1.2b's shared
+# attention's (Hq = Hkv = 32, D 64), stablelm-3b's (Hq = Hkv = 32, D 80)
+# and qwen2.5-14b's (Hq 40, Hkv 8: GQA group 5), B 2, S = T = 2048, causal
 FLASH_BWD_BF16_SHAPES = (
     ("granite-8b", (2, 32, 8, 2048, 2048, 128, True)),
     ("qwen3-moe-30b-a3b", (2, 32, 4, 2048, 2048, 64, True)),
     ("zamba2-1.2b", (2, 32, 32, 2048, 2048, 64, True)),
+    ("stablelm-3b", (2, 32, 32, 2048, 2048, 80, True)),
+    ("qwen2.5-14b", (2, 40, 8, 2048, 2048, 128, True)),
+)
+# ... and in float32 beside granite-8b's (FLASH_BWD_CASES[0]): stablelm-3b's
+# head dim 80
+FLASH_BWD_F32_SHAPES = (
+    ("stablelm-3b", (2, 32, 32, 2048, 2048, 80, True)),
 )
 
 
@@ -760,6 +840,38 @@ def _time_bwd_turns(dtype, seed: int, case=FLASH_BWD_CASES[0]) -> tuple:
     return ms, rounds, plain_ms, path, [b, hq, hkv, s, t, d], errs
 
 
+def _bwd_by_model(dtype, model: str, case, seed: int) -> dict:
+    """One model's training shape ``case`` in ``dtype`` (``_time_bwd_turns``):
+    the aligned path a train step takes (float32 ``tf32x3``, bfloat16
+    ``wgmma``), ``fma`` on the same values off a 16-byte boundary and SDPA's
+    backward, with the bound at the aligned path's unit, its ``tflops``
+    (the 5 products over its time), ``bound_share`` and the ratios
+    ``vs_library`` (time over SDPA's) and ``fma_over_path``."""
+    name = str(dtype).removeprefix("torch.")
+    ms, rounds, plain_ms, path, shape, errs = _time_bwd_turns(dtype, seed,
+                                                              case=case)
+    want = SERVED_FLASH_PATH[name]
+    _require(path == want, f"the {name} backward's timing path {path}")
+    flops, nbytes = attention_bwd_work(*shape, dtype, case[6])
+    bound_ms, bound_by = bound({FLASH_UNIT[path]: flops}, nbytes)
+    out = {
+        "dtype": name, "path": path, "shape": shape,
+        "ms": ms[path], "ms_rounds": rounds[path],
+        "fma_ms": ms["fma"], "fma_ms_rounds": rounds["fma"],
+        "plain_ms": plain_ms,
+        "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
+        "library": f"SDPA backward ({name}, autograd.grad on a kept graph)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "fma_bound_ms": bound({"float32": flops}, nbytes)[0],
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "tflops": flops / (ms[path] * 1e-3) / 1e12,
+        "bound_share": bound_ms / ms[path],
+        "vs_library": ms[path] / ms["sdpa"],
+        "fma_over_path": ms["fma"] / ms[path], "errors": errs}
+    print(f"[time] flash_attention_bwd {name} {model} {out}", flush=True)
+    return out
+
+
 def time_flash_bwd(report: dict) -> dict:
     """Both backward paths, the plain version, SDPA's backward and the
     bound at the training shape, float32 (``_time_bwd_turns``):
@@ -770,13 +882,10 @@ def time_flash_bwd(report: dict) -> dict:
     units of the FMA kernels); each path's ``tflops`` is those 5 products
     over its time and ``bound_share`` its unit's bound over its time.
     Each row keeps both kernel paths' errors against the plain version
-    (``"errors"``).  Then, under ``"bfloat16_by_model"``, at each of
-    ``FLASH_BWD_BF16_SHAPES``, the path a
-    bfloat16 train step takes (``wgmma``), the ``fma`` kernels on the same
-    values with q off a 16-byte boundary and SDPA's bfloat16 backward in
-    turns, the bound at the bfloat16 tensor cores' peak; each with its
-    ``tflops`` (the 5 products over its time), ``bound_share`` and the
-    ratios ``vs_library`` (time over SDPA's) and ``fma_over_wgmma``."""
+    (``"errors"``).  Then ``_bwd_by_model`` under ``"float32_by_model"``
+    at each of ``FLASH_BWD_F32_SHAPES`` and under ``"bfloat16_by_model"``
+    at each of ``FLASH_BWD_BF16_SHAPES`` (the bound at the bfloat16 tensor
+    cores' peak there)."""
     import torch
     ms, rounds, plain_ms, path, shape, errs = _time_bwd_turns(torch.float32,
                                                               299)
@@ -798,31 +907,11 @@ def time_flash_bwd(report: dict) -> dict:
            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
            "tflops": paths["tf32x3"]["tflops"], "errors": errs}
     print(f"[time] flash_attention_bwd {row}", flush=True)
-
-    by_model = {}
-    for model, case in FLASH_BWD_BF16_SHAPES:
-        ms, rounds, plain_ms, path, shape, errs = _time_bwd_turns(
-            torch.bfloat16, 298, case=case)
-        _require(path == "wgmma", f"the bfloat16 backward's timing path {path}")
-        flops, nbytes = attention_bwd_work(*shape, torch.bfloat16, case[6])
-        bound_ms, bound_by = bound({"bfloat16": flops}, nbytes)
-        by_model[model] = bf16 = {
-            "dtype": "bfloat16", "path": path, "shape": shape,
-            "ms": ms[path], "ms_rounds": rounds[path],
-            "fma_ms": ms["fma"], "fma_ms_rounds": rounds["fma"],
-            "plain_ms": plain_ms,
-            "library_ms": ms["sdpa"], "library_ms_rounds": rounds["sdpa"],
-            "library": "SDPA backward (bfloat16, autograd.grad on a kept "
-                       "graph)",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "fma_bound_ms": bound({"float32": flops}, nbytes)[0],
-            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "tflops": flops / (ms[path] * 1e-3) / 1e12,
-            "bound_share": bound_ms / ms[path],
-            "vs_library": ms[path] / ms["sdpa"],
-            "fma_over_wgmma": ms["fma"] / ms[path], "errors": errs}
-        print(f"[time] flash_attention_bwd bfloat16 {model} {bf16}",
-              flush=True)
+    row["float32_by_model"] = {
+        model: _bwd_by_model(torch.float32, model, case, 297)
+        for model, case in FLASH_BWD_F32_SHAPES}
+    by_model = {model: _bwd_by_model(torch.bfloat16, model, case, 298)
+                for model, case in FLASH_BWD_BF16_SHAPES}
     row["bfloat16_by_model"] = by_model
     report["flash_attention_bwd_timing"] = row
     return row
@@ -1447,7 +1536,7 @@ ADAMW_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10, weight_decay=0.1)
 ADAMW_NORM_TOL = 1e-6     # the norm kernel against a float64 sum, relative
 ADAMW_GRAD_SCALE = 1e-4   # the timed trees' gradients: N(0, 1) x this
 # the configuration whose whole tree heads the AdamW row: the largest
-ADAMW_HEADLINE = "train:qwen3-moe-30b-a3bx4:bfloat16"
+ADAMW_HEADLINE = "train:stablelm-3bx32:bfloat16"
 
 
 def _adamw_state(kind: str, seed: int):
@@ -2346,6 +2435,10 @@ def serve(report: dict, cfg) -> dict:
     reduced = cfg.reduced()
     out["reduced_cuda_vs_cpu_rel"] = reduced_vs_cpu(
         dataclasses.replace(reduced, dtype="float32"))
+    heads = real_heads(cfg)
+    if heads is not None:           # the arch's own head layout, float32
+        out["real_heads_cuda_vs_cpu_rel"] = reduced_vs_cpu(
+            dataclasses.replace(heads, dtype="float32"))
     if cfg.dtype == "bfloat16":
         out["reduced_cuda_vs_cpu_bf16"] = reduced_vs_cpu_bf16(reduced)
         out["cut_depth_f32_decode_vs_forward"] = cut_depth_f32(cfg,
@@ -2356,6 +2449,9 @@ def serve(report: dict, cfg) -> dict:
              f"{cut['max_rel']:.3e}" if cut else "") + "; "
           f"reduced model card vs CPU rel "
           f"{out['reduced_cuda_vs_cpu_rel']:.3e} (float32)"
+          + (f", at its own heads {REAL_HEADS[cfg.name]} "
+             f"{out['real_heads_cuda_vs_cpu_rel']:.3e} (float32)"
+             if heads is not None else "")
           + (f", {out['reduced_cuda_vs_cpu_bf16']} (bfloat16)"
              if cfg.dtype == "bfloat16" else ""), flush=True)
     print(f"[serve] {cfg.name} ({cfg.dtype}): init {out['init_s']:.2f} s, "
@@ -2370,13 +2466,14 @@ def serve(report: dict, cfg) -> dict:
 def _require_decode_agrees(cfg, rels: list[float], what: str) -> None:
     """A served model's decode steps against its forward: float32 every
     step under rel 5e-3, the model tolerance; bfloat16 the median over the
-    steps under ``BF16_FULL_TOL`` (an MoE model) or
+    steps under ``BF16_FULL_TOL`` (an MoE model) or its arch's
     ``DENSE_BF16_FULL_TOL`` (a dense one)."""
     import statistics
     if cfg.dtype == "float32":
         _require(max(rels) < 5e-3, f"{what}: rel {rels}")
     else:
-        tol = BF16_FULL_TOL if cfg.n_experts else DENSE_BF16_FULL_TOL
+        tol = (BF16_FULL_TOL if cfg.n_experts
+               else DENSE_BF16_FULL_TOL[cfg.name])
         _require(statistics.median(rels) < tol,
                  f"{what}: rel {rels}, median over the tokens not under "
                  f"{tol}")
@@ -2454,7 +2551,7 @@ def prefixed_checks(params, cfg, toks) -> dict:
     all but the last ``NEW_TOKENS`` tokens of ``toks`` and teacher-forced
     decode steps of those, against ``forward`` over the prefix and all of
     them (float32: every step under rel 5e-3; bfloat16: the median over the
-    steps under ``DENSE_BF16_FULL_TOL``); ``make_forward_step`` on the same
+    steps under its ``DENSE_BF16_FULL_TOL``); ``make_forward_step`` on the same
     batch against ``forward``; and a prefix of zeros changes the logits."""
     import statistics
     import torch
@@ -2683,18 +2780,21 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
 # One run a model, one after the other, each through the port's Trainer:
 # first in float32, then in bfloat16, the dtype the dry-run prices (bfloat16
 # params, a float32 master copy and float32 moments, as the reference's
-# AdamW keeps them).  granite-8b at full width is cut in depth only (36 -> 8
-# layers): 2.15 B parameters, whose params, gradients and two AdamW moments
-# take 34.4 GB in bfloat16 (2 + 2 + 4 + 8 bytes a parameter) as in float32
-# (all 36 layers would take 132 GB).  Its float32 run is cut to 4 layers
-# (1.27 B parameters) since the bfloat16 runs joined the phase, to keep the
-# whole run near 700 s: at 8 layers it took 70.5 s of 667.5 (PERF.md), most
-# of it the checkpoint's write and restore.  zamba2-1.2b and xlstm-125m run
-# at full width and depth, all at B 2 x S 2048.  qwen3-moe-30b-a3b trains
-# in bfloat16 only (30.1 B parameters): at full width cut 48 -> 4 layers,
+# AdamW keeps them), 16 bytes a parameter with the gradients either way.
+# Most of a run's time is its checkpoint's write and restore (~35 s a
+# billion parameters on the card's host: PERF.md §4), so the runs are cut
+# in depth to keep the whole run well inside its time limit: granite-8b at
+# full width is cut 36 -> 1 layer in both dtypes (0.62 B parameters),
+# zamba2-1.2b 38 -> 6 Mamba-2 layers (0.35 B, the shared block applied
+# once), all at B 2 x S 2048; xlstm-125m whole.  qwen3-moe-30b-a3b trains
+# in bfloat16 only (30.1 B parameters): at full width cut 48 -> 1 layer,
 # 9.4 M attention and 604 M expert parameters a layer and 0.62 B in the
-# untied embeddings, 3.08 B parameters, ~49 GB at 16 bytes each (6 layers
-# would take ~69 GB beside the activations), capacity factor 1.25.
+# untied embeddings, 1.24 B parameters, ~20 GB at 16 bytes each, capacity
+# factor 1.25.
+# stablelm-3b trains whole (2.80 B, 44.7 GB; the wgmma backward at D 80)
+# and qwen2.5-14b at full width cut 48 -> 4 layers (2.66 B, 42.5 GB: 1.56 B
+# in its untied embeddings; the QKV bias's gradients, GQA group 5), both
+# without remat: their activations fit beside the state.
 #
 # Two warm-up steps are far too few for granite's width (Adam moves every
 # weight by about lr at once): at lr 3e-4 the loss rose from 11.1 to 23.2 by
@@ -2705,22 +2805,26 @@ def decode_card_time(params, cfg, prompt, max_len) -> dict:
 # ``grad_tol`` is its reduced model's float32 limit, card against CPU; in
 # bfloat16 the reduced model is held under the rule (bf16_grad_limits).
 TRAIN_RUNS = (
-    {"arch": "granite-8b", "layers": 4, "dtype": "float32", "batch": 2,
+    {"arch": "granite-8b", "layers": 1, "dtype": "float32", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
-    {"arch": "zamba2-1.2b", "layers": None, "dtype": "float32", "batch": 2,
+    {"arch": "zamba2-1.2b", "layers": 6, "dtype": "float32", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3},
     {"arch": "xlstm-125m", "layers": None, "dtype": "float32", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
-    {"arch": "qwen3-moe-30b-a3b", "layers": 4, "dtype": "bfloat16",
+    {"arch": "qwen3-moe-30b-a3b", "layers": 1, "dtype": "bfloat16",
      "batch": 2, "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5,
      "grad_tol": 1e-4},
-    {"arch": "granite-8b", "layers": 8, "dtype": "bfloat16", "batch": 2,
+    {"arch": "granite-8b", "layers": 1, "dtype": "bfloat16", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
-    {"arch": "zamba2-1.2b", "layers": None, "dtype": "bfloat16", "batch": 2,
+    {"arch": "zamba2-1.2b", "layers": 6, "dtype": "bfloat16", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 3e-3,
      "plain_update_steps": 4},
     {"arch": "xlstm-125m", "layers": None, "dtype": "bfloat16", "batch": 2,
      "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-4, "grad_tol": 1e-4},
+    {"arch": "stablelm-3b", "layers": None, "dtype": "bfloat16", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "qwen2.5-14b", "layers": 4, "dtype": "bfloat16", "batch": 2,
+     "seq": 2048, "steps": 8, "ckpt": 4, "lr": 3e-5, "grad_tol": 1e-4},
 )
 # musicgen-large with its frontend prefix, at full width and depth: B 2 x
 # (P 64 + 1984 text tokens), the 2048 positions of the others.  Its 2.42 B
@@ -2730,6 +2834,8 @@ TRAIN_RUNS = (
 # granite's does.
 TRAIN_PREFIXED = (
     {"arch": "musicgen-large", "layers": None, "dtype": "float32",
+     "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "musicgen-large", "layers": None, "dtype": "bfloat16",
      "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
 )
 TRAIN_WARMUP = 2
@@ -2831,14 +2937,17 @@ def _step_launches(cfg, remat: bool = False, update: bool = True) -> dict:
     return out
 
 
-def train_reduced_vs_cpu(run: dict) -> dict:
+def train_reduced_vs_cpu(run: dict, cfg=None) -> dict:
     """The reduced model on the card (the flash and SSD kernels forward and
     backward, cuBLAS) against the CPU path (plain versions), from the same
     init and batches (with a frontend prefix for a vlm or audio model): the
     loss (rel 1e-5) and its gradients (every leaf
     within ``grad_tol`` x its largest magnitude: 1e-4, and the SSD
     tolerance 3e-3 for the hybrid, as ``tests/test_torch_train.py``), then
-    3 AdamW steps' losses (rel 1e-4)."""
+    3 AdamW steps' losses (rel 1e-4).  ``cfg`` is the arch's reduced
+    config by default; for that one, a bfloat16 run is also held under the
+    rule (``train_reduced_bf16_vs_cpu``), and an arch of ``REAL_HEADS`` is
+    also checked (float32) at its own head layout (``real_heads``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2846,7 +2955,9 @@ def train_reduced_vs_cpu(run: dict) -> dict:
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_grad_step, make_train_step
-    cfg = get_config(run["arch"]).reduced()
+    default = cfg is None
+    if default:
+        cfg = get_config(run["arch"]).reduced()
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=256,
                                         global_batch=2, seed=3))
     cpu = init_params(cfg, seed=2, device="cpu")
@@ -2892,9 +3003,14 @@ def train_reduced_vs_cpu(run: dict) -> dict:
                                zip(losses[DEVICE], losses["cpu"]))
     _require(out["step_loss_rel"] < 1e-4,
              f"reduced {cfg.name}'s 3 AdamW steps, card against CPU: {out}")
-    print(f"[train] reduced {cfg.name} card against CPU {out}", flush=True)
-    if run["dtype"] == "bfloat16":
+    heads = real_heads(get_config(run["arch"]))
+    print(f"[train] reduced {cfg.name}"
+          + ("" if default else f" at its own heads {REAL_HEADS[run['arch']]}")
+          + f" card against CPU {out}", flush=True)
+    if default and run["dtype"] == "bfloat16":
         out["bfloat16"] = train_reduced_bf16_vs_cpu(run)
+    if default and heads is not None:
+        out["real_heads"] = train_reduced_vs_cpu(run, heads)
     return out
 
 
@@ -3567,7 +3683,7 @@ def train_prefixed(run: dict) -> dict:
 
     t_phase = time.perf_counter()
     out = {"reduced_vs_cpu": train_reduced_vs_cpu(run)}
-    cfg = get_config(run["arch"])
+    cfg = dataclasses.replace(get_config(run["arch"]), dtype=run["dtype"])
     if run["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=run["layers"])
     shape = InputShape("train", "train", run["seq"], run["batch"])
@@ -3584,6 +3700,7 @@ def train_prefixed(run: dict) -> dict:
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
+    _require_state_dtypes(cfg, params, opt_state)
     step = make_train_step(cfg, opt, remat=False)
     losses, norms, walls = [], [], []
     _reset(counters)
@@ -3674,7 +3791,7 @@ def train(report: dict) -> dict:
 DRYRUN_MESHES = ("single", "multi")
 DRYRUN_TIMEOUT = 600
 DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
-# (b) granite-8b x 8, phase 8's bfloat16 run, as a host-mesh cell, in
+# (b) granite-8b x 8 (a deeper cut than phase 8's), as a host-mesh cell, in
 # float32 and bfloat16, its step as DTensors on the card's (1, 1) CUDA
 # mesh: the argument bytes and the peak the dry-run predicts are held to
 # what the card allocates for them (relative 1e-6; the peak's ratio within
@@ -3689,38 +3806,54 @@ SCORE_PENALTY = 0.05
 SCORE_DRAWS = 10_000
 
 
-def dryrun_sweep() -> dict:
-    """Phase 9 (a): every arch x shape on each mesh of ``DRYRUN_MESHES``,
-    each arch's cells in a process of its own (``python -m
-    repro_torch.launch.dryrun``), all started together; no cell may fail,
+def start_dryrun_sweep() -> dict:
+    """Start phase 9 (a)'s processes: each arch's cells in a process of its
+    own (``python -m repro_torch.launch.dryrun``), all together, on the
+    host with CUDA hidden.  ``main`` starts them right after the build, so
+    that they run beside phases 3 and 4 (the checks, and kernel times taken
+    on the card's clock), and collects them (``dryrun_sweep``) before
+    phase 5; ``stop_dryrun_sweep`` ends any still running."""
+    import subprocess
+    from repro_torch.configs import ARCHS
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    mesh = "both" if len(DRYRUN_MESHES) == 2 else DRYRUN_MESHES[0]
+    return {"t0": time.perf_counter(), "procs": {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--all", "--mesh", mesh, "--out", str(DRYRUN_OUT)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch in ARCHS}}
+
+
+def stop_dryrun_sweep(started: dict) -> None:
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_sweep(started: dict) -> dict:
+    """Phase 9 (a): every arch x shape on each mesh of ``DRYRUN_MESHES``
+    from the processes ``start_dryrun_sweep`` started; no cell may fail,
     every OK cell carries its observed and derived collectives, every
     train cell a gradient reduction over the data axes.  Per cell: the
     per-device flops, bytes and peak, their ratio to the even split (the
     whole step's over the devices), the observed and derived collective
     totals, ``dominant``; the count of cells each roofline term
-    dominates."""
+    dominates; ``seconds`` from the start to the last process's end, and
+    ``waited_s`` what collecting them waited."""
     import json
-    import subprocess
     from repro_torch.configs import ARCHS, SHAPES
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    mesh = "both" if len(DRYRUN_MESHES) == 2 else DRYRUN_MESHES[0]
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--all", "--mesh", mesh, "--out", str(DRYRUN_OUT)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for arch in ARCHS}
+    t0, procs = started["t0"], started["procs"]
+    t_wait = time.perf_counter()
     logs = {}
     try:
         for arch, proc in procs.items():
             logs[arch], _ = proc.communicate(
                 timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_dryrun_sweep(started)
+    waited_s = time.perf_counter() - t_wait
     recs = [json.loads((DRYRUN_OUT / f"{arch}__{shape}__{m}.json")
                        .read_text())
             for m in DRYRUN_MESHES for arch in ARCHS for shape in SHAPES]
@@ -3730,7 +3863,7 @@ def dryrun_sweep() -> dict:
     dominant = {term: sum(r["roofline"]["dominant"] == term for r in ok)
                 for term in ("compute", "memory", "collective")}
     out = {"counts": counts, "seconds": time.perf_counter() - t0,
-           "dominant": dominant, "cells": {}}
+           "waited_s": waited_s, "dominant": dominant, "cells": {}}
     for r in recs:
         cell = {k: r.get(k) for k in ("status", "seconds", "fits_hbm",
                                       "error")}
@@ -4007,10 +4140,10 @@ def placement_on_card() -> dict:
     return out
 
 
-def dryrun_and_placement(report: dict) -> dict:
-    """Phase 9: (a) the meta sweep, (b) the grounding on the card, (c) the
-    torch placement score on the card."""
-    out = {"sweep": dryrun_sweep(), "grounding": dryrun_grounding(),
+def dryrun_and_placement(report: dict, sweep: dict) -> dict:
+    """Phase 9: (a) the meta sweep (collected before phase 5), (b) the
+    grounding on the card, (c) the torch placement score on the card."""
+    out = {"sweep": sweep, "grounding": dryrun_grounding(),
            "grounding_bf16": dryrun_grounding("bfloat16"),
            "placement": placement_on_card()}
     report["dryrun_placement"] = out
@@ -4198,9 +4331,7 @@ def _tree_to(tree, device):
 
 
 def main() -> int:
-    import dataclasses
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4231,6 +4362,20 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln or "C75" in ln]
         print(f"[build] {name}: {res['seconds']:.1f} s {regs}", flush=True)
     lap("build")
+    started = start_dryrun_sweep()
+    try:
+        return _phases(report, smi, phase_s, lap, mark, t_run, started)
+    finally:
+        stop_dryrun_sweep(started)
+
+
+def _phases(report, smi, phase_s, lap, mark, t_run, started) -> int:
+    """Phases 3-10 and the result lines (the module doc); phase 9's sweep
+    processes, ``started`` after the build, run beside phases 3-4 and are
+    collected after them."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
 
     flash_err = check_flash(report)
     flash_bwd_err = check_flash_bwd(report)
@@ -4252,6 +4397,8 @@ def main() -> int:
     stencil_timing = time_stencil(report)
     adamw_timing = time_adamw(report)
     lap("time")
+    sweep = dryrun_sweep(started)
+    lap("dryrun_sweep_wait")
     node = node_dag(report)
     lap("node_dag")
     served = []
@@ -4264,7 +4411,7 @@ def main() -> int:
     for key, out in trained.items():
         phase_s[key] = out["phase_s"]
     mark[0] = time.perf_counter()
-    dryrun_and_placement(report)
+    dryrun_and_placement(report, sweep)
     lap("dryrun_placement")
     examples = examples_on_card(report, smi)
     lap("examples")
@@ -4332,7 +4479,15 @@ def main() -> int:
             ("qwen3-moe-30b-a3b", flash_at("bfloat16", [32, 4, 1024, 64])),
             ("moonshot-v1-16b-a3b",
              flash_at("bfloat16", [16, 16, 1024, 128])),
-            ("internvl2-76b", flash_at("bfloat16", [64, 8, 1024, 128])))}
+            ("internvl2-76b", flash_at("bfloat16", [64, 8, 1024, 128])),
+            ("qwen2.5-14b", flash_at("bfloat16", [40, 8, 1024, 128])),
+            ("nemotron-4-15b", flash_at("bfloat16", [48, 8, 1024, 128])))}
+    # stablelm-3b's head dim 80 in both dtypes (served in float32)
+    flash_row["head_dim_80"] = {
+        dtype: {k: r[k] for k in ("path", "shape", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")}
+        for dtype, r in ((d, flash_at(d, [32, 32, 1024, 80]))
+                         for d in ("float32", "bfloat16"))}
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}
@@ -4366,7 +4521,10 @@ def main() -> int:
     bf16_bwd = bf16_by_model[FLASH_BWD_BF16_SHAPES[0][0]]    # granite-8b's
     keys = ("shape", "ms", "fma_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "tflops", "bound_share", "vs_library",
-            "fma_over_wgmma", "errors")
+            "fma_over_path", "errors")
+    bwd_row["float32_by_model"] = {
+        model: {key: r[key] for key in keys}
+        for model, r in flash_bwd_timing["float32_by_model"].items()}
     bwd_row["bfloat16"] = {
         "path": bf16_bwd["path"], "max_abs_err": flash_bwd_err["bfloat16"],
         "launches": sum(trained_by("bwd_wgmma").values()),

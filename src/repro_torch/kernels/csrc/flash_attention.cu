@@ -27,7 +27,8 @@
 // A block is one consumer warpgroup (the 64 query rows) and one producer
 // warp.  The producer loads the q tile once and keeps a 2-stage ring of
 // [64 x D] K and V tiles full, all by TMA (128-byte swizzle, 64-byte at
-// D = 32; D = 128 as two 64-column boxes) from 3-D maps [B Hq, S, D] and
+// D = 32, 32-byte at D = 80; D = 128 as two 64-column boxes, D = 80 as
+// five 16-column ones) from 3-D maps [B Hq, S, D] and
 // [B Hkv, T, D], so a box past S or T is zero-filled, never read from the
 // next head; mbarriers guard each stage (TMA bytes in, one arrival per
 // consumer warp out).  S = Q K^T is wgmma m64n64k16 with both operands
@@ -39,7 +40,8 @@
 // already wgmma's register-A layout, and O += P V is wgmma m64nDk16 with V
 // read N-major through the transpose bit.  Only tiles that cross the
 // diagonal or the end of T are masked.  Heavy q tiles (the causal rows
-// that see most keys) are scheduled first.  The reference computes P V in
+// that see most keys) are scheduled first.  At D = 80 the P V product is
+// one m64n80k16 a k-step (80 is a legal wgmma N), not a 128-wide one.  The reference computes P V in
 // float32 from float32 P; rounding P to bfloat16 adds at most 2^-9 |v| a
 // key (relative), inside the 2e-2 (1 + |o|) of the bfloat16 tolerance; l
 // sums the float32 p.
@@ -56,7 +58,8 @@
 // and V come through shared memory by 16-byte cp.async, zero-filled past
 // T, one buffer each: V of a tile loads while S = Q K^T is computed and
 // the next K while O += P V is, so a block's loads overlap its arithmetic;
-// 2 (D = 128) or 3 blocks share an SM.  Every operand fragment comes from
+// 2 (D = 128) or 3 blocks share an SM (D = 80: 5 16-column blocks of O,
+// 10 k-steps of Q K^T).  Every operand fragment comes from
 // shared memory as a float4 or two float2s that land in the registers the
 // mma wants (the contraction orders and O's columns are free, and chosen
 // so), with no register moves and no bank conflicts:
@@ -64,7 +67,7 @@
 //   scale), is stored once in fragment order, a quad a (k-step, lane);
 //   QK^T's k-steps 2t and 2t + 1 give lane c the columns 16 t + 4 c .. + 3,
 //   so K's B fragments are the halves of one float4 a row (rows padded to
-//   16 floats mod 32);
+//   16 floats mod 32: 80 floats at D = 80 need no padding);
 //   O is accumulated transposed, O^T += V^T P^T, with key 2 c, 2 c + 1 as
 //   k = c, c + 4: P^T's B fragments are then the score fragments as they
 //   stand (no shuffles, no shared staging), and V^T's A fragment is V's
@@ -303,6 +306,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
                            scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                           scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
                             scale, stream);
@@ -325,7 +331,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int LDK = D + 16;  // = 16 (mod 32) floats: K's float4s
+  // the least row stride >= D that is 16 (mod 32) floats: K's float4s
+  static constexpr int LDK = D + (48 - D % 32) % 32;
   static constexpr int LDV = D + 4;   // = 4 (mod 16): V's float2s
   static constexpr int QF = BQ * D;   // Q in fragment order
   static constexpr int SMEM = (int)sizeof(float) * (QF + BKV * (LDK + LDV));
@@ -816,8 +823,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // bfloat16 on the tensor cores; q, k, v and o 16-byte aligned (the wrapper
-// checks).  Returns 0 or a CUDA error code; a head size other than 32, 64
-// or 128 gives cudaErrorInvalidValue without a launch.
+// checks).  Returns 0 or a CUDA error code; a head size other than 32, 64,
+// 80 or 128 gives cudaErrorInvalidValue without a launch.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o, int b,
                                            int hq, int hkv, int s_len,
@@ -831,6 +838,9 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
     case 64:
       return fa::launch<64>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
                             scale, st);
+    case 80:
+      return fa::launch<80>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                            scale, st);
     case 128:
       return fa::launch<128>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
                              scale, st);
@@ -841,7 +851,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
 
 // float32 in 3xTF32 on the tensor cores; q, k, v and o 16-byte aligned (the
 // wrapper checks).  Returns 0 or a CUDA error code; a head size other than
-// 32, 64 or 128, or more than 65535 batches or q tiles, gives
+// 32, 64, 80 or 128, or more than 65535 batches or q tiles, gives
 // cudaErrorInvalidValue without a launch.
 extern "C" int repro_flash_attention_tf32x3(const void* q, const void* k,
                                             const void* v, void* o, int b,
@@ -855,6 +865,9 @@ extern "C" int repro_flash_attention_tf32x3(const void* q, const void* k,
                             scale, st);
     case 64:
       return x3::launch<64>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
+                            scale, st);
+    case 80:
+      return x3::launch<80>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,
                             scale, st);
     case 128:
       return x3::launch<128>(q, k, v, o, b, hq, hkv, s_len, t_len, causal,

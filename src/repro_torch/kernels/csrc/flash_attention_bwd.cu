@@ -12,7 +12,8 @@
 // the port's forward is a CUDA kernel, so its gradient is this kernel; it
 // computes the same function as that autodiff:
 //   q, o, dO [B, Hq, S, D]; k, v [B, Hkv, T, D]; contiguous, float32 or
-//   bfloat16, D in {32, 64, 128}; query head h reads KV head h / (Hq / Hkv);
+//   bfloat16, D in {32, 64, 80, 128}; query head h reads KV head
+//   h / (Hq / Hkv);
 //   causal mask aligned at the ends of the windows (key j is live for query
 //   row i when j <= i + T - S);
 //   P = softmax(scale Q K^T), dV = P^T dO, dP = dO V^T,
@@ -504,6 +505,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq,
                            hkv, s_len, t_len, causal, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq,
+                           hkv, s_len, t_len, causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, b, hq,
                             hkv, s_len, t_len, causal, scale, stream);
@@ -555,7 +559,11 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // A fragment in fragment order is one float4 a (k-step, lane); the
 // transposed products read float2s of rows 8n + 2c and + 1 at column
 // 16 mt + 2g, the output's column order inside a 16-column block following
-// (row r of the m-tile is column 16 mt + 2 (r % 8) + r / 8).
+// (row r of the m-tile is column 16 mt + 2 (r % 8) + r / 8).  At D = 80
+// the last 16 columns are a half block: its k-steps 4u and 4u + 1 take lane
+// c's columns 32u + 4c .. + 3 (k-step 4u + s: k = c is 32u + 4c + 2s), one
+// float4 a row (half_col; its reads meet a 2-way bank conflict on rows of
+// 84 floats, the full blocks' none).
 // Both kernels take 97 KiB of shared memory at D = 128: two blocks an SM.
 
 namespace x3 {
@@ -638,10 +646,21 @@ __device__ __forceinline__ void row8(float (&x)[8], const float* p,
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
+// The column of lane c's float4 in 16-column half hh of a row: halves 2u
+// and 2u + 1 of a 32-column block take 32u + 8c and 32u + 8c + 4; a last
+// half block (D = 80) takes 16 hh + 4c.  k-steps 2 hh and 2 hh + 1 read
+// the float4's halves.
+template <int D>
+__device__ __forceinline__ int half_col(int hh, int c) {
+  return hh < D / 32 * 2 ? 32 * (hh / 2) + 8 * c + 4 * (hh % 2)
+                         : 16 * hh + 4 * c;
+}
+
 // A warp's 16 rows r0 + g, r0 + g + 8 of a row-major [n, D] matrix (rows at
 // or past n zeros), times mul, into dst in A-fragment order: k-step 4u + s
 // of lane 4g + c is the float4 (row g, row g + 8) x (column 32u + 8c + 2s,
-// + 1) at dst[(4u + s) * 32]; dst is the lane's own slot
+// + 1) at dst[(4u + s) * 32] (a last half block: k-step 4u + s of columns
+// 32u + 4c + 2s, + 1); dst is the lane's own slot
 template <int D>
 __device__ __forceinline__ void load_frag(float4* dst,
                                           const float* __restrict__ src,
@@ -660,6 +679,16 @@ __device__ __forceinline__ void load_frag(float4* dst,
           make_float4(x[2 * s] * mul, y[2 * s] * mul, x[2 * s + 1] * mul,
                       y[2 * s + 1] * mul);
   }
+  if constexpr (D % 32 == 16) {
+    constexpr int u = D / 32;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p = src + (size_t)(r0 + g) * D + half_col<D>(2 * u, c);
+    const float4 x = in0 ? ld4(p) : zero, y = in1 ? ld4(p + 8 * D) : zero;
+    dst[(4 * u) * 32] = make_float4(x.x * mul, y.x * mul, x.y * mul,
+                                    y.y * mul);
+    dst[(4 * u + 1) * 32] = make_float4(x.z * mul, y.z * mul, x.w * mul,
+                                        y.w * mul);
+  }
 }
 
 // s[n] = A B^T: A the warp's 16 rows in fragment order (aw, the lane's
@@ -675,32 +704,30 @@ __device__ __forceinline__ void product_abt(float (&s)[NN][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-  for (int u = 0; u < D / 32; ++u)
+  for (int hh = 0; hh < D / 16; ++hh) {
+    uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t ahi[2][4], alo[2][4];
+    for (int st = 0; st < 2; ++st) {
+      const float4 x = aw[(2 * hh + st) * 32];
+      const float e[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        const float4 x = aw[(4 * u + 2 * h + st) * 32];
-        const float e[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ahi[st][i] = hi_tf32(e[i]);
-          alo[st][i] = lo_tf32(e[i]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NN; ++n) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            bt + (8 * n + g) * LD + 32 * u + 8 * c + 4 * h);
-        const uint32_t bhi[2][2] = {{hi_tf32(x.x), hi_tf32(x.y)},
-                                    {hi_tf32(x.z), hi_tf32(x.w)}};
-        const uint32_t blo[2][2] = {{lo_tf32(x.x), lo_tf32(x.y)},
-                                    {lo_tf32(x.z), lo_tf32(x.w)}};
-        mma3(s[n], ahi[0], alo[0], bhi[0], blo[0]);
-        mma3(s[n], ahi[1], alo[1], bhi[1], blo[1]);
+      for (int i = 0; i < 4; ++i) {
+        ahi[st][i] = hi_tf32(e[i]);
+        alo[st][i] = lo_tf32(e[i]);
       }
     }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          bt + (8 * n + g) * LD + half_col<D>(hh, c));
+      const uint32_t bhi[2][2] = {{hi_tf32(x.x), hi_tf32(x.y)},
+                                  {hi_tf32(x.z), hi_tf32(x.w)}};
+      const uint32_t blo[2][2] = {{lo_tf32(x.x), lo_tf32(x.y)},
+                                  {lo_tf32(x.z), lo_tf32(x.w)}};
+      mma3(s[n], ahi[0], alo[0], bhi[0], blo[0]);
+      mma3(s[n], ahi[1], alo[1], bhi[1], blo[1]);
+    }
+  }
 }
 
 // acc += X^T Y^T, transposed: X a row-major tile (rows 8n + 2c and + 1 of
@@ -817,6 +844,23 @@ __global__ void __launch_bounds__(NTH, 2)
       for (int s = 0; s < 4; ++s)
         dst[(4 * u + s) * 32] = make_float4(x[0][2 * s], x[1][2 * s],
                                             x[0][2 * s + 1], x[1][2 * s + 1]);
+    }
+    if constexpr (D % 32 == 16) {   // the last half block, as load_frag's
+      constexpr int u = D / 32;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 x[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t at = (qrow + r_lo + 8 * r) * D + half_col<D>(2 * u, c);
+        x[r] = in[r] ? ld4(dout + at) : zero;
+        const float4 y = in[r] ? ld4(o + at) : zero;
+        dlt[r] = fmaf(x[r].x, y.x, dlt[r]);
+        dlt[r] = fmaf(x[r].y, y.y, dlt[r]);
+        dlt[r] = fmaf(x[r].z, y.z, dlt[r]);
+        dlt[r] = fmaf(x[r].w, y.w, dlt[r]);
+      }
+      dst[(4 * u) * 32] = make_float4(x[0].x, x[1].x, x[0].y, x[1].y);
+      dst[(4 * u + 1) * 32] = make_float4(x[0].z, x[1].z, x[0].w, x[1].w);
     }
     dlt[0] = quad_sum(dlt[0]);
     dlt[1] = quad_sum(dlt[1]);
@@ -1228,7 +1272,7 @@ __global__ void __launch_bounds__(NTH, 2)
   const size_t qrow = (size_t)(b * hq + h) * s_len;
 
   // Delta of rows r_lo, r_lo + 8: the quad's 4 threads take every 4th
-  // 16-byte chunk of the row of O and of dO
+  // 16-byte chunk of the row of O and of dO (D / 8 chunks: 10 at D = 80)
   float dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1239,8 +1283,8 @@ __global__ void __launch_bounds__(NTH, 2)
       const uint4* gp =
           reinterpret_cast<const uint4*>(dout + (qrow + row) * D);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        uint4 x = __ldg(op + 4 * c + l4), y = __ldg(gp + 4 * c + l4);
+      for (int c = l4; c < D / 8; c += 4) {
+        uint4 x = __ldg(op + c), y = __ldg(gp + c);
         const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
         const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
@@ -1575,7 +1619,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
 // 16-byte aligned (the wrapper checks); lse and delta float32 scratch of
 // B * Hq * S_pad each, S_pad = S rounded up to 64, 16-byte aligned.
 // Returns cudaGetLastError() after the launches (0 on success); a head size
-// other than 32, 64 or 128, or more than 65535 batches or tiles, gives
+// other than 32, 64, 80 or 128, or more than 65535 batches or tiles, gives
 // cudaErrorInvalidValue without a launch.
 extern "C" int repro_flash_attention_bwd_tf32x3(
     const void* q, const void* k, const void* v, const void* o,
@@ -1594,6 +1638,10 @@ extern "C" int repro_flash_attention_bwd_tf32x3(
       return x3::launch<64>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
                             w(dv), w(lse), w(delta), b, hq, hkv, s_len, t_len,
                             causal, scale, st);
+    case 80:
+      return x3::launch<80>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
+                            w(dv), w(lse), w(delta), b, hq, hkv, s_len, t_len,
+                            causal, scale, st);
     case 128:
       return x3::launch<128>(f(q), f(k), f(v), f(o), f(dout), w(dq), w(dk),
                              w(dv), w(lse), w(delta), b, hq, hkv, s_len,
@@ -1607,7 +1655,7 @@ extern "C" int repro_flash_attention_bwd_tf32x3(
 // dv 16-byte aligned (the wrapper checks); lse and delta float32 scratch of
 // B * Hq * S_pad each, S_pad = S rounded up to 64, 16-byte aligned.
 // Returns 0 or a CUDA error code after the launches; a head size other than
-// 32, 64 or 128, or more than 65535 batches or tiles, gives
+// 32, 64, 80 or 128, or more than 65535 batches or tiles, gives
 // cudaErrorInvalidValue without a launch.
 extern "C" int repro_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
@@ -1623,6 +1671,9 @@ extern "C" int repro_flash_attention_bwd_wgmma(
                             s_len, t_len, causal, scale, st);
     case 64:
       return fb::launch<64>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,
+                            s_len, t_len, causal, scale, st);
+    case 80:
+      return fb::launch<80>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,
                             s_len, t_len, causal, scale, st);
     case 128:
       return fb::launch<128>(q, k, v, o, dout, dq, dk, dv, l, dl, b, hq, hkv,

@@ -218,7 +218,8 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Shared-memory matrix descriptor.  layout 1: 128-byte swizzle, 2: 64-byte.
+// Shared-memory matrix descriptor.  layout 1: 128-byte swizzle, 2: 64-byte,
+// 3: 32-byte.
 // K-major operands: sbo = bytes between groups of 8 rows (lbo unused).
 // MN-major operands: lbo = bytes between swizzle-wide column blocks, sbo =
 // bytes between groups of 8 rows of K.  The tile must start on a 1024-byte
@@ -357,6 +358,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 80] += A[64 x 16] B[16 x 80], A in registers (the bfloat16
+// fragment of the accumulator layout), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n80k16_rs_tb(float (&d)[40],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128], A in registers (the bfloat16
 // fragment of the accumulator layout), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
@@ -395,13 +422,18 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
 
 // A [64 x D] bfloat16 tile as the TMA lays it in shared memory from a map
 // made by bf16_tile_map: D / BOX boxes of BOX columns x 64 rows, box j at
-// j BOX_BYTES, each swizzled over SW bytes (128, or 64 at D = 32), the
-// tile on a 1024-byte boundary.  wgmma reads it K-major (its 64 rows are
-// the product's M or N, D its K) or MN-major (D is N, its rows K).
+// j BOX_BYTES, each swizzled over SW bytes, the tile on a 1024-byte
+// boundary.  SW is the widest swizzle whose box divides D: 128 bytes at
+// D = 64 and 128, 64 at D = 32, 32 at D = 80 (five 16-column boxes; a
+// 64-column box would leave 16 columns unloaded).  wgmma reads it K-major
+// (its 64 rows are the product's M or N, D its K; a k-step of 16 columns
+// lies inside one box) or MN-major (D is N, its rows K; the boxes are
+// the descriptor's column blocks, BOX_BYTES apart).
 template <int D>
 struct Bf16Tile {
-  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle span, bytes
-  static constexpr int LAYOUT = SW == 128 ? 1 : 2;       // descriptor swizzle
+  static_assert(D % 16 == 0, "a bfloat16 tile is whole k-steps of 16");
+  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   static constexpr int BOX = SW / 2;                     // D columns a box
   static constexpr int BOX_BYTES = 64 * SW;              // a box of 64 rows
   static constexpr int BYTES = 64 * D * 2;               // a [64 x D] tile
@@ -417,8 +449,9 @@ inline int bf16_tile_map(CUtensorMap* map, const void* ptr, int len,
   const cuuint64_t dims[3] = {D, (cuuint64_t)len, (cuuint64_t)mats};
   const cuuint64_t strides[2] = {D * 2, (cuuint64_t)len * D * 2};
   return bf16_map(map, 3, ptr, dims, strides, box,
-                  T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B);
+                  T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // the tile at rows r0 of matrix `mat` of map into dst, on bar
@@ -459,10 +492,14 @@ __device__ __forceinline__ void wgmma_tile_rs(float (&d)[D / 2],
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db =
         smem_desc(b + kk * 16 * T::SW, T::BOX_BYTES, 8 * T::SW, T::LAYOUT);
+    static_assert(D == 32 || D == 64 || D == 80 || D == 128,
+                  "no m64nDk16 wrapper for this D");
     if constexpr (D == 32)
       wgmma_m64n32k16_rs_tb(d, a[kk], db);
     else if constexpr (D == 64)
       wgmma_m64n64k16_rs_tb(d, a[kk], db);
+    else if constexpr (D == 80)
+      wgmma_m64n80k16_rs_tb(d, a[kk], db);
     else
       wgmma_m64n128k16_rs_tb(d, a[kk], db);
   }

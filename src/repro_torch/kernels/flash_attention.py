@@ -8,7 +8,7 @@ windows (key j is live for row i when ``j <= i + T - S``); float32 online
 softmax; output in q's dtype.
 
 :func:`flash_attention` launches a kernel of ``csrc/flash_attention.cu``
-for a CUDA tensor (float32 or bfloat16, D in 32/64/128, any S and T) or
+for a CUDA tensor (float32 or bfloat16, D in 32/64/80/128, any S and T) or
 raises; it takes :func:`flash_attention_plain` only for a tensor on the
 CPU.  Which kernel is :func:`flash_path`, a plain function of the dtype and
 the alignment of the contiguous inputs:
@@ -37,7 +37,7 @@ of speed.
 The gradient.  :func:`flash_attention` goes through :class:`FlashAttention`,
 a ``torch.autograd.Function`` that saves q, k, v and the output.  Its
 backward launches ``csrc/flash_attention_bwd.cu`` for CUDA tensors (float32
-or bfloat16, D in 32/64/128, any S and T; one C call, one count in
+or bfloat16, D in 32/64/80/128, any S and T; one C call, one count in
 ``bwd_launches``, and in ``bwd_path_launches`` of its path).  Which kernels
 is :func:`flash_bwd_path`, a plain function of the dtype and the alignment
 of q, k, v, o and dO:
@@ -91,7 +91,7 @@ from .common import LaunchCounter
 
 BQ = 64     # query rows per tile (BQ, x3::BQ, fa::BQ in the .cu)
 BK = 64     # keys per tile (BK, x3::BKV, fa::BKV)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 PATHS = ("wgmma", "tf32x3", "fma")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,11 +7,16 @@ interference.  Runs on the card unless ``--device cpu`` is given.
 
 ``--reduced`` serves the small same-family config (``ModelConfig.reduced``)
 instead of the full-width one; ``--dtype`` overrides the config's dtype, as
-the reference's dry-run does.  The MoE models fit one 80 GB card only in
-bfloat16:
+the reference's dry-run does.  Every registered arch serves on one 80 GB
+card at full width; stablelm-3b (head dim 80), granite-8b, zamba2-1.2b,
+xlstm-125m and musicgen-large in float32, while the MoE models, qwen2.5-14b
+and nemotron-4-15b fit only in bfloat16 (internvl2-76b only cut in depth):
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --dtype bfloat16 --scheduler DAM-C
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2.5-14b --dtype bfloat16
 """
 from __future__ import annotations
 

@@ -8,7 +8,15 @@ It trains the reduced variant of ``--arch`` (``--full-config`` for the full
 one) end-to-end with checkpointing and the straggler monitor, and
 demonstrates restart-after-kill (``--resume``).  On the card the dense,
 MoE, hybrid and SSM families train through their kernels' forward and
-backward (flash attention, the SSD scan).
+backward (flash attention at head dims 32, 64, 80 and 128, the SSD and
+sLSTM scans).  A reduced model has heads of 32; ``--full-config`` trains
+the full-width one in float32 (stablelm-3b's heads of 80 among them) as
+far as the card's memory allows.  ``chip_smoke.py`` trains full-width
+stablelm-3b, qwen2.5-14b at 4 of its 48 layers and musicgen-large in
+bfloat16 with a float32 master copy:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+        --full-config --steps 20 --batch 1 --seq 1024
 """
 from __future__ import annotations
 

@@ -55,6 +55,9 @@ def _qkv(card, b, hq, hkv, s, t, d, dtype):
     (2, 8, 2, 100, 100, 64, True),
     (1, 4, 1, 37, 301, 32, True),
     (1, 8, 8, 130, 70, 128, False),
+    (1, 32, 32, 300, 300, 80, True),    # stablelm-3b's heads, ragged
+    (1, 40, 8, 256, 256, 128, True),    # qwen2.5-14b's: GQA group 5
+    (1, 10, 2, 130, 70, 80, False),     # D = 80, group 5, non-causal
 ])
 def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
                                     causal):
@@ -66,6 +69,20 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
     want = flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# stablelm-3b's head dim 80 (32 heads over 32) and qwen2.5-14b's GQA group
+# of 5 (40 heads over 8): aligned and ragged, T > S, non-causal, one tile
+D80_GROUP5_CASES = [
+    (1, 32, 32, 1024, 1024, 80, True),  # stablelm-3b's prefill
+    (2, 4, 4, 100, 100, 80, True),      # D = 80, ragged S = T
+    (1, 8, 2, 37, 301, 80, True),       # D = 80, T > S, both ragged
+    (1, 8, 8, 130, 70, 80, False),      # D = 80, non-causal, T < S
+    (1, 4, 4, 40, 40, 80, True),        # D = 80, S < 64: one ragged tile
+    (1, 40, 8, 1024, 1024, 128, True),  # qwen2.5-14b's prefill, group 5
+    (1, 10, 2, 300, 300, 80, True),     # group 5 at D = 80, ragged
+    (2, 10, 2, 200, 330, 128, False),   # group 5, non-causal, T > S
+]
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
@@ -82,7 +99,7 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, s, t, d,
     (1, 64, 8, 1280, 1280, 128, True),  # internvl2's: P 256 + 1024
     (1, 64, 8, 556, 556, 128, True),    # the same, P 256 + 300: ragged
     (2, 64, 8, 200, 330, 128, True),    # the same, T > S, B 2
-])
+] + D80_GROUP5_CASES)
 def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
     q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.bfloat16)
     before = (launches.count, path_launches["wgmma"].count)
@@ -148,7 +165,7 @@ FLASH_F32_KEEP = 2e-5   # the float32 error under which 3xTF32 is kept
     (1, 4, 1, 300, 300, 128, False),    # non-causal, ragged, group 4
     (1, 4, 1, 40, 40, 32, True),        # S < 64: one ragged tile
     (2, 8, 2, 1, 65, 64, True),         # one query row
-])
+] + D80_GROUP5_CASES)
 def test_flash_float32_takes_the_tf32x3_path(card, b, hq, hkv, s, t, d,
                                              causal):
     q, k, v = _qkv(card, b, hq, hkv, s, t, d, torch.float32)
@@ -175,11 +192,33 @@ def test_flash_float32_explicit_scale(card, scale):
                 .all())
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float32, 48)])
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float32, 48),
+                                     (torch.float32, 96), (torch.bfloat16, 96)])
 def test_flash_kernel_refuses_what_it_does_not_take(card, dtype, d):
+    """A dtype or a head size the kernels have no instantiation for raises,
+    forward and backward: no quiet plain path, no padding."""
     q, k, v = _qkv(card, 1, 4, 2, 64, 64, d, dtype)
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, q, q)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", D80_GROUP5_CASES)
+def test_flash_d80_and_group5_off_16_bytes_take_the_fma_path(
+        card, dtype, tol, b, hq, hkv, s, t, d, causal):
+    q, k, v = _qkv(card, b, hq, hkv, s, t, d, dtype)
+    k = _off16(k)
+    before = {p: c.count for p, c in path_launches.items()}
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert {p: c.count - before[p] for p, c in path_launches.items()} == {
+        p: int(p == "fma") for p in path_launches}
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * (1 + want.float().abs())).all())
 
 
 SSD_F32_KEEP = 3e-4   # the float32 error under which 3xTF32 is kept
@@ -692,6 +731,12 @@ def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
     (2, 4, 2, 40, 40, 64, True),        # S shorter than one tile
     (1, 8, 2, 33, 97, 128, True),       # one past 32-row / 32-key steps
     (1, 4, 1, 17, 17, 32, True),        # one past a 16-row q step
+    (1, 32, 32, 300, 300, 80, True),    # stablelm-3b's heads, ragged
+    (1, 4, 1, 37, 301, 80, True),       # D = 80, S < T
+    (1, 8, 2, 130, 70, 80, False),      # D = 80, S > T
+    (1, 4, 4, 17, 17, 80, True),        # D = 80, one past a 16-row step
+    (1, 40, 8, 256, 256, 128, True),    # qwen2.5-14b's heads, GQA group 5
+    (1, 10, 2, 130, 130, 80, True),     # group 5 at D = 80, ragged
 ])
 def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
                                         s, t, d, causal):
@@ -726,7 +771,10 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
                                             (torch.float32, True, 128),
                                             (torch.bfloat16, False, 128),
                                             (torch.bfloat16, False, 64),
-                                            (torch.bfloat16, True, 128)])
+                                            (torch.bfloat16, True, 128),
+                                            (torch.float32, False, 80),
+                                            (torch.bfloat16, False, 80),
+                                            (torch.bfloat16, True, 80)])
 def test_flash_bwd_kernel_repeats_bit_for_bit(card, dtype, offset, d):
     """No atomics: every gradient element is summed by one block in one
     order, so two runs on one input agree bit for bit, on every path."""

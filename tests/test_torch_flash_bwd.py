@@ -38,6 +38,9 @@ CASES = [  # (b, hq, hkv, s, t, d, causal)
     (2, 4, 1, 37, 130, 64, True),     # S < T (end-aligned), S < one tile
     (1, 8, 2, 100, 60, 32, False),    # non-causal, S > T
     (1, 4, 2, 50, 200, 128, False),   # non-causal, S < T, D = 128
+    (1, 4, 4, 70, 70, 80, True),      # D = 80 (stablelm-3b's), ragged
+    (1, 10, 2, 70, 130, 32, True),    # GQA group 5 (qwen2.5-14b's), S < T
+    (1, 10, 2, 100, 60, 80, False),   # group 5 at D = 80, non-causal
 ]
 
 # the edges of the schedules: tf32x3's 16-row q steps of dK/dV, 32-key
@@ -49,6 +52,7 @@ EDGE_CASES = [  # (b, hq, hkv, s, t, d, causal)
     (2, 2, 2, 65, 65, 32, True),      # one past a 64-row tile and key block
     (1, 4, 2, 31, 129, 32, True),     # one short of 32 rows; T one past 128
     (1, 2, 1, 48, 40, 64, False),     # non-causal, S > T, T ragged in 32
+    (1, 5, 1, 17, 97, 80, True),      # D = 80, group 5, past a 16-row step
 ]
 
 

@@ -380,9 +380,11 @@ def _chip_smoke():
 
 def test_chip_smoke_serves_and_trains_the_prefixed_models():
     """``chip_smoke.py`` serves internvl2-76b in bfloat16 cut to 32 layers
-    (29.48 B parameters) and musicgen-large in float32 whole, and requires
+    (29.48 B parameters) and musicgen-large in float32 whole, trains
+    musicgen-large with its prefix in float32 and in bfloat16, and requires
     one flash launch a layer per prefill (32, 48) and per train step each
-    way (48; 96 forwards with remat) and the AdamW kernels' update a leaf
+    way (48; 96 forwards with remat) on the dtype's paths, and the AdamW
+    kernels' update a leaf
     (11) and the norm's pass a leaf and a finalize (12) a step; it prices
     internvl2's decode step by the weights it must read."""
     cs = _chip_smoke()
@@ -405,17 +407,23 @@ def test_chip_smoke_serves_and_trains_the_prefixed_models():
         read + tree["lm_head"].numel())
     music = tconfigs.ARCHS["musicgen-large"]
     assert cs._launches_per_prefill(music)["flash_attention"] == 48
-    (run,) = cs.TRAIN_PREFIXED
-    assert run["arch"] == "musicgen-large" and not run["layers"]
-    for remat, fwd in ((False, 48), (True, 96)):
-        want = {"flash_attention": fwd, "flash_attention_bwd": 48,
-                "tf32x3": fwd, "wgmma": 0, "bwd_tf32x3": 48, "bwd_wgmma": 0,
-                "bwd_fma": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
-                "ssd_bf16_async": 0, "ssd_plain": 0,
-                "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
-                "slstm_scan": 0, "slstm_scan_bwd": 0,
-                "adamw": 11, "adamw_norm": 12}
-        assert cs._step_launches(music, remat) == want
+    runs = {run["dtype"]: run for run in cs.TRAIN_PREFIXED}
+    assert sorted(runs) == ["bfloat16", "float32"]
+    for run in runs.values():
+        assert run["arch"] == "musicgen-large" and not run["layers"]
+    for dtype, (fwd_path, bwd_path) in (("float32", ("tf32x3", "bwd_tf32x3")),
+                                        ("bfloat16", ("wgmma", "bwd_wgmma"))):
+        cfg = dataclasses.replace(music, dtype=dtype)
+        for remat, fwd in ((False, 48), (True, 96)):
+            want = {"flash_attention": fwd, "flash_attention_bwd": 48,
+                    "tf32x3": 0, "wgmma": 0, "bwd_tf32x3": 0, "bwd_wgmma": 0,
+                    "bwd_fma": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                    "ssd_bf16_async": 0, "ssd_plain": 0,
+                    "ssd_bwd_bf16_async": 0, "ssd_bwd_plain": 0,
+                    "slstm_scan": 0, "slstm_scan_bwd": 0,
+                    "adamw": 11, "adamw_norm": 12,
+                    fwd_path: fwd, bwd_path: 48}
+            assert cs._step_launches(cfg, remat) == want
 
 
 def test_chip_smoke_lays_out_the_prefixed_batch_by_the_specs():
@@ -424,7 +432,9 @@ def test_chip_smoke_lays_out_the_prefixed_batch_by_the_specs():
     B 2 x (P 64 + 1984 text tokens) by the specs on the meta device."""
     cs = _chip_smoke()
     full = tconfigs.ARCHS["musicgen-large"]
-    (run,) = cs.TRAIN_PREFIXED
+    run = cs.TRAIN_PREFIXED[0]
+    assert all((r["batch"], r["seq"]) == (run["batch"], run["seq"])
+               for r in cs.TRAIN_PREFIXED)
     shape = tconfigs.InputShape("train", "train", run["seq"], run["batch"])
     specs = tconfigs.train_batch_specs(full, shape)
     assert {k: tuple(v.shape) for k, v in specs.items()} == {

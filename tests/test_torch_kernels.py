@@ -49,7 +49,8 @@ def _t(*arrays):
 
 @pytest.mark.parametrize("hq,hkv,s,t,causal", [
     (4, 4, 128, 128, True), (8, 2, 64, 192, True),
-    (8, 2, 128, 128, False), (8, 1, 64, 192, False)])
+    (8, 2, 128, 128, False), (8, 1, 64, 192, False),
+    (10, 2, 128, 128, True), (10, 2, 64, 192, False)])   # group 5 (qwen2.5)
 def test_flash_attention_matches_pallas_and_ref(hq, hkv, s, t, causal):
     q, k, v = _qkv(1, hq, hkv, s, t, 32)
     got = flash_attention(*_t(q, k, v), causal=causal).numpy()
@@ -108,7 +109,7 @@ def test_flash_path_choice(dtype, offset, path):
     assert flash_path(qkv["q"], qkv["k"], qkv["v"]) == path
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 @pytest.mark.parametrize("s,t,causal", [(64, 64, True), (128, 192, True),
                                         (128, 128, False)])
 def test_flash_attention_bf16_tiles_match_pallas(d, s, t, causal):
@@ -128,7 +129,7 @@ def test_flash_attention_bf16_tiles_match_pallas(d, s, t, causal):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 @pytest.mark.parametrize("s,t,causal", [(64, 64, True), (128, 192, True),
                                         (128, 128, False)])
 def test_flash_attention_float32_tiles_match_pallas(d, s, t, causal):

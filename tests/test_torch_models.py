@@ -24,7 +24,7 @@ from repro.models import layers as jlayers
 from repro.models.transformer import prefill as jprefill
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import to_torch
-from repro_torch.models import decode_step, layers, prefill
+from repro_torch.models import decode_step, init_params, layers, prefill
 from _torch_model_checks import (check_forward, check_full_width_tree,
                                  check_init_scales, check_prefill_and_decode,
                                  check_prefill_then_decode_equals_forward)
@@ -132,3 +132,80 @@ def test_dense_configs_logits_match_reference(arch):
              to_torch(params_j))
     check_forward(model, 20)
     check_prefill_and_decode(model, prompt_len=24, steps=1)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "stablelm-3b"])
+def test_real_head_layouts_logits_match_reference(arch):
+    """The head layouts that ``reduced()`` hides (its 4 heads of 32) and the
+    card runs at full width: stablelm-3b's head dim 80 and qwen2.5-14b's
+    GQA group of 5 with its QKV bias (``chip_smoke.REAL_HEADS``), built the
+    same way in both packages and bridged through numpy: forward, prefill
+    and a decode step at rel 5e-3."""
+    import chip_smoke as cs
+    over = cs.REAL_HEADS[arch]
+    cfg_j = dataclasses.replace(jconfigs.ARCHS[arch].reduced(), **over)
+    cfg_t = dataclasses.replace(tconfigs.ARCHS[arch].reduced(), **over)
+    assert cfg_t == cs.real_heads(tconfigs.ARCHS[arch])
+    params_j = jinit_params(cfg_j, jax.random.PRNGKey(0))
+    params_t = to_torch(params_j)
+    assert tuple(params_t["stacks"]["attn"]["attn"]["wq"].shape[1:]) == (
+        cfg_t.d_model, cfg_t.n_heads * cfg_t.resolved_head_dim)
+    model = (cfg_j, cfg_t, params_j, params_t)
+    check_forward(model, 20)
+    check_prefill_and_decode(model, prompt_len=24, steps=1)
+
+
+@pytest.mark.parametrize("arch,dtype,params_b,layout", [
+    ("stablelm-3b", "float32", 2.795, (32, 32, 80)),
+    ("qwen2.5-14b", "bfloat16", 14.770, (40, 8, 128)),
+    ("nemotron-4-15b", "bfloat16", 15.628, (48, 8, 128))])
+def test_chip_smoke_serves_the_dense_archs_at_full_width(arch, dtype,
+                                                         params_b, layout):
+    """``chip_smoke.py`` serves stablelm-3b (float32), qwen2.5-14b and
+    nemotron-4-15b (bfloat16) at full width and depth (meta device: the
+    parameter counts), one flash launch a layer per prefill on a head
+    layout it checks and times in that dtype, and holds a bfloat16 one's
+    decode to its own grounded limit."""
+    import chip_smoke as cs
+    assert dict(cs.SERVED)[arch] == dtype and arch not in cs.SERVED_LAYERS
+    cfg = dataclasses.replace(tconfigs.ARCHS[arch], dtype=dtype)
+    tree = init_params(cfg, device="meta")
+    n = sum(t.numel() for t in _leaves(tree))
+    assert abs(n / 1e9 - params_b) < 1e-3
+    assert cs._launches_per_prefill(cfg) == {
+        "flash_attention": cfg.n_layers, "ssd_scan": 0, "slstm_scan": 0}
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) == layout
+    assert layout in cs.SERVED_LAYOUTS[dtype]
+    if dtype == "bfloat16":
+        assert 0 < cs.DENSE_BF16_FULL_TOL[arch] <= cs.BF16_FULL_TOL
+
+
+@pytest.mark.parametrize("arch,layers,params_b", [
+    ("stablelm-3b", None, 2.795), ("qwen2.5-14b", 4, 2.658)])
+def test_chip_smoke_trains_the_dense_archs_in_bfloat16(arch, layers,
+                                                       params_b):
+    """Phase 8 trains stablelm-3b whole and qwen2.5-14b at 4 of its 48
+    layers in bfloat16 through the ``Trainer`` (B 2 x S 2048), each flash
+    launch on ``wgmma`` both ways, held under the bfloat16 rule, whose
+    limits ``tools/bf16_grad_drift.jsonl`` holds for both archs."""
+    import chip_smoke as cs
+    run = next(r for r in cs.TRAIN_RUNS if r["arch"] == arch)
+    assert (run["layers"], run["dtype"], run["batch"], run["seq"]) == (
+        layers, "bfloat16", 2, 2048)
+    cfg = dataclasses.replace(tconfigs.ARCHS[arch], dtype="bfloat16",
+                              **({"n_layers": layers} if layers else {}))
+    n = sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+    assert abs(n / 1e9 - params_b) < 1e-3
+    per = cs._step_launches(cfg)
+    assert per["wgmma"] == per["bwd_wgmma"] == cfg.n_layers
+    assert per["tf32x3"] == per["bwd_tf32x3"] == per["bwd_fma"] == 0
+    limits = cs.bf16_grad_limits()[arch]
+    assert all(0 < limits[k] < 1 for k in ("loss", "grad", "steps"))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

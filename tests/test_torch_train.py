@@ -21,6 +21,7 @@ optimizer state too.  Tolerances, each with its reason:
   the gradients' last bits into relative changes of the update);
 - checkpoints: bit for bit.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -197,9 +198,9 @@ def test_int8_error_feedback_invariant():
 
 # -- the loss and its gradients ------------------------------------------------
 
-def _model(arch: str):
-    cfg_j = jconfigs.get_config(arch).reduced()
-    cfg_t = tconfigs.get_config(arch).reduced()
+def _model(arch: str, **over):
+    cfg_j = dataclasses.replace(jconfigs.get_config(arch).reduced(), **over)
+    cfg_t = dataclasses.replace(tconfigs.get_config(arch).reduced(), **over)
     params_j = jinit_params(cfg_j, jax.random.PRNGKey(0))
     return cfg_j, cfg_t, params_j, to_torch(params_j)
 
@@ -214,16 +215,24 @@ def _batch(vocab: int, b: int = 2, s: int = 48, seed: int = 4,
     return out
 
 
-@pytest.mark.parametrize("arch,grad_tol", [
-    ("granite-8b", 1e-4), ("qwen3-moe-30b-a3b", 1e-4),
-    ("zamba2-1.2b", 3e-3), ("xlstm-125m", 1e-4)])
-def test_loss_and_gradients_match_reference(arch, grad_tol):
+@pytest.mark.parametrize("arch,grad_tol,heads", [
+    ("granite-8b", 1e-4, False), ("qwen3-moe-30b-a3b", 1e-4, False),
+    ("zamba2-1.2b", 3e-3, False), ("xlstm-125m", 1e-4, False),
+    ("stablelm-3b", 1e-4, True), ("qwen2.5-14b", 1e-4, True)])
+def test_loss_and_gradients_match_reference(arch, grad_tol, heads):
     """``loss_and_metrics`` and its gradients for the reduced model of each
     trainable layer plan (dense; MoE, with its aux loss; the hybrid; the
     ssm), from the same weights and batch: the loss at rel 1e-5, every
     gradient leaf at ``grad_tol`` x its largest magnitude (the module doc
-    says why the hybrid's is the SSD tolerance)."""
-    cfg_j, cfg_t, params_j, params_t = _model(arch)
+    says why the hybrid's is the SSD tolerance).  With ``heads``, at the
+    arch's own head layout, which ``reduced()`` hides
+    (``chip_smoke.REAL_HEADS``: stablelm-3b's head dim 80, qwen2.5-14b's
+    GQA group of 5 with the QKV bias's gradients)."""
+    over = {}
+    if heads:
+        import chip_smoke as cs
+        over = cs.REAL_HEADS[arch]
+    cfg_j, cfg_t, params_j, params_t = _model(arch, **over)
     batch = _batch(cfg_j.vocab)
 
     def loss_j(p):

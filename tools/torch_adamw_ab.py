@@ -12,7 +12,7 @@ ignored directory, is loaded as package ``other_repro_torch``), so two
 checkouts are timed by the same code: run parent, change, change, parent,
 one process each.  The configurations are ``chip_smoke.py``'s phase-8 runs
 (``TRAIN_RUNS``, ``TRAIN_PREFIXED``; keys as ``chip_smoke._train_key``
-names them, ``granite-8bx8:bfloat16``), each at full width and its
+names them, ``stablelm-3bx32:bfloat16``), each at full width and its
 phase-8 depth.
 
 For each, the tree's ``init_params`` (seed 0) and ``init_opt_state`` on
