@@ -537,6 +537,7 @@ def check_flash(report: dict) -> dict:
         (1, 10, 2, 300, 300, 80, True),         # group 5 at D 80
         (1, 40, 8, 300, 300, 128, True, True),  # group 5 on the FMA kernel
         (1, 48, 8, 1024, 1024, 128, True),      # nemotron-4-15b: group 6
+        (2, 32, 32, 2048, 2048, 80, True),      # stablelm-3b's training
     ]
     worst_main = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
@@ -581,7 +582,9 @@ def time_flash(report: dict) -> list[dict]:
     internvl2-76b's (Hq 64, Hkv 8, D 128), qwen2.5-14b's (Hq 40, Hkv 8, D
     128: GQA group 5) and nemotron-4-15b's (Hq 48, Hkv 8, D 128) at S =
     1024 in bfloat16, the dtype they are served in, and stablelm-3b's (Hq
-    = Hkv = 32, D 80) at S = 1024 in both; each row names the kernel's path and prices its products
+    = Hkv = 32, D 80) at S = 1024 in both and, in bfloat16, at its
+    training shape (B 2, S 2048: the forward of its bfloat16 training
+    step); each row names the kernel's path and prices its products
     at that path's unit (``FLASH_UNIT``).  A float32 row also times the
     FMA kernel on the same values with q off a 16-byte boundary
     (``fma_ms``) and gives the FMA-priced bound (``fma_bound_ms``)."""
@@ -593,21 +596,22 @@ def time_flash(report: dict) -> list[dict]:
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        bf16_only = ((32, 4, 1024, 64), (16, 16, 1024, 128),
-                     (64, 8, 1024, 128), (40, 8, 1024, 128),
-                     (48, 8, 1024, 128))
-        for hq, hkv, s, d in ((32, 8, 256, 128), (32, 8, 512, 128),
-                              (32, 8, 1024, 128), (32, 32, 1024, 64),
-                              (32, 32, 1024, 80),
-                              *(bf16_only if dtype == torch.bfloat16
-                                else ())):
-            q, k, v = _qkv(1, hq, hkv, s, s, d, dtype, seed=99)
+        bf16_only = ((1, 32, 4, 1024, 64), (1, 16, 16, 1024, 128),
+                     (1, 64, 8, 1024, 128), (1, 40, 8, 1024, 128),
+                     (1, 48, 8, 1024, 128), (2, 32, 32, 2048, 80))
+        for b, hq, hkv, s, d in ((1, 32, 8, 256, 128), (1, 32, 8, 512, 128),
+                                 (1, 32, 8, 1024, 128),
+                                 (1, 32, 32, 1024, 64),
+                                 (1, 32, 32, 1024, 80),
+                                 *(bf16_only if dtype == torch.bfloat16
+                                   else ())):
+            q, k, v = _qkv(b, hq, hkv, s, s, d, dtype, seed=99)
             ms = _time_ms(lambda: flash_attention(q, k, v), iters=20)
             plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v),
                                 iters=3, warmup=1, run_ahead=False)
             lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), iters=20)
-            flops, nbytes = attention_work(1, hq, hkv, s, s, d, dtype)
+            flops, nbytes = attention_work(b, hq, hkv, s, s, d, dtype)
             path = flash_path(q, k, v)
             bound_ms, bound_by = bound({FLASH_UNIT[path]: flops}, nbytes)
             # the wrapper's time per call, host included: at these sizes
@@ -615,7 +619,7 @@ def time_flash(report: dict) -> list[dict]:
             call_ms = _time_ms(lambda: flash_attention(q, k, v), iters=20,
                                run_ahead=False)
             row = {"dtype": name, "path": path,
-                   "shape": [1, hq, hkv, s, s, d], "ms": ms,
+                   "shape": [b, hq, hkv, s, s, d], "ms": ms,
                    "call_ms": call_ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
@@ -4459,8 +4463,9 @@ def _phases(report, smi, phase_s, lap, mark, t_run, started) -> int:
                 for twin, out in examples.items()
                 if out["launches"].get(name)}
 
-    def flash_at(dtype, heads=(32, 8, 1024, 128)):  # granite-8b's, S 1024
+    def flash_at(dtype, heads=(32, 8, 1024, 128), b=1):  # granite-8b's
         return next(r for r in flash_timing if r["dtype"] == dtype
+                    and r["shape"][0] == b
                     and r["shape"][1:4] + r["shape"][5:] == list(heads))
 
     flash_row = kernel_row("flash_attention", flash_at("float32"),
@@ -4482,12 +4487,15 @@ def _phases(report, smi, phase_s, lap, mark, t_run, started) -> int:
             ("internvl2-76b", flash_at("bfloat16", [64, 8, 1024, 128])),
             ("qwen2.5-14b", flash_at("bfloat16", [40, 8, 1024, 128])),
             ("nemotron-4-15b", flash_at("bfloat16", [48, 8, 1024, 128])))}
-    # stablelm-3b's head dim 80 in both dtypes (served in float32)
+    # stablelm-3b's head dim 80 in both dtypes (served in float32), and in
+    # bfloat16 at its training shape
     flash_row["head_dim_80"] = {
-        dtype: {k: r[k] for k in ("path", "shape", "ms", "plain_ms",
+        label: {k: r[k] for k in ("path", "shape", "ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by")}
-        for dtype, r in ((d, flash_at(d, [32, 32, 1024, 80]))
-                         for d in ("float32", "bfloat16"))}
+        for label, r in (
+            ("float32", flash_at("float32", [32, 32, 1024, 80])),
+            ("bfloat16", flash_at("bfloat16", [32, 32, 1024, 80])),
+            ("bfloat16_train", flash_at("bfloat16", [32, 32, 2048, 80], 2)))}
     flash_row["launches_by_kernel_path"] = {
         path: sum(o["flash_launches_by_path"][path] for o in served)
         for path in served[0]["flash_launches_by_path"]}

@@ -26,9 +26,10 @@
 // bfloat16 (flash_wgmma_bf16; q, k, v 16-byte aligned): the tensor cores.
 // A block is one consumer warpgroup (the 64 query rows) and one producer
 // warp.  The producer loads the q tile once and keeps a 2-stage ring of
-// [64 x D] K and V tiles full, all by TMA (128-byte swizzle, 64-byte at
-// D = 32, 32-byte at D = 80; D = 128 as two 64-column boxes, D = 80 as
-// five 16-column ones) from 3-D maps [B Hq, S, D] and
+// [64 x D] K and V tiles full (3 stages at D = 80), all by TMA (128-byte
+// swizzle, 64-byte at D = 32; D = 128 as two 64-column boxes, D = 80 as a
+// 64-column box and a 16-column one with the 32-byte swizzle, from a map
+// of its own: hopper.cuh's Bf16Tile) from 3-D maps [B Hq, S, D] and
 // [B Hkv, T, D], so a box past S or T is zero-filled, never read from the
 // next head; mbarriers guard each stage (TMA bytes in, one arrival per
 // consumer warp out).  S = Q K^T is wgmma m64n64k16 with both operands
@@ -41,10 +42,13 @@
 // read N-major through the transpose bit.  Only tiles that cross the
 // diagonal or the end of T are masked.  Heavy q tiles (the causal rows
 // that see most keys) are scheduled first.  At D = 80 the P V product is
-// one m64n80k16 a k-step (80 is a legal wgmma N), not a 128-wide one.  The reference computes P V in
-// float32 from float32 P; rounding P to bfloat16 adds at most 2^-9 |v| a
-// key (relative), inside the 2e-2 (1 + |o|) of the bfloat16 tolerance; l
-// sums the float32 p.
+// an m64n64k16 on the 64-column box and an m64n16k16 on the 16-column one
+// a k-step, and S of the next KV tile is issued before P V of this one,
+// so the tensor cores compute it while the threads run this tile's
+// softmax (D 32, 64 and 128 run S, softmax, P V in turn).  The reference
+// computes P V in float32 from float32 P; rounding P to bfloat16 adds at
+// most 2^-9 |v| a key (relative), inside the 2e-2 (1 + |o|) of the
+// bfloat16 tolerance; l sums the float32 p.
 //
 // float32 (flash_tf32x3; q, k, v 16-byte aligned): the tensor cores in
 // 3xTF32, mma.sync m16n8k8.  Each float32 operand is a TF32 pair: the high
@@ -634,89 +638,34 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Tile : Bf16Tile<D> {
-  // q, 2 x (k, v), 5 mbarriers
-  static constexpr int SMEM = 1024 + 5 * Bf16Tile<D>::BYTES + 5 * 8;
+  // D 80: a 3-stage K/V ring, and S = Q K^T of the next tile issued ahead
+  // of this tile's P V, so that the tensor cores compute S while the
+  // threads run the softmax.  D 32, 64 and 128: 2 stages, in turn.
+  static constexpr int STAGES = D == 80 ? 3 : 2;
+  static constexpr bool OVERLAP = D == 80;
+  // q, STAGES x (k, v), 1 + 2 STAGES mbarriers
+  static constexpr int SMEM =
+      1024 + (1 + 2 * STAGES) * Bf16Tile<D>::BYTES + (1 + 2 * STAGES) * 8;
 };
 
-template <int D>
-__global__ void __launch_bounds__(NTH)
-    flash_wgmma_bf16(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v,
-                     __nv_bfloat16* __restrict__ o, int hq, int hkv,
-                     int s_len, int t_len, int causal, float scale) {
-  using T = Tile<D>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* qs = align_1k(smem_raw);
-  uint8_t* kv = qs + T::BYTES;         // stage s: K at kv + 2 s BYTES, then V
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + 4 * T::BYTES);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = q_full + 3;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int offset = t_len - s_len;
-  int n_kv = (t_len + BKV - 1) / BKV;
-  if (causal) {
-    // the last live query row of this tile sees keys up to this position
-    const int last = min(q0 + BQ, s_len) - 1 + offset;
-    n_kv = min(n_kv, last / BKV + 1);
-  }
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);         // one arrival a consumer warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 128) {            // the producer warp
-    if (threadIdx.x == 128) {
-      const int q_row = b * hq + h, kv_row = b * hkv + h / (hq / hkv);
-      mbar_expect_tx(q_full, T::BYTES);
-      tma_load_tile<D>(qs, &map_q, q_full, q0, q_row);
-      for (int jt = 0; jt < n_kv; ++jt) {
-        const int s = jt & 1;
-        if (jt >= 2) mbar_wait(&empty[s], ((jt >> 1) - 1) & 1);
-        uint8_t* ks = kv + 2 * s * T::BYTES;
-        mbar_expect_tx(&full[s], 2 * T::BYTES);
-        tma_load_tile<D>(ks, &map_k, &full[s], jt * BKV, kv_row);
-        tma_load_tile<D>(ks + T::BYTES, &map_v, &full[s], jt * BKV, kv_row);
-      }
-    }
-    return;
-  }
-
-  // the consumer warpgroup: thread t holds rows r_lo and r_lo + 8 of the
-  // tile (the accumulator layout in hopper.cuh)
-  const int t = threadIdx.x, l4 = (t % 32) % 4;
-  const int r_lo = 16 * (t / 32) + (t % 32) / 4;
-  const float sl2 = scale * LOG2E;
-  float acc[D / 2], sc[32];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+// The online softmax of one 64 x 64 tile of scores sc at keys k0 (masked
+// past T and, under the causal mask, past each row's diagonal, where the
+// tile crosses either), in place: sc becomes P, in float32; the running max
+// m, the rescale factors al of acc and l, and l itself move on (the
+// accumulator layout: rows r_lo + 8 ((i / 2) % 2), keys k0 + 8 (i / 4) +
+// 2 l4 + i % 2).  pack() rounds P to bfloat16 A fragments.  The D-80
+// overlapped loop's; the in-turn loop of D 32, 64 and 128 does the same
+// arithmetic inline, packing P as it goes, and so compiles as it did:
+// calling this helper there, in place or packing as it goes, moved their
+// registers by 1 to 6 (PERF.md, section 6).
+struct Softmax {
+  int q0, r_lo, l4, t_len, offset, causal;
+  float sl2;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
-  const uint32_t q_addr = smem_u32(qs);
-  mbar_wait(q_full, 0);
 
-  for (int jt = 0; jt < n_kv; ++jt) {
-    const int s = jt & 1;
-    mbar_wait(&full[s], (jt >> 1) & 1);
-    const uint32_t k_addr = smem_u32(kv + 2 * s * T::BYTES);
-    const uint32_t v_addr = k_addr + T::BYTES;
-
-    wgmma_fence();
-    wgmma_tile_nt<D>(sc, q_addr, k_addr);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(sc);
-
-    const int k0 = jt * BKV;
+  __device__ __forceinline__ void tile(float (&sc)[32], int k0, float& al0,
+                                       float& al1) {
     if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -742,39 +691,234 @@ __global__ void __launch_bounds__(NTH)
     // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
     const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
     const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+    al0 = exp2f(m0 - mu0);
+    al1 = exp2f(m1 - mu1);
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
-    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hi = (i / 2) % 2;        // row r_lo + 8 hi
+      const float mu = hi ? mu1 : mu0;
+      sc[i] = exp2f(fmaf(sc[i], sl2, -mu));
+      sc[i + 1] = exp2f(fmaf(sc[i + 1], sl2, -mu));
+      if (hi)
+        ps1 += sc[i] + sc[i + 1];
+      else
+        ps0 += sc[i] + sc[i + 1];
+    }
+    l0 = al0 * l0 + ps0;
+    l1 = al1 * l1 + ps1;
+  }
+
+  // acc, in the same layout, times each row's factor
+  template <int N>
+  static __device__ __forceinline__ void rescale(float (&acc)[N], float al0,
+                                                 float al1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
+  }
+
+  static __device__ __forceinline__ void pack(const float (&p)[32],
+                                              uint32_t (&pa)[4][4]) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int i = 8 * kk + 2 * j;    // rows r_lo + 8 (j % 2)
-        const float mu = j % 2 ? mu1 : mu0;
-        const float p0 = exp2f(fmaf(sc[i], sl2, -mu));
-        const float p1 = exp2f(fmaf(sc[i + 1], sl2, -mu));
-        if (j % 2)
-          ps1 += p0 + p1;
-        else
-          ps0 += p0 + p1;
-        __nv_bfloat162 pr = __floats2bfloat162_rn(p0, p1);
+        const int i = 8 * kk + 2 * j;
+        __nv_bfloat162 pr = __floats2bfloat162_rn(p[i], p[i + 1]);
         pa[kk][j] = *reinterpret_cast<uint32_t*>(&pr);
       }
-    l0 = al0 * l0 + ps0;
-    l1 = al1 * l1 + ps1;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
+  }
+};
 
+template <int D>
+__global__ void __launch_bounds__(NTH)
+    flash_wgmma_bf16(const __grid_constant__ Bf16Maps<D> map_q,
+                     const __grid_constant__ Bf16Maps<D> map_k,
+                     const __grid_constant__ Bf16Maps<D> map_v,
+                     __nv_bfloat16* __restrict__ o, int hq, int hkv,
+                     int s_len, int t_len, int causal, float scale) {
+  using T = Tile<D>;
+  constexpr int NS = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1k(smem_raw);
+  uint8_t* kv = qs + T::BYTES;         // stage s: K at kv + 2 s BYTES, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + 2 * NS * T::BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NS;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int offset = t_len - s_len;
+  int n_kv = (t_len + BKV - 1) / BKV;
+  if (causal) {
+    // the last live query row of this tile sees keys up to this position
+    const int last = min(q0 + BQ, s_len) - 1 + offset;
+    n_kv = min(n_kv, last / BKV + 1);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);         // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {            // the producer warp
+    if (threadIdx.x == 128) {
+      const int q_row = b * hq + h, kv_row = b * hkv + h / (hq / hkv);
+      mbar_expect_tx(q_full, T::BYTES);
+      tma_load_tile<D>(qs, &map_q, q_full, q0, q_row);
+      for (int jt = 0; jt < n_kv; ++jt) {
+        const int s = ring_stage<NS>(jt);
+        if (jt >= NS) mbar_wait(&empty[s], ring_parity<NS>(jt - NS));
+        uint8_t* ks = kv + 2 * s * T::BYTES;
+        mbar_expect_tx(&full[s], 2 * T::BYTES);
+        tma_load_tile<D>(ks, &map_k, &full[s], jt * BKV, kv_row);
+        tma_load_tile<D>(ks + T::BYTES, &map_v, &full[s], jt * BKV, kv_row);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t holds rows r_lo and r_lo + 8 of the
+  // tile (the accumulator layout in hopper.cuh)
+  const int t = threadIdx.x, l4 = (t % 32) % 4;
+  const int r_lo = 16 * (t / 32) + (t % 32) / 4;
+  const float sl2 = scale * LOG2E;
+  float acc[D / 2], sc[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, base-2 units
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+  const uint32_t q_addr = smem_u32(qs);
+  mbar_wait(q_full, 0);
+
+  // D 32, 64 and 128: S, the softmax and P V in turn
+  if constexpr (!T::OVERLAP) {
+    for (int jt = 0; jt < n_kv; ++jt) {
+      const int s = ring_stage<NS>(jt);
+      mbar_wait(&full[s], ring_parity<NS>(jt));
+      const uint32_t k_addr = smem_u32(kv + 2 * s * T::BYTES);
+      const uint32_t v_addr = k_addr + T::BYTES;
+
+      wgmma_fence();
+      wgmma_tile_nt<D>(sc, q_addr, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+
+      const int k0 = jt * BKV;
+      if (k0 + BKV > t_len || (causal && k0 + BKV - 1 > q0 + offset)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kp = k0 + 8 * (i / 4) + 2 * l4 + i % 2;
+          const int qp = q0 + r_lo + 8 * ((i / 2) % 2) + offset;
+          if (kp >= t_len || (causal && kp > qp)) sc[i] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if ((i / 2) % 2)
+          mx1 = fmaxf(mx1, sc[i]);
+        else
+          mx0 = fmaxf(mx0, sc[i]);
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+      // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j;    // rows r_lo + 8 (j % 2)
+          const float mu = j % 2 ? mu1 : mu0;
+          const float p0 = exp2f(fmaf(sc[i], sl2, -mu));
+          const float p1 = exp2f(fmaf(sc[i + 1], sl2, -mu));
+          if (j % 2)
+            ps1 += p0 + p1;
+          else
+            ps0 += p0 + p1;
+          __nv_bfloat162 pr = __floats2bfloat162_rn(p0, p1);
+          pa[kk][j] = *reinterpret_cast<uint32_t*>(&pr);
+        }
+      l0 = al0 * l0 + ps0;
+      l1 = al1 * l1 + ps1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i / 2) % 2 ? al1 : al0;
+
+      wgmma_fence();
+      wgmma_tile_rs<D>(acc, pa, v_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      keep_fragments(pa);   // the wgmma read P from these registers until now
+      __syncwarp();
+      if (t % 32 == 0) mbar_arrive(&empty[s]);
+    }
+  } else if (n_kv > 0) {
+    // S of tile jt + 1 is issued ahead of P V of tile jt, and its softmax
+    // runs (in place, in float32) while P V does; once P V has landed, acc
+    // is rescaled and the new P rounded into pa, which P V read until then
+    // (a P written to pa while P V runs would make ptxas serialize the
+    // wgmmas, C7513).  The last tile is peeled off, so that no wgmma is
+    // issued under a branch.
+    Softmax sm{q0, r_lo, l4, t_len, offset, causal, sl2};
+    uint32_t pa[4][4];
+    float al0, al1;
+    mbar_wait(&full[0], 0);
     wgmma_fence();
-    wgmma_tile_rs<D>(acc, pa, v_addr);
+    wgmma_tile_nt<D>(sc, q_addr, smem_u32(kv));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    sm.tile(sc, 0, al0, al1);          // acc is 0: no rescale
+    Softmax::pack(sc, pa);
+    for (int jt = 0; jt < n_kv - 1; ++jt) {
+      const int s = ring_stage<NS>(jt), sn = ring_stage<NS>(jt + 1);
+      mbar_wait(&full[sn], ring_parity<NS>(jt + 1));
+      wgmma_fence();
+      wgmma_tile_nt<D>(sc, q_addr, smem_u32(kv + 2 * sn * T::BYTES));
+      wgmma_commit();
+      wgmma_tile_rs<D>(acc, pa, smem_u32(kv + (2 * s + 1) * T::BYTES));
+      wgmma_commit();
+      wgmma_wait<1>();                 // S of tile jt + 1; P V runs on
+      fence_operands(sc);
+      sm.tile(sc, (jt + 1) * BKV, al0, al1);
+      wgmma_wait<0>();
+      fence_operands(acc);
+      keep_fragments(pa);
+      __syncwarp();
+      if (t % 32 == 0) mbar_arrive(&empty[s]);
+      Softmax::rescale(acc, al0, al1);
+      Softmax::pack(sc, pa);
+    }
+    const int s = ring_stage<NS>(n_kv - 1);
+    wgmma_fence();
+    wgmma_tile_rs<D>(acc, pa, smem_u32(kv + (2 * s + 1) * T::BYTES));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
-    keep_fragments(pa);   // the wgmma read P from these registers until now
-    __syncwarp();
-    if (t % 32 == 0) mbar_arrive(&empty[s]);
+    keep_fragments(pa);
+    l0 = sm.l0;
+    l1 = sm.l1;
   }
 
 #pragma unroll
@@ -802,7 +946,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int s_len, int t_len, int causal, float scale,
            cudaStream_t stream) {
   using T = Tile<D>;
-  CUtensorMap map_q, map_k, map_v;
+  Bf16Maps<D> map_q, map_k, map_v;
   int err = bf16_tile_map<D>(&map_q, q, s_len, b * hq);
   if (!err) err = bf16_tile_map<D>(&map_k, k, t_len, b * hkv);
   if (!err) err = bf16_tile_map<D>(&map_v, v, t_len, b * hkv);

@@ -1128,10 +1128,12 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 // kernel (flash_attention.cu, namespace fa): the producer's one thread
 // TMA-loads [64 x D] bfloat16 tiles (hopper.cuh's Bf16Tile, from 3-D maps
 // [B * H, S | T, D], so a box past S or T is zero-filled; the 128-byte
-// swizzle, 64-byte at D = 32)
-// into a 2-stage ring, each stage guarded by a "full" mbarrier (TMA bytes)
-// and an "empty" one (one arrival a consumer warp); the consumers run the
-// products on the tensor cores by wgmma, bfloat16 in, float32 sums:
+// swizzle, 64-byte at D = 32, and at D = 80 a 128-byte-swizzled box of 64
+// columns and a 32-byte-swizzled one of 16, two maps a tensor, the P V-like
+// products an n64 and an n16 wgmma a k-step) into a 2-stage ring, each
+// stage guarded by a "full" mbarrier (TMA bytes) and an "empty" one (one
+// arrival a consumer warp); the consumers run the products on the tensor
+// cores by wgmma, bfloat16 in, float32 sums:
 //   1. dQ, one block per (64-row q tile, q head, batch), the heaviest causal
 //      tiles first.  Q and dO load once; Delta = rowsum(dO * O) of the
 //      thread's two rows is summed from 16-byte loads of O and dO while they
@@ -1162,8 +1164,15 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 // to bfloat16 moves each term by at most 2^-9 of itself, inside bfloat16's
 // tolerance against the float32 plain version.  Registers: dK and dV take
 // D of a consumer thread's registers (128 at D = 128), S^T and dP^T 64
-// more, so the dK/dV kernel at D = 128 runs one block an SM; every other
-// kernel two.  Shared memory: six [64 x D] tiles (96 KiB at D = 128).
+// more, P^T and dS^T as fragments 32, so the dK/dV kernel at D = 128 runs
+// one block an SM; every other kernel two.  Two blocks of five warps put
+// three warps on some of the SM's four schedulers, whose 16K registers
+// then allow 168 a thread: at D = 80 (80 + 64 + 32 live) that spilled, so
+// the D-80 dK/dV block has no producer warp: its consumers' first thread
+// issues the loads, each ring step as its stage is released, and two
+// 4-warp blocks allow 255 registers a thread (197 used, no spill); its
+// ring has 3 stages (Q and dO 20 KiB a stage at D = 80).  Shared memory:
+// six [64 x D] tiles (96 KiB at D = 128), eight at D = 80's dK/dV (80 KiB).
 
 namespace fb {
 
@@ -1178,9 +1187,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int D>
 struct Tile : Bf16Tile<D> {
   static constexpr int STATS = 2 * 2 * 64 * 4;           // 2 x (LSE, Delta)
-  // 6 tiles, the dK/dV kernel's LSE and Delta stages, 5 mbarriers
+  // the dQ kernel: 6 tiles, 5 mbarriers (and room for STATS)
   static constexpr int SMEM = 1024 + 6 * Bf16Tile<D>::BYTES + STATS + 5 * 8;
   static constexpr int DKDV_BLOCKS = D == 128 ? 1 : 2;   // blocks an SM
+  // the dK/dV kernel at D 80: no producer warp (its consumers' first thread
+  // loads) and a 3-stage ring; at D 32, 64 and 128 a producer warp, 2 stages
+  static constexpr bool DKDV_SELF_LOAD = D == 80;
+  static constexpr int DKDV_THREADS = DKDV_SELF_LOAD ? 128 : NTH;
+  static constexpr int DKDV_STAGES = D == 80 ? 3 : 2;
+  // K, V, the ring's Q and dO, its LSE and Delta, 1 + 2 stages mbarriers
+  static constexpr int DKDV_SMEM = 1024 +
+                                   (2 + 2 * DKDV_STAGES) * Bf16Tile<D>::BYTES +
+                                   DKDV_STAGES * 2 * 64 * 4 +
+                                   (1 + 2 * DKDV_STAGES) * 8;
 };
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -1197,12 +1216,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+template <int NS = 2>
 __device__ __forceinline__ void init_bars(uint64_t* bars) {
   if (threadIdx.x == 0) {
     mbar_init(&bars[0], 1);            // the tiles loaded once
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&bars[1 + s], 1);      // full
-      mbar_init(&bars[3 + s], 4);      // empty: one arrival a consumer warp
+      mbar_init(&bars[1 + NS + s], 4); // empty: one arrival a consumer warp
     }
     fence_barrier_init();
   }
@@ -1216,10 +1236,10 @@ __device__ __forceinline__ void release(uint64_t* empty) {
 
 template <int D>
 __global__ void __launch_bounds__(NTH, 2)
-    bwd_wgmma_dq(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v,
-                 const __grid_constant__ CUtensorMap map_do,
+    bwd_wgmma_dq(const __grid_constant__ Bf16Maps<D> map_q,
+                 const __grid_constant__ Bf16Maps<D> map_k,
+                 const __grid_constant__ Bf16Maps<D> map_v,
+                 const __grid_constant__ Bf16Maps<D> map_do,
                  const __nv_bfloat16* __restrict__ o,
                  const __nv_bfloat16* __restrict__ dout,
                  float* __restrict__ lse, float* __restrict__ delta,
@@ -1419,25 +1439,26 @@ __global__ void __launch_bounds__(NTH, 2)
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTH, Tile<D>::DKDV_BLOCKS)
-    bwd_wgmma_dkdv(const __grid_constant__ CUtensorMap map_q,
-                   const __grid_constant__ CUtensorMap map_k,
-                   const __grid_constant__ CUtensorMap map_v,
-                   const __grid_constant__ CUtensorMap map_do,
+__global__ void __launch_bounds__(Tile<D>::DKDV_THREADS, Tile<D>::DKDV_BLOCKS)
+    bwd_wgmma_dkdv(const __grid_constant__ Bf16Maps<D> map_q,
+                   const __grid_constant__ Bf16Maps<D> map_k,
+                   const __grid_constant__ Bf16Maps<D> map_v,
+                   const __grid_constant__ Bf16Maps<D> map_do,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv, int hq, int hkv,
                    int s_len, int s_pad, int t_len, int causal, float scale) {
   using T = Tile<D>;
+  constexpr int NS = T::DKDV_STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = align_1k(smem_raw);
   uint8_t* vs = ks + T::BYTES;
   uint8_t* ring = vs + T::BYTES;       // stage s: Q at ring + 2 s BYTES, dO
-  float* stats = reinterpret_cast<float*>(ring + 4 * T::BYTES);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + T::STATS / 4);
+  float* stats = reinterpret_cast<float*>(ring + 2 * NS * T::BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + NS * 2 * BQ);
   uint64_t* full = bars + 1;
-  uint64_t* empty = bars + 3;
+  uint64_t* empty = full + NS;
 
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * BKV;   // key tile 0 sees the most rows: first
@@ -1447,29 +1468,52 @@ __global__ void __launch_bounds__(NTH, Tile<D>::DKDV_BLOCKS)
   const int first = causal ? max(0, k0 - offset) / BQ * BQ : 0;
   const int n_qt = first < s_len ? (s_len - first + BQ - 1) / BQ : 0;
   const int total = group * n_qt;   // q tiles: the group's heads in turn
-  init_bars(bars);
+  init_bars<NS>(bars);
 
-  if (threadIdx.x >= 128) {          // the producer warp
-    if (threadIdx.x == 128) {
-      const int kv_row = b * hkv + hk;
-      mbar_expect_tx(bars, 2 * T::BYTES);
-      tma_load_tile<D>(ks, &map_k, bars, k0, kv_row);
-      tma_load_tile<D>(vs, &map_v, bars, k0, kv_row);
-      for (int it = 0; it < total; ++it) {
-        const int s = it & 1, q0 = first + it % n_qt * BQ;
-        const int q_row = b * hq + hk * group + it / n_qt;
-        if (it >= 2) mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
-        uint8_t* qs = ring + 2 * s * T::BYTES;
-        mbar_expect_tx(&full[s], 2 * T::BYTES + 2 * BQ * 4);
-        tma_load_tile<D>(qs, &map_q, &full[s], q0, q_row);
-        tma_load_tile<D>(qs + T::BYTES, &map_do, &full[s], q0, q_row);
-        // the rows' LSE and Delta: the scratch covers s_pad >= q0 + 64 rows
-        const size_t at = (size_t)q_row * s_pad + q0;
-        bulk_load(stats + 2 * BQ * s, lse + at, BQ * 4, &full[s]);
-        bulk_load(stats + 2 * BQ * s + BQ, delta + at, BQ * 4, &full[s]);
+  if constexpr (!T::DKDV_SELF_LOAD) {
+    if (threadIdx.x >= 128) {          // the producer warp
+      if (threadIdx.x == 128) {
+        const int kv_row = b * hkv + hk;
+        mbar_expect_tx(bars, 2 * T::BYTES);
+        tma_load_tile<D>(ks, &map_k, bars, k0, kv_row);
+        tma_load_tile<D>(vs, &map_v, bars, k0, kv_row);
+        for (int it = 0; it < total; ++it) {
+          const int s = ring_stage<NS>(it), q0 = first + it % n_qt * BQ;
+          const int q_row = b * hq + hk * group + it / n_qt;
+          if (it >= NS) mbar_wait(&empty[s], ring_parity<NS>(it - NS));
+          uint8_t* qs = ring + 2 * s * T::BYTES;
+          mbar_expect_tx(&full[s], 2 * T::BYTES + 2 * BQ * 4);
+          tma_load_tile<D>(qs, &map_q, &full[s], q0, q_row);
+          tma_load_tile<D>(qs + T::BYTES, &map_do, &full[s], q0, q_row);
+          // the rows' LSE and Delta: the scratch covers s_pad >= q0 + 64
+          const size_t at = (size_t)q_row * s_pad + q0;
+          bulk_load(stats + 2 * BQ * s, lse + at, BQ * 4, &full[s]);
+          bulk_load(stats + 2 * BQ * s + BQ, delta + at, BQ * 4, &full[s]);
+        }
       }
+      return;
     }
-    return;
+  }
+  // with no producer warp (D = 80) the consumers' first thread loads K and
+  // V, the ring's first NS steps, and each later one as its stage frees
+  const auto load = [&](int it) {
+    const int s = ring_stage<NS>(it), q0 = first + it % n_qt * BQ;
+    const int q_row = b * hq + hk * group + it / n_qt;
+    if (it >= NS) mbar_wait(&empty[s], ring_parity<NS>(it - NS));
+    uint8_t* qs = ring + 2 * s * T::BYTES;
+    mbar_expect_tx(&full[s], 2 * T::BYTES + 2 * BQ * 4);
+    tma_load_tile<D>(qs, &map_q, &full[s], q0, q_row);
+    tma_load_tile<D>(qs + T::BYTES, &map_do, &full[s], q0, q_row);
+    const size_t at = (size_t)q_row * s_pad + q0;
+    bulk_load(stats + 2 * BQ * s, lse + at, BQ * 4, &full[s]);
+    bulk_load(stats + 2 * BQ * s + BQ, delta + at, BQ * 4, &full[s]);
+  };
+  if (T::DKDV_SELF_LOAD && threadIdx.x == 0) {
+    const int kv_row = b * hkv + hk;
+    mbar_expect_tx(bars, 2 * T::BYTES);
+    tma_load_tile<D>(ks, &map_k, bars, k0, kv_row);
+    tma_load_tile<D>(vs, &map_v, bars, k0, kv_row);
+    for (int it = 0; it < min(NS, total); ++it) load(it);
   }
 
   // the consumer warpgroup: thread t holds keys k0 + r_lo, k0 + r_lo + 8
@@ -1486,8 +1530,8 @@ __global__ void __launch_bounds__(NTH, Tile<D>::DKDV_BLOCKS)
   mbar_wait(bars, 0);
 
   for (int it = 0; it < total; ++it) {
-    const int s = it & 1, q0 = first + it % n_qt * BQ;
-    mbar_wait(&full[s], (it >> 1) & 1);
+    const int s = ring_stage<NS>(it), q0 = first + it % n_qt * BQ;
+    mbar_wait(&full[s], ring_parity<NS>(it));
     const uint32_t q_addr = smem_u32(ring + 2 * s * T::BYTES);
     const uint32_t do_addr = q_addr + T::BYTES;
     wgmma_fence();
@@ -1534,6 +1578,9 @@ __global__ void __launch_bounds__(NTH, Tile<D>::DKDV_BLOCKS)
     keep_fragments(pt);
     keep_fragments(dst);
     release(&empty[s]);
+    if constexpr (T::DKDV_SELF_LOAD) {
+      if (t == 0 && it + NS < total) load(it + NS);
+    }
   }
 
   const size_t kvrow = (size_t)(b * hkv + hk) * t_len;
@@ -1559,7 +1606,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int n_q = (s_len + BQ - 1) / BQ, n_k = (t_len + BKV - 1) / BKV;
   if (n_q > 65535 || n_k > 65535 || b > 65535)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map_q, map_k, map_v, map_do;
+  Bf16Maps<D> map_q, map_k, map_v, map_do;
   int err = bf16_tile_map<D>(&map_q, q, s_len, b * hq);
   if (!err) err = bf16_tile_map<D>(&map_do, dout, s_len, b * hq);
   if (!err) err = bf16_tile_map<D>(&map_k, k, t_len, b * hkv);
@@ -1567,7 +1614,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
   cudaError_t e;
   if ((e = allow_smem(bwd_wgmma_dq<D>, T::SMEM)) ||
-      (e = allow_smem(bwd_wgmma_dkdv<D>, T::SMEM)))
+      (e = allow_smem(bwd_wgmma_dkdv<D>, T::DKDV_SMEM)))
     return (int)e;
   const int s_pad = n_q * BQ;   // the scratch's rows a head
   const auto* ob = static_cast<const __nv_bfloat16*>(o);
@@ -1577,7 +1624,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<__nv_bfloat16*>(dq), hq, hkv, s_len, s_pad, t_len, causal,
       scale);
   if ((e = cudaGetLastError())) return (int)e;
-  bwd_wgmma_dkdv<D><<<dim3(hkv, b, n_k), NTH, T::SMEM, stream>>>(
+  bwd_wgmma_dkdv<D><<<dim3(hkv, b, n_k), T::DKDV_THREADS, T::DKDV_SMEM,
+                      stream>>>(
       map_q, map_k, map_v, map_do, lse, delta,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), hq,
       hkv, s_len, s_pad, t_len, causal, scale);

@@ -16,6 +16,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hopper {
 
 // -- host: tensor maps --------------------------------------------------------
@@ -106,6 +108,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// step i of a ring of NS stages: its stage, and the parity of the phase
+// (of that stage's barriers) it waits for
+template <int NS>
+__device__ __forceinline__ int ring_stage(int i) {
+  return (int)((unsigned)i % NS);
+}
+template <int NS>
+__device__ __forceinline__ uint32_t ring_parity(int i) {
+  return ((unsigned)i / NS) & 1;
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -315,6 +328,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 16] += A[64 x 16] B[16 x 16], A in registers (the bfloat16
+// fragment of the accumulator layout), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x 32] += A[64 x 16] B[16 x 32], A in registers (the bfloat16
 // fragment of the accumulator layout), B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16],
@@ -420,49 +448,82 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
 
 // -- bfloat16 [64 x D] tiles for wgmma ---------------------------------------
 
-// A [64 x D] bfloat16 tile as the TMA lays it in shared memory from a map
-// made by bf16_tile_map: D / BOX boxes of BOX columns x 64 rows, box j at
-// j BOX_BYTES, each swizzled over SW bytes, the tile on a 1024-byte
-// boundary.  SW is the widest swizzle whose box divides D: 128 bytes at
-// D = 64 and 128, 64 at D = 32, 32 at D = 80 (five 16-column boxes; a
-// 64-column box would leave 16 columns unloaded).  wgmma reads it K-major
-// (its 64 rows are the product's M or N, D its K; a k-step of 16 columns
-// lies inside one box) or MN-major (D is N, its rows K; the boxes are
-// the descriptor's column blocks, BOX_BYTES apart).
+// A [64 x D] bfloat16 tile as the TMA lays it in shared memory, on a
+// 1024-byte boundary: boxes of BOX columns x 64 rows, box j at
+// j BOX_BYTES, each swizzled over SW bytes.  SW is the widest swizzle whose
+// box divides D (128 bytes at D = 64 and 128, 64 at D = 32) or, at D = 80,
+// 128 bytes over the first 64 columns with the last TAIL = 16 columns in a
+// box of their own right after it (at TAIL_AT = 8 KiB), swizzled over 32
+// bytes (2 KiB), loaded through a second map (Bf16Maps): a D-80 tile is
+// two TMA loads, not five 16-column ones.  wgmma reads a tile K-major (its
+// 64 rows are the product's M or N, D its K: a k-step of 16 columns lies
+// inside one box, in that box's layout) or MN-major (D is N, its rows K:
+// the boxes are the descriptor's column blocks, BOX_BYTES apart; at D = 80
+// an m64n64k16 over the wide box and an m64n16k16 over the tail, whose
+// accumulators are the registers one m64n80k16 would use for those columns).
 template <int D>
 struct Bf16Tile {
   static_assert(D % 16 == 0, "a bfloat16 tile is whole k-steps of 16");
-  static constexpr int SW = D % 64 == 0 ? 128 : D % 32 == 0 ? 64 : 32;
+  static constexpr int SW =
+      D % 64 == 0 || D == 80 ? 128 : D % 32 == 0 ? 64 : 32;
   static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   static constexpr int BOX = SW / 2;                     // D columns a box
   static constexpr int BOX_BYTES = 64 * SW;              // a box of 64 rows
+  static constexpr int WIDE = D / BOX * BOX;             // columns in boxes
+  static constexpr int TAIL = D - WIDE;                  // 16 at D = 80
+  static constexpr int TAIL_AT = WIDE / BOX * BOX_BYTES;
   static constexpr int BYTES = 64 * D * 2;               // a [64 x D] tile
+  static_assert(TAIL == 0 || TAIL == 16, "a tail box is 16 columns");
 };
 
-// host: the map of `mats` contiguous [len x D] bfloat16 matrices at ptr,
+// the two maps of a tile with a tail box: the SW boxes', the tail's
+struct Bf16SplitMaps {
+  CUtensorMap wide, tail;
+};
+template <int D>
+using Bf16Maps = typename std::conditional<Bf16Tile<D>::TAIL == 0,
+                                           CUtensorMap, Bf16SplitMaps>::type;
+
+// host: the map(s) of `mats` contiguous [len x D] bfloat16 matrices at ptr,
 // in Bf16Tile<D> boxes; a box past len loads zeros
 template <int D>
-inline int bf16_tile_map(CUtensorMap* map, const void* ptr, int len,
+inline int bf16_tile_map(Bf16Maps<D>* map, const void* ptr, int len,
                          int mats) {
   using T = Bf16Tile<D>;
-  const cuuint32_t box[3] = {T::BOX, 64, 1};
   const cuuint64_t dims[3] = {D, (cuuint64_t)len, (cuuint64_t)mats};
   const cuuint64_t strides[2] = {D * 2, (cuuint64_t)len * D * 2};
-  return bf16_map(map, 3, ptr, dims, strides, box,
-                  T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                  : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                : CU_TENSOR_MAP_SWIZZLE_32B);
+  const cuuint32_t box[3] = {T::BOX, 64, 1};
+  const CUtensorMapSwizzle sw = T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  if constexpr (T::TAIL == 0) {
+    return bf16_map(map, 3, ptr, dims, strides, box, sw);
+  } else {
+    const cuuint32_t tail[3] = {T::TAIL, 64, 1};
+    const int err = bf16_map(&map->wide, 3, ptr, dims, strides, box, sw);
+    return err ? err
+               : bf16_map(&map->tail, 3, ptr, dims, strides, tail,
+                          CU_TENSOR_MAP_SWIZZLE_32B);
+  }
 }
 
 // the tile at rows r0 of matrix `mat` of map into dst, on bar
 template <int D>
 __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
-                                              const CUtensorMap* map,
+                                              const Bf16Maps<D>* map,
                                               uint64_t* bar, int r0, int mat) {
   using T = Bf16Tile<D>;
+  if constexpr (T::TAIL == 0) {
 #pragma unroll
-  for (int j = 0; j < D / T::BOX; ++j)
-    tma_load_3d(dst + j * T::BOX_BYTES, map, bar, j * T::BOX, r0, mat);
+    for (int j = 0; j < D / T::BOX; ++j)
+      tma_load_3d(dst + j * T::BOX_BYTES, map, bar, j * T::BOX, r0, mat);
+  } else {
+#pragma unroll
+    for (int j = 0; j < T::WIDE / T::BOX; ++j)
+      tma_load_3d(dst + j * T::BOX_BYTES, &map->wide, bar, j * T::BOX, r0,
+                  mat);
+    tma_load_3d(dst + T::TAIL_AT, &map->tail, bar, T::WIDE, r0, mat);
+  }
 }
 
 // d[64 x 64] = A B^T: A and B the tiles at shared addresses a and b, both
@@ -473,10 +534,15 @@ __device__ __forceinline__ void wgmma_tile_nt(float (&d)[32], uint32_t a,
   using T = Bf16Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off =
-        (16 * kk / T::BOX) * T::BOX_BYTES + (16 * kk % T::BOX) * 2;
-    wgmma_m64n64k16_ss(d, smem_desc(a + off, 16, 8 * T::SW, T::LAYOUT),
-                       smem_desc(b + off, 16, 8 * T::SW, T::LAYOUT), kk > 0);
+    if (16 * kk < T::WIDE) {
+      const uint32_t off =
+          (16 * kk / T::BOX) * T::BOX_BYTES + (16 * kk % T::BOX) * 2;
+      wgmma_m64n64k16_ss(d, smem_desc(a + off, 16, 8 * T::SW, T::LAYOUT),
+                         smem_desc(b + off, 16, 8 * T::SW, T::LAYOUT), kk > 0);
+    } else {   // the tail box's k-step, 32-byte swizzled
+      wgmma_m64n64k16_ss(d, smem_desc(a + T::TAIL_AT, 16, 8 * 32, 3),
+                         smem_desc(b + T::TAIL_AT, 16, 8 * 32, 3), 1);
+    }
   }
 }
 
@@ -494,14 +560,18 @@ __device__ __forceinline__ void wgmma_tile_rs(float (&d)[D / 2],
         smem_desc(b + kk * 16 * T::SW, T::BOX_BYTES, 8 * T::SW, T::LAYOUT);
     static_assert(D == 32 || D == 64 || D == 80 || D == 128,
                   "no m64nDk16 wrapper for this D");
-    if constexpr (D == 32)
+    if constexpr (D == 32) {
       wgmma_m64n32k16_rs_tb(d, a[kk], db);
-    else if constexpr (D == 64)
+    } else if constexpr (D == 64) {
       wgmma_m64n64k16_rs_tb(d, a[kk], db);
-    else if constexpr (D == 80)
-      wgmma_m64n80k16_rs_tb(d, a[kk], db);
-    else
+    } else if constexpr (D == 80) {   // columns 0..63, then the tail's 16
+      wgmma_m64n64k16_rs_tb(*reinterpret_cast<float(*)[32]>(d), a[kk], db);
+      wgmma_m64n16k16_rs_tb(
+          *reinterpret_cast<float(*)[8]>(d + 32), a[kk],
+          smem_desc(b + T::TAIL_AT + kk * 16 * 32, 64 * 32, 8 * 32, 3));
+    } else {
       wgmma_m64n128k16_rs_tb(d, a[kk], db);
+    }
   }
 }
 

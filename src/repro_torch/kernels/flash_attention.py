@@ -17,7 +17,10 @@ the alignment of the contiguous inputs:
   cores: TMA loads of q and a 2-stage K/V ring by a producer warp, S = QK^T
   and O += PV by wgmma, the softmax on the accumulator in registers, P
   rounded to bfloat16 for the PV product (the reference keeps P in
-  float32: at most 2^-9 of |v| a key, inside the bfloat16 tolerance).
+  float32: at most 2^-9 of |v| a key, inside the bfloat16 tolerance).  At
+  D = 80 a tile is a 64-column box and a 16-column one, PV an n64 and an
+  n16 product, the ring 3 stages, and the next tile's S is computed while
+  this tile's softmax runs.
 - ``"tf32x3"``: float32 with q, k and v on 16-byte boundaries.  Tensor
   cores in 3xTF32 (``mma.sync``; each operand split into a TF32 high and
   low part, three products summed in float32, which keeps float32's
@@ -49,7 +52,10 @@ of q, k, v, o and dO:
   dK and dV per 64-key tile over the group's q heads and their live
   64-row q tiles; tiles by TMA through 2-stage rings, the products by
   wgmma, P and dS in registers, rounded to bfloat16 for the products that
-  take them (at most 2^-9 of a term, inside the bfloat16 tolerance).
+  take them (at most 2^-9 of a term, inside the bfloat16 tolerance).  At
+  D = 80 the tiles are the forward's two boxes, and the dK/dV kernel has
+  no producer warp (its consumers load a 3-stage ring themselves), so
+  that two blocks an SM keep dK, dV, S^T and dP^T in registers.
 - ``"tf32x3"``: float32 with all five on 16-byte boundaries.  Tensor cores
   in 3xTF32 (``mma.sync``), the same two kernels with 32-key tiles in dQ
   and 16-row q steps in dK/dV; Q, dO or K, V through ``cp.async`` rings,

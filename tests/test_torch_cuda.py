@@ -114,6 +114,42 @@ def test_flash_bf16_takes_the_wgmma_path(card, b, hq, hkv, s, t, d, causal):
     assert bool((err <= 2e-2 * (1 + want.float().abs())).all())
 
 
+# the D-80 wgmma tile is a 128-byte-swizzled box of columns 0..63 and a
+# 32-byte-swizzled box of columns 64..79: inputs live in one part only, so
+# a box loaded at the wrong column or read in the wrong swizzle shows
+D80_PARTS = {"tail": slice(64, 80), "wide": slice(0, 64)}
+
+
+def _d80_part(xs, part):
+    out = []
+    for x in xs:
+        y = torch.zeros_like(x)
+        y[..., D80_PARTS[part]] = x[..., D80_PARTS[part]]
+        out.append(y)
+    return out
+
+
+@pytest.mark.parametrize("part", sorted(D80_PARTS))
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
+    (1, 8, 8, 300, 300, 80, True),      # ragged S = T
+    (1, 10, 2, 130, 300, 80, False),    # group 5, non-causal, T > S
+])
+def test_flash_bf16_d80_reads_each_part_of_the_tile(card, part, b, hq, hkv,
+                                                    s, t, d, causal):
+    q, k, v = _d80_part(_qkv(card, b, hq, hkv, s, t, d, torch.bfloat16),
+                        part)
+    before = path_launches["wgmma"].count
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert path_launches["wgmma"].count == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2e-2 * (1 + want.float().abs())).all()), float(
+        err.max())
+    other = [c for c in range(d) if c not in range(80)[D80_PARTS[part]]]
+    assert not bool(got[..., other].any())
+
+
 def _off16(x):
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
     flat.copy_(x.reshape(-1))
@@ -737,6 +773,8 @@ def _bwd_inputs(card, b, hq, hkv, s, t, d, dtype, causal):
     (1, 4, 4, 17, 17, 80, True),        # D = 80, one past a 16-row step
     (1, 40, 8, 256, 256, 128, True),    # qwen2.5-14b's heads, GQA group 5
     (1, 10, 2, 130, 130, 80, True),     # group 5 at D = 80, ragged
+    (1, 10, 2, 100, 356, 80, False),    # group 5 at D = 80, T > S, no mask
+    (2, 10, 2, 40, 40, 80, True),       # group 5 at D = 80, S < 64
 ])
 def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
                                         s, t, d, causal):
@@ -765,6 +803,34 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, path, tol, b, hq, hkv,
             rel = float(torch.linalg.vector_norm(g.float() - w.float())
                         / torch.linalg.vector_norm(w.float()))
             assert rel <= FLASH_BWD_BF16_KEEP, (name, rel)
+
+
+@pytest.mark.parametrize("part", sorted(D80_PARTS))
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", [
+    (1, 8, 8, 300, 300, 80, True),      # ragged S = T
+    (1, 10, 2, 130, 300, 80, False),    # group 5, non-causal, T > S
+])
+def test_flash_bwd_d80_reads_each_part_of_the_tile(card, part, b, hq, hkv,
+                                                   s, t, d, causal):
+    """dq, dk and dv from inputs live in one part of the D-80 tile only:
+    the plain version's, and zero in the other part."""
+    q, k, v, o, do = _d80_part(_bwd_inputs(card, b, hq, hkv, s, t, d,
+                                           torch.bfloat16, causal), part)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    assert flash_bwd_path(q, k, v, o, do) == "wgmma"
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    other = [c for c in range(d) if c not in range(80)[D80_PARTS[part]]]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= 2e-2 * (1 + w.float().abs())).all()), (
+            name, float(err.max()))
+        rel = float(torch.linalg.vector_norm(g.float() - w.float())
+                    / torch.linalg.vector_norm(w.float()))
+        assert rel <= FLASH_BWD_BF16_KEEP, (name, rel)
+        assert not bool(g[..., other].any()), name
 
 
 @pytest.mark.parametrize("dtype,offset,d", [(torch.float32, False, 128),

@@ -8,14 +8,21 @@
                                    [--variant NAME=FLAGS ...]
                                    [--against DIR] [--rounds 3]
     python tools/torch_flash_ab.py --bwd --cases [--dtype bfloat16]
+    python tools/torch_flash_ab.py --fwd --dtype bfloat16
+                                   [--variant NAME=FLAGS ...]
+                                   [--against DIR] [--rounds 3]
 
 A variant ``NAME=FLAGS`` builds ``flash_attention.cu`` with the
 space-separated ``-D`` flags in FLAGS, from this tree's ``csrc`` or, with
 a token ``--csrc=DIR`` among them, from DIR (another tree's sources, for
 example a commit unpacked by ``git archive`` into an ignored directory),
-one ``nvcc`` each, all started together, and keeps each build's
-``-Xptxas -v`` report of the 3xTF32 kernel.  Without ``--variant``: this
-tree's kernel alone.
+one ``nvcc`` each, all started together (the shipped sources have no
+switches: a design to try is a ``--csrc=DIR`` copy edited by hand), and
+keeps each build's
+``-Xptxas -v`` report (registers, stack and spill bytes) of every kernel
+of the mode's path: the 3xTF32 and the wgmma forward kernels, or the
+backward's of the dtype, at every D.  Without ``--variant``: this tree's
+kernel alone.
 
 With ``--host``, no variants: the wrapper ``flash_attention`` is timed
 on the host, the median over 7 rounds of the host clock around 100 calls
@@ -39,6 +46,15 @@ from CUDA events after a spin kernel holds the stream; the medians over
 the rounds are reported with each variant's largest error
 ``|o - plain| / (1 + |plain|)``.  Prints one JSON object and appends it to
 ``chiprun_out/flash_ab.jsonl``.
+
+With ``--fwd --dtype bfloat16``: the wgmma forward at
+``BF16_FWD_SHAPES`` (stablelm-3b's D-80 prefill and training shapes,
+zamba2-1.2b's D 64 and granite-8b's D 128, causal), each variant through
+``repro_flash_attention_wgmma``, this tree's wrapper, with ``--against
+DIR`` the other tree's, and SDPA, in turns as ``--bwd`` takes them; each
+call's median card time, its largest ``|o - plain| / (1 + |plain|)``, the
+bound and the rate, and one profiled call of each kernel call's kernels.
+(``--fwd`` in float32 is the mode without flags.)
 
 With ``--bwd``: the backward at the training shape (q [2,32,2048,128],
 k/v [2,8,2048,128], causal), float32 by default; with ``--dtype
@@ -81,13 +97,46 @@ SHAPES = [(32, 8, 256, 128), (32, 8, 512, 128), (32, 8, 1024, 128),
           (32, 32, 1024, 64)]
 
 
+# the bfloat16 forward's shapes (b, hq, hkv, s, t, d) by model, causal
+BF16_FWD_SHAPES = (
+    ("stablelm-3b prefill", (1, 32, 32, 1024, 1024, 80)),
+    ("stablelm-3b train", (2, 32, 32, 2048, 2048, 80)),
+    ("zamba2-1.2b prefill", (1, 32, 32, 1024, 1024, 64)),
+    ("granite-8b prefill", (1, 32, 8, 1024, 1024, 128)),
+)
+
 DEFAULT_VARIANTS = ["ship="]
 
 
+def _ptxas(log: str, kernels: tuple[str, ...]) -> list[dict]:
+    """Registers, stack frame and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` log whose mangled name holds one of ``kernels``, and the
+    codes of ptxas's notes on it (C7514, C7520: wgmma serialized)."""
+    import re
+    lines, out = log.splitlines(), []
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if not m or not any(k in m.group(1) for k in kernels):
+            continue
+        row = {"kernel": m.group(1),
+               "notes": [n.group(1) for x in lines
+                         if m.group(1) in x and "Compiling" not in x
+                         and (n := re.search(r"\((C\d+)\)", x))]}
+        for x in lines[i + 1:i + 4]:
+            for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+                if (n := re.search(pat, x)):
+                    row[key] = int(n.group(1))
+        out.append(row)
+    return out
+
+
 def _build(variants: dict[str, str], source: str = "flash_attention",
-           kernel: str = "tf32x3") -> dict:
-    """{name: (ctypes library, compiler report of the kernels whose name
-    holds ``kernel``)}, ``csrc/<source>.cu`` built in parallel."""
+           kernels: tuple[str, ...] = ("tf32x3", "wgmma")) -> dict:
+    """{name: (ctypes library, ``_ptxas`` report of the kernels whose name
+    holds one of ``kernels``)}, ``csrc/<source>.cu`` built in parallel."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -110,13 +159,7 @@ def _build(variants: dict[str, str], source: str = "flash_attention",
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {var}:\n{log}")
-        lines, report = log.splitlines(), []
-        for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and kernel in ln:
-                report += [x.strip() for x in lines[i:i + 4]
-                           if "Compiling" in x or "spill" in x
-                           or "registers" in x]
-        libs[var] = (ctypes.CDLL(str(lib)), report)
+        libs[var] = (ctypes.CDLL(str(lib)), _ptxas(log, kernels))
     return libs
 
 
@@ -200,7 +243,7 @@ def _bwd(cs, fa, args) -> int:
     aligned = "tf32x3" if dtype == torch.float32 else "wgmma"
     libs = _build(dict(v.split("=", 1) for v in args.variant or []),
                   "flash_attention_bwd",
-                  "bwd_x3" if aligned == "tf32x3" else "bwd_wgmma")
+                  ("bwd_x3",) if aligned == "tf32x3" else ("bwd_wgmma",))
     other = _other_tree(args.against) if args.against else None
     rows = [_bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other)
             for model, case in cases]
@@ -249,8 +292,6 @@ def _bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other):
     aligned path's kernels."""
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     b, hq, hkv, s, t, d, causal = case
     q, k, v, o, do = cs._bwd_inputs(b, hq, hkv, s, t, d, dtype, causal,
                                     seed=299)
@@ -296,12 +337,8 @@ def _bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other):
     for r in range(args.rounds):
         for name in list(calls)[::(-1 if r % 2 else 1)]:
             times[name].append(cs._time_ms(calls[name], iters=5))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        calls[aligned]()
-        torch.cuda.synchronize()
-    kernels = {ev.key[:80]: ev.self_device_time_total / 1e3
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA}
+    kernels = _kernels_ms({n: f for n, f in calls.items()
+                           if n not in ("fma", "sdpa")})
     flops, nbytes = cs.attention_bwd_work(b, hq, hkv, s, t, d, dtype, causal)
     unit = "3xtf32" if aligned == "tf32x3" else "bfloat16"
     bound_ms, bound_by = cs.bound({unit: flops}, nbytes)
@@ -311,7 +348,7 @@ def _bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other):
            "ms_rounds": times,
            "max_rel_err": {n: max(e["max_rel_err"] for e in by.values())
                            for n, by in errs.items()},
-           "errors": errs, f"{aligned}_kernels_ms": kernels,
+           "errors": errs, "kernels_ms": kernels,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "tflops": {n: flops / (x * 1e-3) / 1e12 for n, x in ms.items()},
            "against": args.against}
@@ -319,6 +356,84 @@ def _bwd_case(cs, fa, args, model, case, dtype, aligned, libs, other):
     del q, k, v, o, do, q_off, leaves, out, calls, want
     torch.cuda.empty_cache()
     return row
+
+
+def _kernels_ms(calls: dict) -> dict:
+    """{call: {kernel: card ms}} from one profiled run of each call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[name] = {ev.key[:80]: ev.self_device_time_total / 1e3
+                     for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA}
+    return out
+
+
+def _fwd_bf16(cs, fa, args) -> int:
+    """``--fwd --dtype bfloat16``: the wgmma forward's variants, this tree's
+    wrapper, another tree's and SDPA at ``BF16_FWD_SHAPES``, in turns."""
+    import torch
+    import torch.nn.functional as F
+    libs = _build(dict(v.split("=", 1) for v in args.variant or []),
+                  kernels=("flash_wgmma_bf16",))
+    other = _other_tree(args.against) if args.against else None
+    rows = []
+    for model, (b, hq, hkv, s, t, d) in BF16_FWD_SHAPES:
+        q, k, v = cs._qkv(b, hq, hkv, s, t, d, torch.bfloat16, seed=99)
+        cs._require(fa.flash_path(q, k, v) == "wgmma", "aligned path")
+        want = fa.flash_attention_plain(q, k, v).float()
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {}
+        if other is not None:
+            calls["against"] = lambda: other.flash_attention(q, k, v)
+        calls["wgmma"] = lambda: fa.flash_attention(q, k, v)
+        for var, (lib, _) in libs.items():
+            fn = _entry(lib, "repro_flash_attention_wgmma")
+
+            def call(fn=fn, var=var):
+                o = torch.empty_like(q)
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), b, hq, hkv, s, t, d, 1, d ** -0.5,
+                         stream)
+                if err:
+                    raise RuntimeError(f"variant {var}: CUDA error {err}")
+                return o
+            calls[f"variant:{var}"] = call
+        calls["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+        errs = {}
+        for name, fn in calls.items():
+            got = fn().float()
+            torch.cuda.synchronize()
+            errs[name] = float(((got - want).abs() / (1 + want.abs())).max())
+        times = {name: [] for name in calls}
+        for r in range(args.rounds):
+            for name in list(calls)[::(-1 if r % 2 else 1)]:
+                times[name].append(cs._time_ms(calls[name],
+                                               iters=args.iters))
+        flops, nbytes = cs.attention_work(b, hq, hkv, s, t, d,
+                                          torch.bfloat16)
+        bound_ms, bound_by = cs.bound({"bfloat16": flops}, nbytes)
+        ms = {n: statistics.median(x) for n, x in times.items()}
+        rows.append({
+            "model": model, "shape": [b, hq, hkv, s, t, d], "causal": True,
+            "ms": ms, "ms_rounds": times, "max_rel_err": errs,
+            "kernels_ms": _kernels_ms({n: f for n, f in calls.items()
+                                       if n != "sdpa"}),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": {n: flops / (x * 1e-3) / 1e12 for n, x in ms.items()},
+            "against": args.against})
+        print(f"[ab-fwd-bf16] {rows[-1]}", flush=True)
+        del q, k, v, want, calls
+        torch.cuda.empty_cache()
+    _append({"nvidia_smi": cs._smi(), "dtype": "bfloat16", "fwd": rows,
+             "ptxas": {var: rep for var, (_, rep) in libs.items()}})
+    return 0
 
 
 def _other_tree(src: str):
@@ -396,8 +511,12 @@ def main() -> int:
     ap.add_argument("--against", default=None,
                     help="with --host or --bwd: another tree's src")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--fwd", action="store_true",
+                    help="the forward (the default; with --dtype bfloat16 "
+                         "the wgmma kernel)")
     ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "bfloat16"), help="with --bwd")
+                    choices=("float32", "bfloat16"),
+                    help="with --bwd or --fwd")
     ap.add_argument("--cases", action="store_true",
                     help="with --bwd: errors over FLASH_BWD_CASES")
     ap.add_argument("--mma-peak", action="store_true")
@@ -416,6 +535,8 @@ def main() -> int:
         return _mma_peak(cs)
     if args.bwd:
         return _bwd(cs, fa, args)
+    if args.dtype == "bfloat16":
+        return _fwd_bf16(cs, fa, args)
     variants = dict(v.split("=", 1)
                     for v in (args.variant or DEFAULT_VARIANTS))
     libs = _build(variants)
