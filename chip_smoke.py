@@ -109,7 +109,10 @@ which fails the run (non-zero exit, no result line) if it fails:
    sLSTM layer) times the prefills, plus the sLSTM scan once per sLSTM
    layer a decode step, and
    every flash launch takes its dtype's path (float32 ``tf32x3``,
-   bfloat16 ``wgmma``);
+   bfloat16 ``wgmma``); every decode step is a replay of a CUDA graph
+   captured by the engine (one a worker thread, 4, captured before the
+   run), the replays equal to the decode steps, each adding the launches
+   its graph holds;
 7. check what came out, for each model: every request finished with its
    tokens; the engine's first token equals a direct prefill's; prefill +
    decode agrees with a full forward at full width (an MoE model at
@@ -137,8 +140,13 @@ which fails the run (non-zero exit, no result line) if it fails:
    a routing flip moves one token's logits by 0.2-0.9 in the reference
    itself, and its drift grows with depth.
    For xlstm-125m it also times one 1024-token prefill and its sLSTM blocks
-   inside it; for a bfloat16 model, the card time of one decode step
-   (``torch.profiler``) against the bytes of the weights it must read;
+   inside it.  For every model, 16 greedy steps from one prefill through
+   the engine's decode graph equal, logits and tokens bit for bit, the
+   eager step's on the stream the graph was captured on (the eager step
+   on the default stream is compared and its difference reported); and
+   one decode step's host and card time (``torch.profiler``), eager and
+   graphed (its state copies timed alone), for a model of attention blocks
+   against the bytes of the weights it must read;
 8. train, one model after the other (``TRAIN_RUNS``): granite-8b at full
    width cut to 1 layer (0.62 B parameters, B 2 x S 2048), zamba2-1.2b
    at full width cut to 6 of 38 layers (0.35 B, B 2 x S 2048) and
@@ -2314,7 +2322,8 @@ def _launches_per_prefill(cfg) -> dict:
 def _launches_per_decode(cfg) -> dict:
     """Kernel launches one decode step makes: the sLSTM scan once per sLSTM
     layer (S = 1 from the request's carry); attention, Mamba-2 and mLSTM
-    decode in plain torch, as the reference's."""
+    decode in plain torch, as the reference's.  A replay of the engine's
+    decode graph adds the launches its capture counted."""
     from repro_torch.models import layer_plan
     return {"flash_attention": 0, "ssd_scan": 0,
             "slstm_scan": layer_plan(cfg).count("slstm")}
@@ -2336,15 +2345,25 @@ def serve(report: dict, cfg) -> dict:
     flash_paths = flash_attention.path_launches
 
     max_len = max(PROMPT_LENS) + NEW_TOKENS
+    topo = tpu_pod_slices(2, 2)
     t0 = time.perf_counter()
-    engine = ServingEngine(cfg, tpu_pod_slices(2, 2), scheduler="DAM-C",
+    engine = ServingEngine(cfg, topo, scheduler="DAM-C",
                            max_len=max_len, slowdown=SLOW_PLACE, seed=0,
                            device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(engine.params))
+    graphs = engine.decode_graph_stats()
+    _require(graphs["captures"] == graphs["slots"] == topo.n_cores,
+             f"{cfg.name}: one decode graph captured a worker thread "
+             f"({topo.n_cores}): {graphs}")
     print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B params initialised on "
-          f"the card in {init_s:.2f} s", flush=True)
+          f"the card in {init_s:.2f} s, {graphs['slots']} decode graphs "
+          f"captured in {sum(graphs['capture_s']):.2f} s, holding "
+          f"{[round(b / 2**20, 1) for b in graphs['device_bytes']]} MiB "
+          f"(state {graphs['state_bytes'][0] / 2**20:.1f} MiB, graph pools "
+          f"{[round(b / 2**20, 1) for b in graphs['pool_bytes']]} MiB)",
+          flush=True)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
@@ -2382,6 +2401,10 @@ def serve(report: dict, cfg) -> dict:
                  f"{cfg.name}: {name} launched {n_launch[name]} times for "
                  f"{n_prefill} prefills of {n} launches each and {n_decode} "
                  f"decode steps of {per_decode[name]}")
+    # every decode step was a replay of a captured graph
+    graphs = engine.decode_graph_stats()
+    _require(graphs["replays"] == graphs["steps"] == n_decode,
+             f"{cfg.name}: {n_decode} decode steps, decode graphs {graphs}")
     path = SERVED_FLASH_PATH[cfg.dtype]
     _require(n_flash_path[path] == n_launch["flash_attention"],
              f"{cfg.name}: flash launches by path {n_flash_path}: every "
@@ -2399,7 +2422,7 @@ def serve(report: dict, cfg) -> dict:
         "flash_launches_by_path": n_flash_path,
         "launches_per_prefill": per_prefill, "prefills": n_prefill,
         "launches_per_decode": per_decode, "decode_steps": n_decode,
-        "ttft_ms_p50": stats["ttft_ms_p50"],
+        "decode_graphs": graphs, "ttft_ms_p50": stats["ttft_ms_p50"],
         "ttft_ms_p99": stats["ttft_ms_p99"],
         "e2e_ms_p99": stats["e2e_ms_p99"],
         "output_tokens_per_s": n_tokens / wall,
@@ -2427,13 +2450,16 @@ def serve(report: dict, cfg) -> dict:
         rels, _ = decode_vs_forward(engine.params, chk, toks, n_dec)
         out["prefill_decode_vs_forward_rel"] = rels
         _require_decode_agrees(cfg, rels, "prefill + decode against forward")
-        if cfg.dtype == "bfloat16":
-            out["decode_step_card"] = decode_card_time(engine.params, cfg,
-                                                       prompts[2], max_len)
+        slot = engine.decode_slots[0]
+        out["graph_vs_eager"] = graph_vs_eager(engine.params, cfg, slot,
+                                               prompts[2], max_len)
+        out["decode_step_card"] = decode_card_time(engine.params, cfg,
+                                                   prompts[2], max_len, slot)
         if cfg.family == "ssm":
             out["prefill_split"] = slstm_share(engine.params, cfg, prompts[1])
         if cfg.frontend != "none":
             out["prefixed"] = prefixed_checks(engine.params, cfg, toks)
+    engine.close()
     del engine
     torch.cuda.empty_cache()
     reduced = cfg.reduced()
@@ -2461,7 +2487,7 @@ def serve(report: dict, cfg) -> dict:
     print(f"[serve] {cfg.name} ({cfg.dtype}): init {out['init_s']:.2f} s, "
           f"peak {out['peak_mem_gb']:.2f} GB, TTFT p50 / p99 "
           f"{out['ttft_ms_p50']:.1f} / {out['ttft_ms_p99']:.1f} ms, decode "
-          f"step p50 {out['decode_step_ms_p50']:.1f} ms, "
+          f"step p50 {out['decode_step_ms_p50']:.1f} ms (graphed), "
           f"{out['output_tokens_per_s']:.2f} output tokens/s", flush=True)
     report.setdefault("serve", {})[cfg.name] = out
     return out
@@ -2735,47 +2761,151 @@ def _decode_weight_bytes(cfg, length: int) -> int:
     return (n * per_layer + d * cfg.vocab) * itemsize
 
 
-def decode_card_time(params, cfg, prompt, max_len) -> dict:
-    """One decode step after a prefill of ``prompt``, on one thread: its
-    wall time until the card is done (``host_ms``), its card time
-    (``card_ms``, the kernels' time in a ``torch.profiler`` trace of one
-    step) and kernel count, and the least card time, the bytes of the
-    weights the step must read (``_decode_weight_bytes``) at the memory
-    rate."""
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def graph_vs_eager(params, cfg, slot, prompt, max_len) -> dict:
+    """``NEW_TOKENS`` greedy steps from one prefill of ``prompt``, each
+    from its own copy of the state: through the engine's decode slot (a
+    replay of its graph), and eagerly on the stream the graph was captured
+    on, whose logits and tokens must equal the replays' bit for bit; and
+    eagerly on the default stream, whose difference from the replays is
+    reported (cuBLAS may pick another algorithm by stream or workspace)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    toks = torch.as_tensor(prompt, device=DEVICE)[None]
+    with torch.inference_mode():
+        logits, state = prefill(params, cfg, toks, max_len)
+    tok = int(torch.argmax(logits[0]))
+    runs = {}
+    for mode in ("graphed", "eager_capture_stream", "eager_default_stream"):
+        st, t, seq = _tree_clone(state), tok, []
+        stream = (slot.stream if mode == "eager_capture_stream"
+                  else torch.cuda.current_stream())
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            for _ in range(NEW_TOKENS):
+                if mode == "graphed":
+                    t = slot.step(st, t)
+                    lg = slot.logits
+                else:
+                    lg, _ = decode_step(params, cfg, st,
+                                        torch.tensor([t], device=DEVICE))
+                    t = int(torch.argmax(lg[0]))
+                seq.append((lg.clone(), t))
+        torch.cuda.current_stream().wait_stream(stream)
+        runs[mode] = seq
+    torch.cuda.synchronize()
+    out = {"steps": NEW_TOKENS}
+    for mode in ("eager_capture_stream", "eager_default_stream"):
+        same = [_same_bits(g, e) and gt == et for (g, gt), (e, et)
+                in zip(runs["graphed"], runs[mode])]
+        diff = max(float((g - e).abs().max()) for (g, _), (e, _)
+                   in zip(runs["graphed"], runs[mode]))
+        out[mode] = {"bit_for_bit_steps": sum(same), "max_abs_diff": diff,
+                     "tokens_equal": [gt for _, gt in runs["graphed"]]
+                     == [et for _, et in runs[mode]]}
+    print(f"[serve] {cfg.name} graphed decode against eager over "
+          f"{NEW_TOKENS} steps: {out}", flush=True)
+    _require(out["eager_capture_stream"]["bit_for_bit_steps"] == NEW_TOKENS,
+             f"{cfg.name}: the graphed decode's logits and tokens against "
+             f"the eager step's on the capture stream, bit for bit: {out}")
+    return out
+
+
+def _trace_kernels(fn) -> list:
+    """The kernels' own events of a ``torch.profiler`` trace of one call
+    of ``fn`` (an operator's event also carries the time of the kernels it
+    launched)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.key not in STEP_RANGES]
+
+
+def _attention_only(cfg) -> bool:
+    from repro_torch.models import layer_plan
+    return set(layer_plan(cfg)) <= {"attn", "attn_moe"}
+
+
+def decode_card_time(params, cfg, prompt, max_len, slot) -> dict:
+    """One decode step after a prefill of ``prompt``, on one thread,
+    eager and through the engine's decode ``slot`` (a replay of its
+    graph), each from its own copy of the state: its wall time until the
+    card is done (``host_ms``, the larger of the host's and the card's
+    time a step), its card time (``card_ms``, the kernels' time in a
+    ``torch.profiler`` trace of one step, of which ``memcpy_card_ms`` in
+    memory copies; for the graphed step also from CUDA events over 5
+    replays queued behind a spin kernel, ``card_ms_events``) and kernel
+    count; the graphed step's state copies (``state_copies_ms``: the
+    request's state into a buffer of the same shapes and back, as the
+    slot copies it, timed alone by CUDA events); and, for a model of
+    attention blocks only, the least card time, the bytes of the weights
+    the step must read (``_decode_weight_bytes``) at the memory rate."""
+    import torch
     from repro_torch.models import decode_step, prefill
     toks = torch.as_tensor(prompt, device=DEVICE)[None]
     with torch.inference_mode():
         _, state = prefill(params, cfg, toks, max_len)
+        graph_state = _tree_clone(state)
         nxt = toks[:, -1]
+        tok = int(nxt[0])
 
         def step():
             decode_step(params, cfg, state, nxt)
+
+        def replay():
+            slot.launch(graph_state, tok)
+        buffers = _tree_clone(state)
+
+        def state_copies():
+            for mine, theirs in zip(_leaves(buffers), _leaves(graph_state)):
+                mine.copy_(theirs)
+            for mine, theirs in zip(_leaves(buffers), _leaves(graph_state)):
+                theirs.copy_(mine)
         host_ms = _time_ms(step, iters=3, warmup=1, run_ahead=False)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-    # the kernels' own events (an operator's event also carries the time
-    # of the kernels it launched)
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False)
-               and ev.key not in STEP_RANGES]
+        kernels = _trace_kernels(step)
+        graph_host_ms = _time_ms(replay, iters=3, warmup=1, run_ahead=False)
+        graph_events_ms = _time_ms(replay, iters=5, warmup=0)
+        graph_kernels = _trace_kernels(replay)
+        copies_ms = _time_ms(state_copies, iters=5)
     card_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
     _require(card_ms > 0, f"{cfg.name}: the traced decode step ran nothing "
                           f"on the card")
-    nbytes = _decode_weight_bytes(cfg, len(prompt) + 5)
+
+    def memcpy_ms(evs) -> float:
+        return sum(ev.self_device_time_total for ev in evs
+                   if ev.key.startswith("Memcpy")) / 1e3
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
     out = {"tokens_before": len(prompt), "host_ms": host_ms,
-           "card_ms": card_ms,
+           "card_ms": card_ms, "memcpy_card_ms": memcpy_ms(kernels),
            "kernels": sum(ev.count for ev in kernels),
            "top_kernels_ms": {ev.key[:70]: ev.self_device_time_total / 1e3
                               for ev in top},
-           "weight_gb": nbytes / 1e9,
-           "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+           "graphed": {
+               "host_ms": graph_host_ms,
+               "card_ms": sum(ev.self_device_time_total
+                              for ev in graph_kernels) / 1e3,
+               "memcpy_card_ms": memcpy_ms(graph_kernels),
+               "card_ms_events": graph_events_ms,
+               "kernels": sum(ev.count for ev in graph_kernels),
+               "state_copies_ms": copies_ms,
+               "state_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(state))}}
+    if _attention_only(cfg):
+        nbytes = _decode_weight_bytes(cfg, len(prompt) + 5)
+        out["weight_gb"] = nbytes / 1e9
+        out["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
     print(f"[serve] {cfg.name} decode step {out}", flush=True)
     return out
 
@@ -4406,11 +4536,14 @@ def _phases(report, smi, phase_s, lap, mark, t_run, started) -> int:
     node = node_dag(report)
     lap("node_dag")
     served = []
+    t_serve = time.perf_counter()
     for arch, dtype in SERVED:
         served.append(serve(report, dataclasses.replace(
             get_config(arch), dtype=dtype,
             n_layers=SERVED_LAYERS.get(arch, get_config(arch).n_layers))))
         lap(f"serve:{arch}")
+    report["serve_phase_s"] = time.perf_counter() - t_serve
+    print(f"[time] serve phase {report['serve_phase_s']:.1f} s", flush=True)
     trained = train(report)
     for key, out in trained.items():
         phase_s[key] = out["phase_s"]

@@ -39,6 +39,7 @@ def main(argv=None) -> dict:
                           max_new_tokens=4)
         m = engine.run(timeout=300)
         stats = engine.latency_stats()
+        engine.close()
         pp = m.priority_placement()
         on_slow = sum(v for k, v in pp.items() if k.startswith("(C0"))
         print(f"{sched:6s}: completed={stats['completed']} "

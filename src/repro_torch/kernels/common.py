@@ -9,15 +9,17 @@ import torch
 
 class LaunchCounter:
     """Kernel launches, counted under a lock: the serving engine launches
-    from several worker threads at once."""
+    from several worker threads at once.  A wrapper adds one where it
+    launches its kernel; a CUDA graph's replay, which runs no wrapper, adds
+    the launches its graph holds (``serve/decode_graph.py``)."""
 
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:

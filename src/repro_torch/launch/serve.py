@@ -17,6 +17,9 @@ and nemotron-4-15b fit only in bfloat16 (internvl2-76b only cut in depth):
         --arch qwen3-moe-30b-a3b --dtype bfloat16 --scheduler DAM-C
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2.5-14b --dtype bfloat16
+
+Each decode step replays a captured CUDA graph on the card (the CPU runs
+the step's plain version through the same decode slots).
 """
 from __future__ import annotations
 
@@ -67,9 +70,15 @@ def main(argv=None) -> dict:
     metrics = engine.run(timeout=300.0)
     stats = engine.latency_stats()
     placement = dict(metrics.priority_placement())
+    graphs = engine.decode_graph_stats()
+    decode = "graphed" if graphs["captures"] else "slots, plain route"
+    engine.close()
     print(f"[serve] {stats}")
     print(f"[serve] prefill placement: {placement}")
-    return {"stats": stats, "placement": placement, "dtype": cfg.dtype}
+    print(f"[serve] decode: {decode} ({graphs['steps']} steps through "
+          f"{graphs['slots']} slots, {graphs['replays']} graph replays)")
+    return {"stats": stats, "placement": placement, "dtype": cfg.dtype,
+            "decode": decode, "decode_graphs": graphs}
 
 
 if __name__ == "__main__":

@@ -14,7 +14,16 @@ the same code (a verbatim copy of the JAX package's ``core``), and the
 payloads run the torch model.  The places are worker slots of the
 threaded runtime; they share one device, and a payload returns only when
 the device has finished its work (the ``int(argmax)``), so the PTT learns
-run times, not launch times.  ``cfg=None`` selects
+run times, not launch times.
+
+A decode step runs as a replay of a captured CUDA graph on the card, the
+counterpart of the reference's ``jax.jit`` decode (``decode_graph.py``):
+one :class:`~.decode_graph.DecodeSlot` a worker thread, captured when the
+params are set (in ``__init__``, before any worker thread starts); a
+dispatch takes a free slot and gives it back when its payload ends.  On
+the CPU the slots run the step's plain version on their static buffers.
+:meth:`ServingEngine.close` releases the slots, never while a run's
+workers may replay them.  ``cfg=None`` selects
 **synthetic-payload mode**: request payloads are calibrated sleeps
 (``prefill_s`` / ``decode_s``) instead of model dispatches.
 
@@ -59,11 +68,12 @@ kernel, DESIGN.md §2):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import random
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,8 +84,9 @@ from ..core import (BatchingConfig, Priority, RequestRecord, Task, TaskType,
 from ..core.dag import DAG
 from ..core.preemption import PreemptionModel
 from ..device import resolve_device
-from ..models import decode_step, init_params, prefill
+from ..models import init_params, prefill
 from .batching import BatchSlot, DecodeBatcher
+from .decode_graph import DecodeSlot
 from .overload import BrownoutConfig, OverloadController
 
 
@@ -133,12 +144,13 @@ class ServingEngine:
         self.batching = batching
         self.batcher = DecodeBatcher(batching) if batching is not None \
             else None
-        if cfg is not None:
-            # real-model mode: torch payloads on ``device``, weights drawn
-            # there from the seed (tests overwrite ``params`` with bridged
-            # reference weights)
-            self.device = resolve_device(device)
-            self.params = init_params(cfg, seed, self.device)
+        # decode slots: one a worker thread, taken by a dispatch from the
+        # free list and given back when its payload ends
+        self.n_slots = topology.n_cores if cfg is not None else 0
+        self._slots: list[DecodeSlot] = []
+        self._free_slots: list[DecodeSlot] = []
+        self._slot_cv = threading.Condition()
+        self.slots_in_use_max = 0
         self.sched = make_scheduler(scheduler, topology, seed=seed,
                                     queue_penalty=queue_penalty,
                                     track_load=True)
@@ -147,6 +159,12 @@ class ServingEngine:
                                        recovery=recovery,
                                        supervisor=supervisor,
                                        sharding=sharding, batching=batching)
+        if cfg is not None:
+            # real-model mode: torch payloads on ``device``, weights drawn
+            # there from the seed (tests overwrite ``params`` with bridged
+            # reference weights, which captures the slots again)
+            self.device = resolve_device(device)
+            self.params = init_params(cfg, seed, self.device)
         self.warm_start = warm_start
         self.max_pending = max_pending
         self.controller = (OverloadController(brownout)
@@ -168,6 +186,95 @@ class ServingEngine:
         self._flush_stop = threading.Event()
         self._flush_thread: Optional[threading.Thread] = None
 
+    # -- params and decode slots ------------------------------------------------
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        """Set the weights; the decode slots' graphs read them at their
+        addresses, so the slots are captured again, and so never once the
+        runtime has started (a capture beside the workers' launches)."""
+        if self.runtime.t0 is not None:
+            raise RuntimeError("ServingEngine: params set after the run "
+                               "started; the decode slots would be captured "
+                               "beside the workers' launches")
+        self._params = params
+        if self.cfg is not None:
+            self.close()
+            self._slots = [DecodeSlot(params, self.cfg, self.max_len,
+                                      self.device)
+                           for _ in range(self.n_slots)]
+            self._free_slots = list(self._slots)
+
+    @contextlib.contextmanager
+    def _decode_slot(self) -> Iterator[Optional[DecodeSlot]]:
+        """A free decode slot for one dispatch (``None`` in synthetic-payload
+        mode), given back when the dispatch ends.  One slot a worker
+        thread, so a dispatch finds one free."""
+        if self.cfg is None:
+            yield None
+            return
+        if not self._slots:
+            raise RuntimeError("ServingEngine: decode after close(); the "
+                               "engine has no decode slots")
+        with self._slot_cv:
+            while not self._free_slots:
+                self._slot_cv.wait()
+            slot = self._free_slots.pop()
+            in_use = len(self._slots) - len(self._free_slots)
+            self.slots_in_use_max = max(self.slots_in_use_max, in_use)
+        try:
+            yield slot
+        finally:
+            with self._slot_cv:
+                self._free_slots.append(slot)
+                self._slot_cv.notify()
+
+    @property
+    def decode_slots(self) -> tuple[DecodeSlot, ...]:
+        """The decode slots (none in synthetic-payload mode or after
+        :meth:`close`); one taken outside a run belongs to its caller
+        until the next run."""
+        return tuple(self._slots)
+
+    def decode_graph_stats(self) -> dict:
+        """The decode slots' counters: slots, graphs captured, decode steps
+        through the slots and graph replays of them, the most slots in use
+        at once, and each slot's capture seconds, card memory (buffers,
+        cuBLAS workspace and graph pool), graph pool and state bytes."""
+        return {"slots": len(self._slots),
+                "captures": sum(s.graph is not None for s in self._slots),
+                "steps": sum(s.steps for s in self._slots),
+                "replays": sum(s.replays for s in self._slots),
+                "slots_in_use_max": self.slots_in_use_max,
+                "capture_s": [s.capture_s for s in self._slots],
+                "device_bytes": [s.device_bytes for s in self._slots],
+                "pool_bytes": [s.pool_bytes for s in self._slots],
+                "state_bytes": [s.state_bytes for s in self._slots]}
+
+    def _run_live(self) -> bool:
+        """Whether a run's worker threads may still replay the slots: from
+        the start of a run until ``drain`` has stopped it and its workers
+        have exited."""
+        rt = self.runtime
+        return rt._started and (not rt.stop
+                                or any(th.is_alive() for th in rt._threads))
+
+    def close(self) -> None:
+        """Release the decode slots' graphs, pools and buffers.  Refused
+        while a run is live: a worker may be replaying a slot, and the last
+        slot's close clears cuBLAS's workspaces for the whole process
+        (``decode_graph.py``)."""
+        if self._run_live():
+            raise RuntimeError("ServingEngine: close() while the run is "
+                               "live; call it after run() or drain() "
+                               "returns")
+        for slot in self._slots:
+            slot.close()
+        self._slots, self._free_slots = [], []
+
     # -- task payloads ---------------------------------------------------------
     def _run_prefill(self, req: Request) -> tuple:
         if self.cfg is None:
@@ -184,15 +291,13 @@ class ServingEngine:
         req.out_tokens.append(nxt)
         return state, nxt
 
-    def _run_decode(self, req: Request, state, tok: int) -> tuple:
+    def _run_decode(self, req: Request, state, tok: int,
+                    slot: Optional[DecodeSlot]) -> tuple:
         if self.cfg is None:
             time.sleep(self.decode_s)
             req.out_tokens.append(0)
             return None, 0
-        with torch.inference_mode():
-            toks = torch.tensor([tok], device=self.device)
-            logits, state = decode_step(self.params, self.cfg, state, toks)
-            nxt = int(torch.argmax(logits[0]))
+        nxt = slot.step(state, tok)
         req.out_tokens.append(nxt)
         return state, nxt
 
@@ -397,8 +502,9 @@ class ServingEngine:
     def _decode_payload(self, width: int, req: Request, ctx: dict) -> None:
         if self._shed_check(req):
             return
-        ctx["state"], ctx["tok"] = self._run_decode(
-            req, ctx["state"], ctx["tok"])
+        with self._decode_slot() as slot:
+            ctx["state"], ctx["tok"] = self._run_decode(
+                req, ctx["state"], ctx["tok"], slot)
 
     def _decode_commit(self, task: Task) -> list[Task]:
         req, ctx = task.args
@@ -437,9 +543,11 @@ class ServingEngine:
             for s in live:
                 s.req.out_tokens.append(0)
         else:
-            for s in live:
-                s.ctx["state"], s.ctx["tok"] = self._run_decode(
-                    s.req, s.ctx["state"], s.ctx["tok"])
+            # the members one by one, as the reference's batched payload
+            with self._decode_slot() as slot:
+                for s in live:
+                    s.ctx["state"], s.ctx["tok"] = self._run_decode(
+                        s.req, s.ctx["state"], s.ctx["tok"], slot)
 
     def _batch_commit(self, task: Task) -> list[Task]:
         """Commit of a fused dispatch: finalize shed/finished members,

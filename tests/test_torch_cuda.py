@@ -1529,3 +1529,184 @@ def test_adamw_kernel_refuses_what_it_does_not_take(card):
         adamw.global_norm([f32(), torch.zeros(n)])         # two devices
     with pytest.raises(ValueError):
         adamw.global_norm([torch.zeros(n, device=card, dtype=torch.float16)])
+
+
+# -- the decode step as captured CUDA graphs (serve/decode_graph.py) ----------
+
+GRAPH_ARCHS = ["granite-8b", "qwen3-moe-30b-a3b", "zamba2-1.2b",
+               "xlstm-125m", "internvl2-76b"]
+GRAPH_STEPS = 8
+GRAPH_MAX_LEN = 64
+
+
+def _graph_model(card, arch):
+    """A reduced model of ``arch`` on the card (the MoE model at capacity
+    16, where its prefill drops nothing) and a 20-token prefill's state
+    and greedy token."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = get_config(arch).reduced()
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    params = init_params(cfg, seed=3, device=card)
+    g = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (1, 20), generator=g).to(card)
+    with torch.inference_mode():
+        logits, state = prefill(params, cfg, toks, GRAPH_MAX_LEN)
+    return cfg, params, state, int(torch.argmax(logits[0]))
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _bits_equal(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _graphed(slot, state, tok, steps=GRAPH_STEPS):
+    logits, toks = [], []
+    for _ in range(steps):
+        tok = slot.step(state, tok)
+        logits.append(slot.logits.clone())
+        toks.append(tok)
+    return logits, toks
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_decode_graph_replay_is_the_eager_step_bit_for_bit(card, arch):
+    """Each family's reduced model: ``GRAPH_STEPS`` greedy steps replayed
+    from a slot's graph give the eager step's logits and tokens bit for
+    bit, the eager step run on the stream the graph was captured on; the
+    request's state ends where the eager one does; each replay adds the
+    sLSTM launches its graph holds."""
+    from repro_torch.models import decode_step, layer_plan
+    from repro_torch.serve.decode_graph import DecodeSlot
+    cfg, params, state, tok = _graph_model(card, arch)
+    slot = DecodeSlot(params, cfg, GRAPH_MAX_LEN, card)
+    assert slot.graph is not None and slot.capture_s > 0
+    n_slstm = layer_plan(cfg).count("slstm")
+    assert [(c, n) for c, n in slot.deltas] == (
+        [(slstm_scan.launches, n_slstm)] if n_slstm else [])
+    eager_state, graph_state = _tree_clone(state), _tree_clone(state)
+    want, want_toks = [], []
+    t = tok
+    slot.stream.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode(), torch.cuda.stream(slot.stream):
+        for _ in range(GRAPH_STEPS):
+            logits, _ = decode_step(params, cfg, eager_state,
+                                    torch.tensor([t], device=card))
+            t = int(torch.argmax(logits[0]))
+            want.append(logits.clone())
+            want_toks.append(t)
+    torch.cuda.current_stream().wait_stream(slot.stream)
+    before = slstm_scan.launches.count
+    got, got_toks = _graphed(slot, graph_state, tok)
+    torch.cuda.synchronize()
+    assert slstm_scan.launches.count - before == GRAPH_STEPS * n_slstm
+    assert got_toks == want_toks
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+    for key, sub in eager_state.items():
+        for name, v in sub.items():
+            assert _bits_equal(graph_state[key][name].float(), v.float()), (
+                key, name)
+    assert slot.replays == slot.steps == GRAPH_STEPS
+    slot.close()
+
+
+def test_decode_graphs_replayed_from_four_threads_at_once(card):
+    """4 threads replay their own slots at once, each its own request, as
+    the engine's 4 places do: each gets what its slot gives it alone."""
+    import threading
+    from repro_torch.serve.decode_graph import DecodeSlot
+    cfg, params, state, tok = _graph_model(card, "xlstm-125m")
+    slots = [DecodeSlot(params, cfg, GRAPH_MAX_LEN, card) for _ in range(4)]
+    starts = []
+    for i, slot in enumerate(slots):     # 4 requests: i steps further on
+        st = _tree_clone(state)
+        t = tok
+        for _ in range(i):
+            t = slot.step(st, t)
+        starts.append((st, t))
+    alone = [_graphed(slot, _tree_clone(st), t)
+             for slot, (st, t) in zip(slots, starts)]
+    together = [None] * 4
+    errors = []
+
+    def worker(i):
+        try:
+            st, t = starts[i]
+            together[i] = _graphed(slots[i], _tree_clone(st), t)
+        except Exception as e:          # surfaced below, with its thread
+            errors.append((i, e))
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads) and not errors
+    for (g, g_toks), (w, w_toks) in zip(together, alone):
+        assert g_toks == w_toks
+        assert all(_bits_equal(a, b) for a, b in zip(g, w))
+    for slot in slots:
+        slot.close()
+
+
+def test_engine_decode_graph_counters_and_launches(card):
+    """Through the engine on the card: one slot a worker, each captured
+    once; replays equal the decode steps; the sLSTM launches are the
+    prefills' and the replays' (xlstm's reduced model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tpu_pod_slices
+    from repro_torch.models import layer_plan
+    from repro_torch.serve import ServingEngine
+    cfg = get_config("xlstm-125m").reduced()
+    eng = ServingEngine(cfg, tpu_pod_slices(2, 2), scheduler="DAM-C",
+                        max_len=48, device=card)
+    stats = eng.decode_graph_stats()
+    assert stats["slots"] == stats["captures"] == 4
+    assert stats["replays"] == 0
+    g = torch.Generator().manual_seed(1)
+    reqs = [eng.submit(torch.randint(0, cfg.vocab, (16,), generator=g)
+                       .numpy(), max_new_tokens=5) for _ in range(6)]
+    slstm_scan.launches.reset()
+    eng.run(timeout=300)
+    n_decode = sum(len(r.out_tokens) - 1 for r in reqs)
+    stats = eng.decode_graph_stats()
+    assert n_decode == 24
+    assert stats["replays"] == stats["steps"] == n_decode
+    assert 1 <= stats["slots_in_use_max"] <= 4
+    per_layer = layer_plan(cfg).count("slstm")
+    assert slstm_scan.launches.count == per_layer * (len(reqs) + n_decode)
+    eng.close()
+
+
+def test_engine_decode_graphs_free_their_memory(card):
+    """The slots' graphs, pools and buffers go with the engine: after
+    ``close`` and ``empty_cache`` the allocated memory is back within 4 MB
+    of what it was before the engine."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import tpu_pod_slices
+    from repro_torch.serve import ServingEngine
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(card)
+    cfg = get_config("granite-8b").reduced()
+    eng = ServingEngine(cfg, tpu_pod_slices(2, 2), max_len=256, device=card)
+    during = torch.cuda.memory_allocated(card)
+    assert eng.decode_graph_stats()["captures"] == 4
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(card)
+    assert during > before
+    assert after - before <= 4 << 20, (before, during, after)

@@ -1,7 +1,7 @@
 """Where a served request's time goes in the PyTorch port, on the card.
 
     python tools/torch_serve_probe.py [--arch ARCH] [--dtype bfloat16]
-        [--reduced] [--device cuda]
+        [--reduced] [--device cuda] [--graph]
 
 Full-width ``--arch`` (granite-8b by default; random weights from a seed)
 unless ``--reduced``, in the config's dtype unless ``--dtype`` overrides
@@ -15,6 +15,17 @@ engine:
   as the engine's payload does), the device time and the kernel count;
 * decode steps on 4 threads at once, each with its own request state, as
   the engine's 4 places run them on one card: wall time per step.
+
+With ``--graph`` (on the card), the eager step against the engine's
+graphed one (``serve/decode_graph.py``, one slot a thread), in alternating
+calls within this one run (a decode p50 can move 2x between runs): for
+each, the host's dispatch time (until the step is issued), the wall time
+(until ``int(argmax)``), the card time and kernels of one traced step (its
+memory copies apart), and the steps per second of 4 threads
+at once; with each slot's capture seconds and card memory.  Also the card
+time of each kind of block of one decode step, traced alone (the
+attention's core, ``ops.decode_attention``, apart from its block), times
+the blocks of that kind.
 
 Prints one JSON object and writes it to
 ``chiprun_out/serve_probe-<arch>.json``.
@@ -61,6 +72,141 @@ def _profile(fn, device):
     return dict(sorted(rows.items(), key=lambda kv: -kv[1])), n_kernels
 
 
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _copies(by_kernel: dict) -> float:
+    """The card time of a trace's memory copies (its ``Memcpy`` events:
+    a graphed step's state copies and the copies the step makes itself)."""
+    return sum(v for k, v in by_kernel.items() if k.startswith("Memcpy"))
+
+
+def decode_parts(params, cfg, state, tok: int, device) -> dict:
+    """The card time of one decode step by kind of block, each traced
+    alone on a copy of ``state``: the first block of each kind once, times
+    the blocks of that kind in the plan; for attention, the core
+    (``ops.decode_attention`` on the first cache) apart too."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layer_plan
+    from repro_torch.models import transformer as tf
+    plan = layer_plan(cfg)
+    st = _tree_clone(state)
+    x = tf._lookup(params["embed"], torch.tensor([tok], device=device))
+    x = x[:, None, :]
+    out: dict = {}
+    seen: set = set()
+    with torch.inference_mode():
+        for kind, p, i in tf._walk(params, cfg):
+            if kind in seen:
+                continue
+            seen.add(kind)
+            slot = tf._layer(st[tf._STATE_KEY[kind]], i)
+            by_kernel, n = _profile(
+                lambda: tf._block_decode(cfg, kind, p, x, slot), device)
+            count = plan.count(kind)
+            out[f"{kind}_block"] = {"ms": sum(by_kernel.values()) * count,
+                                    "kernels": n * count, "blocks": count}
+            if kind in tf._ATTN:
+                q = torch.randn((1, cfg.n_heads, cfg.resolved_head_dim),
+                                device=device).to(slot["k"].dtype)
+                by_kernel, n = _profile(
+                    lambda: ops.decode_attention(q, slot["k"], slot["v"],
+                                                 slot["length"]), device)
+                out[f"{kind}_core"] = {"ms": sum(by_kernel.values()) * count,
+                                       "kernels": n * count}
+    return out
+
+
+def graph_ab(params, cfg, device, max_len: int, start, steps: int) -> dict:
+    """The eager step against the graphed one, in alternating calls, from
+    the same prefill's state ``start = (state, token)`` (each mode on its
+    own copy); the 4-thread rate likewise, in turns eager, graphed,
+    graphed, eager."""
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.serve.decode_graph import DecodeSlot
+    slots = [DecodeSlot(params, cfg, max_len, device) for _ in range(4)]
+    out: dict = {"capture_s": [s.capture_s for s in slots],
+                 "device_bytes": [s.device_bytes for s in slots],
+                 "pool_bytes": [s.pool_bytes for s in slots],
+                 "state_bytes": slots[0].state_bytes}
+
+    def eager(st, t):
+        with torch.inference_mode():
+            toks = torch.tensor([t], device=device)
+            t0 = time.perf_counter()
+            logits, st = decode_step(params, cfg, st, toks)
+            t1 = time.perf_counter()
+            nxt = int(torch.argmax(logits[0]))
+        return nxt, t1 - t0, time.perf_counter() - t0
+
+    def graphed(st, t, slot=slots[0]):
+        t0 = time.perf_counter()
+        slot.launch(st, t)
+        t1 = time.perf_counter()
+        nxt = int(slot.argmax)
+        return nxt, t1 - t0, time.perf_counter() - t0
+
+    modes = {"eager": eager, "graphed": graphed}
+    runs = {m: (_tree_clone(start[0]), start[1]) for m in modes}
+    times: dict = {m: {"host": [], "wall": []} for m in modes}
+    for i in range(steps + 2):
+        order = ("eager", "graphed") if i % 2 == 0 else ("graphed", "eager")
+        for m in order:
+            st, t = runs[m]
+            nxt, h, w = modes[m](st, t)
+            runs[m] = (st, nxt)
+            if i >= 2:                      # two warm-up turns
+                times[m]["host"].append(h)
+                times[m]["wall"].append(w)
+    for m in modes:
+        st, t = runs[m]
+        by_kernel, n = _profile(lambda: modes[m](st, t), device)
+        out[m] = {"host_dispatch_ms": 1e3 * statistics.median(
+                      times[m]["host"]),
+                  "wall_ms": 1e3 * statistics.median(times[m]["wall"]),
+                  "card_ms": sum(by_kernel.values()),
+                  "copies_card_ms": _copies(by_kernel),
+                  "kernels": n,
+                  "top_kernels_ms": dict(list(by_kernel.items())[:6])}
+
+    def four_threads(mode) -> float:
+        done = [0] * 4
+
+        def worker(i):
+            st, t = _tree_clone(start[0]), start[1]
+            for _ in range(steps):
+                if mode == "eager":
+                    t = eager(st, t)[0]
+                else:
+                    t = graphed(st, t, slots[i])[0]
+                done[i] += 1
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        span = time.perf_counter() - t0
+        if sum(done) != 4 * steps:
+            raise RuntimeError(f"4 threads ({mode}): {done} steps")
+        return sum(done) / span
+
+    rates: dict = {m: [] for m in modes}
+    for m in ("eager", "graphed", "graphed", "eager"):
+        rates[m].append(four_threads(m))
+    for m in modes:
+        out[m]["steps_per_s_4threads"] = rates[m]
+    for slot in slots:
+        slot.close()
+    return out
+
+
 def main(argv=None) -> dict:
     import dataclasses
     import numpy as np
@@ -76,6 +222,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--graph", action="store_true",
+                    help="time the eager step against the graphed one")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -137,6 +285,12 @@ def main(argv=None) -> dict:
     out["decode_device_ms"] = sum(by_kernel.values())
     out["decode_kernels"] = n
     out["decode_top_kernels_ms"] = dict(list(by_kernel.items())[:6])
+    out["decode_parts"] = decode_parts(params, cfg, state, tok, device)
+    if args.graph:
+        if device.type != "cuda":
+            raise SystemExit("--graph times CUDA graphs: it needs the card")
+        out["graph"] = graph_ab(params, cfg, device, max_len,
+                                one_prefill(prompt), args.steps)
 
     # 4 threads at once, as the engine's 4 places on one card
     states = []
