@@ -165,11 +165,19 @@ which fails the run (non-zero exit, no result line) if it fails:
    under the rule (``bf16_grad_limits``: the loss, the worst gradient leaf
    but zamba2's, 3 AdamW steps' losses); an MoE model's backward at the
    training shape repeats bit for bit under the deterministic mode
-   (``moe_bwd_determinism``); then through the port's
-   ``Trainer``: 8 steps straight through with a checkpoint at step 4, a
+   (``moe_bwd_determinism``); then the eager ``make_train_step``, 8
+   steps from the run's init and batches (``eager_steps``: each timed, the
+   state's ``_fingerprint`` after each of steps 1-4), freed; then through
+   the port's ``Trainer``, whose step is a captured CUDA graph
+   (``TrainStepGraph``: step 1 eager on the graph's stream, then the
+   capture, steps 2-8 replays): 8 steps straight through with a
+   checkpoint at step 4, every loss and the state after each of steps 1-4
+   the eager run's bit for bit (so the capture left the state as it
+   was), the graph's capture seconds and pool; a
    fresh trainer that restores it (its state, a bfloat16 run's float32
    master copy with it, equal to the straight run's at step 4) and takes
-   steps 5-8 with the same losses and state bit for bit, one more
+   steps 5-8 with the same losses and state bit for bit, graph against
+   graph, one more
    gradient with and without remat (the same loss and gradient norm);
    every loss finite, the first near a random init's ln V + 1/2, the last
    below the first; per step the launches the layer plan gives (flash
@@ -182,7 +190,8 @@ which fails the run (non-zero exit, no result line) if it fails:
    every stacked layer's forward twice; the AdamW kernels' update once a
    leaf and the norm's pass once a leaf and its finalize once); the step
    time, tokens per second, peak memory, the checkpoint's write and
-   restore seconds and, from one traced step run as ``split_step``
+   restore seconds, the graphed and the eager step's times (medians of
+   steps 2-8) and, from one traced step run as ``split_step``
    composes it, the share of the card time of the flash, SSD and sLSTM
    kernels, forward and backward, and the card time of the gradient's and
    the update's ranges by class of kernel (the update's in the AdamW
@@ -196,13 +205,20 @@ which fails the run (non-zero exit, no result line) if it fails:
    its frontend prefix, in float32 and then in bfloat16 (a float32 master
    copy and moments; its reduced model also under the bfloat16 rule),
    B 2 x (P 64 + 1984 text tokens) as
-   ``train_batch_specs`` lays them out, through ``make_train_step`` (the
-   ``Trainer``'s stream emits no frontend, in the reference too): its
-   reduced model card against CPU with a prefix, then 8 steps (losses
-   finite, the first near ln V + 1/2, the last below the first; 48 flash
-   forward and 48 backward launches a step, all ``tf32x3`` in float32 and
-   ``wgmma`` in bfloat16), the peak
-   memory, the step time, text tokens per second and one traced step;
+   ``train_batch_specs`` lays them out, and (``TRAIN_DIRECT``, B 2 x S
+   2048, bfloat16) moonshot-v1-16b-a3b at full width cut to 4 of 48
+   layers (3.02 B; its ``moe_bwd_determinism`` too) and nemotron-4-15b at
+   full width cut to 1 of 32 layers (3.54 B, 3.15 B of them its untied
+   256,000-row embeddings), each through a ``TrainStepGraph`` outside the
+   ``Trainer`` (its stream emits no frontend, in the reference too; its
+   checkpoint costs ~35 s a billion parameters) (``train_direct``): its
+   reduced model card against CPU (with a prefix; under the bfloat16 rule),
+   the eager steps as above, freed, then 8 graphed steps from the same
+   init held to them bit for bit (losses finite, the first near ln V +
+   1/2, the last below the first; musicgen's 48 flash forward and 48
+   backward launches a step, all ``tf32x3`` in float32 and ``wgmma`` in
+   bfloat16), the peak memory, the graph's pool, the graphed and eager
+   step times, tokens per second and one traced step;
 9. dry-run and placement: (a) the port's dry-run (``launch/dryrun.py``)
    of every arch x shape at full width and depth, its step run as
    DTensors (meta shards) on both production meshes over a fake process
@@ -231,7 +247,9 @@ which fails the run (non-zero exit, no result line) if it fails:
    each with the launch counts set to 0 just before it and read just
    after: the quickstart (reduced qwen2.5-14b, 20 steps, a greedy
    generation; losses finite, the last below the first; flash forward and
-   backward launches as the layer plan gives them, its step with remat;
+   backward launches as the layer plan gives them, its step with remat, a
+   ``TrainStepGraph`` whose losses and trained params are the eager
+   ``make_train_step``'s bit for bit;
    each generated token's logits finite, not constant, and against a
    forward at the next position under rel 5e-3),
    serve_lm (reduced
@@ -2972,8 +2990,23 @@ TRAIN_PREFIXED = (
     {"arch": "musicgen-large", "layers": None, "dtype": "bfloat16",
      "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
 )
+# Two more archs trained outside the Trainer as musicgen-large is (a
+# Trainer run's checkpoint costs ~35 s a billion parameters), in
+# bfloat16 at full width: moonshot-v1-16b-a3b cut 48 -> 4 layers (3.02 B
+# parameters, 48.4 GB at 16 bytes each: its shared expert beside 64 routed
+# ones, capacity 1.25), nemotron-4-15b cut 32 -> 1 layer (3.54 B: 3.15 B of
+# them its untied 256,000-row embeddings; 56.6 GB), both at granite's lr.
+TRAIN_DIRECT = (
+    {"arch": "moonshot-v1-16b-a3b", "layers": 4, "dtype": "bfloat16",
+     "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
+    {"arch": "nemotron-4-15b", "layers": 1, "dtype": "bfloat16",
+     "batch": 2, "seq": 2048, "steps": 8, "lr": 3e-5, "grad_tol": 1e-4},
+)
 TRAIN_WARMUP = 2
 TRAIN_CKPT_DIR = ROOT / ".train_ckpt"   # listed in .gitignore; removed after
+# the steps before the checkpoint over which each graphed run's state is
+# held to the eager step's, bit for bit (its losses over every step)
+GRAPH_EQ_STEPS = 4
 # The step-1 loss of a random init: its final rms_norm gives every token
 # unit RMS and the fan-in LM head N(0, 1/d) weights, so each token's logits
 # are N(0, 1) over the vocabulary, whose log-sum-exp is ln V + 1/2.
@@ -3585,6 +3618,69 @@ def update_vs_plain(cfg, opt, data, steps: int) -> dict:
     return out
 
 
+def eager_steps(cfg, opt, batch_at, steps: int, remat: bool) -> dict:
+    """The eager ``make_train_step`` (the step a ``TrainStepGraph``
+    captures), ``steps`` steps from ``init_params(cfg, 0)`` on
+    ``batch_at(i)``, i = 0, 1, ...: each step's loss and time to the card's
+    end, the state's ``_fingerprint`` after each of the first
+    ``GRAPH_EQ_STEPS``, as ``{"params", "opt"}`` (a ``Trainer``'s state
+    tree), and the params' after the last.  The state is freed after: a
+    second one of the largest runs does not fit beside the first."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import make_train_step
+    params = init_params(cfg, seed=0, device=DEVICE)
+    state = init_opt_state(params)
+    step = make_train_step(cfg, opt, remat=remat)
+    losses, walls, prints = [], [], []
+    for i in range(steps):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        if i < GRAPH_EQ_STEPS:
+            prints.append(_fingerprint({"params": params, "opt": state}))
+    final = _fingerprint(params)
+    del params, state, met, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [1e3 * w for w in walls],
+            "step_ms_p50": 1e3 * statistics.median(walls[1:]),
+            "fingerprints": prints, "final_params": final}
+
+
+def _eager_summary(eager: dict) -> dict:
+    """``eager_steps``'s result for the report: its losses and times."""
+    return {k: eager[k] for k in ("losses", "step_ms", "step_ms_p50")}
+
+
+def _graph_stats(graph) -> dict:
+    """A ``TrainStepGraph``'s first step (its eager warm-up, then the
+    capture), its replays and its pool."""
+    return {"warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+            "pool_gib": graph.pool_bytes / 2**30, "steps": graph.steps,
+            "replays": graph.replays}
+
+
+def _require_graph_is_eager(cfg, eager: dict, losses, prints) -> None:
+    """A graphed run's losses and its state after each of the first
+    ``GRAPH_EQ_STEPS`` steps against the eager run's, bit for bit.  Step 1
+    is the graph's eager warm-up followed by its capture, so step 1's state
+    equal to the eager step 1's shows that the capture left every leaf as it
+    was."""
+    _require(losses == eager["losses"][:len(losses)]
+             and prints == eager["fingerprints"],
+             f"{cfg.name}'s graphed steps against the eager make_train_step: "
+             f"losses {losses} against {eager['losses']}, the state after "
+             f"steps 1-{GRAPH_EQ_STEPS} "
+             f"{[a == b for a, b in zip(prints, eager['fingerprints'])]}")
+
+
 def train_one(run: dict) -> dict:
     """One model of phase 8 through the port's ``Trainer`` (its default pod
     monitor over 2 pods fed the measured step times), in the run's dtype,
@@ -3610,7 +3706,7 @@ def train_one(run: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig
+    from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.optim import AdamWConfig, apply_updates, global_norm
     from repro_torch.train import make_grad_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -3631,6 +3727,11 @@ def train_one(run: dict) -> dict:
     no_ckpt = 2 * steps                # a checkpoint interval never reached
     counters = _train_counters()
     per_step = _step_launches(cfg)
+    stream = SyntheticStream(data)
+    eager = eager_steps(
+        cfg, opt, lambda i: {k: torch.as_tensor(np.asarray(v), device=DEVICE)
+                             for k, v in stream.batch_at(i).items()},
+        steps, remat=False)
     shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -3644,10 +3745,15 @@ def train_one(run: dict) -> dict:
         n_params = sum(t.numel() for t in _leaves(a.params))
         _require_state_dtypes(cfg, a.params, a.opt_state)
         _reset(counters)
-        t0 = time.perf_counter()
-        a.run()                                   # steps 1 .. ckpt
-        first_s = time.perf_counter() - t0
-        at_ckpt = _fingerprint(a._state_tree())
+        first_s, prints = 0.0, []
+        for k in range(1, ckpt + 1):          # steps 1 .. ckpt, one a run
+            a.tcfg = dataclasses.replace(a.tcfg, total_steps=k)
+            t0 = time.perf_counter()
+            a.run()
+            first_s += time.perf_counter() - t0
+            if k <= GRAPH_EQ_STEPS:
+                prints.append(_fingerprint(a._state_tree()))
+        at_ckpt = prints[ckpt - 1]
         a.tcfg = dataclasses.replace(a.tcfg, total_steps=steps,
                                      checkpoint_every=no_ckpt)
         a.run()                                   # the rest
@@ -3660,6 +3766,13 @@ def train_one(run: dict) -> dict:
         out["launches_per_step"] = per_step
         straight = [r["loss"] for r in a.history]
         walls = [r["wall_s"] for r in a.history]
+        _require_graph_is_eager(cfg, eager, straight, prints)
+        out["graph_is_eager_bit_for_bit"] = True
+        out["eager"] = _eager_summary(eager)
+        out["graph"] = _graph_stats(a.step_fn)
+        _require(out["graph"]["replays"] == steps - 1,
+                 f"{cfg.name}: steps 2-{steps} replays of the captured "
+                 f"step: {out['graph']}")
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["checkpoint_s"] = first_s - sum(walls[:ckpt])
         out["losses"] = straight
@@ -3670,6 +3783,7 @@ def train_one(run: dict) -> dict:
             out["step_ms_p50"] / 1e3)
         out["rescale_events"] = [e.kind for e in a.supervisor.events]
         init_loss = _require_losses(cfg, straight)
+        a.close()
         del a
         gc.collect()
         torch.cuda.empty_cache()
@@ -3698,6 +3812,8 @@ def train_one(run: dict) -> dict:
         _require(out["resume_bit_for_bit"],
                  f"{cfg.name}'s resumed steps {resumed} and state against "
                  f"the straight run's {want}")
+        out["graph_resumed"] = _graph_stats(b.step_fn)
+        b.close()               # its graph's pool, before the eager steps
 
         batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE)
                  for k, v in b.stream.batch_at(steps).items()}
@@ -3751,8 +3867,13 @@ def train_one(run: dict) -> dict:
     print(f"[train] {cfg.name} x {cfg.n_layers} layers ({cfg.dtype}, "
           f"{out['params_b']:.3f} B params, B {run['batch']} x S "
           f"{run['seq']}): losses {straight}; step p50 "
-          f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, "
-          f"peak {out['peak_mem_gb']:.2f} GB; checkpoint write "
+          f"{out['step_ms_p50']:.1f} ms graphed against "
+          f"{eager['step_ms_p50']:.1f} ms eager (steps 2-{steps}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{out['peak_mem_gb']:.2f} GB, graph pool "
+          f"{out['graph']['pool_gib']:.2f} GiB, capture "
+          f"{out['graph']['capture_s']:.2f} s, bit for bit the eager step "
+          f"(losses, state at steps 1-{GRAPH_EQ_STEPS}); checkpoint write "
           f"{out['checkpoint_s']:.1f} s, restore {out['restore_s']:.1f} s; "
           f"of a step's card time ({traced['card_ms']:.1f} ms) flash "
           f"forward {100 * traced['flash_fwd_share']:.1f}%, backward "
@@ -3769,9 +3890,9 @@ def train_one(run: dict) -> dict:
 def prefixed_batch(cfg, shape, step: int, device) -> dict:
     """The train batch that ``train_batch_specs(cfg, shape)`` lays out, made
     real on ``device``: ``tokens`` and ``labels`` [B, S - P] of the
-    synthetic Zipf stream's batch ``step`` (seed 0), and a ``frontend``
-    [B, P, d] drawn N(0, 1) from a generator seeded with ``step``; each of
-    the specs' shape and dtype."""
+    synthetic Zipf stream's batch ``step`` (seed 0), and for a prefixed
+    model a ``frontend`` [B, P, d] drawn N(0, 1) from a generator seeded
+    with ``step``; each of the specs' shape and dtype."""
     import numpy as np
     import torch
     from repro_torch.configs import train_batch_specs
@@ -3782,11 +3903,12 @@ def prefixed_batch(cfg, shape, step: int, device) -> dict:
         global_batch=shape.global_batch, seed=0))
     batch = {k: torch.as_tensor(np.asarray(v), device=device)
              for k, v in stream.batch_at(step).items()}
-    g = torch.Generator(device=device)
-    g.manual_seed(step)
-    front = specs["frontend"]
-    batch["frontend"] = torch.randn(front.shape, generator=g,
-                                    device=device).to(front.dtype)
+    if "frontend" in specs:
+        g = torch.Generator(device=device)
+        g.manual_seed(step)
+        front = specs["frontend"]
+        batch["frontend"] = torch.randn(front.shape, generator=g,
+                                        device=device).to(front.dtype)
     for key, spec in specs.items():
         _require(batch[key].shape == spec.shape
                  and batch[key].dtype == spec.dtype,
@@ -3795,37 +3917,48 @@ def prefixed_batch(cfg, shape, step: int, device) -> dict:
     return batch
 
 
-def train_prefixed(run: dict) -> dict:
-    """A vlm or audio model of phase 8 with its frontend prefix, float32,
-    through ``make_train_step`` on the batches ``prefixed_batch`` makes of
-    ``train_batch_specs`` (the ``Trainer``'s synthetic stream emits no
-    frontend, in the reference too): first its reduced model card against
-    CPU, then ``steps`` AdamW steps from a random init made on the card,
-    each timed to the card's end, their launches set to 0 before the first
-    and read after the last (``_step_launches`` a step, no remat: the
-    activations fit); every loss finite, the first near a random init's
-    ln V + 1/2, the last below the first; the peak memory; one traced
-    step."""
+def train_direct(run: dict) -> dict:
+    """A model of phase 8 outside the ``Trainer``, through a
+    ``TrainStepGraph`` (the ``Trainer``'s step, without its checkpoint) on
+    the batches ``prefixed_batch`` makes of ``train_batch_specs``: a vlm or
+    audio model with its frontend prefix (the ``Trainer``'s synthetic
+    stream emits no frontend, in the reference too), and the runs of
+    ``TRAIN_DIRECT``.  First its reduced model card against CPU (and under
+    the bfloat16 rule), an MoE model's ``moe_bwd_determinism``; then
+    ``steps`` eager steps (``eager_steps``), freed; then ``steps`` graphed
+    steps from the same init, each timed to the card's end, their launches
+    set to 0 before the first and read after the last (``_step_launches``
+    a step, no remat: the activations fit), their losses and the state
+    after steps 1-4 the eager run's bit for bit; every loss finite, the
+    first near a random init's ln V + 1/2, the last below the first; the
+    peak memory and the graph's pool; one traced step."""
     import dataclasses
     import gc
     import statistics
     import torch
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape, get_config, train_batch_specs
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, apply_updates, init_opt_state
-    from repro_torch.train import make_grad_step, make_train_step
+    from repro_torch.train import make_grad_step
+    from repro_torch.train.step_graph import TrainStepGraph
 
     t_phase = time.perf_counter()
     out = {"reduced_vs_cpu": train_reduced_vs_cpu(run)}
     cfg = dataclasses.replace(get_config(run["arch"]), dtype=run["dtype"])
     if run["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    if cfg.family == "moe":
+        out["moe_bwd_determinism"] = moe_bwd_determinism(
+            cfg, run["batch"], run["seq"])
     shape = InputShape("train", "train", run["seq"], run["batch"])
     steps = run["steps"]
     opt = AdamWConfig(lr=run["lr"], warmup_steps=TRAIN_WARMUP,
                       total_steps=steps)
     counters = _train_counters()
     per_step = _step_launches(cfg)
+    eager = eager_steps(
+        cfg, opt, lambda i: prefixed_batch(cfg, shape, i, DEVICE), steps,
+        remat=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3835,35 +3968,47 @@ def train_prefixed(run: dict) -> dict:
     out["init_s"] = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
     _require_state_dtypes(cfg, params, opt_state)
-    step = make_train_step(cfg, opt, remat=False)
-    losses, norms, walls = [], [], []
+    graph = TrainStepGraph(cfg, opt, params, opt_state,
+                           train_batch_specs(cfg, shape), remat=False)
+    losses, norms, walls, prints = [], [], [], []
     _reset(counters)
     for i in range(steps):
         batch = prefixed_batch(cfg, shape, i, DEVICE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, met = step(params, opt_state, batch)
-        met = {k: float(v) for k, v in met.items()}
+        met = {k: float(v) for k, v in graph.step(batch).items()}
         walls.append(time.perf_counter() - t0)
         losses.append(met["loss"])
         norms.append(met["grad_norm"])
+        if i < GRAPH_EQ_STEPS:
+            prints.append(_fingerprint({"params": params, "opt": opt_state}))
         print(f"[train] {cfg.name} step {i + 1} loss={met['loss']:.4f} "
               f"({walls[-1] * 1e3:.0f} ms)", flush=True)
     n = _counts(counters)
     _require(n == {name: steps * k for name, k in per_step.items()},
-             f"{cfg.name}'s launches over {steps} prefixed steps {n}: want "
+             f"{cfg.name}'s launches over {steps} graphed steps {n}: want "
              f"{per_step} a step")
+    _require_graph_is_eager(cfg, eager, losses, prints)
+    out["eager"] = _eager_summary(eager)
+    out["graph"] = _graph_stats(graph)
+    _require(out["graph"]["replays"] == steps - 1,
+             f"{cfg.name}: steps 2-{steps} replays of the captured step: "
+             f"{out['graph']}")
     n_text = batch["tokens"].numel()
     out.update(launches_straight=n, launches_per_step=per_step,
+               graph_is_eager_bit_for_bit=True,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
                losses=losses, grad_norms=norms,
                step_ms=[1e3 * w for w in walls],
                step_ms_p50=1e3 * statistics.median(walls[1:]),
-               text_tokens_per_step=n_text,
-               prefix_positions_per_step=batch["frontend"].shape[0]
-               * batch["frontend"].shape[1])
+               text_tokens_per_step=n_text)
+    if "frontend" in batch:
+        out["prefix_positions_per_step"] = (batch["frontend"].shape[0]
+                                            * batch["frontend"].shape[1])
     out["tokens_per_s"] = n_text / (out["step_ms_p50"] / 1e3)
     init_loss = _require_losses(cfg, losses)
+    graph.close()               # its graph's pool, before the eager step
 
     traced_step = split_step(make_grad_step(cfg, remat=False),
                              lambda p, g, s: apply_updates(p, g, s, opt))
@@ -3871,7 +4016,7 @@ def train_prefixed(run: dict) -> dict:
     def run_step():
         float(traced_step(params, opt_state, batch)[2]["loss"])
     traced = out["traced_step"] = _traced_step(run_step, per_step, cfg.dtype)
-    del params, opt_state, batch, step, traced_step
+    del params, opt_state, batch, graph, traced_step
     gc.collect()
     torch.cuda.empty_cache()
     out.update(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
@@ -3881,14 +4026,21 @@ def train_prefixed(run: dict) -> dict:
                init_loss_expected=init_loss,
                phase_s=time.perf_counter() - t_phase)
     print(f"[train] {out}", flush=True)
+    layout = (f"B {run['batch']} x (P {cfg.frontend_len} + "
+              f"{run['seq'] - cfg.frontend_len} text tokens)"
+              if cfg.frontend_len and cfg.frontend != "none"
+              else f"B {run['batch']} x S {run['seq']}")
     print(f"[train] {cfg.name} x {cfg.n_layers} layers ({cfg.dtype}, "
-          f"{out['params_b']:.3f} B params, B {run['batch']} x (P "
-          f"{cfg.frontend_len} + {run['seq'] - cfg.frontend_len} text "
-          f"tokens)): losses {losses}; step p50 "
-          f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} text "
-          f"tokens/s, peak {out['peak_mem_gb']:.2f} GB; of a step's card "
-          f"time flash forward {100 * traced['flash_fwd_share']:.1f}%, "
-          f"backward {100 * traced['flash_bwd_share']:.1f}%; the gradient's "
+          f"{out['params_b']:.3f} B params, {layout}): losses {losses}; "
+          f"step p50 {out['step_ms_p50']:.1f} ms graphed against "
+          f"{eager['step_ms_p50']:.1f} ms eager (steps 2-{steps}), "
+          f"{out['tokens_per_s']:.0f} text tokens/s, peak "
+          f"{out['peak_mem_gb']:.2f} GB, graph pool "
+          f"{out['graph']['pool_gib']:.2f} GiB, capture "
+          f"{out['graph']['capture_s']:.2f} s, bit for bit the eager step; "
+          f"of a step's card time ({traced['card_ms']:.1f} ms) flash forward "
+          f"{100 * traced['flash_fwd_share']:.1f}%, backward "
+          f"{100 * traced['flash_bwd_share']:.1f}%; the gradient's "
           f"range {_range_ms(traced, 0):.1f} ms, the update's "
           f"{_range_ms(traced, 1):.1f} ms of card time; "
           f"{out['phase_s']:.0f} s", flush=True)
@@ -3904,14 +4056,14 @@ def _train_key(out: dict) -> str:
 
 def train(report: dict) -> dict:
     """Phase 8: ``train_one`` for each of ``TRAIN_RUNS``, then
-    ``train_prefixed`` for each of ``TRAIN_PREFIXED``, one after the other.
-    Returns ``{_train_key(result): result}``."""
+    ``train_direct`` for each of ``TRAIN_PREFIXED`` and ``TRAIN_DIRECT``,
+    one after the other.  Returns ``{_train_key(result): result}``."""
     trained = {}
     for run in TRAIN_RUNS:
         out = train_one(run)
         trained[_train_key(out)] = out
-    for run in TRAIN_PREFIXED:
-        out = train_prefixed(run)
+    for run in (*TRAIN_PREFIXED, *TRAIN_DIRECT):
+        out = train_direct(run)
         trained[_train_key(out)] = out
     report["train"] = trained
     return trained
@@ -4300,11 +4452,15 @@ def _twin_quickstart(counters) -> dict:
     attention forward twice per attention block a step (its step is
     ``make_train_step``'s default, which rematerialises, as the
     reference's) and once per block in the generation's prefill, backward
-    once per block a step.  The generation's logits, finite and not
-    constant, against a forward of the prompt and the generated tokens on
-    the trained weights at the next position, each under rel 5e-3, the
-    model tolerance (its ids alone are the stream's most frequent token)."""
+    once per block a step.  Its step is a ``TrainStepGraph`` (the
+    original's is jitted): its losses and its trained params are the eager
+    ``make_train_step``'s from the same init and batches, bit for bit.  The
+    generation's logits, finite and not constant, against a forward of the
+    prompt and the generated tokens on the trained weights at the next
+    position, each under rel 5e-3, the model tolerance (its ids alone are
+    the stream's most frequent token)."""
     import torch
+    from repro_torch.data import SyntheticStream
     from repro_torch.examples import quickstart
     from repro_torch.models import forward
     _reset(counters)
@@ -4312,6 +4468,15 @@ def _twin_quickstart(counters) -> dict:
     q = quickstart.main([])
     seconds = time.perf_counter() - t0
     got = _counts(counters)
+    stream = SyntheticStream(q["data"])
+    eager = eager_steps(q["cfg"], q["opt"], lambda i: {
+        k: torch.as_tensor(v, device=DEVICE)
+        for k, v in stream.batch_at(i).items()}, quickstart.STEPS,
+        remat=True)
+    _require(q["losses"] == eager["losses"]
+             and _fingerprint(q["params"]) == eager["final_params"],
+             f"the quickstart's graphed losses {q['losses']} and trained "
+             f"params against the eager step's {eager['losses']}")
     toks = torch.cat([q["prompt"], torch.as_tensor(
         [q["generated"][:-1]], dtype=q["prompt"].dtype,
         device=q["prompt"].device)], dim=1)
@@ -4338,7 +4503,8 @@ def _twin_quickstart(counters) -> dict:
              f"quickstart launches {got} against the plan's {want}")
     return {"losses": losses, "generated": q["generated"],
             "logits_rel_max": max(rels), "launches": got, "plan": want,
-            "seconds": seconds}
+            "graph_is_eager_bit_for_bit": True,
+            "eager_step_ms_p50": eager["step_ms_p50"], "seconds": seconds}
 
 
 def _twin_serve_lm(counters) -> dict:
@@ -4394,6 +4560,7 @@ def _twin_train_lm(counters, smi: str) -> dict:
         t["cfg"], t["steps"], t["steps"], t["seq"], t["batch"],
         str(TRAIN_LM_CKPT / "straight"), DEVICE, 2 * t["steps"])
     hist = straight.run()
+    straight.close()
     shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
     crashed = [h["loss"] for h in t["first"] + t["resumed"]]
     uninterrupted = [h["loss"] for h in hist]

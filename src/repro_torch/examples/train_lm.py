@@ -75,6 +75,7 @@ def main(argv=None) -> dict:
     t1 = make_trainer(cfg, steps, half, seq, batch, ckpt_dir, device,
                       max(half // 2, 1))
     first = t1.run()
+    t1.close()
     print(f"-- simulated crash after step {t1.step}; restarting from "
           f"{ckpt_dir}")
 
@@ -85,6 +86,7 @@ def main(argv=None) -> dict:
     resumed_at = t2.step
     print(f"-- resumed at step {t2.step} (data stream skipped ahead exactly)")
     hist = t2.run()
+    t2.close()
 
     print(f"\nfinal loss: {hist[-1]['loss']:.4f} "
           f"(first: {hist[0]['loss']:.4f})")

@@ -59,6 +59,7 @@ def main() -> None:
     if args.resume and trainer.try_restore():
         print(f"[train] resumed from step {trainer.step}")
     hist = trainer.run()
+    trainer.close()
     print(f"[train] done: {len(hist)} steps, "
           f"final loss {hist[-1]['loss']:.4f}, checkpoints in {ckpt_dir}")
 

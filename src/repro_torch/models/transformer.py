@@ -345,8 +345,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     aux_total = torch.zeros((), device=x.device)
     for kind, p, _ in _walk(params, cfg):
         if remat and kind != "shared_attn":
+            # no block draws a random number, so there is no RNG state to
+            # stash; reading the CUDA generator's is refused in a graph
+            # capture (``train/step_graph.py``)
             x, aux = checkpoint(_block_fwd, cfg, kind, p, x, positions,
-                                use_reentrant=False)
+                                use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux = _block_fwd(cfg, kind, p, x, positions)
         if aux is not None:

@@ -8,9 +8,10 @@ bias corrections in float32, the gradients cast to float32 and scaled by
 the clip factor.  One difference of form: :func:`apply_updates` writes the
 new moments, master copy and params into the tensors it is given (under
 ``torch.no_grad()``) and returns those same trees, where the reference
-builds new ones.  The values are the reference's; what the update saves is
-memory (granite-8b at 8 layers holds 2.15 B parameters: a functional update
-would hold a second set of params and moments, 25.8 GB, beside the first).
+builds new ones (the step count too).  The values are the reference's;
+what the update saves is memory (granite-8b at 8 layers holds 2.15 B
+parameters: a functional update would hold a second set of params and
+moments, 25.8 GB, beside the first).
 
 What runs where.  The step's scalars (lr, the clip factor, the bias
 corrections) are eager 0-d tensors on the params' device.  The gradient
@@ -130,7 +131,9 @@ def apply_updates_with(params: PyTree, grads: PyTree, state: dict,
                                leaves(state["m"]), leaves(state["v"])):
         update(p, p32, g, m, v, lr, scale, b1c, b2c, b1=cfg.b1, b2=cfg.b2,
                eps=cfg.eps, weight_decay=cfg.weight_decay)
-    state["step"] = step
+    # into the step count's own tensor, which a captured step reads by
+    # address (``train/step_graph.py``)
+    state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 

@@ -21,21 +21,13 @@ step (no ``donate_argnums``) returns a new state each step.
 
 A replay runs none of the kernel wrappers' Python, so the launch counters
 do not see it: at capture the slot takes each counter's delta, and every
-replay adds it back (``LaunchCounter.add(n)``).
+replay adds it back (``graphs.capture``, ``graphs.replay``).
 
 cuBLAS keeps a workspace for each stream it runs on, a slot's capture
-stream's too, which the graph reads by address.  PyTorch keeps these
-workspaces for the whole process, not for a slot or an engine, and frees
-them only all at once (``torch._C._cuda_clearCublasWorkspaces``), the
-default stream's and every other thread's among them.  So the slots that
-live are counted for the process too (``_LIVE``, the module's one piece of
-state), and only the last of them to close clears the workspaces, after a
-``synchronize``.  That clear is process-wide: it must not run while
-another thread launches cuBLAS work, which ``ServingEngine.close`` keeps
-by refusing while its run is live, and a graph captured elsewhere in the
-process, which reads such a workspace too, must not outlive it.  Without
-it the capture streams' workspaces stay allocated after the engine is
-gone.
+stream's too, which the graph reads by address.  The slots that live are
+counted for the process with the captured train steps
+(``repro_torch/graphs.py``), and only the last graph of either kind to
+close clears the workspaces, so that no graph outlives one it reads.
 
 On the CPU the slot runs ``decode_step`` directly on the same static
 buffers: its plain version, as each kernel wrapper takes its plain
@@ -45,22 +37,17 @@ dry-run's decode on a mesh stays eager.
 from __future__ import annotations
 
 import time
-import weakref
 from typing import Iterator
 
 import torch
 
+from .. import graphs
 from ..kernels import flash_attention, slstm_scan, ssd_scan
 from ..kernels.common import LaunchCounter
 from ..models import decode_step, init_decode_state
 from ..parallel.sharding import is_distributed
 
 WARMUP_STEPS = 3
-
-# the slots whose graphs live, in the whole process: cuBLAS's workspaces,
-# which their graphs read, are the process's, and are cleared when the last
-# of them closes
-_LIVE: "weakref.WeakSet[DecodeSlot]" = weakref.WeakSet()
 
 
 def decode_counters() -> list[LaunchCounter]:
@@ -138,16 +125,9 @@ class DecodeSlot:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.device_bytes = torch.cuda.memory_allocated(dev) - allocated
-        counters = decode_counters()
-        before = [c.count for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        # no ``pool``: the graph's memory pool is its own
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.logits, self.argmax = self._run()
-        self.deltas = [(c, c.count - n) for c, n in zip(counters, before)
-                       if c.count != n]
-        self.graph = graph
-        _LIVE.add(self)
+        self.graph, (self.logits, self.argmax), self.deltas = graphs.capture(
+            self._run, self.stream, decode_counters())
+        graphs.hold(self)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -182,9 +162,7 @@ class DecodeSlot:
             if self.graph is None:
                 self.logits, self.argmax = self._run()
             else:
-                self.graph.replay()
-                for counter, n in self.deltas:
-                    counter.add(n)
+                graphs.replay(self.graph, self.deltas)
                 self.replays += 1
             for path, mine in self._buffers:
                 _at(state, path).copy_(mine)
@@ -192,14 +170,10 @@ class DecodeSlot:
 
     def close(self) -> None:
         """Release the graph, its pool, the static buffers and the slot's
-        hold on the params; the last live slot of the process also clears
-        cuBLAS's workspaces."""
+        hold on the params; the last graph of the process to close, of
+        either kind, also clears cuBLAS's workspaces (``graphs.release``)."""
         if self.graph is not None:
-            self.graph.reset()
-            _LIVE.discard(self)
-            if not _LIVE and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-                torch._C._cuda_clearCublasWorkspaces()
+            graphs.release(self, self.graph, self.device)
         self.graph = None
         self.params = self.state = self.token = None
         self.logits = self.argmax = None

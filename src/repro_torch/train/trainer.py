@@ -10,8 +10,14 @@ code path (detection, plan, restart, resume) is the real one.
 
 The loop is the reference's.  The params live on ``device`` (the card
 unless the caller asks for the CPU), drawn by ``init_params(cfg, seed,
-device=...)``; each batch goes there before its step; a step's wall time
-ends when its metrics reach the host, after the card is done.
+device=...)``.  The step is a ``TrainStepGraph`` over them
+(``train/step_graph.py``), the counterpart of the reference's
+``jax.jit(make_train_step(...))``: on the card a captured graph, replayed
+from the second step on, on the CPU the plain step.  Each batch is copied
+into its static buffers; a step's wall time ends when its metrics reach
+the host, after the card is done.  A restore writes the checkpoint into
+the params and state the graph reads.  :meth:`Trainer.close` frees the
+graph and its pool.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ..models import init_params
 from ..optim import (AdamWConfig, init_error_feedback,
                      init_opt_state)
 from ..runtime import HeartbeatMonitor, PodMonitor, Supervisor
-from .train_step import make_train_step
+from .step_graph import TrainStepGraph
 
 
 @dataclasses.dataclass
@@ -60,9 +66,12 @@ class Trainer:
         self.stream = SyntheticStream(data_cfg)
         self.pod_time_fn = pod_time_fn
 
-        self.step_fn = make_train_step(cfg, opt_cfg, remat=tcfg.remat)
         self.params = init_params(cfg, tcfg.seed, device=self.device)
         self.opt_state = init_opt_state(self.params)
+        self.step_fn = TrainStepGraph(
+            cfg, opt_cfg, self.params, self.opt_state,
+            {k: torch.as_tensor(v) for k, v in self.stream.batch_at(0).items()},
+            remat=tcfg.remat)
         self.error_fb = (init_error_feedback(self.params)
                          if tcfg.grad_compression != "none" else None)
         self.step = 0
@@ -83,8 +92,8 @@ class Trainer:
     def try_restore(self) -> bool:
         if self.ckpt.latest_step() is None:
             return False
-        tree, manifest = self.ckpt.restore(self._state_tree())
-        self.params, self.opt_state = tree["params"], tree["opt"]
+        # into the params and state the step's graph reads
+        _, manifest = self.ckpt.restore(self._state_tree())
         self.step = manifest["step"]
         self.stream.skip_to(manifest["extra"]["data"]["step"])
         return True
@@ -94,12 +103,9 @@ class Trainer:
         tcfg = self.tcfg
         while self.step < tcfg.total_steps:
             batch = next(self.stream)
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in batch.items()}
             t0 = time.perf_counter()
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(v)
+                       for k, v in self.step_fn.step(batch).items()}
             wall = time.perf_counter() - t0
             self.step += 1
 
@@ -124,3 +130,9 @@ class Trainer:
                       f"({wall*1e3:.0f} ms)")
         self.ckpt.wait()
         return self.history
+
+    def close(self) -> None:
+        """Wait for a checkpoint in flight; free the step's graph and its
+        pool."""
+        self.ckpt.wait()
+        self.step_fn.close()

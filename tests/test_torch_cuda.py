@@ -1710,3 +1710,174 @@ def test_engine_decode_graphs_free_their_memory(card):
     after = torch.cuda.memory_allocated(card)
     assert during > before
     assert after - before <= 4 << 20, (before, during, after)
+
+
+# -- the train step as one captured CUDA graph (train/step_graph.py) ----------
+
+TRAIN_GRAPH_STEPS = 4
+
+
+def _train_graph_model(card, arch):
+    """A reduced model of ``arch`` on the card, its optimizer and a batch
+    maker laid out as ``train_batch_specs`` at B 2 x S 128."""
+    from repro_torch.configs import InputShape, get_config, train_batch_specs
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(arch).reduced()
+    specs = train_batch_specs(cfg, InputShape("train", "train", 128, 2))
+
+    def batch(i):
+        g = torch.Generator(device=card).manual_seed(50 + i)
+        out = {k: torch.randint(0, cfg.vocab, v.shape, generator=g,
+                                device=card, dtype=v.dtype)
+               for k, v in specs.items() if k != "frontend"}
+        if "frontend" in specs:
+            out["frontend"] = torch.randn(specs["frontend"].shape,
+                                          generator=g, device=card)
+        return out
+    opt = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    return cfg, opt, specs, batch
+
+
+def _train_state(card, cfg):
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+    params = init_params(cfg, seed=4, device=card)
+    return params, init_opt_state(params)
+
+
+def _trees_bit_equal(a, b) -> bool:
+    from repro_torch.optim.adamw import leaves
+    la, lb = list(leaves(a)), list(leaves(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.detach().reshape(-1).view(torch.uint8),
+                        y.detach().reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b",
+                                  "zamba2-1.2b", "xlstm-125m",
+                                  "musicgen-large"])
+def test_train_graph_is_the_eager_step_bit_for_bit(card, arch, remat):
+    """``TRAIN_GRAPH_STEPS`` steps of a reduced model through a
+    ``TrainStepGraph`` (step 1 its eager warm-up, then replays) against the
+    eager ``make_train_step`` from the same init and batches: every metric
+    and every leaf of the params and the optimizer state bit for bit after
+    each step; each replay adds the launches its capture took."""
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step_graph import TrainStepGraph
+    cfg, opt, specs, batch = _train_graph_model(card, arch)
+    params, state = _train_state(card, cfg)
+    g_params, g_state = _train_state(card, cfg)
+    eager = make_train_step(cfg, opt, remat=remat)
+    graph = TrainStepGraph(cfg, opt, g_params, g_state, specs, remat=remat)
+    for i in range(TRAIN_GRAPH_STEPS):
+        params, state, want = eager(params, state, batch(i))
+        got = graph.step(batch(i))
+        for key, v in want.items():
+            assert torch.equal(got[key], v), (i, key)
+        assert _trees_bit_equal(g_params, params), i
+        assert _trees_bit_equal(g_state, state), i
+    assert graph.replays == TRAIN_GRAPH_STEPS - 1
+    assert graph.pool_bytes > 0 and graph.capture_s > 0
+    assert graph.deltas            # at least AdamW's kernels
+    graph.close()
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b"])
+def test_train_graph_capture_leaves_the_state_as_it_was(card, arch):
+    """The capture records the step and runs none of it: every leaf of the
+    params and the optimizer state, the step count among them, bit for bit
+    as the warm-up step left it."""
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step_graph import TrainStepGraph
+    cfg, opt, specs, batch = _train_graph_model(card, arch)
+    params, state = _train_state(card, cfg)
+    graph = TrainStepGraph(cfg, opt, params, state, specs, remat=True)
+    graph.load(batch(0))
+    graph._warm_up()
+    before = tree_map(lambda t: t.detach().clone(),
+                      {"params": params, "opt": state})
+    graph._capture()
+    torch.cuda.synchronize()
+    assert graph.graph is not None
+    assert _trees_bit_equal({"params": params, "opt": state}, before)
+    assert int(state["step"]) == 1
+    graph.close()
+
+
+def test_train_graph_capture_holds_under_deterministic_algorithms(card):
+    """The MoE path's backward (its scatter to capacity slots, gathered
+    back) under ``torch.use_deterministic_algorithms(True)``, as
+    ``chip_smoke.moe_bwd_determinism`` runs it: the captured step is the
+    eager step in that mode, bit for bit."""
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step_graph import TrainStepGraph
+    cfg, opt, specs, batch = _train_graph_model(card, "qwen3-moe-30b-a3b")
+    params, state = _train_state(card, cfg)
+    g_params, g_state = _train_state(card, cfg)
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = make_train_step(cfg, opt, remat=False)
+        graph = TrainStepGraph(cfg, opt, g_params, g_state, specs,
+                               remat=False)
+        for i in range(3):
+            params, state, want = eager(params, state, batch(i))
+            got = graph.step(batch(i))
+            assert torch.equal(got["loss"], want["loss"]), i
+            assert _trees_bit_equal(g_state, state), i
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graph.replays == 2
+    graph.close()
+
+
+@pytest.mark.parametrize("first", ["decode", "train"])
+def test_decode_slot_and_train_graph_close_in_either_order(card, first):
+    """A decode slot and a train graph alive together count each other
+    (``repro_torch/graphs.py``): closing the first leaves cuBLAS's
+    workspaces, which the other reads, in place, so its replays stay the
+    eager steps bit for bit; closing the second clears them."""
+    from repro_torch import graphs
+    from repro_torch.models import decode_step
+    from repro_torch.serve.decode_graph import DecodeSlot
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step_graph import TrainStepGraph
+    live = graphs.live()
+    cfg_d, params_d, state_d, tok = _graph_model(card, "granite-8b")
+    slot = DecodeSlot(params_d, cfg_d, GRAPH_MAX_LEN, card)
+    cfg, opt, specs, batch = _train_graph_model(card, "granite-8b")
+    params, state = _train_state(card, cfg)
+    g_params, g_state = _train_state(card, cfg)
+    eager = make_train_step(cfg, opt, remat=False)
+    graph = TrainStepGraph(cfg, opt, g_params, g_state, specs, remat=False)
+    for i in range(2):                  # the warm-up, the capture, a replay
+        params, state, _ = eager(params, state, batch(i))
+        graph.step(batch(i))
+    assert graphs.live() == live + 2
+    (slot if first == "decode" else graph).close()
+    assert graphs.live() == live + 1
+    if first == "decode":
+        for i in range(2, 4):
+            params, state, want = eager(params, state, batch(i))
+            got = graph.step(batch(i))
+            assert torch.equal(got["loss"], want["loss"]), i
+        assert _trees_bit_equal(g_state, state)
+        graph.close()
+    else:
+        eager_state, graph_state = _tree_clone(state_d), _tree_clone(state_d)
+        want, t = [], tok
+        slot.stream.wait_stream(torch.cuda.current_stream())
+        with torch.inference_mode(), torch.cuda.stream(slot.stream):
+            for _ in range(4):
+                logits, _ = decode_step(params_d, cfg_d, eager_state,
+                                        torch.tensor([t], device=card))
+                t = int(torch.argmax(logits[0]))
+                want.append(logits.clone())
+        torch.cuda.current_stream().wait_stream(slot.stream)
+        got, _ = _graphed(slot, graph_state, tok, steps=4)
+        assert all(_bits_equal(g, w) for g, w in zip(got, want))
+        slot.close()
+    torch.cuda.synchronize()
+    assert graphs.live() == live

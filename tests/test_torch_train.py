@@ -218,11 +218,13 @@ def _batch(vocab: int, b: int = 2, s: int = 48, seed: int = 4,
 @pytest.mark.parametrize("arch,grad_tol,heads", [
     ("granite-8b", 1e-4, False), ("qwen3-moe-30b-a3b", 1e-4, False),
     ("zamba2-1.2b", 3e-3, False), ("xlstm-125m", 1e-4, False),
-    ("stablelm-3b", 1e-4, True), ("qwen2.5-14b", 1e-4, True)])
+    ("stablelm-3b", 1e-4, True), ("qwen2.5-14b", 1e-4, True),
+    ("moonshot-v1-16b-a3b", 1e-4, False), ("nemotron-4-15b", 1e-4, False)])
 def test_loss_and_gradients_match_reference(arch, grad_tol, heads):
     """``loss_and_metrics`` and its gradients for the reduced model of each
-    trainable layer plan (dense; MoE, with its aux loss; the hybrid; the
-    ssm), from the same weights and batch: the loss at rel 1e-5, every
+    trainable layer plan (dense; MoE, with its aux loss, moonshot's with its
+    shared expert; the hybrid; the ssm; nemotron's squared ReLU and untied
+    embeddings), from the same weights and batch: the loss at rel 1e-5, every
     gradient leaf at ``grad_tol`` x its largest magnitude (the module doc
     says why the hybrid's is the SSD tolerance).  With ``heads``, at the
     arch's own head layout, which ``reduced()`` hides

@@ -57,7 +57,8 @@ def _chip_smoke():
 CS = _chip_smoke()
 LIMITS = CS.bf16_grad_limits()
 ARCHS = ("granite-8b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "xlstm-125m",
-         "musicgen-large", "stablelm-3b", "qwen2.5-14b")
+         "musicgen-large", "stablelm-3b", "qwen2.5-14b", "moonshot-v1-16b-a3b",
+         "nemotron-4-15b")
 
 
 def _flat(tree, prefix=""):
@@ -96,7 +97,7 @@ def _t(batch: dict) -> dict:
 
 
 def test_the_rule_is_grounded_on_eight_seeds_of_every_arch():
-    """``tools/bf16_grad_drift.jsonl`` holds seeds 0-7 of each of the seven
+    """``tools/bf16_grad_drift.jsonl`` holds seeds 0-7 of each of the nine
     reduced archs; its last line is the limits ``bf16_grad_limits`` reads
     from the rows (zamba2-1.2b without a gradient limit), and in every row
     the port's bfloat16 run is within them."""

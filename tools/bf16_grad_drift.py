@@ -10,7 +10,9 @@ on a CPU).
 For each trainable layer plan's reduced model (dense granite-8b, MoE
 qwen3-moe-30b-a3b with its aux loss, the hybrid zamba2-1.2b, the ssm
 xlstm-125m, musicgen-large with its frontend prefix of 16, and the dense
-stablelm-3b and qwen2.5-14b, the latter with its QKV bias), each seed:
+stablelm-3b and qwen2.5-14b, the latter with its QKV bias, the MoE
+moonshot-v1-16b-a3b with its shared expert, and the dense nemotron-4-15b
+with its squared ReLU and untied embeddings), each seed:
 the JAX package's params drawn in bfloat16 from ``PRNGKey(seed)`` and the
 same params cast up to float32; the batch of ``tests/test_torch_train.py``'s
 ``_batch`` (B 2 x S 48, a loss mask; its numpy seed ``4 + seed``, so that
@@ -60,7 +62,8 @@ from repro.train import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("granite-8b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "xlstm-125m",
-         "musicgen-large", "stablelm-3b", "qwen2.5-14b")
+         "musicgen-large", "stablelm-3b", "qwen2.5-14b", "moonshot-v1-16b-a3b",
+         "nemotron-4-15b")
 
 
 def _chip_smoke():
