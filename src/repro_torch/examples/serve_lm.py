@@ -22,7 +22,8 @@ REQUESTS = 10
 
 
 def main(argv=None) -> dict:
-    """Returns each scheduler's latency stats and prefill placement."""
+    """Returns each scheduler's latency stats, prefill placement and the
+    prefill graphs its engine captured (none on the CPU)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -39,6 +40,7 @@ def main(argv=None) -> dict:
                           max_new_tokens=4)
         m = engine.run(timeout=300)
         stats = engine.latency_stats()
+        captures = engine.prefill_graph_stats()["captures"]
         engine.close()
         pp = m.priority_placement()
         on_slow = sum(v for k, v in pp.items() if k.startswith("(C0"))
@@ -48,7 +50,8 @@ def main(argv=None) -> dict:
               f"prefills_on_slow_submesh={on_slow*100:.0f}%")
         out[sched] = {"stats": stats, "prefills_on_slow": on_slow,
                       "prefills": sum(1 for r in m.records
-                                      if r.priority == 1)}
+                                      if r.priority == 1),
+                      "prefill_captures": captures}
     print("\nDAM-P learns the slow submesh from measured wall times and "
           "steers prefills (critical tasks) away from it.  Wall times of "
           "requests this small are noisy — see "

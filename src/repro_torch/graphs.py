@@ -2,10 +2,20 @@
 takes and each replay adds back, and the process-wide count of the graphs
 that live, by which the last of them to close clears cuBLAS's workspaces.
 
-Two kinds of graph live in one process: the serving engine's decode slots
-(``serve/decode_graph.py``), the counterpart of the reference's jitted
-decode step, and the captured train step (``train/step_graph.py``), the
-counterpart of its jitted train step.
+Three kinds of graph live in one process, the counterparts of the
+reference's three jitted steps: the serving engine's decode slots
+(``serve/decode_graph.py``, one a worker thread), its prefill buckets
+(``serve/prefill_graph.py``, one a prompt-length bucket) and the captured
+train step (``train/step_graph.py``).
+
+Each graph is captured into a memory pool of its own (:func:`capture`
+passes no ``pool``): a pool shared by graphs is safe only when they
+replay one at a time, in the order of their capture, and the engine's
+worker threads replay decode slots and prefill buckets of different
+lengths at once.  A graph's outputs live in its pool and its next replay
+overwrites them, so a caller copies out what it keeps (a prefill's decode
+state) before it lets another replay of the same graph start (each
+bucket's lock, each slot's dispatch).
 
 A replay runs none of the kernel wrappers' Python, so the launch counters
 do not see it.  :func:`capture` takes each counter's delta over the
@@ -19,8 +29,9 @@ too, which the graph captured there reads by address.  PyTorch keeps these
 workspaces for the whole process, not for a graph, and frees them only all
 at once (``torch._C._cuda_clearCublasWorkspaces``), the default stream's
 and every other thread's among them.  So the graphs that live are counted
-for the process (``_LIVE``, the module's one piece of state: a decode slot
-and a train step count each other), and only the last of them to close
+for the process (``_LIVE``, the module's one piece of state: decode slots,
+prefill buckets and train steps count each other), and only the last of
+them to close
 clears the workspaces, after a ``synchronize``.  That clear is
 process-wide: it must not run while another thread launches cuBLAS work,
 which ``ServingEngine.close`` keeps by refusing while its run is live.
@@ -36,7 +47,7 @@ import torch
 
 from .kernels.common import LaunchCounter
 
-# the owners of the graphs that live, of either kind, in the whole process
+# the owners of the graphs that live, of any kind, in the whole process
 _LIVE: "weakref.WeakSet[Any]" = weakref.WeakSet()
 
 Deltas = list[tuple[LaunchCounter, int]]
@@ -75,7 +86,7 @@ def hold(owner) -> None:
 
 
 def live() -> int:
-    """The graphs that live in the process, of either kind."""
+    """The graphs that live in the process, of any kind."""
     return len(_LIVE)
 
 

@@ -18,7 +18,11 @@
 //   h' = sigmoid(pre_o) c' / max(|n'|, 1).
 // Out: hs [B, S, d] (every step's h), the last carry, and, when the
 // backward will run, the carry (c, n, m) after every step, kept as
-// [B, S, 3, d].  All contiguous, float32 or bfloat16 alike.  Each step is
+// [B, S, 3, d].  A padded prefill (a bucket's captured graph runs S past
+// the prompt) passes lengths [B] (int32): row b's steps from lengths[b] on
+// leave the carry as it was, so the last carry is the one after step
+// lengths[b] - 1, and hs holds that h from there on; a null pointer is the
+// unbounded kernel (training, decode at S = 1), compiled apart.  All contiguous, float32 or bfloat16 alike.  Each step is
 // computed in float32 registers and its carry rounded to the input dtype,
 // as the reference keeps its carry in x's dtype; so the kept carry is
 // exactly the one each step started from.
@@ -80,13 +84,14 @@ __device__ __forceinline__ void block_sync() {
 }
 }  // namespace blk
 
-template <typename T, bool KEEP>
+template <typename T, bool KEEP, bool BOUND>
 __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_fwd(
     const T* __restrict__ gx, const T* __restrict__ r,
     const T* __restrict__ h0, const T* __restrict__ c0,
     const T* __restrict__ n0, const T* __restrict__ m0, T* __restrict__ hs,
     T* __restrict__ h_out, T* __restrict__ c_out, T* __restrict__ n_out,
-    T* __restrict__ m_out, T* __restrict__ kept, int s, int d) {
+    T* __restrict__ m_out, T* __restrict__ kept,
+    const int* __restrict__ lengths, int s, int d) {
   using namespace blk;
   extern __shared__ __align__(16) uint8_t smem[];
   T* ring = reinterpret_cast<T*>(smem);          // [NS][TC][4][UNITS]
@@ -100,6 +105,7 @@ __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_fwd(
   if (warp == 0) {
     // the chain
     float rk[4] = {0.f, 0.f, 0.f, 0.f}, h = 0.f, c = 0.f, n = 0.f, m = 0.f;
+    const int len = BOUND ? lengths[b] : s;   // steps t >= len hold the carry
     if (live) {
       const size_t row = b * d + u;
 #pragma unroll
@@ -119,11 +125,13 @@ __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_fwd(
           for (int k = 0; k < 4; ++k) g[k] = slstm::to_f32(gb[(j * 4 + k) * UNITS]);
         };
         auto step = [&](int j, const float g[4]) {
-          const slstm::Step st = slstm::cell(g, rk, h, c, n, m);
-          h = slstm::round_to<T>(st.h);
-          c = slstm::round_to<T>(st.c);
-          n = slstm::round_to<T>(st.n);
-          m = slstm::round_to<T>(st.m);
+          if (!BOUND || p * TC + j < len) {
+            const slstm::Step st = slstm::cell(g, rk, h, c, n, m);
+            h = slstm::round_to<T>(st.h);
+            c = slstm::round_to<T>(st.c);
+            n = slstm::round_to<T>(st.n);
+            m = slstm::round_to<T>(st.m);
+          }
           ob[j * UNITS] = make_float4(h, c, n, m);
         };
         const int nt = min(TC, s - p * TC);
@@ -205,34 +213,41 @@ __global__ void __launch_bounds__(blk::THREADS, 1) slstm_scan_fwd(
   hopper::cp_async_wait<0>();
 }
 
-template <typename T, bool KEEP>
+template <typename T, bool KEEP, bool BOUND>
 int launch_kernel(const void* gx, const void* r, const void* const carry[4],
-                  void* hs, void* const out[4], void* kept, int b, int s,
-                  int d, cudaStream_t stream) {
+                  void* hs, void* const out[4], void* kept,
+                  const void* lengths, int b, int s, int d,
+                  cudaStream_t stream) {
   if (d * sizeof(T) % 16) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = blk::smem_bytes<T>();
   const cudaError_t e = cudaFuncSetAttribute(
-      slstm_scan_fwd<T, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      slstm_scan_fwd<T, KEEP, BOUND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto o = [](void* p) { return static_cast<T*>(p); };
   const dim3 grid((d + blk::UNITS - 1) / blk::UNITS, b);
-  slstm_scan_fwd<T, KEEP><<<grid, blk::THREADS, smem, stream>>>(
+  slstm_scan_fwd<T, KEEP, BOUND><<<grid, blk::THREADS, smem, stream>>>(
       in(gx), in(r), in(carry[0]), in(carry[1]), in(carry[2]), in(carry[3]),
-      o(hs), o(out[0]), o(out[1]), o(out[2]), o(out[3]), o(kept), s, d);
+      o(hs), o(out[0]), o(out[1]), o(out[2]), o(out[3]), o(kept),
+      static_cast<const int*>(lengths), s, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* gx, const void* r, const void* const carry[4],
-           void* hs, void* const out[4], void* kept, int b, int s, int d,
-           cudaStream_t stream) {
+           void* hs, void* const out[4], void* kept, const void* lengths,
+           int b, int s, int d, cudaStream_t stream) {
+  if (lengths) {          // a padded prefill's: nothing kept
+    if (kept) return (int)cudaErrorInvalidValue;
+    return launch_kernel<T, false, true>(gx, r, carry, hs, out, nullptr,
+                                         lengths, b, s, d, stream);
+  }
   if (kept)
-    return launch_kernel<T, true>(gx, r, carry, hs, out, kept, b, s, d,
-                                  stream);
-  return launch_kernel<T, false>(gx, r, carry, hs, out, nullptr, b, s, d,
-                                 stream);
+    return launch_kernel<T, true, false>(gx, r, carry, hs, out, kept,
+                                         nullptr, b, s, d, stream);
+  return launch_kernel<T, false, false>(gx, r, carry, hs, out, nullptr,
+                                        nullptr, b, s, d, stream);
 }
 
 }  // namespace
@@ -240,17 +255,21 @@ int launch(const void* gx, const void* r, const void* const carry[4],
 // dtype: 0 float32, 1 bfloat16; d * sizeof(T) a multiple of 16 (else
 // cudaErrorInvalidValue) and gx on a 16-byte boundary.  carry: h, c, n, m
 // in; out: the same after the last step; kept: [B, S, 3, d] or null
-// (serving keeps nothing).  Returns cudaGetLastError() after the launch (0
-// when it was accepted).
+// (serving keeps nothing); lengths: [B] int32 or null (a padded prefill's
+// real lengths; with kept, cudaErrorInvalidValue).  Returns
+// cudaGetLastError() after the launch (0 when it was accepted).
 extern "C" int repro_slstm_scan(const void* gx, const void* r,
                                 const void* h0, const void* c0,
                                 const void* n0, const void* m0, void* hs,
                                 void* h_out, void* c_out, void* n_out,
-                                void* m_out, void* kept, int dtype, int b,
-                                int s, int d, cudaStream_t stream) {
+                                void* m_out, void* kept, const void* lengths,
+                                int dtype, int b, int s, int d,
+                                cudaStream_t stream) {
   const void* carry[4] = {h0, c0, n0, m0};
   void* out[4] = {h_out, c_out, n_out, m_out};
   if (dtype == 0)
-    return launch<float>(gx, r, carry, hs, out, kept, b, s, d, stream);
-  return launch<__nv_bfloat16>(gx, r, carry, hs, out, kept, b, s, d, stream);
+    return launch<float>(gx, r, carry, hs, out, kept, lengths, b, s, d,
+                         stream);
+  return launch<__nv_bfloat16>(gx, r, carry, hs, out, kept, lengths, b, s,
+                               d, stream);
 }

@@ -22,6 +22,12 @@ recurrence over t, since r is per unit.
 :func:`slstm_scan` launches the forward kernel for CUDA tensors (float32
 or bfloat16, contiguous, non-empty) or raises, and takes
 :func:`slstm_scan_plain`, the per-token loop, only for tensors on the CPU.
+A padded prefill (the serving engine's graph of a length bucket runs S
+past the prompt) passes ``lengths`` ``[B]`` (int32, on gx's device): row
+b's steps from ``lengths[b]`` on hold the carry as it was, so the last
+carry is the one after step ``lengths[b] - 1`` (bit for bit the unpadded
+run's) and hs holds that step's h from there on.  It is a forward without
+a gradient: the padded prefill runs under inference mode.
 When grad mode is on and an input requires grad it goes through
 :class:`SLSTMScan`, whose forward also keeps the carry (c, n, m) after
 every step, ``[B, S, 3, d]`` in the inputs' dtype, and whose backward
@@ -153,6 +159,17 @@ def slstm_cell(gx: torch.Tensor, r: torch.Tensor, carry: tuple) -> tuple:
     return tuple(t.to(gx.dtype) for t in (st.h, st.c, st.n, st.m))
 
 
+def _check_lengths(gx: torch.Tensor, lengths) -> None:
+    if lengths is None:
+        return
+    if (tuple(lengths.shape) != (gx.shape[0],) or lengths.dtype != torch.int32
+            or lengths.device != gx.device or not lengths.is_contiguous()):
+        raise ValueError(f"sLSTM scan lengths: want a contiguous int32 "
+                         f"[{gx.shape[0]}] on {gx.device}; got "
+                         f"{tuple(lengths.shape)} {lengths.dtype} on "
+                         f"{lengths.device}")
+
+
 def _check(gx: torch.Tensor, r: torch.Tensor, carry: tuple) -> None:
     if gx.ndim != 4 or gx.shape[2] != 4 or len(carry) != 4:
         raise ValueError(f"want gx [B,S,4,d] and a carry of 4; got gx "
@@ -181,21 +198,28 @@ def _check(gx: torch.Tensor, r: torch.Tensor, carry: tuple) -> None:
                              f"B <= 65535; got {tuple(gx.shape)}")
 
 
-def slstm_scan(gx: torch.Tensor, r: torch.Tensor,
-               carry: tuple) -> tuple[torch.Tensor, tuple]:
+def slstm_scan(gx: torch.Tensor, r: torch.Tensor, carry: tuple,
+               lengths: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, tuple]:
     """(hs ``[B, S, d]``, the last carry) of the recurrence over gx's S
-    steps from ``carry`` (h, c, n, m): the kernel for CUDA tensors, the
-    plain loop for CPU ones; through :class:`SLSTMScan` when a gradient is
-    asked for."""
+    steps from ``carry`` (h, c, n, m), or over each row's first
+    ``lengths[b]`` steps: the kernel for CUDA tensors, the plain loop for
+    CPU ones; through :class:`SLSTMScan` when a gradient is asked for."""
     carry = tuple(carry)
     _check(gx, r, carry)
+    _check_lengths(gx, lengths)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (gx, r, *carry))
+    if lengths is not None and (grad or sharding.is_distributed(
+            gx, r, *carry, lengths)):
+        raise ValueError("sLSTM scan lengths: a padded prefill's forward "
+                         "takes no gradient and no DTensor")
     if sharding.is_distributed(gx, r, *carry):
         return _sharded(gx, r, carry)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (gx, r, *carry)):
+    if grad:
         hs, *last = SLSTMScan.apply(gx, r, *carry)
         return hs, tuple(last)
-    hs, last, _ = _forward(gx, r, carry, keep=False)
+    hs, last, _ = _forward(gx, r, carry, keep=False, lengths=lengths)
     return hs, last
 
 
@@ -230,22 +254,27 @@ def _sharded(gx, r, carry) -> tuple[torch.Tensor, tuple]:
     return hs, tuple(last)
 
 
-def _forward(gx, r, carry, keep: bool):
+def _forward(gx, r, carry, keep: bool, lengths=None):
     """(hs, the last carry, the kept carry ``[B, S, 3, d]`` or None)."""
     if gx.device.type == "cpu":
-        return _plain(gx, r, carry, keep)
+        return (_plain(gx, r, carry, keep) if lengths is None
+                else _plain(gx, r, carry, keep, lengths))
     if gx.device.type == "meta":
         return _meta_forward(gx, keep)
-    return _launch(gx, r, carry, keep)
+    return _launch(gx, r, carry, keep, lengths)
 
 
-def _plain(gx, r, carry, keep: bool):
+def _plain(gx, r, carry, keep: bool, lengths=None):
     bsz, s, _, d = gx.shape
     hs = torch.empty((bsz, s, d), dtype=gx.dtype, device=gx.device)
     kept = (torch.empty((bsz, s, 3, d), dtype=gx.dtype, device=gx.device)
             if keep else None)
     for t in range(s):
-        carry = slstm_cell(gx[:, t], r, carry)
+        new = slstm_cell(gx[:, t], r, carry)
+        if lengths is not None:         # rows past their length hold
+            live = (t < lengths)[:, None]
+            new = tuple(torch.where(live, u, v) for u, v in zip(new, carry))
+        carry = new
         hs[:, t] = carry[0]
         if keep:
             kept[:, t] = torch.stack(carry[1:], dim=1)
@@ -253,12 +282,14 @@ def _plain(gx, r, carry, keep: bool):
 
 
 def slstm_scan_plain(gx: torch.Tensor, r: torch.Tensor, carry: tuple,
-                     keep: bool = False):
+                     keep: bool = False, lengths: torch.Tensor | None = None):
     """The forward kernel's recurrence in torch, a step at a time: (hs,
-    the last carry), with ``keep`` also the kept carry ``[B, S, 3, d]``."""
+    the last carry), with ``keep`` also the kept carry ``[B, S, 3, d]``;
+    with ``lengths`` row b's steps from ``lengths[b]`` on hold the carry."""
     carry = tuple(carry)
     _check(gx, r, carry)
-    hs, last, kept = _plain(gx, r, carry, keep)
+    _check_lengths(gx, lengths)
+    hs, last, kept = _plain(gx, r, carry, keep, lengths)
     return (hs, last, kept) if keep else (hs, last)
 
 
@@ -470,16 +501,17 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 4 + [p]
+        fn.argtypes = [p] * 13 + [i] * 4 + [p]
     return lib
 
 
-def _launch(gx, r, carry, keep: bool):
+def _launch(gx, r, carry, keep: bool, lengths=None):
     bsz, s, _, d = gx.shape
     width = padded_width(d, gx.dtype)
     if width != d:
         hs, last, kept = _launch(_pad(gx, width), _pad(r, width),
-                                 tuple(_pad(t, width) for t in carry), keep)
+                                 tuple(_pad(t, width) for t in carry), keep,
+                                 lengths)
         return (hs[..., :d].contiguous(),
                 tuple(t[:, :d].contiguous() for t in last),
                 kept[..., :d].contiguous() if keep else None)
@@ -494,8 +526,9 @@ def _launch(gx, r, carry, keep: bool):
         err = lib.repro_slstm_scan(
             gx.data_ptr(), r.data_ptr(), *(t.data_ptr() for t in carry),
             hs.data_ptr(), *(t.data_ptr() for t in last),
-            kept.data_ptr() if keep else None, _DTYPE_CODE[gx.dtype], bsz,
-            s, d, stream)
+            kept.data_ptr() if keep else None,
+            None if lengths is None else lengths.data_ptr(),
+            _DTYPE_CODE[gx.dtype], bsz, s, d, stream)
     if err:
         raise RuntimeError(f"sLSTM scan kernel launch failed: CUDA error "
                            f"{err}")

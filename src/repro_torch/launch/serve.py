@@ -18,8 +18,9 @@ and nemotron-4-15b fit only in bfloat16 (internvl2-76b only cut in depth):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2.5-14b --dtype bfloat16
 
-Each decode step replays a captured CUDA graph on the card (the CPU runs
-the step's plain version through the same decode slots).
+Each decode step replays a captured CUDA graph on the card, and each
+prefill the graph of its prompt's length bucket (the CPU runs their plain
+versions through the same decode slots and prefill buckets).
 """
 from __future__ import annotations
 
@@ -72,13 +73,18 @@ def main(argv=None) -> dict:
     placement = dict(metrics.priority_placement())
     graphs = engine.decode_graph_stats()
     decode = "graphed" if graphs["captures"] else "slots, plain route"
+    pre = engine.prefill_graph_stats()
+    prefill = "graphed" if pre["captures"] else "buckets, plain route"
     engine.close()
     print(f"[serve] {stats}")
     print(f"[serve] prefill placement: {placement}")
     print(f"[serve] decode: {decode} ({graphs['steps']} steps through "
           f"{graphs['slots']} slots, {graphs['replays']} graph replays)")
+    print(f"[serve] prefill: {prefill} ({pre['steps']} prefills through "
+          f"buckets {pre['buckets']}, {pre['replays']} graph replays)")
     return {"stats": stats, "placement": placement, "dtype": cfg.dtype,
-            "decode": decode, "decode_graphs": graphs}
+            "decode": decode, "decode_graphs": graphs, "prefill": prefill,
+            "prefill_graphs": pre}
 
 
 if __name__ == "__main__":

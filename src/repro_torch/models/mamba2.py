@@ -75,11 +75,14 @@ def _decay(params: dict, dt: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_block(params: dict, x: torch.Tensor, *, n_heads: int,
-                 head_dim: int, ssm_state: int, return_state: bool = False):
+                 head_dim: int, ssm_state: int, return_state: bool = False,
+                 length: Optional[torch.Tensor] = None):
     """Full-sequence path.  x: [B, S, d] -> [B, S, d].  With
     ``return_state`` also returns the decode state after the last token:
     the closed-form final SSM state and the conv tail (the last W-1 raw
-    inputs, zeros in front when S < W-1)."""
+    inputs, zeros in front when S < W-1).  ``length`` [B] (a padded
+    prefill's real lengths): positions from it on are no input, so the
+    state is the one after the last real token."""
     s = x.shape[1]
     xs_raw, z, b, c, dt = _split_proj(params, x)
 
@@ -89,6 +92,12 @@ def mamba2_block(params: dict, x: torch.Tensor, *, n_heads: int,
     xs = F.silu(conv)
 
     a = _decay(params, dt)                                # [B,S,H]
+    if length is not None:
+        # a pad's decay 0 and input 0: exp(0) = 1 and no added term carry
+        # the state at the real end through the pads unchanged
+        live = (torch.arange(s, device=x.device) < length[:, None])[..., None]
+        a = torch.where(live, a, 0.0)
+        xs = torch.where(live, xs, 0.0)
     xh = split_heads(xs, n_heads, head_dim)
     y = merge_heads(ops.ssd_scan(xh, a, b, c))
     y = rms_norm(y * F.silu(z), params["norm_z"])         # gated output norm
@@ -96,8 +105,13 @@ def mamba2_block(params: dict, x: torch.Tensor, *, n_heads: int,
     if not return_state:
         return out
     # closed-form final state: h_T = sum_u exp(Acum_T - Acum_u) x_u (x) B_u
-    state = {"ssm": _final_state(xh, a, b).to(x.dtype),
-             "conv": pad[:, s:s + CONV_W - 1]}
+    if length is None:
+        tail = pad[:, s:s + CONV_W - 1]
+    else:   # the W-1 raw inputs before the real end, by the device length
+        at = length.long()[:, None] + torch.arange(CONV_W - 1,
+                                                   device=x.device)
+        tail = pad.gather(1, at[..., None].expand(-1, -1, pad.shape[-1]))
+    state = {"ssm": _final_state(xh, a, b).to(x.dtype), "conv": tail}
     return out, state
 
 

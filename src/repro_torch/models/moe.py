@@ -29,6 +29,21 @@ function:
 An empty slot of the reference holds zeros and has combine weight 0, so
 both forms give its result.  Combine weights are in ``x.dtype``, the sum
 over k in float32, rounded once to ``x.dtype``.
+
+A padded prefill (``pad``: the serving engine's graph of a length bucket,
+whose tokens past the prompt's real length S are padding) routes the
+bucket's tokens as one group, with the real length's routing written into
+it by the host (:func:`real_routing`, from the functions the unpadded path
+uses): tokens a routing group of S and an expert's slots in such a group.
+Each (token, k) takes its place by the running count from the start of
+its real group, and is kept below that capacity and only for a token
+before S.  Pads come after every real (token, k) in the flattened order,
+so they move no real one's place, and none is kept.  A real group of 2,048
+tokens (S a multiple of 2,048) is a run of the bucket's one group, its
+slots after the groups before it: the slots ``[E, C, d]`` at the bucket's
+capacity hold them all (S / 2,048 groups of ``cap(2048)`` slots are at
+most ``cap(S)``).  So the bucket drops exactly what the reference drops
+for the prompt alone, at any capacity factor, whatever S.
 """
 from __future__ import annotations
 
@@ -90,6 +105,29 @@ def dispatch_plan(n_tokens: int, top_k: int, n_experts: int,
     return n_tokens // sg, sg, False, n_experts * min(cap, sg)
 
 
+def real_routing(n_tokens: int, top_k: int, n_experts: int,
+                 capacity_factor: float, group_size: int = 2048
+                 ) -> tuple[int, int]:
+    """How ``moe_block`` routes ``n_tokens`` unpadded, for a padded prefill
+    of them: (tokens a routing group, the slots an expert takes in one:
+    its capacity, at most the group's tokens)."""
+    _, sg, _, _ = dispatch_plan(n_tokens, top_k, n_experts, capacity_factor,
+                                group_size)
+    return sg, min(group_capacity(sg, top_k, n_experts, capacity_factor), sg)
+
+
+def _top_k(params: dict, xg: torch.Tensor, top_k: int):
+    """(router probabilities [..., E] float32, the top-k gates renormalised
+    and their experts [..., K])."""
+    logits = xg.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)                      # [G,S,E]
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_idx = gate_vals[..., :top_k], expert_idx[..., :top_k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, expert_idx
+
+
 def route(params: dict, xg: torch.Tensor, top_k: int,
           capacity_factor: float, with_aux: bool = True):
     """Routing of the groups ``xg`` [G, S_g, d]: (expert_idx [G,S_g,K],
@@ -98,12 +136,7 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
     ``with_aux``)."""
     n_groups, sg, _ = xg.shape
     n_experts = params["router"].shape[-1]
-    logits = xg.float() @ params["router"].float()
-    probs = torch.softmax(logits, dim=-1)                      # [G,S,E]
-    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
-                                       stable=True)
-    gate_vals, expert_idx = gate_vals[..., :top_k], expert_idx[..., :top_k]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gate_vals, expert_idx = _top_k(params, xg, top_k)
 
     # one-hot [G, E, S*K] over the flattened (s, k) order, (s, k) last so
     # that the running count below scans the innermost axis (a scan over
@@ -127,6 +160,31 @@ def route(params: dict, xg: torch.Tensor, top_k: int,
     return expert_idx, gates, pos, keep, capacity, aux
 
 
+def route_padded(params: dict, xg: torch.Tensor, top_k: int, pad):
+    """Routing of a padded prefill's one group ``xg`` [1, S_b, d] as the
+    real length's groups route it (``pad``: the real length and
+    :func:`real_routing`'s numbers, on the device): (expert_idx, gates
+    with a dropped or pad (token, k) at 0, each (token, k)'s place among
+    its expert's slots (its real group's first slot + its running count
+    there), keep), each [1, S_b, K].  No host synchronisation."""
+    _, sb, _ = xg.shape
+    n_experts = params["router"].shape[-1]
+    _, gate_vals, expert_idx = _top_k(params, xg, top_k)
+    e = expert_idx.reshape(sb * top_k)
+    oh = (e == torch.arange(n_experts, device=xg.device)[:, None]).int()
+    # before[e, j]: pairs of expert e ahead of pair j in the flattened order
+    before = F.pad(oh.cumsum(1), (1, 0))                       # [E, S*K+1]
+    j = torch.arange(sb * top_k, device=xg.device)
+    group = torch.div(j // top_k, pad.moe_group, rounding_mode="floor")
+    first = group * pad.moe_group * top_k      # the first pair of its group
+    pos = before[e, j] - before[e, first]
+    keep = (pos < pad.moe_capacity) & (j // top_k < pad.length[0])
+    place = group * pad.moe_capacity + pos
+    gates = torch.where(keep.reshape(1, sb, top_k), gate_vals, 0.0)
+    return (expert_idx, gates, place.reshape(1, sb, top_k),
+            keep.reshape(1, sb, top_k))
+
+
 def _per_pair(xg, top_k):
     """[G, S, d] -> [G, S*K, d], each token's row once per k, in the
     flattened (s, k) order."""
@@ -141,11 +199,11 @@ def _swiglu(x, w_gate, w_up, w_down):
 
 def _experts_by_slot(params, xg, expert_idx, pos, keep, capacity,
                      group_tokens=None):
-    """Every expert on its capacity slots; returns each (s, k)'s expert
-    output [G, S*K, d] (a dropped one's is read from slot 0: its weight
-    is 0).  ``group_tokens``: a group's tokens where ``xg`` holds a part
-    of each group (a shard of them on a mesh); the slots are the whole
-    group's."""
+    """Every expert on its capacity slots, each (s, k) at slot ``pos`` of
+    its expert's; returns each (s, k)'s expert output [G, S*K, d] (a
+    dropped one's is read from slot 0: its weight is 0).
+    ``group_tokens``: a group's tokens where ``xg`` holds a part of each
+    group (a shard of them on a mesh); the slots are the whole group's."""
     n_groups, sg, d = xg.shape
     n_experts, top_k = params["experts_gate"].shape[0], expert_idx.shape[-1]
     cap = min(capacity, group_tokens or sg)
@@ -222,12 +280,23 @@ def _experts_sharded(params, xg, expert_idx, pos, keep, capacity,
 
 def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25,
-              group_size: int = 2048, with_aux: bool = True
+              group_size: int = 2048, with_aux: bool = True, pad=None
               ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: [B, S, d] -> (y [B, S, d] in x's dtype, aux_loss float32, or None
-    without ``with_aux``: prefill and decode skip its reductions)."""
+    without ``with_aux``: prefill and decode skip its reductions).  With
+    ``pad`` (a padded prefill's real length and routing, B = 1) the S
+    tokens are routed as the real length's are (:func:`route_padded`)."""
     bsz, s, d = x.shape
     n_experts = params["router"].shape[-1]
+    if pad is not None:
+        if bsz != 1 or with_aux or is_distributed(x):
+            raise ValueError("moe_block: a padded prefill takes one plain "
+                             "row and no aux loss")
+        xg = x
+        expert_idx, gates, place, keep = route_padded(params, xg, top_k, pad)
+        slots = min(group_capacity(s, top_k, n_experts, capacity_factor), s)
+        out = _experts_by_slot(params, xg, expert_idx, place, keep, slots)
+        return _combine(params, x, xg, gates, out, top_k), None
     groups, sg, pairs, _ = dispatch_plan(bsz * s, top_k, n_experts,
                                          capacity_factor, group_size)
     # on a mesh the groups (or, where they do not divide, their tokens) go
@@ -250,9 +319,17 @@ def moe_block(params: dict, x: torch.Tensor, *, top_k: int,
         out = _experts_by_pair(params, xg, expert_idx)
     else:
         out = _experts_by_slot(params, xg, expert_idx, pos, keep, capacity)
+    return _combine(params, x, xg, gates, out, top_k), aux
+
+
+def _combine(params, x, xg, gates, out, top_k: int) -> torch.Tensor:
+    """Each token's expert outputs ``out`` [G, S*K, d] weighted by its
+    ``gates`` and summed over k (and the shared expert's output added), in
+    x's dtype and shape."""
+    d = x.shape[-1]
     w = gates.to(x.dtype).reshape(*out.shape[:2], 1)
     y = (w.float() * out.float()).reshape(*xg.shape[:2], top_k, d).sum(2)
     y = y.to(x.dtype)
     if "shared" in params:
         y = y + ffn(params["shared"], xg, "swiglu")
-    return y.reshape(bsz, s, d), aux
+    return y.reshape(x.shape)

@@ -29,6 +29,20 @@ the model's dtype, go before the token embeddings, the positions run over
 the whole ``P + S``, and the LM head runs over the text positions only
 (sliced after the final norm).  Any layer plan takes one.
 
+A padded prefill (``prefill(..., length=PadLength)``: the serving engine's
+captured graph of a length bucket, ``serve/prefill_graph.py``) runs the
+bucket's S positions and computes the reference's prefill of the first
+``length`` of them: positions from the real length on are no input.  The
+logits are the last real token's, the caches' ``length`` the real one and
+their rows from it on zero; causal attention needs nothing more; the MoE
+routes the tokens as the real length's groups do (``moe.route_padded``),
+Mamba-2 and mLSTM give a pad decay 0 and input 0 (their state passes the
+pads unchanged; Mamba-2's conv tail is gathered at the real end), and the
+sLSTM scan stops each row's carry at its length.  Every number derived
+from the length is computed on the host (:func:`fill_pad_length`) and written
+into the :class:`PadLength` tensors, and nothing in the path synchronises
+with the host.
+
 The decode state mirrors the reference's too: one stacked tree per state
 kind (``kv``, ``shared_kv``, ``mamba``, ``mlstm``, ``slstm``).  In place,
 unlike the reference: ``prefill`` writes each block's state into a state
@@ -47,7 +61,7 @@ made at ``decode_state_specs``.  On plain tensors nothing of that runs.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -64,7 +78,7 @@ from .attention import (attention_block, attention_decode, init_attention,
 from .layers import ffn, init_ffn, init_linear, rms_norm
 from .mamba2 import (init_mamba2, init_mamba2_state, mamba2_block,
                      mamba2_decode)
-from .moe import init_moe, moe_block
+from .moe import init_moe, moe_block, real_routing
 from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
                     init_slstm_state, mlstm_block, mlstm_decode, slstm_block,
                     slstm_decode)
@@ -75,6 +89,39 @@ PyTree = Any
 _ATTN = ("attn", "attn_moe", "shared_attn")
 _STATE_KEY = {"attn": "kv", "attn_moe": "kv", "shared_attn": "shared_kv",
               "mamba2": "mamba", "mlstm": "mlstm", "slstm": "slstm"}
+
+
+class PadLength(NamedTuple):
+    """A padded prefill's real length and what derives from it, on the
+    device: ``length`` [B] int32, and for an MoE model ``moe_group`` and
+    ``moe_capacity`` (int64 scalars: tokens a routing group at the real
+    length, an expert's slots in one; ``moe.real_routing``), else None."""
+    length: torch.Tensor
+    moe_group: Optional[torch.Tensor] = None
+    moe_capacity: Optional[torch.Tensor] = None
+
+
+def pad_length(cfg: ModelConfig, n: int, device=None) -> PadLength:
+    """A new :class:`PadLength` of batch 1 on ``device`` holding a real
+    length ``n``."""
+    device = resolve_device(device)
+    moe = {k: torch.zeros((), dtype=torch.int64, device=device)
+           for k in ("moe_group", "moe_capacity") if cfg.family == "moe"}
+    pad = PadLength(torch.zeros(1, dtype=torch.int32, device=device), **moe)
+    fill_pad_length(pad, cfg, n)
+    return pad
+
+
+def fill_pad_length(pad: PadLength, cfg: ModelConfig, n: int) -> None:
+    """Write the numbers of a real length ``n`` (batch 1), computed on the
+    host by the functions the unpadded path uses, into ``pad``'s tensors (a
+    fill a tensor: no wait on the device)."""
+    pad.length.fill_(n)
+    if cfg.family == "moe":
+        group, capacity = real_routing(n, cfg.top_k, cfg.n_experts,
+                                       cfg.capacity_factor)
+        pad.moe_group.fill_(group)
+        pad.moe_capacity.fill_(capacity)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -218,16 +265,17 @@ def _whole(h: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-         with_aux: bool = False, sp: bool = False):
+         with_aux: bool = False, sp: bool = False,
+         pad: Optional[PadLength] = None):
     """The second half of an attention block: (x_out, the MoE aux loss with
     ``with_aux``, else None, and None for a dense FFN).  ``sp``: the
     forward's, whose residual stream is sequence-sharded on a mesh under
-    ``cfg.seq_parallel``."""
+    ``cfg.seq_parallel``; ``pad``: a padded prefill's."""
     h = _whole(rms_norm(x, p["ln2"], cfg.rms_eps))
     if kind == "attn_moe":
         y, aux = moe_block(p["moe"], h, top_k=cfg.top_k,
                            capacity_factor=cfg.capacity_factor,
-                           with_aux=with_aux)
+                           with_aux=with_aux, pad=pad)
         return x + _branch(y, cfg, sp), aux
     return x + _branch(ffn(p["ffn"], h, cfg.act), cfg, sp), None
 
@@ -246,29 +294,33 @@ def _branch(y: torch.Tensor, cfg: ModelConfig, sp: bool) -> torch.Tensor:
 
 
 def _block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-           positions: torch.Tensor, with_state: bool):
+           positions: torch.Tensor, with_state: bool,
+           pad: Optional[PadLength] = None):
     """One block over the whole sequence: (x_out, its decode state — (k, v)
     for attention — or None without ``with_state``, its MoE aux loss
-    without ``with_state`` (a prefill drops it) or None)."""
+    without ``with_state`` (a prefill drops it) or None).  ``pad``: a
+    padded prefill's real length (``with_state`` only)."""
     h = _whole(rms_norm(x, p["ln1"], cfg.rms_eps))
+    length = None if pad is None else pad.length
     if kind in _ATTN:
         y, kv = attention_block(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             positions=positions, return_kv=True)
         x, aux = _mlp(cfg, kind, p, x + _branch(y, cfg, not with_state),
-                      with_aux=not with_state, sp=not with_state)
+                      with_aux=not with_state, sp=not with_state, pad=pad)
         return x, kv, aux
     if kind == "mamba2":
         out = mamba2_block(p["mamba"], h, n_heads=cfg.n_heads,
                            head_dim=cfg.mamba_head_dim,
-                           ssm_state=cfg.ssm_state, return_state=with_state)
+                           ssm_state=cfg.ssm_state, return_state=with_state,
+                           length=length)
     elif kind == "mlstm":
         out = mlstm_block(p["mlstm"], h, n_heads=cfg.n_heads,
-                          return_state=with_state)
+                          return_state=with_state, length=length)
     elif kind == "slstm":
         out = slstm_block(p["slstm"], h, n_heads=cfg.n_heads,
-                          return_state=with_state)
+                          return_state=with_state, length=length)
     else:
         raise ValueError(kind)
     y, st = out if with_state else (out, None)
@@ -360,12 +412,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: int, frontend: torch.Tensor | None = None
+            max_len: int, frontend: torch.Tensor | None = None,
+            length: Optional[PadLength] = None
             ) -> tuple[torch.Tensor, PyTree]:
     """Process the full prompt, after the ``frontend`` prefix if any; return
     (last-token logits [B,V] float32, decode state sized for ``max_len``,
     holding the prefix's and the prompt's ``P + S`` positions) — the
-    serving engine's prefill."""
+    serving engine's prefill.  With ``length`` the prompt is padded past
+    its real length (no prefix; plain tensors): the result is the prefill
+    of the real prompt (module docstring), with no wait on the device."""
+    if length is not None and (frontend is not None or is_distributed(
+            tokens, params["embed"])):
+        raise ValueError("prefill: a padded prompt takes no frontend prefix "
+                         "and no DTensor")
     params = gather_data(params)
     x, _ = _embed(params, tokens, frontend)
     bsz, s_total = x.shape[0], x.shape[1]
@@ -373,20 +432,36 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"max_len {max_len} < prompt {s_total}")
     positions = torch.arange(s_total, device=x.device)[None, :]
     state = _new_state(cfg, bsz, max_len, x)
+    live = None
+    if length is not None:      # [B, S, 1, 1]: the real rows of a cache
+        live = (positions < length.length[:, None])[..., None, None]
     for kind, p, i in _walk(params, cfg):
-        x, st, _ = _block(cfg, kind, p, x, positions, with_state=True)
+        x, st, _ = _block(cfg, kind, p, x, positions, with_state=True,
+                          pad=length)
         slot = state[_STATE_KEY[kind]]
         if kind in _ATTN:
             for name, t in zip("kv", st):
+                if live is not None:    # rows from the real length on: 0
+                    t = torch.where(live, t, 0.0)
                 _fill_cache(slot[name], i, t)
         else:
             for name, t in st.items():
                 slot[name][i] = t
     for key in ("kv", "shared_kv"):
         if key in state:
-            state[key]["length"].fill_(s_total)
+            if length is None:
+                state[key]["length"].fill_(s_total)
+            else:
+                state[key]["length"].copy_(length.length.expand_as(
+                    state[key]["length"]))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = (x[:, -1] @ _head(params, cfg)).float()
+    if length is None:
+        last = x[:, -1]
+    else:                       # the last real token's, by a device index
+        at = (length.length.long() - 1)[:, None, None].expand(
+            -1, 1, x.shape[-1])
+        last = x.gather(1, at)[:, 0]
+    logits = (last @ _head(params, cfg)).float()
     return logits, state
 
 

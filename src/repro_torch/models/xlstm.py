@@ -62,10 +62,13 @@ def _unfold_heads(t: torch.Tensor, bsz: int, n_heads: int) -> torch.Tensor:
 
 
 def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
-                return_state: bool = False):
+                return_state: bool = False,
+                length: Optional[torch.Tensor] = None):
     """Parallel path: the forget gate is the decay (a = log f), the input
     gate scales v, B = k and C = q.  With ``return_state`` also returns
-    the exact (C, n) decode state after the last token."""
+    the exact (C, n) decode state after the last token.  ``length`` [B] (a
+    padded prefill's real lengths): a pad's decay and input gate are 0, so
+    the closed form at the last position is the state at the real end."""
     bsz = x.shape[0]
     xi = x @ params["w_x"]
     gate = x @ params["w_gate_proj"]
@@ -83,6 +86,11 @@ def mlstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
     f_gate = torch.sigmoid(gates[..., n_heads:])          # [B,S,H]
 
     a = torch.log(f_gate + 1e-6)
+    if length is not None:
+        live = (torch.arange(x.shape[1], device=x.device)
+                < length[:, None])[..., None]
+        a = torch.where(live, a, 0.0)
+        i_gate = torch.where(live, i_gate, 0.0)
     xv = v * i_gate[..., None]                            # [B,S,H,D]
 
     af, kf, qf = _fold_heads(a)[..., None], _fold_heads(k), _fold_heads(q)
@@ -184,12 +192,16 @@ def _slstm_out(params: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def slstm_block(params: dict, x: torch.Tensor, *, n_heads: int,
-                return_state: bool = False):
+                return_state: bool = False,
+                length: Optional[torch.Tensor] = None):
+    """The recurrence over x [B, S, d]; with ``length`` [B] (a padded
+    prefill's real lengths, int32) the carry stops at each row's real end
+    (the scan holds it through the pads: their inputs cannot hold it)."""
     bsz, _, d = x.shape
     carry = tuple(torch.zeros((bsz, d), dtype=x.dtype, device=x.device)
                   for _ in range(4))
     hs, carry = ops.slstm_scan(_gate_inputs(params, x), params["r_gates"],
-                               carry)
+                               carry, lengths=length)
     out = _slstm_out(params, hs)
     if not return_state:
         return out

@@ -25,8 +25,8 @@ replay adds it back (``graphs.capture``, ``graphs.replay``).
 
 cuBLAS keeps a workspace for each stream it runs on, a slot's capture
 stream's too, which the graph reads by address.  The slots that live are
-counted for the process with the captured train steps
-(``repro_torch/graphs.py``), and only the last graph of either kind to
+counted for the process with the prefill buckets and the captured train
+steps (``repro_torch/graphs.py``), and only the last graph of any kind to
 close clears the workspaces, so that no graph outlives one it reads.
 
 On the CPU the slot runs ``decode_step`` directly on the same static
@@ -171,7 +171,7 @@ class DecodeSlot:
     def close(self) -> None:
         """Release the graph, its pool, the static buffers and the slot's
         hold on the params; the last graph of the process to close, of
-        either kind, also clears cuBLAS's workspaces (``graphs.release``)."""
+        any kind, also clears cuBLAS's workspaces (``graphs.release``)."""
         if self.graph is not None:
             graphs.release(self, self.graph, self.device)
         self.graph = None

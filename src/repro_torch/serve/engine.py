@@ -20,10 +20,15 @@ A decode step runs as a replay of a captured CUDA graph on the card, the
 counterpart of the reference's ``jax.jit`` decode (``decode_graph.py``):
 one :class:`~.decode_graph.DecodeSlot` a worker thread, captured when the
 params are set (in ``__init__``, before any worker thread starts); a
-dispatch takes a free slot and gives it back when its payload ends.  On
-the CPU the slots run the step's plain version on their static buffers.
-:meth:`ServingEngine.close` releases the slots, never while a run's
-workers may replay them.  ``cfg=None`` selects
+dispatch takes a free slot and gives it back when its payload ends.  A
+prefill runs as a replay of the captured graph of its length bucket, the
+counterpart of the reference's ``jax.jit`` prefill (``prefill_graph.py``):
+the prompt padded to its bucket (the PTT's ``prefill_<bucket>`` task
+type, cut at ``max_len``), every bucket captured with the slots; a second
+prefill in one bucket waits for the first.  On the CPU the slots and the
+buckets run their plain versions on their static buffers.
+:meth:`ServingEngine.close` releases the slots and the buckets, never
+while a run's workers may replay them.  ``cfg=None`` selects
 **synthetic-payload mode**: request payloads are calibrated sleeps
 (``prefill_s`` / ``decode_s``) instead of model dispatches.
 
@@ -76,7 +81,6 @@ import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..configs.base import ModelConfig
 from ..core import (BatchingConfig, Priority, RequestRecord, Task, TaskType,
@@ -84,10 +88,11 @@ from ..core import (BatchingConfig, Priority, RequestRecord, Task, TaskType,
 from ..core.dag import DAG
 from ..core.preemption import PreemptionModel
 from ..device import resolve_device
-from ..models import init_params, prefill
+from ..models import init_params
 from .batching import BatchSlot, DecodeBatcher
 from .decode_graph import DecodeSlot
 from .overload import BrownoutConfig, OverloadController
+from .prefill_graph import PrefillGraphs
 
 
 @dataclasses.dataclass
@@ -151,6 +156,8 @@ class ServingEngine:
         self._free_slots: list[DecodeSlot] = []
         self._slot_cv = threading.Condition()
         self.slots_in_use_max = 0
+        # the prefill graphs: one a length bucket
+        self._prefills: Optional[PrefillGraphs] = None
         self.sched = make_scheduler(scheduler, topology, seed=seed,
                                     queue_penalty=queue_penalty,
                                     track_load=True)
@@ -186,16 +193,17 @@ class ServingEngine:
         self._flush_stop = threading.Event()
         self._flush_thread: Optional[threading.Thread] = None
 
-    # -- params and decode slots ------------------------------------------------
+    # -- params, decode slots and prefill graphs ---------------------------------
     @property
     def params(self):
         return self._params
 
     @params.setter
     def params(self, params) -> None:
-        """Set the weights; the decode slots' graphs read them at their
-        addresses, so the slots are captured again, and so never once the
-        runtime has started (a capture beside the workers' launches)."""
+        """Set the weights; the decode slots' and the prefill buckets' graphs
+        read them at their addresses, so both are captured again, and so
+        never once the runtime has started (a capture beside the workers'
+        launches)."""
         if self.runtime.t0 is not None:
             raise RuntimeError("ServingEngine: params set after the run "
                                "started; the decode slots would be captured "
@@ -207,6 +215,8 @@ class ServingEngine:
                                       self.device)
                            for _ in range(self.n_slots)]
             self._free_slots = list(self._slots)
+            self._prefills = PrefillGraphs(params, self.cfg, self.max_len,
+                                           self.device, _bucket)
 
     @contextlib.contextmanager
     def _decode_slot(self) -> Iterator[Optional[DecodeSlot]]:
@@ -254,6 +264,19 @@ class ServingEngine:
                 "pool_bytes": [s.pool_bytes for s in self._slots],
                 "state_bytes": [s.state_bytes for s in self._slots]}
 
+    @property
+    def prefill_graphs(self) -> Optional[PrefillGraphs]:
+        """The prefill buckets (None in synthetic-payload mode or after
+        :meth:`close`)."""
+        return self._prefills
+
+    def prefill_graph_stats(self) -> dict:
+        """The prefill buckets' counters (``PrefillGraphs.stats``: buckets,
+        graphs captured, prefills through them and replays, each bucket's
+        capture seconds, graph pool and state bytes); empty without
+        buckets."""
+        return {} if self._prefills is None else self._prefills.stats()
+
     def _run_live(self) -> bool:
         """Whether a run's worker threads may still replay the slots: from
         the start of a run until ``drain`` has stopped it and its workers
@@ -263,10 +286,10 @@ class ServingEngine:
                                 or any(th.is_alive() for th in rt._threads))
 
     def close(self) -> None:
-        """Release the decode slots' graphs, pools and buffers.  Refused
-        while a run is live: a worker may be replaying a slot, and the last
-        slot's close clears cuBLAS's workspaces for the whole process
-        (``decode_graph.py``)."""
+        """Release the decode slots' and the prefill buckets' graphs, pools
+        and buffers.  Refused while a run is live: a worker may be
+        replaying one, and the last graph's close clears cuBLAS's
+        workspaces for the whole process (``graphs.py``)."""
         if self._run_live():
             raise RuntimeError("ServingEngine: close() while the run is "
                                "live; call it after run() or drain() "
@@ -274,6 +297,9 @@ class ServingEngine:
         for slot in self._slots:
             slot.close()
         self._slots, self._free_slots = [], []
+        if self._prefills is not None:
+            self._prefills.close()
+            self._prefills = None
 
     # -- task payloads ---------------------------------------------------------
     def _run_prefill(self, req: Request) -> tuple:
@@ -281,13 +307,12 @@ class ServingEngine:
             time.sleep(self.prefill_s)
             req.out_tokens.append(0)
             return None, 0
-        # inference mode is thread-local: each payload enters its own
-        with torch.inference_mode():
-            toks = torch.as_tensor(req.prompt, device=self.device)[None, :]
-            logits, state = prefill(self.params, self.cfg, toks, self.max_len)
-            # int() waits for the card, so the PTT sees the run time, not
-            # the launch time
-            nxt = int(torch.argmax(logits[0]))
+        if self._prefills is None:
+            raise RuntimeError("ServingEngine: prefill after close(); the "
+                               "engine has no prefill graphs")
+        # a replay of the prompt's bucket; its int() waits for the card, so
+        # the PTT sees the run time, not the launch time
+        state, nxt = self._prefills.prefill(req.prompt)
         req.out_tokens.append(nxt)
         return state, nxt
 

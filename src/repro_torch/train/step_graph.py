@@ -171,7 +171,7 @@ class TrainStepGraph:
 
     def close(self) -> None:
         """Release the graph, its pool, the buffers and the hold on the
-        params and state; the last graph of the process to close, of either
+        params and state; the last graph of the process to close, of any
         kind, also clears cuBLAS's workspaces (``graphs.release``)."""
         if self.graph is not None:
             graphs.release(self, self.graph, self.device)

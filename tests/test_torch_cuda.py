@@ -1712,6 +1712,168 @@ def test_engine_decode_graphs_free_their_memory(card):
     assert after - before <= 4 << 20, (before, during, after)
 
 
+# -- the prefill as captured CUDA graphs (serve/prefill_graph.py) -------------
+
+PREFILL_ARCHS = ["granite-8b", "qwen3-moe-30b-a3b", "zamba2-1.2b",
+                 "xlstm-125m"]
+PREFILL_MAX_LEN = 64
+
+
+def _prefill_model(card, arch):
+    """A reduced model of ``arch`` on the card, the MoE model at the served
+    capacity factor 1.25 (its prefill drops pairs)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).reduced()
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=1.25)
+    return cfg, init_params(cfg, seed=3, device=card)
+
+
+def _prefill_prompt(cfg, n, seed=0):
+    g = torch.Generator().manual_seed(seed + n)
+    return torch.randint(0, cfg.vocab, (n,), generator=g).numpy()
+
+
+@pytest.mark.parametrize("arch", PREFILL_ARCHS)
+def test_prefill_graph_replay_is_the_eager_padded_prefill_bit_for_bit(
+        card, arch):
+    """Prompts of 20, 32, 1 and 17 tokens through one bucket of 32: each
+    replay's logits, token and decode state equal, bit for bit, the eager
+    padded prefill's run on the stream the graph was captured on."""
+    from repro_torch.models import pad_length, prefill
+    from repro_torch.serve.prefill_graph import PrefillBucket
+    cfg, params = _prefill_model(card, arch)
+    bucket = PrefillBucket(params, cfg, 32, PREFILL_MAX_LEN, card)
+    assert bucket.graph is not None and bucket.capture_s > 0
+    for n in (20, 32, 1, 17):
+        prompt = _prefill_prompt(cfg, n)
+        state, tok = bucket.prefill(prompt)
+        logits = bucket.logits.clone()
+        ids = torch.zeros((1, 32), dtype=torch.int64)
+        ids[0, :n] = torch.from_numpy(prompt)
+        bucket.stream.wait_stream(torch.cuda.current_stream())
+        with torch.inference_mode(), torch.cuda.stream(bucket.stream):
+            want, want_state = prefill(params, cfg, ids.to(card),
+                                       PREFILL_MAX_LEN,
+                                       length=pad_length(cfg, n, card))
+        torch.cuda.current_stream().wait_stream(bucket.stream)
+        assert tok == int(torch.argmax(want[0]))
+        assert _bits_equal(logits, want)
+        for key, sub in want_state.items():
+            for name, v in sub.items():
+                assert _bits_equal(state[key][name].float(), v.float()), (
+                    n, key, name)
+                if name in ("k", "v"):
+                    assert bool((state[key][name][:, :, n:] == 0).all())
+    assert bucket.replays == bucket.steps == 4
+    bucket.close()
+
+
+def test_prefill_graph_capture_leaves_the_params_untouched(card):
+    """Capturing every bucket (its warm-up run and the capture) changes no
+    bit of the params it reads."""
+    from repro_torch.serve.engine import _bucket
+    from repro_torch.serve.prefill_graph import PrefillGraphs
+    for arch in ("qwen3-moe-30b-a3b", "xlstm-125m"):
+        cfg, params = _prefill_model(card, arch)
+        before = _tree_clone(params)
+        graphs = PrefillGraphs(params, cfg, PREFILL_MAX_LEN, card, _bucket)
+        torch.cuda.synchronize()
+        assert graphs.stats()["captures"] == 3          # 16, 32, 64
+        for a, b in zip(_param_leaves(params), _param_leaves(before)):
+            assert _bits_equal(a.float(), b.float())
+        graphs.close()
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _param_leaves(v)
+    else:
+        yield tree
+
+
+def test_prefill_replays_add_the_launch_counts_their_capture_took_back(
+        card):
+    """zamba2's and xlstm's reduced models: a capture counts its warm-up's
+    launches and takes the captured ones back; each replay adds the
+    launches the layer plan gives a prefill (flash, the SSD scan, the
+    sLSTM scan), and the engine's prefills are replays, one a prompt."""
+    from repro_torch.core import tpu_pod_slices
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layer_plan
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve.prefill_graph import WARMUP_RUNS, PrefillBucket
+    for arch in ("zamba2-1.2b", "xlstm-125m"):
+        cfg, params = _prefill_model(card, arch)
+        plan = layer_plan(cfg)
+        per = {fa.launches: sum(k in ("attn", "shared_attn") for k in plan),
+               ssd_scan.launches: plan.count("mamba2")
+               + 2 * plan.count("mlstm"),
+               slstm_scan.launches: plan.count("slstm")}
+        before = {c: c.count for c in per}
+        bucket = PrefillBucket(params, cfg, 16, PREFILL_MAX_LEN, card)
+        assert {c: c.count - n for c, n in before.items()} == {
+            c: WARMUP_RUNS * n for c, n in per.items()}
+        deltas = dict(bucket.deltas)
+        assert {c: deltas.get(c, 0) for c in per} == per
+        before = {c: c.count for c in per}
+        for n in (3, 16, 9):
+            bucket.prefill(_prefill_prompt(cfg, n))
+        assert {c: c.count - n for c, n in before.items()} == {
+            c: 3 * n for c, n in per.items()}
+        bucket.close()
+        eng = ServingEngine(cfg, tpu_pod_slices(2, 2), scheduler="DAM-C",
+                            max_len=PREFILL_MAX_LEN, device=card)
+        prompts = [_prefill_prompt(cfg, n, 5) for n in (5, 20, 40, 12, 60)]
+        reqs = [eng.submit(p, max_new_tokens=2) for p in prompts]
+        before = {c: c.count for c in per}
+        eng.run(timeout=300)
+        stats = eng.prefill_graph_stats()
+        assert stats["captures"] == 3
+        assert stats["replays"] == stats["steps"] == len(prompts)
+        assert stats["steps_by_bucket"] == {16: 2, 32: 1, 64: 2}
+        n_decode = sum(len(r.out_tokens) - 1 for r in reqs)
+        assert {c: c.count - n for c, n in before.items()} == {
+            c: n * len(prompts) + (n_decode * n if c is slstm_scan.launches
+                                   else 0)
+            for c, n in per.items()}
+        eng.close()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,d,lengths", [
+    (1, 1024, 768, (1,)), (1, 1024, 768, (1024,)),
+    (3, 300, 768, (300, 1, 137)), (2, 70, 100, (70, 33))])
+def test_slstm_kernel_with_lengths_matches_plain(card, dtype, tol, b, s, d,
+                                                 lengths):
+    """The forward kernel with a padded prefill's lengths against its plain
+    version with them, at tol x (1 + |v|); one count a call; each row's
+    run to its length is the unbounded kernel's on that row, bit for bit."""
+    gx, r, carry = _slstm_inputs(card, b, s, d, dtype, True, seed=b + s)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = slstm_scan.launches.count
+    with torch.no_grad():
+        hs, last = slstm_scan.slstm_scan(gx, r, carry, lengths=lens)
+    assert slstm_scan.launches.count - before == 1
+    want_hs, want_last = slstm_scan.slstm_scan_plain(gx, r, carry,
+                                                     lengths=lens)
+    for got, want in ((hs, want_hs), *zip(last, want_last)):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= tol * (1 + want.float().abs())).all())
+    with torch.no_grad():
+        for row, n in enumerate(lengths):
+            hs_c, last_c = slstm_scan.slstm_scan(
+                gx[row:row + 1, :n].contiguous(), r,
+                tuple(t[row:row + 1].contiguous() for t in carry))
+            assert torch.equal(hs_c[0], hs[row, :n])
+            assert all(torch.equal(u[0], v[row])
+                       for u, v in zip(last_c, last))
+
+
 # -- the train step as one captured CUDA graph (train/step_graph.py) ----------
 
 TRAIN_GRAPH_STEPS = 4
